@@ -1,0 +1,859 @@
+"""Device-side data plane: the protocol round step, in PyTorch.
+
+The port of ``rapid_tpu/sim/engine.py``. Each simulated round
+1. evaluates every monitoring edge's probe (PingPongFailureDetector semantics:
+   cumulative failure counter, threshold 10 -- PingPongFailureDetector.java:40,69-77),
+   in the hand-written CUDA kernel ``kernels.fd_phase_u8``,
+2. routes newly-crossed edges as DOWN alerts along the observer->subject
+   adjacency (MembershipService.java:602-626),
+3. updates per-destination H/L watermark report tables and applies one
+   implicit-invalidation pass (MultiNodeCutDetector.java:76-164),
+4. tallies fast-round votes and decides at the 3/4 supermajority
+   (FastPaxos.java:145-150).
+
+Delivery groups, heterogeneous delivery delay and the per-node vote hop are
+as in the JAX engine, whose module docstring describes them.
+
+All state lives in capacity-padded tensors, in frozen dataclasses, with the
+JAX engine's dtypes except ``fd_hist`` (int32 here: PyTorch lacks shifts and
+comparisons on uint16). ``subjects`` and ``observers`` stay int32 for parity;
+gathers use int64 copies made once per dispatch.
+
+Where JAX exits a ``while_loop`` on the device, eager PyTorch cannot without a
+host sync. So a dispatch runs its whole round budget, and a round after the
+decision (or, in the closed form, before the fast-forward start) is a masked
+no-op, exactly as ``step`` masks after a decision. The host syncs once per
+dispatch, on the packed decision words.
+
+Random ingress loss draws from an explicit ``torch.Generator``; its numbers
+differ from JAX's threefry, so lossy runs match the JAX engine bit for bit
+only where the draw cannot matter (drop probability 1.0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import kernels
+from .topology import VirtualCluster, build_adjacency
+
+_ROADMAP = "see ROADMAP.md, Queue 1"
+
+
+@dataclass(frozen=True)
+class SimConfig:
+    """Static protocol parameters: the fields and checks of the JAX engine's
+    ``SimConfig`` (``rapid_tpu/sim/engine.py``, where each is documented)."""
+
+    capacity: int
+    k: int = 10
+    h: int = 9
+    l: int = 4
+    fd_threshold: int = 10  # PingPongFailureDetector.FAILURE_THRESHOLD
+    fd_interval_ms: int = 1000  # MembershipService.java:77
+    batching_window_ms: int = 100  # MembershipService.java:75
+    rounds_per_interval: int = 1
+    groups: int = 1  # delivery classes (heterogeneous broadcast delivery)
+    fd_policy: str = "cumulative"
+    fd_window: int = 10
+    fd_window_threshold: float = 0.4
+    fd_gray_confirm: int = 0
+    fd_gray_warmup: int = 3
+    extern_proposals: int = 0
+    forensics: bool = False
+    max_delivery_delay: int = 0
+
+    def __post_init__(self) -> None:
+        assert self.fd_policy in ("cumulative", "windowed"), (
+            f"fd_policy must be 'cumulative' or 'windowed', got "
+            f"{self.fd_policy!r}"
+        )
+        assert 1 <= self.fd_window <= 16, (
+            f"fd_window must be in [1, 16] (window bitmask is uint16), got "
+            f"{self.fd_window}"
+        )
+        assert 1 <= self.fd_threshold <= 255, (
+            f"fd_threshold must be in [1, 255] (the per-edge failure counter "
+            f"is uint8 and saturates at 255, so a larger threshold would "
+            f"never fire), got {self.fd_threshold}"
+        )
+        assert 0 <= self.fd_gray_confirm <= 255, (
+            f"fd_gray_confirm must be in [0, 255] (uint8 streak counter; "
+            f"0 disables), got {self.fd_gray_confirm}"
+        )
+        assert 1 <= self.fd_gray_warmup <= 255, (
+            f"fd_gray_warmup must be in [1, 255] (uint8 success counter), "
+            f"got {self.fd_gray_warmup}"
+        )
+        assert self.fd_gray_confirm == 0 or self.fd_policy == "cumulative", (
+            "the gray streak path mirrors the adaptive detector on top of "
+            "the cumulative policy only"
+        )
+
+    @property
+    def proposal_rows(self) -> int:
+        return self.groups + self.extern_proposals
+
+
+# Classic-Paxos rank packing: rank = round << RANK_BITS | node; the fast round
+# is rank (1, 1) (registerFastRoundVote, Paxos.java:244-258), so every classic
+# rank outranks it.
+RANK_BITS = 21
+FAST_RANK = (1 << RANK_BITS) | 1
+
+_NEVER = 0x7FFFFFFF  # int32 "no such round"
+_U32 = 0xFFFFFFFF
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Without a GPU, a caller that did not ask for the CPU gets an
+    error, never a silent CPU run."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _require_supported(config: SimConfig) -> None:
+    if config.fd_policy != "cumulative":
+        raise NotImplementedError(
+            f"fd_policy={config.fd_policy!r} is not ported yet ({_ROADMAP})"
+        )
+    if config.extern_proposals:
+        raise NotImplementedError(
+            f"extern_proposals > 0 (bridged real voters) is not ported yet "
+            f"({_ROADMAP})"
+        )
+
+
+@dataclass(frozen=True)
+class SimState:
+    """Per-round protocol state (tensors on one device). The JAX
+    ``SimState`` without ``rng_key``: random loss draws from a
+    ``torch.Generator`` the caller holds."""
+
+    active: torch.Tensor  # bool[C] current membership
+    alive: torch.Tensor  # bool[C] fault-model liveness (crashed => False)
+    group_of: torch.Tensor  # int32[C] delivery group of each node
+    subjects: torch.Tensor  # int32[C, K] monitored node per ring
+    observers: torch.Tensor  # int32[C, K] monitoring node per ring
+    fd_fail: torch.Tensor  # uint8[C, K] cumulative failed probes, saturating
+    fd_hist: torch.Tensor  # int32[C, K] last-W probe outcomes (JAX: uint16)
+    fd_seen: torch.Tensor  # uint8[C, K] probes recorded, saturating at W
+    fd_streak: torch.Tensor  # uint8[C, K] consecutive failed probes (gray)
+    fd_ok: torch.Tensor  # uint8[C, K] successful probes, saturating at 255
+    alerted: torch.Tensor  # bool[C, K] edge already reported DOWN
+    reports: torch.Tensor  # bool[G, C, K] per-group report tables (dst, ring)
+    arrival_hist: torch.Tensor  # bool[Dmax, C, K] DOWN alerts aged 1..Dmax
+    seen_down: torch.Tensor  # bool[G] group saw a DOWN alert this configuration
+    announced: torch.Tensor  # bool[P] proposal row holds an announced value
+    announced_round: torch.Tensor  # int32[] round of the first announcement
+    proposal: torch.Tensor  # bool[P, C] latched proposal masks
+    auto_vote: torch.Tensor  # bool[C] slot casts its own votes
+    voted: torch.Tensor  # bool[C] fast-round per-sender dedup latch
+    vote_prop: torch.Tensor  # int32[C] proposal row each voter voted for
+    vote_new: torch.Tensor  # bool[C] votes cast this round, arriving next round
+    vote_hist: torch.Tensor  # bool[Dmax, C] votes in flight, cast 2+d rounds ago
+    votes_recv: torch.Tensor  # bool[G, C] votes received per (group, sender)
+    classic_rnd: torch.Tensor  # int32[C] highest rank promised (phase1a)
+    classic_vrnd: torch.Tensor  # int32[C] rank last accepted at (phase2a)
+    classic_vval: torch.Tensor  # int32[C] accepted proposal row (-1 = none)
+    decided: torch.Tensor  # bool[] consensus reached
+    decided_group: torch.Tensor  # int32[] proposal row whose value won
+    decided_round: torch.Tensor  # int32[] round at which decision happened
+    round: torch.Tensor  # int32[] rounds elapsed in this configuration
+
+
+@dataclass(frozen=True)
+class RoundInputs:
+    """Per-round fault-plane inputs (constant over a dispatch)."""
+
+    alive: torch.Tensor  # bool[C] liveness this round
+    probe_drop: torch.Tensor  # bool[C, K] deterministic probe drops (one-way loss)
+    drop_prob: torch.Tensor  # float32[C] random ingress-loss probability per dst
+    join_reports: torch.Tensor  # bool[C, K] UP-alert reports for joining slots
+    down_reports: torch.Tensor  # bool[C, K] proactive DOWN reports (graceful leave)
+    deliver: torch.Tensor  # bool[G, C] does group g hear broadcasts from node i
+    deliver_delay: torch.Tensor  # int32[G, C] broadcast latency (rounds) per edge
+
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+
+
+def state_from_numpy(
+    config: SimConfig, arrays: Dict[str, np.ndarray], device=None
+) -> SimState:
+    """A JAX ``SimState``, given as numpy arrays keyed by field name, as the
+    port's ``SimState`` on ``device``. ``rng_key`` is dropped; ``fd_hist`` is
+    widened from uint16 to int32."""
+    dev = resolve_device(device)
+    fields = {}
+    for name in _FIELDS:
+        arr = np.asarray(arrays[name])
+        if name == "fd_hist":
+            arr = arr.astype(np.int32)
+        fields[name] = torch.from_numpy(np.array(arr)).to(dev)
+    state = SimState(**fields)
+    c, k, g, p = config.capacity, config.k, config.groups, config.proposal_rows
+    want = {"fd_fail": (c, k), "reports": (g, c, k), "proposal": (p, c),
+            "arrival_hist": (config.max_delivery_delay, c, k)}
+    for name, shape in want.items():
+        if tuple(getattr(state, name).shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(getattr(state, name).shape)}, "
+                             f"the config needs {shape}")
+    return state
+
+
+def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
+    """The inverse of ``state_from_numpy``, in the JAX engine's dtypes."""
+    out = {name: getattr(state, name).cpu().numpy() for name in _FIELDS}
+    out["fd_hist"] = out["fd_hist"].astype(np.uint16)
+    return out
+
+
+def _fresh_fields(config: SimConfig, dev: torch.device) -> dict:
+    """Every field of a fresh configuration's state that does not depend on
+    the membership: counters, latches and tallies at zero."""
+    c, k, g, d = config.capacity, config.k, config.groups, config.max_delivery_delay
+    p = config.proposal_rows
+
+    def zeros(shape, dtype=torch.bool):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def scalar():  # filled on the device: no host->device copy
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    return dict(
+        fd_fail=zeros((c, k), torch.uint8),
+        fd_hist=zeros((c, k), torch.int32),
+        fd_seen=zeros((c, k), torch.uint8),
+        fd_streak=zeros((c, k), torch.uint8),
+        fd_ok=zeros((c, k), torch.uint8),
+        alerted=zeros((c, k)),
+        reports=zeros((g, c, k)),
+        arrival_hist=zeros((d, c, k)),
+        seen_down=zeros(g),
+        announced=zeros(p),
+        announced_round=scalar(),
+        proposal=zeros((p, c)),
+        voted=zeros(c),
+        vote_prop=zeros(c, torch.int32),
+        vote_new=zeros(c),
+        vote_hist=zeros((d, c)),
+        votes_recv=zeros((g, c)),
+        classic_rnd=zeros(c, torch.int32),
+        classic_vrnd=zeros(c, torch.int32),
+        classic_vval=torch.full((c,), -1, dtype=torch.int32, device=dev),
+        decided=zeros(()),
+        decided_group=scalar(),
+        decided_round=scalar(),
+        round=scalar(),
+    )
+
+
+def initial_state(
+    config: SimConfig,
+    cluster: VirtualCluster,
+    active: np.ndarray,
+    group_of: Optional[np.ndarray] = None,
+    device=None,
+) -> SimState:
+    """Fresh-configuration state from the host adjacency build. (The JAX
+    version's ``seed`` went into the state's key; the port's state holds no
+    key.)"""
+    _require_supported(config)
+    dev = resolve_device(device)
+    subjects, observers = build_adjacency(cluster, active)
+    c = config.capacity
+    if group_of is None:
+        group_of = np.zeros(c, dtype=np.int32)
+    active_t = torch.as_tensor(np.asarray(active, dtype=bool), device=dev)
+    return SimState(
+        active=active_t,
+        alive=active_t.clone(),
+        group_of=torch.as_tensor(np.asarray(group_of, dtype=np.int32), device=dev),
+        subjects=torch.as_tensor(subjects, device=dev),
+        observers=torch.as_tensor(observers, device=dev),
+        auto_vote=torch.ones(c, dtype=torch.bool, device=dev),
+        **_fresh_fields(config, dev),
+    )
+
+
+def _select(cond: torch.Tensor, if_true: SimState, if_false: SimState) -> SimState:
+    """``where(cond, if_true, if_false)`` field by field; a field both states
+    share is passed through without a copy."""
+    out = {}
+    for name in _FIELDS:
+        a, b = getattr(if_true, name), getattr(if_false, name)
+        out[name] = a if a is b else torch.where(cond, a, b)
+    return SimState(**out)
+
+
+def route_and_tally(
+    config: SimConfig,
+    state: SimState,
+    down_arrivals: torch.Tensor,  # bool[C, K] dst-indexed DOWN alert arrivals
+    inputs: RoundInputs,
+    active: torch.Tensor,
+    alive: torch.Tensor,
+    *,
+    uniform_delivery: bool = False,
+    observers_idx: Optional[torch.Tensor] = None,
+) -> SimState:
+    """Alert delivery, per-group cut detection, per-node vote casting, the
+    vote delivery hop, and the fast-round tally.
+
+    ``down_arrivals[d, k]`` is the (dst, ring)-indexed view of this round's
+    DOWN alerts; the sender of the (d, k) alert is ``observers[d, k]``. Each
+    delivery group receives an alert iff its ``deliver[g, sender]`` entry is
+    set. ``uniform_delivery`` skips the [G, C, K] deliver gather when every
+    broadcast reaches every group. ``observers_idx`` is ``state.observers``
+    as int64, when the caller already holds it.
+
+    The JAX version's ``gate_implicit`` skips the implicit-invalidation pass
+    with a ``lax.cond`` in rounds where the pass is the identity. Eager
+    PyTorch cannot branch on device data without a host sync, so here the
+    pass always runs; the result is the same.
+
+    Returns ``state`` with the tally-owned fields replaced; the caller layers
+    the FD fields and the round increment on top.
+    """
+    c, k, g = config.capacity, config.k, config.groups
+    p_rows, dmax = config.proposal_rows, config.max_delivery_delay
+    dev = down_arrivals.device
+    sender = state.observers.long() if observers_idx is None else observers_idx
+    arrival_hist = state.arrival_hist
+    if dmax > 0:
+        # an alert fired d rounds ago sits in hist[d]; group g reads the slot
+        # its (group, sender) delay names, so each alert reaches each group
+        # exactly once, at fire + delay. Join reports stay delay-0.
+        hist = torch.cat([down_arrivals[None], arrival_hist], dim=0)
+        arrival_hist = hist[:dmax]
+        delay_gck = inputs.deliver_delay[:, sender].long()  # [G, C, K]
+        c_idx = torch.arange(c, device=dev)[None, :, None]
+        k_idx = torch.arange(k, device=dev)[None, None, :]
+        arrived = hist[delay_gck, c_idx, k_idx]  # [G, C, K]
+        joins = inputs.join_reports[None, :, :]
+        if not uniform_delivery:
+            deliver = inputs.deliver[:, sender]  # [G, C, K]
+            arrived = arrived & deliver
+            joins = joins & deliver
+        reports = state.reports | arrived | joins
+        seen_down = state.seen_down | arrived.flatten(1).any(dim=1)
+    elif uniform_delivery:
+        arrivals = down_arrivals | inputs.join_reports
+        reports = state.reports | arrivals[None, :, :]
+        seen_down = state.seen_down | down_arrivals.any()
+    else:
+        arrivals = down_arrivals | inputs.join_reports
+        deliver = inputs.deliver[:, sender]  # [G, C, K]
+        reports = state.reports | (arrivals[None, :, :] & deliver)
+        seen_down = state.seen_down | (
+            down_arrivals[None, :, :] & deliver
+        ).flatten(1).any(dim=1)
+
+    # --- per-group cut detection: H/L watermarks ---------------------------
+    counts = reports.sum(dim=2)  # [G, C]
+    in_flux = (counts >= config.l) & (counts < config.h)
+    stable = counts >= config.h
+    # one implicit-invalidation pass (MultiNodeCutDetector.java:137-164):
+    # edges from observers that are themselves in flux or stable count as
+    # implicit reports
+    obs_fs = (in_flux | stable)[:, sender]  # [G, C, K]
+    implicit = seen_down[:, None, None] & in_flux[:, :, None] & obs_fs & ~reports
+    reports = reports | implicit
+    counts = reports.sum(dim=2)
+    in_flux = (counts >= config.l) & (counts < config.h)
+    stable = counts >= config.h
+
+    # --- proposal emission per group ---------------------------------------
+    announced_g = state.announced[:g]
+    emit = stable.any(dim=1) & ~in_flux.any(dim=1) & ~announced_g
+    announced = torch.cat([announced_g | emit, state.announced[g:]])
+    proposal = torch.cat(
+        [torch.where(emit[:, None], stable, state.proposal[:g]), state.proposal[g:]]
+    )
+    announced_round = torch.where(
+        (state.announced_round == 0) & announced.any(),
+        state.round + 1,
+        state.announced_round,
+    )
+
+    # --- per-node fast-round votes (FastPaxos.java:125-156) ----------------
+    live = active & alive
+    new_voters = (
+        live & state.auto_vote & announced[state.group_of.long()] & ~state.voted
+        & (state.classic_rnd < FAST_RANK)
+    )
+    voted = state.voted | new_voters
+    vote_prop = torch.where(new_voters, state.group_of, state.vote_prop)
+
+    # the vote broadcast is a delivery hop: votes cast last round arrive now
+    vote_hist = state.vote_hist
+    if dmax > 0:
+        vhist = torch.cat([state.vote_new[None], vote_hist], dim=0)
+        vote_hist = vhist[:dmax]
+        c_idx = torch.arange(c, device=dev)[None, :]
+        arrived_votes = vhist[inputs.deliver_delay.long(), c_idx]  # [G, C]
+        if not uniform_delivery:
+            arrived_votes = arrived_votes & inputs.deliver
+        votes_recv = state.votes_recv | arrived_votes
+    elif uniform_delivery:
+        votes_recv = state.votes_recv | state.vote_new[None, :]
+    else:
+        votes_recv = state.votes_recv | (state.vote_new[None, :] & inputs.deliver)
+
+    # --- tally, per receiving group ----------------------------------------
+    # counts[g, q] = votes group g has received for proposal row q, as an
+    # explicit [G, C] x [C, P] product. In float32 because CUDA has no
+    # integer matmul; it is exact: the operands are 0/1 (exact even in TF32
+    # or bf16) and every partial sum is an integer <= C < 2^24.
+    onehot = (
+        (vote_prop[:, None] == torch.arange(p_rows, dtype=torch.int32, device=dev)[None, :])
+        & voted[:, None]
+    )  # [C, P]
+    counts = (votes_recv.float() @ onehot.float()).long()  # [G, P]
+    eq = (proposal[:, None, :] == proposal[None, :, :]).all(dim=2)  # [P, P]
+    pool = (eq & announced[:, None]).long()
+    pooled = (counts[:, :, None] * pool[None, :, :]).sum(dim=1)  # [G, P]
+    n = active.sum()
+    quorum = n - (n - 1) // 4
+    qualifies = announced[None, :] & (pooled >= quorum)
+    decide_now = qualifies.any() & ~state.decided
+    best = torch.where(qualifies, pooled, -1).amax(dim=0)  # [P]
+    winner = best.argmax().to(torch.int32)
+    return dataclasses.replace(
+        state,
+        reports=reports,
+        arrival_hist=arrival_hist,
+        seen_down=seen_down,
+        announced=announced,
+        announced_round=announced_round,
+        proposal=proposal,
+        voted=voted,
+        vote_prop=vote_prop,
+        vote_new=new_voters,
+        vote_hist=vote_hist,
+        votes_recv=votes_recv,
+        decided=state.decided | decide_now,
+        decided_group=torch.where(decide_now, winner, state.decided_group),
+        decided_round=torch.where(decide_now, state.round + 1, state.decided_round),
+    )
+
+
+def probe_phases(config: SimConfig, device=None) -> torch.Tensor:
+    """Each node's fixed probe phase within the FD interval ([C] int32 in
+    [0, rounds_per_interval)): the JAX engine's uint32 Knuth multiplicative
+    hash of the node index, computed in int64 with an explicit 32-bit mask."""
+    idx = torch.arange(config.capacity, dtype=torch.int64, device=resolve_device(device))
+    return (((idx * 2654435761) & _U32) % config.rounds_per_interval).to(torch.int32)
+
+
+def _fd_phase(
+    config: SimConfig,
+    state: SimState,
+    inputs: RoundInputs,
+    random_loss: bool,
+    generator: Optional[torch.Generator],
+    subj: torch.Tensor,  # int64[C, K] state.subjects
+    obs: torch.Tensor,  # int64[C, K] state.observers
+) -> Tuple[torch.Tensor, ...]:
+    """Probe evaluation + alert routing, the leading phase of ``step``.
+    The counter chain runs in the CUDA kernel ``fd_phase_u8`` (its plain
+    version for CPU tensors). Returns ``(alive, fd_fail, fd_streak, fd_ok,
+    alerted, down_arrivals)``."""
+    c, k = config.capacity, config.k
+    active = state.active
+    alive = inputs.alive & active  # membership ∩ fault-model liveness
+    edge_live = active[:, None] & active[subj]  # edge exists in this config
+    observer_up = alive[:, None]
+    probe_ok = alive[subj] & ~inputs.probe_drop
+    if random_loss:
+        if generator is None:
+            raise ValueError("random_loss needs a torch.Generator")
+        draw = torch.rand((c, k), generator=generator, device=active.device)
+        probe_ok = probe_ok & ~(draw < inputs.drop_prob[subj])
+    if config.rounds_per_interval > 1:
+        # staggered FD phases: a node probes only in its own sub-interval
+        # round (0-based round t probes nodes with phase == t mod rpi)
+        my_turn = probe_phases(config, active.device) == (
+            state.round % config.rounds_per_interval
+        )
+        observer_up = observer_up & my_turn[:, None]
+    observer_up = observer_up.expand(c, k).contiguous()
+
+    fd_fail, alerted, new_down = kernels.fd_phase_u8(
+        edge_live, observer_up, probe_ok, state.fd_fail, state.alerted,
+        config.fd_threshold,
+    )
+    fd_streak, fd_ok = state.fd_streak, state.fd_ok
+    if config.fd_gray_confirm > 0:
+        # gray streak path: a probe that succeeds resets the streak; one that
+        # fails extends it, and a streak of fd_gray_confirm on an edge with
+        # >= fd_gray_warmup past successes fires like a hard failure
+        watching = edge_live & observer_up
+        fail_event = watching & ~probe_ok
+        ok_event = watching & probe_ok
+        fd_streak = state.fd_streak + (
+            fail_event & (state.fd_streak < 255)
+        ).to(torch.uint8)
+        fd_streak = fd_streak.masked_fill(ok_event, 0)
+        fd_ok = state.fd_ok + (ok_event & (state.fd_ok < 255)).to(torch.uint8)
+        gray_down = (
+            fail_event
+            & (fd_streak >= config.fd_gray_confirm)
+            & (state.fd_ok >= config.fd_gray_warmup)
+            & ~state.alerted
+        )
+        new_down = new_down | gray_down
+        alerted = alerted | gray_down
+
+    # alert routing (dst-indexed): on ring k the subject and observer maps
+    # are inverse permutations over the active set, so "alert from observer
+    # i lands at (subjects[i,k], k)" is the gather new_down[observers[d,k], k].
+    # Masked to active destinations (joiner rows hold *expected* observers).
+    down_arrivals = (
+        new_down.gather(0, obs) | inputs.down_reports
+    ) & active[:, None]
+    return alive, fd_fail, fd_streak, fd_ok, alerted, down_arrivals
+
+
+def _step(
+    config: SimConfig, state: SimState, inputs: RoundInputs,
+    random_loss: bool, generator: Optional[torch.Generator],
+    subj: torch.Tensor, obs: torch.Tensor,
+) -> SimState:
+    halt = state.decided
+    alive, fd_fail, fd_streak, fd_ok, alerted, down_arrivals = _fd_phase(
+        config, state, inputs, random_loss, generator, subj, obs
+    )
+    tallied = route_and_tally(
+        config, state, down_arrivals, inputs, state.active, alive,
+        observers_idx=obs,
+    )
+    new_state = dataclasses.replace(
+        tallied,
+        alive=inputs.alive,
+        fd_fail=fd_fail,
+        fd_streak=fd_streak,
+        fd_ok=fd_ok,
+        alerted=alerted,
+        round=state.round + 1,
+    )
+    # after a decision the configuration is frozen until the host applies the
+    # view change: all updates become no-ops
+    return _select(halt, state, new_state)
+
+
+def step(
+    config: SimConfig, state: SimState, inputs: RoundInputs,
+    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+) -> SimState:
+    """One protocol round. With ``random_loss`` the per-edge ingress loss is
+    drawn from ``generator``, which is then required; without it no number
+    is drawn."""
+    _require_supported(config)
+    return _step(config, state, inputs, random_loss, generator,
+                 state.subjects.long(), state.observers.long())
+
+
+def step_fd_scan(*args, **kwargs):
+    """Profiling prefix of the JAX engine (FD scan only): not ported yet."""
+    raise NotImplementedError(f"profiling prefixes are not ported yet ({_ROADMAP})")
+
+
+def step_cut_detector(*args, **kwargs):
+    """Profiling prefix of the JAX engine (through cut detection): not
+    ported yet."""
+    raise NotImplementedError(f"profiling prefixes are not ported yet ({_ROADMAP})")
+
+
+def run_rounds_const(
+    config: SimConfig, state: SimState, inputs: RoundInputs, rounds: int,
+    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+) -> SimState:
+    """``rounds`` rounds of ``step`` under a constant fault plane; rounds
+    after a decision are masked no-ops. The input state is not modified."""
+    _require_supported(config)
+    subj, obs = state.subjects.long(), state.observers.long()
+    for _ in range(rounds):
+        state = _step(config, state, inputs, random_loss, generator, subj, obs)
+    return state
+
+
+def run_until_decided_const(
+    config: SimConfig,
+    state: SimState,
+    inputs: RoundInputs,
+    max_rounds: int,
+    uniform_delivery: bool = True,
+    stop_when_announced: bool = False,
+) -> SimState:
+    """Up to ``max_rounds`` rounds of a *constant, deterministic* fault plane
+    in one dispatch, with the probe phase in closed form (cumulative policy):
+    each edge's probe outcome is the same every probing round, so the round
+    at which it fires is computed up front and each round only tests
+    ``fire_dst == r``.
+
+    As in JAX, from a fresh configuration the dispatch fast-forwards to the
+    first alert arrival (skipped rounds still count toward the budget and the
+    round counter), and stops after the decision (or, with
+    ``stop_when_announced``, at the first group announcement). Here the
+    rounds outside that window run as masked no-ops: the dispatch always
+    evaluates ``max_rounds`` rounds and needs no host sync. The result equals
+    the JAX function's field for field; it draws no random numbers.
+    """
+    _require_supported(config)
+    subj, obs = state.subjects.long(), state.observers.long()
+    active = state.active
+    alive = inputs.alive & active
+    edge_live = active[:, None] & active[subj]
+    observer_up = alive[:, None]
+    probe_ok = alive[subj] & ~inputs.probe_drop
+    fail_event = edge_live & observer_up & ~probe_ok  # constant per round
+
+    # probe index (1-based) at which each observer-indexed edge fires; an
+    # edge already at/over threshold but unalerted fires on its next probe.
+    # With staggered phases an observer probes at relative rounds p_rel+1,
+    # p_rel+1+rpi, ... where p_rel re-bases its phase onto this dispatch.
+    rpi = config.rounds_per_interval
+    if rpi > 1:
+        p_rel = (probe_phases(config, active.device) - state.round) % rpi  # [C]
+    fire_probe = (config.fd_threshold - state.fd_fail.to(torch.int32)).clamp(min=1)
+    if config.fd_gray_confirm > 0:
+        # the streak alert fires at probe confirm - streak0 (>= 1) on edges
+        # whose healthy history was established before this dispatch
+        qualified = state.fd_ok >= config.fd_gray_warmup
+        gray_probe = (
+            config.fd_gray_confirm - state.fd_streak.to(torch.int32)
+        ).clamp(min=1)
+        fire_probe = torch.where(
+            qualified, torch.minimum(fire_probe, gray_probe), fire_probe
+        )
+    fires = fail_event & ~state.alerted
+    fire_round = p_rel[:, None] + 1 + (fire_probe - 1) * rpi if rpi > 1 else fire_probe
+    fire = torch.where(fires, fire_round, _NEVER)
+    # dst-indexed arrival round; proactive DOWN reports arrive in round 1
+    fire_dst = torch.where(active[:, None], fire.gather(0, obs), _NEVER)
+    fire_dst = torch.where(inputs.down_reports & active[:, None], 1, fire_dst)
+
+    state = dataclasses.replace(
+        state, alive=torch.where(state.decided, state.alive, inputs.alive)
+    )
+
+    # fast-forward over provably-inert rounds of a fresh configuration
+    fresh = ~(
+        state.decided
+        | state.reports.any()
+        | state.announced.any()
+        | state.seen_down.any()
+        | state.voted.any()
+        | state.vote_new.any()
+        | state.vote_hist.any()
+        | state.arrival_hist.any()
+        | inputs.join_reports.any()
+    )
+    start = torch.where(
+        fresh, (fire_dst.min() - 1).clamp(max=max_rounds).clamp(min=0), 0
+    )
+    state = dataclasses.replace(state, round=state.round + start)
+
+    final, r_exec = state, start
+    for r in range(1, max_rounds + 1):
+        run = (start < r) & ~final.decided
+        if stop_when_announced:
+            # pause at the round a group proposal is announced (extern rows
+            # excluded) so the caller can act before votes tally
+            run = run & ~final.announced[: config.groups].any()
+        st = route_and_tally(
+            config, final, fire_dst == r, inputs, active, alive,
+            uniform_delivery=uniform_delivery, observers_idx=obs,
+        )
+        st = dataclasses.replace(st, round=final.round + 1)
+        final = _select(run, st, final)
+        r_exec = torch.where(run, r, r_exec)
+
+    # reconstruct the per-edge FD state the executed rounds produced (number
+    # of scheduled probes within [1, r_exec] per observer)
+    if rpi > 1:
+        probes = ((r_exec - 1 - p_rel) // rpi + 1).clamp(min=0)[:, None]
+    else:
+        probes = r_exec
+    alerted = state.alerted | (fire <= r_exec)
+    fd_fail = (
+        state.fd_fail.to(torch.int32) + probes * fail_event.to(torch.int32)
+    ).clamp(max=255).to(torch.uint8)
+    if config.fd_gray_confirm == 0:
+        return dataclasses.replace(final, fd_fail=fd_fail, alerted=alerted)
+    ok_event = edge_live & observer_up & probe_ok
+    fd_streak = (
+        state.fd_streak.to(torch.int32) + probes * fail_event.to(torch.int32)
+    ).clamp(max=255)
+    fd_streak = torch.where(ok_event & (probes >= 1), 0, fd_streak).to(torch.uint8)
+    fd_ok = torch.where(
+        ok_event,
+        (state.fd_ok.to(torch.int32) + probes).clamp(max=255),
+        state.fd_ok.to(torch.int32),
+    ).to(torch.uint8)
+    return dataclasses.replace(
+        final, fd_fail=fd_fail, fd_streak=fd_streak, fd_ok=fd_ok, alerted=alerted
+    )
+
+
+def device_initial_state(
+    config: SimConfig,
+    ring_rank: torch.Tensor,  # int32[K, C] rank of each node in the full ring order
+    active: torch.Tensor,  # bool[C]
+    alive: torch.Tensor,  # bool[C]
+    group_of: torch.Tensor,  # int32[C]
+    auto_vote: torch.Tensor,  # bool[C]
+) -> SimState:
+    """Fresh-configuration state built on the device: a masked stable sort
+    of the resident per-ring ranks (inactive entries sort to the end), then
+    predecessor/successor by index arithmetic mod n, scattered into
+    ``subjects``/``observers`` (the scatter's indices are a permutation).
+    Equal to the host ``build_adjacency`` order."""
+    _require_supported(config)
+    c, k = config.capacity, config.k
+    dev = active.device
+    keys = torch.where(active[None, :], ring_rank, _NEVER)
+    order = torch.argsort(keys, dim=1, stable=True)  # int64 [K, C]
+    n = active.sum()
+    n1 = n.clamp(min=1)
+    p = torch.arange(c, device=dev)[None, :]
+    pred_idx = torch.where(p < n, (p - 1) % n1, p).expand(k, c)
+    succ_idx = torch.where(p < n, (p + 1) % n1, p).expand(k, c)
+    preds = order.gather(1, pred_idx).to(torch.int32)
+    succs = order.gather(1, succ_idx).to(torch.int32)
+
+    base = torch.arange(c, dtype=torch.int32, device=dev)[:, None].repeat(1, k)
+    ring_ids = torch.arange(k, device=dev)[:, None].expand(k, c).reshape(-1)
+    nodes_flat = order.reshape(-1)
+    subjects = base.clone().index_put_((nodes_flat, ring_ids), preds.reshape(-1))
+    observers = base.index_put_((nodes_flat, ring_ids), succs.reshape(-1))
+    return SimState(
+        active=active,
+        alive=alive,
+        group_of=group_of,
+        subjects=subjects,
+        observers=observers,
+        auto_vote=auto_vote,
+        **_fresh_fields(config, dev),
+    )
+
+
+# --------------------------------------------------------------------- #
+# Packed decision summary
+# --------------------------------------------------------------------- #
+# The driver's post-dispatch sync fetches everything a decision needs as ONE
+# word stream. Layout: 5 header words (decided, decided_group, decided_round,
+# round, announced_round), then ceil(P/32) words of announced bits, then
+# P * ceil(C/32) words of proposal bits (row-major, LSB-first within each
+# word) -- the JAX engine's layout, word for word.
+
+_SUMMARY_HEADER = 5
+
+
+def _words_per(n: int) -> int:
+    return (n + 31) // 32
+
+
+def pack_decision(config: SimConfig, state: SimState) -> torch.Tensor:
+    """Bit-pack the decision-relevant slice of ``state`` (see the layout
+    note above). The words are the JAX function's uint32 words, held in
+    int64 (PyTorch lacks shifts and sums on uint32): every value lies in
+    [0, 2^32)."""
+    dev = state.announced.device
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+
+    def bits_to_words(bits: torch.Tensor) -> torch.Tensor:
+        pad = (-bits.shape[-1]) % 32
+        if pad:
+            bits = torch.cat(
+                [bits, bits.new_zeros(bits.shape[:-1] + (pad,))], dim=-1
+            )
+        w = bits.reshape(bits.shape[:-1] + (-1, 32)).long() << shifts
+        return w.sum(dim=-1)
+
+    header = torch.stack(
+        [
+            state.decided.long(),
+            state.decided_group.long(),
+            state.decided_round.long(),
+            state.round.long(),
+            state.announced_round.long(),
+        ]
+    ) & _U32
+    return torch.cat(
+        [header, bits_to_words(state.announced), bits_to_words(state.proposal).reshape(-1)]
+    )
+
+
+def unpack_decision(
+    config: SimConfig, words: np.ndarray
+) -> Tuple[bool, np.ndarray, int, np.ndarray, int, int, int]:
+    """Host-side inverse of ``pack_decision``. Returns ``(decided,
+    announced[P], announced_round, proposal[P, C], decided_group,
+    decided_round, round)``."""
+    p, c = config.proposal_rows, config.capacity
+    words = np.asarray(words, dtype=np.uint32)
+    pw, cw = _words_per(p), _words_per(c)
+
+    def words_to_bits(w: np.ndarray, n: int) -> np.ndarray:
+        bits = ((w[..., None] >> np.arange(32, dtype=np.uint32)) & 1).astype(bool)
+        return bits.reshape(w.shape[:-1] + (-1,))[..., :n]
+
+    off = _SUMMARY_HEADER
+    announced = words_to_bits(words[off : off + pw], p)
+    proposal = words_to_bits(
+        words[off + pw : off + pw + p * cw].reshape(p, cw), c
+    )
+    return (
+        bool(words[0]),
+        announced,
+        int(np.int32(words[4])),
+        proposal,
+        int(np.int32(words[1])),
+        int(np.int32(words[2])),
+        int(np.int32(words[3])),
+    )
+
+
+def const_inputs(
+    config: SimConfig,
+    alive: np.ndarray,
+    probe_drop: Optional[np.ndarray] = None,
+    drop_prob: Optional[np.ndarray] = None,
+    join_reports: Optional[np.ndarray] = None,
+    deliver: Optional[np.ndarray] = None,
+    down_reports: Optional[np.ndarray] = None,
+    deliver_delay: Optional[np.ndarray] = None,
+    device=None,
+) -> RoundInputs:
+    """A single-round fault plane on ``device`` (for run_rounds_const)."""
+    dev = resolve_device(device)
+    c, k, g = config.capacity, config.k, config.groups
+
+    def put(arr, shape, dtype, fill=0):
+        if arr is None:
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+        return torch.as_tensor(np.asarray(arr), dtype=dtype, device=dev)
+
+    return RoundInputs(
+        alive=put(alive, (c,), torch.bool),
+        probe_drop=put(probe_drop, (c, k), torch.bool),
+        drop_prob=put(drop_prob, (c,), torch.float32),
+        join_reports=put(join_reports, (c, k), torch.bool),
+        down_reports=put(down_reports, (c, k), torch.bool),
+        deliver=put(deliver, (g, c), torch.bool, fill=1),
+        deliver_delay=put(deliver_delay, (g, c), torch.int32),
+    )
