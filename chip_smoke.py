@@ -9,13 +9,18 @@ into build/kernels/. Phases, each of which must pass:
 
 1. the card, the torch and CUDA versions, and the kernel build time;
 2. each CUDA kernel against its plain version at [100_000, 10] and
-   [1_000_000, 10], bit for bit, with CUDA-event timings of both;
+   [1_000_000, 10], bit for bit, with CUDA-event timings of both; the fused
+   FD phase (``fd_phase_fused``) with the gray path off and on and with 1 and
+   4 rounds per interval, timed cold (inputs rotated through more than the
+   50 MB L2) and hot, in a round with alerts and in a quiet one, beside the
+   unfused sequence it replaces (plain ops, ``fd_phase_u8``, the gather);
 3. the headline: a 100k-member simulator, 1% of members crashed, one
    ``run_until_decision(16, 16)`` to warm, then the same timed on
    ``TIMED_RUNS`` fresh simulators (the closed-form branch); each cut must
    equal the crashed set;
 4. the scan path: fresh 100k simulators under ingress loss 1.0 on 1% of
-   members, which must decide that set through the FD-phase kernel;
+   members, which must decide that set through ``fd_phase_fused`` (and
+   launch ``fd_phase_u8`` no time), at no more host syncs than before;
 5. the port on the card against the port on the CPU at 1000 members, for
    both branches, every state field.
 
@@ -44,24 +49,37 @@ PEAK_OPS_PER_S = 67e12
 KERNEL_SIZES = (100_000, 1_000_000)
 TIMED_RUNS = 5
 # bytes each edge must move: four bool inputs + counter in, counter + two
-# bools out
-BYTES_PER_EDGE = {"fd_phase_i32": 5 + 4 + 5, "fd_phase_u8": 5 + 1 + 2}
+# bools out. The fused phase at the headline (random loss on, gray off,
+# K=10): subjects, observers and the draw (4 B each), probe_drop, fd_fail,
+# alerted and down_reports in, fd_fail, alerted and down_arrivals out (1 B
+# each), plus per node active, alive and drop_prob in and alive out (7 B,
+# 0.7 B per edge); fd_bench.fused_bytes counts the other variants.
+BYTES_PER_EDGE = {"fd_phase_i32": 5 + 4 + 5, "fd_phase_u8": 5 + 1 + 2,
+                  "fd_phase_fused": 19 + 7 / 10}
 # operations per edge: 2 ANDs and a NOT for the failure, the counter test
-# and add, the threshold compare, 2 ANDs and a NOT for new_down, the OR
-OPS_PER_EDGE = 10
+# and add, the threshold compare, 2 ANDs and a NOT for new_down, the OR. The
+# fused phase adds the node flag tests, the draw compare, the gray path's
+# tests and the gather's OR and AND.
+OPS_PER_EDGE = {"fd_phase_i32": 10, "fd_phase_u8": 10, "fd_phase_fused": 24}
+# (gray_confirm, rounds_per_interval, random loss): the headline variant
+# first, the only one timed
+FUSED_VARIANTS = ((0, 1, True), (3, 4, True), (0, 4, False))
 
 
-def _time_ms(fn, reps=20, iters=11):
+def _time_ms(fn, reps=24, iters=11):
     """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
     graph, the replay timed with CUDA events, median over ``iters`` replays
     divided by ``reps``. The graph keeps the Python wrapper's launch overhead
-    out of the measurement, which at these sizes would otherwise swamp it."""
-    fn()
+    out of the measurement, which at these sizes would otherwise swamp it.
+    ``fn`` may be a list of calls, taken in turn (to rotate input sets)."""
+    fns = fn if isinstance(fn, list) else [fn]
+    for f in fns:
+        f()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     events = []
@@ -108,7 +126,7 @@ def _kernel_phase(kernels, device):
             kernel_ms = _time_ms(lambda: kernel(*args, 10))
             plain_ms = _time_ms(lambda: plain(*args, 10))
             bytes_ms = BYTES_PER_EDGE[name] * c * 10 / HBM_BYTES_PER_S * 1e3
-            ops_ms = OPS_PER_EDGE * c * 10 / PEAK_OPS_PER_S * 1e3
+            ops_ms = OPS_PER_EDGE[name] * c * 10 / PEAK_OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             sizes[f"{c}x10"] = {
                 "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -119,6 +137,106 @@ def _kernel_phase(kernels, device):
                   f"kernel {kernel_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us", flush=True)
         results[name] = sizes
+    return results
+
+
+def _unfused_sequence(kernels, args, subj, obs, threshold):
+    """The scan-round FD phase that ``fd_phase_fused`` replaces, after the
+    draw: plain ops around ``fd_phase_u8``, then the destination gather
+    (random loss on, gray off, one round per interval). ``subj``/``obs`` are
+    int64 copies of the adjacency, made once per dispatch."""
+    (active, alive, drop_prob, _, _, probe_drop, down_reports, draw, fd_fail,
+     alerted) = args[:10]
+    c, k = subj.shape
+    alive = alive & active
+    edge_live = active[:, None] & active[subj]
+    probe_ok = alive[subj] & ~probe_drop & ~(draw < drop_prob[subj])
+    observer_up = alive[:, None].expand(c, k).contiguous()
+    fd, alerted, new_down = kernels.fd_phase_u8(
+        edge_live, observer_up, probe_ok, fd_fail, alerted, threshold)
+    down = (new_down.gather(0, obs) | down_reports) & active[:, None]
+    return alive, fd, alerted, down
+
+
+def _fused_phase(kernels, fd_bench, device):
+    """``fd_phase_fused`` against its plain version, bit for bit, in each
+    variant, then the headline variant timed cold and hot beside its plain
+    version and the unfused sequence, in a round with alerts and in a quiet
+    one."""
+    results = {}
+    for c in KERNEL_SIZES:
+        worst = 0
+        for gray, rpi, random in FUSED_VARIANTS:
+            args = fd_bench.fused_case(c, c + gray + rpi, device, random)
+            kw = dict(threshold=10, gray_confirm=gray, gray_warmup=3, rounds_per_interval=rpi)
+            got = kernels.fd_phase_fused(*args, **kw)
+            want = kernels.fd_phase_fused_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                      for g, w in zip(got, want))
+            assert err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)), (
+                f"fd_phase_fused at [{c}, 10], gray {gray}, rpi {rpi}, random {random} "
+                f"disagrees with its plain version")
+            assert (got[2] & ~args[9]).any(), "the case should raise alerts"
+            worst = max(worst, err)
+            print(f"kernel fd_phase_fused [{c}, 10] gray {gray} rpi {rpi} random {random}: "
+                  f"bit-identical to plain (tolerance 0)", flush=True)
+
+        gray, rpi, random = FUSED_VARIANTS[0]
+        kw = dict(threshold=10, gray_confirm=gray, gray_warmup=3, rounds_per_interval=rpi)
+        # cold: rotate more input sets than the L2 holds (their int64 copies
+        # for the unfused sequence on top)
+        sets = fd_bench.cold_sets(c, random, device)
+        quiet = fd_bench.quiet(sets)
+        wide = [(a[3].long(), a[4].long()) for a in sets]
+        for case in (sets[0], quiet[0]):
+            want = kernels.fd_phase_fused_plain(*case, **kw)
+            got = kernels.fd_phase_fused(*case, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), "timed case disagrees"
+            got = _unfused_sequence(kernels, case, *wide[0], 10)
+            assert all(torch.equal(g, want[i]) for g, i in zip(got, (0, 1, 2, 5))), (
+                "the unfused sequence disagrees with the fused plain version")
+        assert not (want[2] & ~quiet[0][9]).any(), "the quiet round raised an alert"
+
+        def fused(a):
+            return lambda: kernels.fd_phase_fused(*a, **kw)
+
+        def plain(a):
+            return lambda: kernels.fd_phase_fused_plain(*a, **kw)
+
+        def unfused(a, w):
+            return lambda: _unfused_sequence(kernels, a, *w, 10)
+
+        t = {}
+        for label, cases in (("", sets), ("quiet_", quiet)):
+            t[f"{label}cold_ms"] = _time_ms([fused(a) for a in cases])
+            t[f"{label}hot_ms"] = _time_ms(fused(cases[0]))
+            t[f"{label}unfused_cold_ms"] = _time_ms(
+                [unfused(a, w) for a, w in zip(cases, wide)])
+            t[f"{label}unfused_hot_ms"] = _time_ms(unfused(cases[0], wide[0]))
+            t[f"{label}plain_cold_ms"] = _time_ms([plain(a) for a in cases])
+            t[f"{label}plain_hot_ms"] = _time_ms(plain(cases[0]))
+        nbytes = fd_bench.fused_bytes(c, 10, gray, random)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        quiet_bound_ms = (fd_bench.fused_bytes(c, 10, gray, random, alerts=False)
+                          / HBM_BYTES_PER_S * 1e3)
+        ops_ms = OPS_PER_EDGE["fd_phase_fused"] * c * 10 / PEAK_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        results[f"{c}x10"] = dict(
+            t, max_abs_err=worst, ms=t["cold_ms"], plain_ms=t["plain_cold_ms"],
+            bound_ms=bound_ms, bound_us=bound_ms * 1e3,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes_per_edge=nbytes / (c * 10), input_sets=len(sets),
+            share_of_bound=bound_ms / t["cold_ms"], quiet_bound_ms=quiet_bound_ms,
+            quiet_share_of_bound=quiet_bound_ms / t["quiet_cold_ms"],
+        )
+        print(f"kernel fd_phase_fused [{c}, 10] timed: "
+              + ", ".join(f"{key} {ms * 1e3:.2f} us" for key, ms in t.items())
+              + f"; bound {bound_ms * 1e3:.2f} us ({nbytes / (c * 10):.2f} B/edge), "
+              f"quiet bound {quiet_bound_ms * 1e3:.2f} us, {len(sets)} input sets for cold",
+              flush=True)
+        del sets, quiet, wide
+        torch.cuda.empty_cache()
     return results
 
 
@@ -174,7 +292,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rapid_tpu_torch.sim import engine, kernels
+    from rapid_tpu_torch.sim import engine, fd_bench, kernels
     from rapid_tpu_torch.sim.driver import Simulator
 
     device = torch.device("cuda")
@@ -187,10 +305,12 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    lib = kernels.build()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({lib.name})", flush=True)
+    libs = kernels.build()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(p.name for p in libs.values())})", flush=True)
 
     kernel_results = _kernel_phase(kernels, device)
+    kernel_results["fd_phase_fused"] = _fused_phase(kernels, fd_bench, device)
 
     # --- headline: closed-form branch --------------------------------------
     rng = np.random.default_rng(SEED)
@@ -229,7 +349,11 @@ def main() -> int:
     counted.ingress_loss(rng.choice(N_NODES, n_fail, replace=False), 1.0)
     scan_syncs = _count_syncs(lambda: counted.run_until_decision(max_rounds=16, batch=16))
     rec, scan_walls, scan_launches = timed("ingress_loss", SEED + 5555)
-    assert scan_launches["fd_phase_u8"] >= 11, scan_launches
+    assert scan_launches["fd_phase_fused"] >= 11, scan_launches
+    assert scan_launches["fd_phase_u8"] == 0, scan_launches
+    # a decision syncs once per dispatch plus the view change's uploads: 6
+    # times in the closed form, 7 on the scan path (2 fault-plane uploads)
+    assert syncs <= 6 and scan_syncs <= 7, (syncs, scan_syncs)
     print(f"scan path (ingress loss 1.0): cut ok, virtual {rec.virtual_time_ms} ms, "
           f"warmed wall median {statistics.median(scan_walls):.3f} ms max "
           f"{max(scan_walls):.3f} ms over {TIMED_RUNS} runs "
@@ -238,22 +362,23 @@ def main() -> int:
 
     _cross_check(Simulator, engine, device)
 
-    source = "rapid_tpu_torch/csrc/fd_phase.cu"
     line = {"kernels": []}
     for name, sizes in kernel_results.items():
         main_shape = sizes[f"{KERNEL_SIZES[0]}x10"]
         line["kernels"].append({
             "name": name,
             "route": "cuda",
-            "source": source,
+            "source": "rapid_tpu_torch/csrc/" + (
+                "fd_phase_fused.cu" if name == "fd_phase_fused" else "fd_phase.cu"),
             "replaces": "rapid_tpu/sim/pallas_kernels.py:54",
-            "on_main_path": name == "fd_phase_u8",
+            "on_main_path": name == "fd_phase_fused",
             "launches": scan_launches[name],
             "launches_headline": headline_launches[name],
             "match": True,
             "max_abs_err": max(s["max_abs_err"] for s in sizes.values()),
             "ms": main_shape["ms"],
             "kernel_ms": main_shape["ms"],
+            "hot_ms": main_shape.get("hot_ms", main_shape["ms"]),
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_us": main_shape["bound_us"],

@@ -3,9 +3,10 @@
 The port of ``rapid_tpu/sim/engine.py``. Each simulated round
 1. evaluates every monitoring edge's probe (PingPongFailureDetector semantics:
    cumulative failure counter, threshold 10 -- PingPongFailureDetector.java:40,69-77),
-   in the hand-written CUDA kernel ``kernels.fd_phase_u8``,
+   and
 2. routes newly-crossed edges as DOWN alerts along the observer->subject
-   adjacency (MembershipService.java:602-626),
+   adjacency (MembershipService.java:602-626), both in the hand-written CUDA
+   kernel ``kernels.fd_phase_fused`` on the scan path,
 3. updates per-destination H/L watermark report tables and applies one
    implicit-invalidation pass (MultiNodeCutDetector.java:76-164),
 4. tallies fast-round votes and decides at the 3/4 supermajority
@@ -17,7 +18,8 @@ as in the JAX engine, whose module docstring describes them.
 All state lives in capacity-padded tensors, in frozen dataclasses, with the
 JAX engine's dtypes except ``fd_hist`` (int32 here: PyTorch lacks shifts and
 comparisons on uint16). ``subjects`` and ``observers`` stay int32 for parity;
-gathers use int64 copies made once per dispatch.
+the FD kernel reads them as they are, and the torch gathers use int64 copies
+made once per dispatch.
 
 Where JAX exits a ``while_loop`` on the device, eager PyTorch cannot without a
 host sync. So a dispatch runs its whole round budget, and a round after the
@@ -453,9 +455,10 @@ def route_and_tally(
 def probe_phases(config: SimConfig, device=None) -> torch.Tensor:
     """Each node's fixed probe phase within the FD interval ([C] int32 in
     [0, rounds_per_interval)): the JAX engine's uint32 Knuth multiplicative
-    hash of the node index, computed in int64 with an explicit 32-bit mask."""
-    idx = torch.arange(config.capacity, dtype=torch.int64, device=resolve_device(device))
-    return (((idx * 2654435761) & _U32) % config.rounds_per_interval).to(torch.int32)
+    hash of the node index."""
+    return kernels.probe_phases(
+        config.capacity, config.rounds_per_interval, resolve_device(device)
+    )
 
 
 def _fd_phase(
@@ -464,77 +467,37 @@ def _fd_phase(
     inputs: RoundInputs,
     random_loss: bool,
     generator: Optional[torch.Generator],
-    subj: torch.Tensor,  # int64[C, K] state.subjects
-    obs: torch.Tensor,  # int64[C, K] state.observers
 ) -> Tuple[torch.Tensor, ...]:
-    """Probe evaluation + alert routing, the leading phase of ``step``.
-    The counter chain runs in the CUDA kernel ``fd_phase_u8`` (its plain
-    version for CPU tensors). Returns ``(alive, fd_fail, fd_streak, fd_ok,
-    alerted, down_arrivals)``."""
-    c, k = config.capacity, config.k
-    active = state.active
-    alive = inputs.alive & active  # membership ∩ fault-model liveness
-    edge_live = active[:, None] & active[subj]  # edge exists in this config
-    observer_up = alive[:, None]
-    probe_ok = alive[subj] & ~inputs.probe_drop
+    """Probe evaluation + alert routing, the leading phase of ``step``: the
+    round's uniform draw (with ``random_loss``), then the CUDA kernel
+    ``fd_phase_fused`` (its plain version for CPU tensors), which reads the
+    state's int32 adjacency and its round counter directly. Returns
+    ``(alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals)``."""
+    draw = None
     if random_loss:
         if generator is None:
             raise ValueError("random_loss needs a torch.Generator")
-        draw = torch.rand((c, k), generator=generator, device=active.device)
-        probe_ok = probe_ok & ~(draw < inputs.drop_prob[subj])
-    if config.rounds_per_interval > 1:
-        # staggered FD phases: a node probes only in its own sub-interval
-        # round (0-based round t probes nodes with phase == t mod rpi)
-        my_turn = probe_phases(config, active.device) == (
-            state.round % config.rounds_per_interval
+        draw = torch.rand(
+            (config.capacity, config.k), generator=generator, device=state.active.device
         )
-        observer_up = observer_up & my_turn[:, None]
-    observer_up = observer_up.expand(c, k).contiguous()
-
-    fd_fail, alerted, new_down = kernels.fd_phase_u8(
-        edge_live, observer_up, probe_ok, state.fd_fail, state.alerted,
-        config.fd_threshold,
+    return kernels.fd_phase_fused(
+        state.active, inputs.alive, inputs.drop_prob, state.subjects,
+        state.observers, inputs.probe_drop, inputs.down_reports, draw,
+        state.fd_fail, state.alerted, state.fd_streak, state.fd_ok, state.round,
+        threshold=config.fd_threshold, gray_confirm=config.fd_gray_confirm,
+        gray_warmup=config.fd_gray_warmup,
+        rounds_per_interval=config.rounds_per_interval,
     )
-    fd_streak, fd_ok = state.fd_streak, state.fd_ok
-    if config.fd_gray_confirm > 0:
-        # gray streak path: a probe that succeeds resets the streak; one that
-        # fails extends it, and a streak of fd_gray_confirm on an edge with
-        # >= fd_gray_warmup past successes fires like a hard failure
-        watching = edge_live & observer_up
-        fail_event = watching & ~probe_ok
-        ok_event = watching & probe_ok
-        fd_streak = state.fd_streak + (
-            fail_event & (state.fd_streak < 255)
-        ).to(torch.uint8)
-        fd_streak = fd_streak.masked_fill(ok_event, 0)
-        fd_ok = state.fd_ok + (ok_event & (state.fd_ok < 255)).to(torch.uint8)
-        gray_down = (
-            fail_event
-            & (fd_streak >= config.fd_gray_confirm)
-            & (state.fd_ok >= config.fd_gray_warmup)
-            & ~state.alerted
-        )
-        new_down = new_down | gray_down
-        alerted = alerted | gray_down
-
-    # alert routing (dst-indexed): on ring k the subject and observer maps
-    # are inverse permutations over the active set, so "alert from observer
-    # i lands at (subjects[i,k], k)" is the gather new_down[observers[d,k], k].
-    # Masked to active destinations (joiner rows hold *expected* observers).
-    down_arrivals = (
-        new_down.gather(0, obs) | inputs.down_reports
-    ) & active[:, None]
-    return alive, fd_fail, fd_streak, fd_ok, alerted, down_arrivals
 
 
 def _step(
     config: SimConfig, state: SimState, inputs: RoundInputs,
     random_loss: bool, generator: Optional[torch.Generator],
-    subj: torch.Tensor, obs: torch.Tensor,
+    obs: torch.Tensor,  # int64[C, K] state.observers, for route_and_tally
 ) -> SimState:
     halt = state.decided
-    alive, fd_fail, fd_streak, fd_ok, alerted, down_arrivals = _fd_phase(
-        config, state, inputs, random_loss, generator, subj, obs
+    alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals = _fd_phase(
+        config, state, inputs, random_loss, generator
     )
     tallied = route_and_tally(
         config, state, down_arrivals, inputs, state.active, alive,
@@ -562,8 +525,7 @@ def step(
     drawn from ``generator``, which is then required; without it no number
     is drawn."""
     _require_supported(config)
-    return _step(config, state, inputs, random_loss, generator,
-                 state.subjects.long(), state.observers.long())
+    return _step(config, state, inputs, random_loss, generator, state.observers.long())
 
 
 def step_fd_scan(*args, **kwargs):
@@ -584,9 +546,9 @@ def run_rounds_const(
     """``rounds`` rounds of ``step`` under a constant fault plane; rounds
     after a decision are masked no-ops. The input state is not modified."""
     _require_supported(config)
-    subj, obs = state.subjects.long(), state.observers.long()
+    obs = state.observers.long()
     for _ in range(rounds):
-        state = _step(config, state, inputs, random_loss, generator, subj, obs)
+        state = _step(config, state, inputs, random_loss, generator, obs)
     return state
 
 

@@ -7,7 +7,8 @@ neither JAX nor rapid_tpu, so it also runs where JAX is not installed; there,
 skip tests/conftest.py (which sets JAX up). With the kernel tests:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
-        tests/test_torch_fd_phase.py tests/test_torch_cuda.py -q
+        tests/test_torch_fd_phase.py tests/test_torch_fd_fused.py \
+        tests/test_torch_cuda.py -q
 """
 
 import numpy as np
