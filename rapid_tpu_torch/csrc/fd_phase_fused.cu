@@ -1,11 +1,13 @@
 // The whole failure-detector phase of one scan round, fused, for Hopper
-// (sm_90a): probe evaluation, the saturating counter, the gray streak path,
-// the alert latch, and the destination-indexed alert gather.
+// (sm_90a): probe evaluation, the policy's per-edge state (the saturating
+// counter and the gray streak path, or the window of the last W probes), the
+// alert latch, and the destination-indexed alert gather.
 //
 // Replaces rapid_tpu/sim/pallas_kernels.py::_fd_phase_kernel (wrapper
 // fd_phase) together with the jnp ops around it in
-// rapid_tpu/sim/engine.py::_fd_phase (574-653), cumulative policy. For node
-// n, observer o, ring k and subject s = subjects[o, k]:
+// rapid_tpu/sim/engine.py::_fd_phase (565-655), both FD policies, and the
+// window rule of rapid_tpu/sim/engine.py::window_step and windowed_fd_phase
+// (521-562). For node n, observer o, ring k and subject s = subjects[o, k]:
 //
 //   alive[n]       = alive_in[n] & active[n]
 //   watching(o,k)  = active[o] & active[s] & alive[o] & turn(o)
@@ -16,6 +18,12 @@
 //   gray (confirm > 0): ok = watching & probe_ok; streak += fail (stops at
 //     255), streak = 0 where ok; fd_ok += ok (stops at 255);
 //     new_down |= fail & streak >= confirm & fd_ok_before >= warmup & ~alerted
+//   windowed policy (W > 0; in place of the counter and the gray path):
+//     where watching: hist = ((hist << 1) | fail) & (2^W - 1),
+//                     seen = min(uint8(seen + 1), W)
+//     new_down = watching & seen >= W & popcount(hist) >= t & ~alerted,
+//     with t = ceil(threshold fraction * W) computed once on the host;
+//     fd_fail is neither read nor written
 //   alerted       |= new_down
 //   down_arrivals[d,k] = (new_down[observers[d,k], k] | down_reports[d,k])
 //                        & active[d]
@@ -29,7 +37,9 @@
 // (4 B each) and probe_drop, fd_fail, alerted and down_reports (1 B each),
 // and writes fd_fail, alerted and down_arrivals (1 B each): 19 B, plus 7 B
 // per node (active, alive, drop_prob in; alive out), 0.7 B per edge. The
-// gray path adds 4 B per edge; a round with no new alert needs no observers.
+// gray path adds 4 B per edge; the window swaps the counter's 2 B for the
+// int32 history and the uint8 probe count, in and out (10 B); a round with
+// no new alert needs no observers.
 // The arithmetic is a few integer operations per edge. What holds the kernel
 // above that bound on an H100 is the two random reads per edge that the
 // function implies, each waiting on a streamed load before it can issue: the
@@ -56,6 +66,8 @@
 //   flags whether any bit is set. Pass 3 (gather_pass) gathers one bit per
 //   destination edge, vectorised over destinations; when no bit is set, as
 //   in most rounds of a scan, it reads neither the observers nor the bits.
+// - The policy is a compile-time choice (kGray, kWindow), so each
+//   instantiation reads and writes only its own per-edge planes.
 // - PERF.md lists the designs tried and measured on the card that this one
 //   beat, among them recomputing new_down in the destination thread.
 //
@@ -91,11 +103,15 @@ struct Params {
   const uint8_t* alerted;
   const uint8_t* streak;
   const uint8_t* fd_ok;
+  const int32_t* hist;
+  const uint8_t* seen;
   const uint8_t* active;
   uint8_t* fd_fail_out;
   uint8_t* alerted_out;
   uint8_t* streak_out;
   uint8_t* fd_ok_out;
+  int32_t* hist_out;
+  uint8_t* seen_out;
   uint8_t* down_arrivals;
   uint16_t* new_down;  // the words of `bits`, written a slot at a time
   int64_t n;           // C * K edges
@@ -106,6 +122,9 @@ struct Params {
   int threshold;
   int confirm;
   int warmup;
+  int window;            // W, 0 under the cumulative policy
+  int window_fire;       // t: failures in a full window that fire
+  uint32_t window_mask;  // 2^W - 1
 };
 
 union Bytes16 {
@@ -170,23 +189,43 @@ __global__ void node_pass(const uint8_t* __restrict__ active,
 }
 
 struct Edge {
-  uint8_t fd, alerted, down, streak, ok;
+  uint8_t fd, alerted, down, streak, ok, seen;
+  uint32_t hist;
 };
 
 // One edge's FD step from whether its observer probes, its subject's state
 // and its own per-edge values. drop_prob[subject] is read only for a lossy
 // live subject.
-template <bool kRandom, bool kGray>
+template <bool kRandom, bool kGray, bool kWindow>
 __device__ __forceinline__ Edge edge_step(const Params& p, bool obs_probing,
                                           uint32_t subj_state, int32_t subject,
                                           uint8_t drop, float draw, uint8_t fd,
                                           uint8_t alerted, uint8_t streak,
-                                          uint8_t ok_count) {
+                                          uint8_t ok_count, uint32_t hist, uint8_t seen) {
   const bool watching = obs_probing && subj_state != 0;
   bool ok = subj_state >= 2 && !drop;
   if (kRandom && ok && subj_state == 3) ok = !(draw < __ldg(p.drop_prob + subject));
   const bool fail = watching && !ok;
   Edge e;
+  e.hist = hist;
+  e.seen = seen;
+  if (kWindow) {
+    // a probed edge shifts its outcome into the window and counts the probe
+    // (the uint8 count wraps before the clamp, as the engine's plane does)
+    if (watching) {
+      e.hist = ((hist << 1) | (fail ? 1u : 0u)) & p.window_mask;
+      const uint8_t next = static_cast<uint8_t>(seen + 1);
+      e.seen = next < p.window ? next : static_cast<uint8_t>(p.window);
+    }
+    e.fd = fd;
+    e.streak = streak;
+    e.ok = ok_count;
+    const bool down = watching && e.seen >= p.window &&
+                      __popc(e.hist) >= p.window_fire && !alerted;
+    e.down = down;
+    e.alerted = alerted || down;
+    return e;
+  }
   e.fd = fd + ((fail && fd < 255) ? 1 : 0);
   bool down = watching && e.fd >= p.threshold && !alerted;
   e.streak = streak;
@@ -213,27 +252,29 @@ __device__ __forceinline__ bool slot_vector(const Params& p, int64_t first) {
 // Observer-indexed outputs of slot j and its 16 new_down bits. A slot inside
 // the aligned range moves each stream as 16-byte accesses; the first and
 // last slots take scalar accesses.
-template <bool kRandom, bool kGray>
+template <bool kRandom, bool kGray, bool kWindow>
 __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, int64_t j) {
   const int64_t first = slot_first(p, j);
   const bool vec = slot_vector(p, first);
-  Ints16 subj;
+  Ints16 subj, hist;
   Floats16 draw;
-  Bytes16 drop, fd, al, st, okc;
+  Bytes16 drop, fd, al, st, okc, seen;
   bool up[kVec];
   if (vec) {
 #pragma unroll
     for (int q = 0; q < kVec / 4; ++q) {
       subj.v[q] = __ldcs(reinterpret_cast<const int4*>(p.subjects + first) + q);
       if (kRandom) draw.v[q] = __ldcs(reinterpret_cast<const float4*>(p.draw + first) + q);
+      if (kWindow) hist.v[q] = __ldcs(reinterpret_cast<const int4*>(p.hist + first) + q);
     }
     drop.v = __ldcs(reinterpret_cast<const uint4*>(p.probe_drop + first));
-    fd.v = __ldcs(reinterpret_cast<const uint4*>(p.fd_fail + first));
+    if (!kWindow) fd.v = __ldcs(reinterpret_cast<const uint4*>(p.fd_fail + first));
     al.v = __ldcs(reinterpret_cast<const uint4*>(p.alerted + first));
     if (kGray) {
       st.v = __ldcs(reinterpret_cast<const uint4*>(p.streak + first));
       okc.v = __ldcs(reinterpret_cast<const uint4*>(p.fd_ok + first));
     }
+    if (kWindow) seen.v = __ldcs(reinterpret_cast<const uint4*>(p.seen + first));
     int64_t o = first / p.k;
     int kk = static_cast<int>(first - o * p.k);
     bool u = probing(p, o, turn);
@@ -253,10 +294,12 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
       subj.i[i] = in ? __ldg(p.subjects + e) : 0;
       draw.f[i] = kRandom && in ? __ldg(p.draw + e) : 0.0f;
       drop.b[i] = in ? __ldg(p.probe_drop + e) : 0;
-      fd.b[i] = in ? __ldg(p.fd_fail + e) : 0;
+      fd.b[i] = !kWindow && in ? __ldg(p.fd_fail + e) : 0;
       al.b[i] = in ? __ldg(p.alerted + e) : 0;
       st.b[i] = kGray && in ? __ldg(p.streak + e) : 0;
       okc.b[i] = kGray && in ? __ldg(p.fd_ok + e) : 0;
+      hist.i[i] = kWindow && in ? __ldg(p.hist + e) : 0;
+      seen.b[i] = kWindow && in ? __ldg(p.seen + e) : 0;
       up[i] = in && probing(p, e / p.k, turn);
     }
   }
@@ -264,36 +307,49 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
 #pragma unroll
   for (int i = 0; i < kVec; ++i) ss[i] = node_state(p, subj.i[i]);
 
-  Bytes16 fd_o, al_o, st_o, ok_o;
+  Bytes16 fd_o, al_o, st_o, ok_o, seen_o;
+  Ints16 hist_o;
   uint32_t down_bits = 0;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    const Edge r = edge_step<kRandom, kGray>(p, up[i], ss[i], subj.i[i], drop.b[i],
-                                             draw.f[i], fd.b[i], al.b[i], st.b[i],
-                                             okc.b[i]);
+    const Edge r = edge_step<kRandom, kGray, kWindow>(
+        p, up[i], ss[i], subj.i[i], drop.b[i], draw.f[i], fd.b[i], al.b[i], st.b[i],
+        okc.b[i], static_cast<uint32_t>(hist.i[i]), seen.b[i]);
     fd_o.b[i] = r.fd;
     al_o.b[i] = r.alerted;
     st_o.b[i] = r.streak;
     ok_o.b[i] = r.ok;
+    hist_o.i[i] = static_cast<int32_t>(r.hist);
+    seen_o.b[i] = r.seen;
     down_bits |= static_cast<uint32_t>(r.down) << i;
   }
   if (vec) {
-    __stcs(reinterpret_cast<uint4*>(p.fd_fail_out + first), fd_o.v);
+    if (!kWindow) __stcs(reinterpret_cast<uint4*>(p.fd_fail_out + first), fd_o.v);
     __stcs(reinterpret_cast<uint4*>(p.alerted_out + first), al_o.v);
     if (kGray) {
       __stcs(reinterpret_cast<uint4*>(p.streak_out + first), st_o.v);
       __stcs(reinterpret_cast<uint4*>(p.fd_ok_out + first), ok_o.v);
+    }
+    if (kWindow) {
+#pragma unroll
+      for (int q = 0; q < kVec / 4; ++q)
+        __stcs(reinterpret_cast<int4*>(p.hist_out + first) + q, hist_o.v[q]);
+      __stcs(reinterpret_cast<uint4*>(p.seen_out + first), seen_o.v);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       const int64_t e = first + i;
       if (e < 0 || e >= p.n) continue;
-      p.fd_fail_out[e] = fd_o.b[i];
+      if (!kWindow) p.fd_fail_out[e] = fd_o.b[i];
       p.alerted_out[e] = al_o.b[i];
       if (kGray) {
         p.streak_out[e] = st_o.b[i];
         p.fd_ok_out[e] = ok_o.b[i];
+      }
+      if (kWindow) {
+        p.hist_out[e] = hist_o.i[i];
+        p.seen_out[e] = seen_o.b[i];
       }
     }
   }
@@ -369,13 +425,13 @@ __device__ __forceinline__ void destination_slot(const Params& p, bool gather, i
 }
 
 // Pass 2: observer-indexed outputs and the new_down bits.
-template <bool kRandom, bool kGray>
+template <bool kRandom, bool kGray, bool kWindow>
 __global__ void __launch_bounds__(kThreads) observer_pass(Params p) {
   const uint32_t turn = this_turn(p);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < p.slots; j += stride)
-    observer_slot<kRandom, kGray>(p, turn, j);
+    observer_slot<kRandom, kGray, kWindow>(p, turn, j);
 }
 
 // Pass 3: the destination gather from the new_down bits, skipped when no
@@ -392,18 +448,24 @@ bool aligned16(const void* ptr) {
   return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
+// Edge h of a stream the instantiation uses, null for one it does not.
+template <class T>
+const void* at(const T* stream, int64_t h) {
+  return stream ? stream + h : nullptr;
+}
+
 // Slot layout: when every [C,K] stream reaches a 16-byte boundary at the
 // same edge h, slots start at h (the slot before it holds edges [0, h));
 // otherwise every slot takes the scalar path.
 void set_slots(Params& p) {
-  const int64_t h = (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(p.fd_fail) % 16)) % 16;
+  const int64_t h = (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(p.alerted) % 16)) % 16;
   const void* streams[] = {
-      p.subjects + h,     p.observers + h,    p.probe_drop + h,
-      p.down_reports + h, p.draw ? p.draw + h : nullptr,
-      p.fd_fail + h,      p.alerted + h,      p.streak ? p.streak + h : nullptr,
-      p.fd_ok ? p.fd_ok + h : nullptr,         p.fd_fail_out + h,
-      p.alerted_out + h,  p.streak_out ? p.streak_out + h : nullptr,
-      p.fd_ok_out ? p.fd_ok_out + h : nullptr, p.down_arrivals + h,
+      at(p.subjects, h),     at(p.observers, h),  at(p.probe_drop, h),
+      at(p.down_reports, h), at(p.draw, h),       at(p.fd_fail, h),
+      at(p.alerted, h),      at(p.streak, h),     at(p.fd_ok, h),
+      at(p.hist, h),         at(p.seen, h),       at(p.fd_fail_out, h),
+      at(p.alerted_out, h),  at(p.streak_out, h), at(p.fd_ok_out, h),
+      at(p.hist_out, h),     at(p.seen_out, h),   at(p.down_arrivals, h),
   };
   p.vec_ok = h < p.n;
   for (const void* s : streams) p.vec_ok = p.vec_ok && aligned16(s);
@@ -416,10 +478,10 @@ int blocks_for(int64_t work) {
   return static_cast<int>(need < 1 ? 1 : (need < kMaxBlocks ? need : kMaxBlocks));
 }
 
-template <bool kRandom, bool kGray>
+template <bool kRandom, bool kGray, bool kWindow>
 int launch_edges(const Params& p, cudaStream_t stream) {
   const int blocks = blocks_for(p.slots);
-  observer_pass<kRandom, kGray><<<blocks, kThreads, 0, stream>>>(p);
+  observer_pass<kRandom, kGray, kWindow><<<blocks, kThreads, 0, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gather_pass<<<blocks, kThreads, 0, stream>>>(p);
@@ -429,24 +491,33 @@ int launch_edges(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // Plain C interface for ctypes. Device pointers; drop_prob and draw are null
-// when random loss is off, the streak/fd_ok pointers when gray_confirm is 0.
+// when random loss is off, the streak/fd_ok pointers when gray_confirm is 0,
+// the fd_hist/fd_seen pointers under the cumulative policy (window 0), and
+// the fd_fail pointers under the windowed one (window in [1, 16], with
+// window_fire the failures in a full window that fire; no gray path).
 // The wrapper allocates the kernel's scratch:
 // node_table of 2 * ceil(C / 32) + 1 words (the node state planes, then the
 // any_down flag) and new_down of ceil((C*K + 32) / 32) words. Returns the
-// first non-zero cudaGetLastError() after a launch (0 = all launched).
+// first non-zero cudaGetLastError() after a launch (0 = all launched), or
+// cudaErrorInvalidValue for a window out of range or beside the gray path.
 extern "C" int fd_phase_fused(
     const void* active, const void* alive, const void* drop_prob,
     const void* subjects, const void* observers, const void* probe_drop,
     const void* down_reports, const void* draw, const void* fd_fail,
     const void* alerted, const void* fd_streak, const void* fd_ok,
-    const void* round, void* alive_out, void* fd_fail_out, void* alerted_out,
-    void* fd_streak_out, void* fd_ok_out, void* down_arrivals, void* node_table,
-    void* new_down, long long c, int k, int threshold, int gray_confirm,
-    int gray_warmup, int rounds_per_interval, void* stream) {
+    const void* fd_hist, const void* fd_seen, const void* round,
+    void* alive_out, void* fd_fail_out, void* alerted_out, void* fd_streak_out,
+    void* fd_ok_out, void* fd_hist_out, void* fd_seen_out, void* down_arrivals,
+    void* node_table, void* new_down, long long c, int k, int threshold,
+    int gray_confirm, int gray_warmup, int rounds_per_interval, int window,
+    int window_fire, void* stream) {
   if (c <= 0 || k <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool random = draw != nullptr;
   const bool gray = gray_confirm > 0;
+  const bool windowed = window > 0;
+  if (window < 0 || window > 16 || (windowed && gray))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint2* node = static_cast<uint2*>(node_table);
   uint32_t* any_down = static_cast<uint32_t*>(node_table) + 2 * ((c + 31) / 32);
 
@@ -469,15 +540,19 @@ extern "C" int fd_phase_fused(
   p.probe_drop = static_cast<const uint8_t*>(probe_drop);
   p.down_reports = static_cast<const uint8_t*>(down_reports);
   p.draw = static_cast<const float*>(draw);
-  p.fd_fail = static_cast<const uint8_t*>(fd_fail);
+  p.fd_fail = windowed ? nullptr : static_cast<const uint8_t*>(fd_fail);
   p.alerted = static_cast<const uint8_t*>(alerted);
   p.streak = gray ? static_cast<const uint8_t*>(fd_streak) : nullptr;
   p.fd_ok = gray ? static_cast<const uint8_t*>(fd_ok) : nullptr;
+  p.hist = windowed ? static_cast<const int32_t*>(fd_hist) : nullptr;
+  p.seen = windowed ? static_cast<const uint8_t*>(fd_seen) : nullptr;
   p.active = static_cast<const uint8_t*>(active);
-  p.fd_fail_out = static_cast<uint8_t*>(fd_fail_out);
+  p.fd_fail_out = windowed ? nullptr : static_cast<uint8_t*>(fd_fail_out);
   p.alerted_out = static_cast<uint8_t*>(alerted_out);
   p.streak_out = gray ? static_cast<uint8_t*>(fd_streak_out) : nullptr;
   p.fd_ok_out = gray ? static_cast<uint8_t*>(fd_ok_out) : nullptr;
+  p.hist_out = windowed ? static_cast<int32_t*>(fd_hist_out) : nullptr;
+  p.seen_out = windowed ? static_cast<uint8_t*>(fd_seen_out) : nullptr;
   p.down_arrivals = static_cast<uint8_t*>(down_arrivals);
   p.new_down = static_cast<uint16_t*>(new_down);
   p.n = static_cast<int64_t>(c) * k;
@@ -485,12 +560,19 @@ extern "C" int fd_phase_fused(
   p.threshold = threshold;
   p.confirm = gray_confirm;
   p.warmup = gray_warmup;
+  p.window = window;
+  p.window_fire = window_fire;
+  p.window_mask = windowed ? (1u << window) - 1u : 0u;
   set_slots(p);
 
-  if (random) {
-    return gray ? launch_edges<true, true>(p, st)
-                : launch_edges<true, false>(p, st);
+  if (windowed) {
+    return random ? launch_edges<true, false, true>(p, st)
+                  : launch_edges<false, false, true>(p, st);
   }
-  return gray ? launch_edges<false, true>(p, st)
-              : launch_edges<false, false>(p, st);
+  if (random) {
+    return gray ? launch_edges<true, true, false>(p, st)
+                : launch_edges<true, false, false>(p, st);
+  }
+  return gray ? launch_edges<false, true, false>(p, st)
+              : launch_edges<false, false, false>(p, st);
 }

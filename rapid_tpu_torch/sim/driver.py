@@ -6,18 +6,20 @@ protocol: ring/adjacency construction at configuration changes
 xxHash64, bit-compatible with the JVM), the append-only identifiersSeen set
 (MembershipView.java:51,155), the fault API (crash bursts, one-way ingress
 partitions, lossy ingress, flip-flop, leaves, join waves, delivery groups and
-delays) and both dispatch branches of ``run_until_decision``. Method names
-and signatures follow the JAX driver, plus a ``device`` argument.
+delays), identities seated ahead of joins, bridged external voters, both
+dispatch branches of ``run_until_decision`` with the classic-Paxos fallback
+round (``classic.py``), and the configuration snapshot. Method names and
+signatures follow the JAX driver, plus a ``device`` argument.
 
-Not in this port yet (ROADMAP.md, Queue 1): the classic-Paxos fallback
-round, the speculative view-change worker, the mesh, and the placement,
-handoff, serving, SLO, durability, hierarchy, forensics, profiling, metrics
-and tracing planes.
+Not in this port yet (ROADMAP.md, Queue 1): the speculative view-change
+worker, the mesh, and the placement, handoff, serving, SLO, durability,
+hierarchy, forensics, profiling, metrics and tracing planes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Set, Tuple
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from ..hashing import xxh64_batch_auto
+from .classic import ClassicCoordinator
 from .engine import (
+    FAST_RANK,
     RANK_BITS,
     RoundInputs,
     SimConfig,
@@ -39,6 +43,12 @@ from .engine import (
     unpack_decision,
 )
 from .topology import VirtualCluster, _int64_le_bytes, config_fold, ring_order
+
+# rounds a classic recovery exchange bills with no latency skew: phase1a,
+# phase1b, phase2a, phase2b, one delivery hop each (the JAX driver's
+# _CLASSIC_ROUND_HOPS); under skew the winning coordinator's cutoffs are
+# billed instead
+_CLASSIC_ROUND_HOPS = 4
 
 
 def _pow2_chunks(n: int, batch: int) -> List[int]:
@@ -150,6 +160,10 @@ class Simulator:
         self._join_reports_armed = False
         self._pending_leavers: Set[int] = set()
         self._injected_down = np.zeros((capacity, k), dtype=bool)
+        # host-side randomness for the classic-fallback coordinator race
+        # (which nodes' expovariate timers fire first, FastPaxos.java:200-203),
+        # seeded as the JAX driver seeds it so runs replay alike
+        self._host_rng = np.random.default_rng(self.seed ^ 0x5EED_C1A5)
         # membership-invariant element hashes: construction cost, not
         # protocol time (they feed every configuration_id fold)
         self.cluster.node_hashes()
@@ -160,6 +174,10 @@ class Simulator:
         """Fresh-configuration state, built on the device
         (engine.device_initial_state), and this configuration's random-loss
         generator, seeded as the JAX driver seeds its PRNG key."""
+        # extern proposal rows, the per-sender vote dedup, and the classic
+        # round counter are per-configuration, like every consensus latch
+        self._extern_rows: dict = {}  # proposal-mask bytes -> extern row
+        self._extern_voted: Set[int] = set()
         self._last_announcement: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._classic_attempts = 0
         dev = self.device
@@ -177,14 +195,20 @@ class Simulator:
         return device_initial_state(
             self.config,
             self._ring_rank_dev,
-            torch.as_tensor(self.active, device=dev),
-            torch.as_tensor(self.alive & self.active, device=dev),
-            torch.as_tensor(self.group_of, device=dev),
-            torch.as_tensor(self.auto_vote, device=dev),
+            self._tensor(self.active),
+            self._tensor(self.alive & self.active),
+            self._tensor(self.group_of),
+            self._tensor(self.auto_vote),
         )
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(arr, device=self.device)
+        """A copy of a host array on the device: never a view of the array,
+        which the host goes on mutating, and on CUDA queued from pinned
+        memory, so the host does not wait for it."""
+        t = torch.from_numpy(np.array(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     # ------------------------------------------------------------------ #
     # Fault injection (BASELINE.json configs)
@@ -222,11 +246,49 @@ class Simulator:
         self._injected_down[dst, list(rings)] = True
         self._down_reports_dev = None
 
+    def assign_identity(
+        self, slot: int, hostname: bytes, port: int, id_high: int, id_low: int
+    ) -> None:
+        """Seat a process identity in an inactive slot ahead of its join; see
+        VirtualCluster.assign_identity. Re-seating a slot whose previous
+        identity was admitted in some past configuration is legal (the
+        identifier history is stored by value), but identifier reuse is not
+        (MembershipView.java:101-116)."""
+        assert not self.active[slot] and slot not in self._pending_joiners
+        assert (id_high, id_low) not in self._seen_identifier_set(), (
+            "identifier reuse"
+        )
+        self.cluster.assign_identity(slot, hostname, port, id_high, id_low)
+        # the device rank table is consumed at the next configuration rebuild
+        # (_fresh_state), so a burst of seatings uploads it once
+        self._ring_rank_dirty = True
+        self._ring_nodes = None
+
     def _seen_identifier_set(self) -> Set[Tuple[int, int]]:
         """Membership test over the identifier history, built on first use."""
         if self._seen_set is None:
             self._seen_set = {(int(h), int(l)) for h, l in self._seen_ids}
         return self._seen_set
+
+    def is_identifier_seen(self, id_high: int, id_low: int) -> bool:
+        return (id_high, id_low) in self._seen_identifier_set()
+
+    @property
+    def identifiers_seen(self) -> Set[Tuple[int, int]]:
+        """The append-only identifier history, as (high, low) values."""
+        return set(self._seen_identifier_set())
+
+    @property
+    def pending_joiners(self) -> Set[int]:
+        return set(self._pending_joiners)
+
+    @property
+    def pending_leavers(self) -> Set[int]:
+        return set(self._pending_leavers)
+
+    def endpoint_of(self, slot: int) -> Tuple[bytes, int]:
+        host = bytes(self.cluster.hostnames[slot, : self.cluster.host_lengths[slot]])
+        return host, int(self.cluster.ports[slot])
 
     def one_way_ingress_partition(self, node_ids: np.ndarray) -> None:
         """Asymmetric failure: probes TO these nodes are lost, their own
@@ -277,6 +339,71 @@ class Simulator:
         )
         self._deliver_delay[receiver_group, np.atleast_1d(sender_nodes)] = rounds
         self._deliver_delay_dev = None
+
+    # ------------------------------------------------------------------ #
+    # Bridged (external) voters
+    # ------------------------------------------------------------------ #
+
+    def set_auto_vote(self, slot: int, enabled: bool) -> None:
+        """Transfer fast-round vote ownership of a slot between the engine
+        and an external voter (a bridged real member). With auto_vote off,
+        the slot's vote counts only when the host registers the node's
+        actually-received vote. Clear it before the slot's first
+        configuration as a member: an already-cast vote is not retracted."""
+        self.auto_vote[slot] = bool(enabled)
+        self.state = dataclasses.replace(self.state, auto_vote=self._tensor(self.auto_vote))
+
+    def register_extern_vote(self, slot: int, cut: np.ndarray) -> bool:
+        """Count an external member's fast-round vote in the device tally
+        (FastPaxos.java:134-150): intern the voted cut as a proposal row
+        (identical values pool with group proposals in the tally), mark the
+        sender's per-node vote state, and put the vote in flight so it
+        arrives one delivery round later. Only the first vote of a sender in
+        a configuration counts. Returns True iff the vote was registered.
+
+        Until a classic round has run in this configuration no rank can
+        exceed the fast rank, so the call reads nothing back from the device;
+        its writes are device ops and, for a new row, one upload."""
+        if slot in self._extern_voted:
+            return False  # dedup by sender (FastPaxos.java:134-141)
+        if self._classic_attempts > 0 and self._classic_rank(slot) >= FAST_RANK:
+            # the slot already joined a classic round: its fast vote must not
+            # count toward a fast quorum (registerFastRoundVote refuses once
+            # rnd.round > 1, Paxos.java:246-248), the engine's gate too
+            return False
+        mask = np.zeros(self.config.capacity, dtype=bool)
+        mask[np.atleast_1d(cut)] = True
+        key = mask.tobytes()
+        row = self._extern_rows.get(key)
+        st = self.state
+        if row is None:
+            if len(self._extern_rows) >= self.config.extern_proposals:
+                logging.getLogger(__name__).warning(
+                    "no free extern proposal row (extern_proposals=%d); "
+                    "dropping external vote from slot %d",
+                    self.config.extern_proposals, slot,
+                )
+                return False
+            row = self.config.groups + len(self._extern_rows)
+            self._extern_rows[key] = row
+            st = dataclasses.replace(
+                st,
+                proposal=_with(st.proposal, row, self._tensor(mask)),
+                announced=_with(st.announced, row, True),
+            )
+        # out of place: an earlier state may still reference these tensors
+        self.state = dataclasses.replace(
+            st,
+            voted=_with(st.voted, slot, True),
+            vote_prop=_with(st.vote_prop, slot, row),
+            vote_new=_with(st.vote_new, slot, True),
+        )
+        self._extern_voted.add(slot)
+        return True
+
+    def _classic_rank(self, slot: int) -> int:
+        """The highest classic rank ``slot`` has promised (one host sync)."""
+        return int(self.state.classic_rnd[slot])
 
     def _probe_drop_mask(self) -> np.ndarray:
         """Map the partitioned-destination set onto the current adjacency."""
@@ -425,9 +552,9 @@ class Simulator:
         the packed decision words.
 
         If the fast round stalls for ``classic_fallback_after_rounds``
-        rounds, the JAX driver runs a classic Paxos recovery round; this
-        port raises NotImplementedError there (ROADMAP.md, Queue 1), after
-        the JAX driver's early returns for a round that cannot decide.
+        rounds, a classic Paxos recovery round runs (``_run_classic_round``,
+        at most one per batch); a decision there bills the exchange's hops
+        and sets ``via_classic_round`` on the record.
 
         ``stop_when_announced``: return (None) as soon as a proposal is
         announced but undecided, leaving the announcement snapshot in
@@ -478,8 +605,15 @@ class Simulator:
                     classic_fallback_after_rounds is not None
                     and stalled_rounds >= classic_fallback_after_rounds
                 ):
-                    # returns only where a classic round could not decide
-                    self._run_classic_round()
+                    winner, exchange_rounds = self._run_classic_round()
+                    if winner is not None:
+                        # the fetched words hold every proposal row, so the
+                        # decision needs no write back to the device
+                        record = self._apply_view_change(
+                            t0, (proposal_np, winner, round_np + exchange_rounds)
+                        )
+                        record.via_classic_round = True
+                        return record
         self.virtual_ms += rounds_done * self._round_ms
         self._billed_rounds += rounds_done
         return None
@@ -497,20 +631,55 @@ class Simulator:
         of one under the staggered-phase asynchrony model)."""
         return self.config.fd_interval_ms // self.config.rounds_per_interval
 
-    def _run_classic_round(self) -> None:
-        """The JAX driver's early returns for a classic recovery attempt that
-        cannot decide (no live majority, or the rank space is exhausted);
-        past them the attempt itself is not ported yet."""
+    def _run_classic_round(self) -> Tuple[Optional[int], int]:
+        """One classic recovery attempt with per-node acceptor state on the
+        device (``classic.py``). Every live node's expovariate fallback timer
+        races (FastPaxos.java:200-203: delay ~ Exp(1/N)); the nodes whose
+        timers fire within one round of the first coordinate concurrently (at
+        most 3), their promises contending on the shared acceptor state. The
+        attempt's round number grows with each attempt, so retries outrank
+        earlier rounds.
+
+        Returns (decided proposal row or None, the winning coordinator's
+        exchange rounds to bill -- _CLASSIC_ROUND_HOPS when the attempt
+        failed or no latency skew is active)."""
         live = self.active & self.alive
         n = int(self.active.sum())
         if int(live.sum()) <= n // 2:
-            return
+            return None, _CLASSIC_ROUND_HOPS
         if 2 + self._classic_attempts >= (1 << (31 - RANK_BITS)):
-            return  # rank space exhausted: stay stalled
-        raise NotImplementedError(
-            "the classic Paxos fallback round (rapid_tpu/sim/classic.py) is not "
-            "ported yet (see ROADMAP.md, Queue 1)"
-        )
+            return None, _CLASSIC_ROUND_HOPS  # rank space exhausted: stay stalled
+        self._classic_attempts += 1
+        live_slots = np.flatnonzero(live)
+        times = self._host_rng.exponential(scale=max(n, 1), size=len(live_slots))
+        order = np.argsort(times)
+        sorted_times = times[order]
+        racing = min(1 + int((sorted_times[1:] - sorted_times[0] < 1.0).sum()), 3)
+        coordinators = [
+            ClassicCoordinator(
+                self, round_no=1 + self._classic_attempts, slot=int(live_slots[order[i]])
+            )
+            for i in range(racing)
+        ]
+        # phase1 wave in arrival order; the higher slot outranks within the
+        # shared round, and the acceptors' rank checks arbitrate
+        promised = [c.phase1() for c in coordinators]
+        decided = None
+        exchange_rounds = _CLASSIC_ROUND_HOPS
+        for coordinator, ok in zip(coordinators, promised):
+            if not ok:
+                continue
+            row = coordinator.pick_value()
+            if row is None:
+                continue
+            won = coordinator.phase2(row)
+            if won is not None and decided is None:
+                decided = won
+                exchange_rounds = coordinator.elapsed_rounds
+        # the JAX driver counts racing > 1 as "classic_coordinator_races" in
+        # its metrics plane, which the port gains with the host planes
+        # (ROADMAP.md, Queue 1 item 5)
+        return decided, exchange_rounds
 
     def _apply_view_change(
         self,
@@ -629,15 +798,45 @@ class Simulator:
         return np.flatnonzero(self.active)
 
     # ------------------------------------------------------------------ #
-    # Resume from a configuration snapshot
+    # Configuration snapshot
     # ------------------------------------------------------------------ #
+
+    def save_configuration(self, path: str, extra: Optional[dict] = None) -> None:
+        """Persist the configuration snapshot, with the JAX driver's keys, so
+        either package's ``from_configuration`` restores it: node identities,
+        the membership, the append-only identifier history, and the clock
+        (MembershipView Configuration, MembershipView.java:517-548).
+        Per-round device state is not persisted; a restarted simulator starts
+        a fresh configuration. ``extra``: more arrays, stored under
+        ``extra_``-prefixed keys and ignored by ``from_configuration``."""
+        np.savez_compressed(
+            path,
+            **{f"extra_{k}": v for k, v in (extra or {}).items()},
+            hostnames=self.cluster.hostnames,
+            host_lengths=self.cluster.host_lengths,
+            ports=self.cluster.ports,
+            id_high=self.cluster.id_high,
+            id_low=self.cluster.id_low,
+            ring_hashes=self.cluster.ring_hashes,
+            active=self.active,
+            alive=self.alive,
+            identifiers_seen=self._seen_ids,  # [M, 2] (high, low) values
+            virtual_ms=np.int64(self.virtual_ms),
+            group_of=self.group_of,
+            params=np.array(
+                [self.config.capacity, self.config.k, self.config.h, self.config.l,
+                 self.config.fd_threshold, self.config.fd_interval_ms,
+                 self.config.batching_window_ms, self.seed, self.config.groups],
+                dtype=np.int64,
+            ),
+        )
 
     @staticmethod
     def from_configuration(
         path: str, config_overrides: Optional[dict] = None, device=None
     ) -> "Simulator":
-        """Rebuild a simulator from a configuration snapshot written by the
-        JAX driver's ``save_configuration``; the configuration id of the
+        """Rebuild a simulator from a configuration snapshot written by
+        either package's ``save_configuration``; the configuration id of the
         restored instance equals the saved one. ``config_overrides``:
         SimConfig fields to replace on top of the saved parameters."""
         with np.load(path) as data:
@@ -686,3 +885,16 @@ class Simulator:
             sim.auto_vote = np.ones(capacity, dtype=bool)
         sim._init_runtime_state()
         return sim
+
+
+def _with(t: torch.Tensor, index: int, value) -> torch.Tensor:
+    """A copy of ``t`` with ``t[index] = value``, and ``t`` left as it was.
+    Device ops only: a scalar is written by ``fill_``, which takes it as a
+    kernel argument (``out[index] = scalar`` blocks on a host copy)."""
+    out = t.clone()
+    target = out.select(0, index)
+    if isinstance(value, torch.Tensor):
+        target.copy_(value)
+    else:
+        target.fill_(value)
+    return out

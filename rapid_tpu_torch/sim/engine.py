@@ -1,9 +1,11 @@
 """Device-side data plane: the protocol round step, in PyTorch.
 
 The port of ``rapid_tpu/sim/engine.py``. Each simulated round
-1. evaluates every monitoring edge's probe (PingPongFailureDetector semantics:
-   cumulative failure counter, threshold 10 -- PingPongFailureDetector.java:40,69-77),
-   and
+1. evaluates every monitoring edge's probe under one of two FD policies: the
+   reference code's cumulative failure counter, threshold 10
+   (PingPongFailureDetector.java:40,69-77), or the paper's window, an edge
+   faulty once at least a fraction of its last W probes failed (atc-2018
+   section 6), and
 2. routes newly-crossed edges as DOWN alerts along the observer->subject
    adjacency (MembershipService.java:602-626), both in the hand-written CUDA
    kernel ``kernels.fd_phase_fused`` on the scan path,
@@ -123,18 +125,6 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
-
-
-def _require_supported(config: SimConfig) -> None:
-    if config.fd_policy != "cumulative":
-        raise NotImplementedError(
-            f"fd_policy={config.fd_policy!r} is not ported yet ({_ROADMAP})"
-        )
-    if config.extern_proposals:
-        raise NotImplementedError(
-            f"extern_proposals > 0 (bridged real voters) is not ported yet "
-            f"({_ROADMAP})"
-        )
 
 
 @dataclass(frozen=True)
@@ -272,7 +262,6 @@ def initial_state(
     """Fresh-configuration state from the host adjacency build. (The JAX
     version's ``seed`` went into the state's key; the port's state holds no
     key.)"""
-    _require_supported(config)
     dev = resolve_device(device)
     subjects, observers = build_adjacency(cluster, active)
     c = config.capacity
@@ -461,6 +450,47 @@ def probe_phases(config: SimConfig, device=None) -> torch.Tensor:
     )
 
 
+def window_params(config: SimConfig) -> Tuple[int, int, int]:
+    """(window size W, firing threshold t, bitmask) of the windowed policy --
+    the JAX engine's ``_window_params``, with its float64 rounding of t,
+    computed once on the host; the kernel receives t as an integer."""
+    w = config.fd_window
+    t = int(np.ceil(config.fd_window_threshold * w))
+    return w, t, (1 << w) - 1
+
+
+def window_step(
+    config: SimConfig,
+    hist: torch.Tensor,  # int32[., K] last-W probe outcomes (JAX: uint16)
+    seen: torch.Tensor,  # uint8[., K] probes recorded, saturating at W
+    probed: torch.Tensor,  # bool[., K] a probe was recorded on this edge
+    fail_event: torch.Tensor,  # bool[., K] the recorded probe failed
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One recorded-probe update of the sliding window, returning ``(hist,
+    seen, crossed)``: the paper policy's firing rule (an edge is faulty when
+    at least ``fd_window_threshold`` of its last ``fd_window`` recorded
+    probes failed, once a full window has been recorded), shared by the scan
+    step's plain version and the closed form. The population count is a
+    SWAR count (``kernels.popcount16``)."""
+    w, t, _ = window_params(config)
+    return kernels.window_update(hist, seen, probed, fail_event, w, t)
+
+
+def windowed_fd_phase(
+    config: SimConfig,
+    state: SimState,
+    probed: torch.Tensor,
+    fail_event: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-round windowed FD phase over ``SimState``: ``window_step``
+    plus the one-shot alert latch. ``fd_fail`` is not touched. Returns
+    ``(fd_hist, fd_seen, new_down)``."""
+    fd_hist, fd_seen, crossed = window_step(
+        config, state.fd_hist, state.fd_seen, probed, fail_event
+    )
+    return fd_hist, fd_seen, crossed & ~state.alerted
+
+
 def _fd_phase(
     config: SimConfig,
     state: SimState,
@@ -471,8 +501,9 @@ def _fd_phase(
     """Probe evaluation + alert routing, the leading phase of ``step``: the
     round's uniform draw (with ``random_loss``), then the CUDA kernel
     ``fd_phase_fused`` (its plain version for CPU tensors), which reads the
-    state's int32 adjacency and its round counter directly. Returns
-    ``(alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals)``."""
+    state's int32 adjacency and its round counter directly, under the
+    config's FD policy. Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok,
+    down_arrivals, fd_hist, fd_seen)``."""
     draw = None
     if random_loss:
         if generator is None:
@@ -480,6 +511,9 @@ def _fd_phase(
         draw = torch.rand(
             (config.capacity, config.k), generator=generator, device=state.active.device
         )
+    window, fire = 0, 0
+    if config.fd_policy == "windowed":
+        window, fire, _ = window_params(config)
     return kernels.fd_phase_fused(
         state.active, inputs.alive, inputs.drop_prob, state.subjects,
         state.observers, inputs.probe_drop, inputs.down_reports, draw,
@@ -487,6 +521,7 @@ def _fd_phase(
         threshold=config.fd_threshold, gray_confirm=config.fd_gray_confirm,
         gray_warmup=config.fd_gray_warmup,
         rounds_per_interval=config.rounds_per_interval,
+        fd_hist=state.fd_hist, fd_seen=state.fd_seen, window=window, window_fire=fire,
     )
 
 
@@ -496,9 +531,8 @@ def _step(
     obs: torch.Tensor,  # int64[C, K] state.observers, for route_and_tally
 ) -> SimState:
     halt = state.decided
-    alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals = _fd_phase(
-        config, state, inputs, random_loss, generator
-    )
+    (alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
+     fd_seen) = _fd_phase(config, state, inputs, random_loss, generator)
     tallied = route_and_tally(
         config, state, down_arrivals, inputs, state.active, alive,
         observers_idx=obs,
@@ -507,6 +541,8 @@ def _step(
         tallied,
         alive=inputs.alive,
         fd_fail=fd_fail,
+        fd_hist=fd_hist,
+        fd_seen=fd_seen,
         fd_streak=fd_streak,
         fd_ok=fd_ok,
         alerted=alerted,
@@ -524,7 +560,6 @@ def step(
     """One protocol round. With ``random_loss`` the per-edge ingress loss is
     drawn from ``generator``, which is then required; without it no number
     is drawn."""
-    _require_supported(config)
     return _step(config, state, inputs, random_loss, generator, state.observers.long())
 
 
@@ -545,7 +580,6 @@ def run_rounds_const(
 ) -> SimState:
     """``rounds`` rounds of ``step`` under a constant fault plane; rounds
     after a decision are masked no-ops. The input state is not modified."""
-    _require_supported(config)
     obs = state.observers.long()
     for _ in range(rounds):
         state = _step(config, state, inputs, random_loss, generator, obs)
@@ -561,10 +595,12 @@ def run_until_decided_const(
     stop_when_announced: bool = False,
 ) -> SimState:
     """Up to ``max_rounds`` rounds of a *constant, deterministic* fault plane
-    in one dispatch, with the probe phase in closed form (cumulative policy):
-    each edge's probe outcome is the same every probing round, so the round
-    at which it fires is computed up front and each round only tests
-    ``fire_dst == r``.
+    in one dispatch, with the probe phase in closed form: each edge's probe
+    outcome is the same every probing round, so the round at which it fires
+    is computed up front -- for the cumulative policy when the counter crosses
+    the threshold, for the windowed policy by stepping the window recurrence
+    W <= 16 times (after W probes of a constant outcome the window is in
+    steady state) -- and each round only tests ``fire_dst == r``.
 
     As in JAX, from a fresh configuration the dispatch fast-forwards to the
     first alert arrival (skipped rounds still count toward the budget and the
@@ -574,7 +610,6 @@ def run_until_decided_const(
     evaluates ``max_rounds`` rounds and needs no host sync. The result equals
     the JAX function's field for field; it draws no random numbers.
     """
-    _require_supported(config)
     subj, obs = state.subjects.long(), state.observers.long()
     active = state.active
     alive = inputs.alive & active
@@ -590,18 +625,33 @@ def run_until_decided_const(
     rpi = config.rounds_per_interval
     if rpi > 1:
         p_rel = (probe_phases(config, active.device) - state.round) % rpi  # [C]
-    fire_probe = (config.fd_threshold - state.fd_fail.to(torch.int32)).clamp(min=1)
-    if config.fd_gray_confirm > 0:
-        # the streak alert fires at probe confirm - streak0 (>= 1) on edges
-        # whose healthy history was established before this dispatch
-        qualified = state.fd_ok >= config.fd_gray_warmup
-        gray_probe = (
-            config.fd_gray_confirm - state.fd_streak.to(torch.int32)
-        ).clamp(min=1)
-        fire_probe = torch.where(
-            qualified, torch.minimum(fire_probe, gray_probe), fire_probe
-        )
-    fires = fail_event & ~state.alerted
+    windowed = config.fd_policy == "windowed"
+    if windowed:
+        # step the window recurrence W times (once per dispatch) and record
+        # the first probe index at which it reports a crossing: by probe W
+        # the window holds only new bits, so no later probe fires first
+        probed = edge_live & observer_up
+        fail = probed & ~probe_ok
+        w, _, mask_w = window_params(config)
+        hist, seen = state.fd_hist, state.fd_seen
+        fire_probe = torch.full_like(state.fd_hist, _NEVER)
+        for j in range(1, w + 1):
+            hist, seen, crossed = window_step(config, hist, seen, probed, fail)
+            fire_probe = torch.where(crossed & (fire_probe == _NEVER), j, fire_probe)
+        fires = (fire_probe != _NEVER) & ~state.alerted
+    else:
+        fire_probe = (config.fd_threshold - state.fd_fail.to(torch.int32)).clamp(min=1)
+        if config.fd_gray_confirm > 0:
+            # the streak alert fires at probe confirm - streak0 (>= 1) on
+            # edges whose healthy history was established before this dispatch
+            qualified = state.fd_ok >= config.fd_gray_warmup
+            gray_probe = (
+                config.fd_gray_confirm - state.fd_streak.to(torch.int32)
+            ).clamp(min=1)
+            fire_probe = torch.where(
+                qualified, torch.minimum(fire_probe, gray_probe), fire_probe
+            )
+        fires = fail_event & ~state.alerted
     fire_round = p_rel[:, None] + 1 + (fire_probe - 1) * rpi if rpi > 1 else fire_probe
     fire = torch.where(fires, fire_round, _NEVER)
     # dst-indexed arrival round; proactive DOWN reports arrive in round 1
@@ -651,6 +701,21 @@ def run_until_decided_const(
     else:
         probes = r_exec
     alerted = state.alerted | (fire <= r_exec)
+    if windowed:
+        # hist after p probes of constant outcome f: (hist0 << p | f * (2^p -
+        # 1)) masked; only min(p, W) <= 16 matters. Shifted in int64, where a
+        # shift by 16 of a 16-bit value cannot overflow.
+        p_eff = probes.clamp(max=w).long()
+        shifted = state.fd_hist.long() << p_eff
+        fills = torch.where(fail, (torch.ones_like(p_eff) << p_eff) - 1, 0)
+        hist_new = ((shifted | fills) & mask_w).to(torch.int32)
+        fd_hist = torch.where(probed, hist_new, state.fd_hist)
+        fd_seen = torch.where(
+            probed,
+            (state.fd_seen.to(torch.int32) + probes).clamp(max=w).to(torch.uint8),
+            state.fd_seen,
+        )
+        return dataclasses.replace(final, fd_hist=fd_hist, fd_seen=fd_seen, alerted=alerted)
     fd_fail = (
         state.fd_fail.to(torch.int32) + probes * fail_event.to(torch.int32)
     ).clamp(max=255).to(torch.uint8)
@@ -684,7 +749,6 @@ def device_initial_state(
     predecessor/successor by index arithmetic mod n, scattered into
     ``subjects``/``observers`` (the scatter's indices are a permutation).
     Equal to the host ``build_adjacency`` order."""
-    _require_supported(config)
     c, k = config.capacity, config.k
     dev = active.device
     keys = torch.where(active[None, :], ring_rank, _NEVER)

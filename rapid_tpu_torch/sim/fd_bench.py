@@ -7,9 +7,11 @@ through more than the 50 MB L2 (cold, as ``chip_smoke.py`` times it), under
 ``torch.profiler``; one JSON line per size gives each of its CUDA passes'
 device time per call (``node_pass``, ``observer_pass``, ``gather_pass``),
 beside the bytes the phase must move, for a round in which edges raise
-alerts and for a quiet round, in which none does.
+alerts and for a quiet round, in which none does, under the cumulative
+policy and (``windowed_*`` keys) under the windowed one (W 10, t 4).
 Needs an NVIDIA GPU; exits non-zero without one. ``chip_smoke.py`` builds
-its inputs with ``fused_case`` and its bound with ``fused_bytes``.
+its inputs with ``fused_case`` (and, for the windowed policy,
+``window_planes``) and its bound with ``fused_bytes``.
 """
 
 from __future__ import annotations
@@ -28,16 +30,20 @@ from . import engine, kernels
 L2_BYTES = 50e6  # H100 L2 cache
 
 
-def fused_bytes(c: int, k: int, gray: bool, random: bool, alerts: bool = True) -> int:
+def fused_bytes(c: int, k: int, gray: bool, random: bool, alerts: bool = True,
+                window: bool = False) -> int:
     """Bytes the fused phase must move: each input read once and each output
     written once. Per edge: subjects, observers (4 B each), probe_drop,
-    fd_fail, alerted, down_reports in and fd_fail, alerted, down_arrivals out
-    (1 B each), the draw (4 B) with random loss, fd_streak and fd_ok in and
-    out (4 B) with the gray path. Per node: active, alive in and alive out,
-    and drop_prob (4 B) with random loss. A round in which no edge raises an
-    alert (``alerts`` false) need not read the observers. The kernel's own
-    node table and new_down bits do not count."""
-    edge = 4 + 1 + 1 + 1 + 1 + 3 + (4 if alerts else 0) + (4 if random else 0) + (4 if gray else 0)
+    alerted, down_reports in and alerted, down_arrivals out (1 B each), the
+    policy's planes -- fd_fail in and out (2 B), or with the ``window`` the
+    int32 fd_hist and the uint8 fd_seen in and out (10 B) -- the draw (4 B)
+    with random loss, fd_streak and fd_ok in and out (4 B) with the gray
+    path. Per node: active, alive in and alive out, and drop_prob (4 B) with
+    random loss. A round in which no edge raises an alert (``alerts`` false)
+    need not read the observers. The kernel's own node table and new_down
+    bits do not count."""
+    edge = (4 + 1 + 1 + 1 + 2 + (10 if window else 2) + (4 if alerts else 0)
+            + (4 if random else 0) + (4 if gray else 0))
     node = 3 + (4 if random else 0)
     return c * k * edge + c * node + 4  # + the round counter
 
@@ -73,6 +79,21 @@ def fused_case(c: int, seed: int, device, random: bool, k: int = 10):
     )
 
 
+def window_planes(c: int, window: int, seed: int, device, k: int = 10):
+    """``fd_hist``/``fd_seen`` of a windowed round at [c, k]: partly filled
+    windows (half of them full, the rest counted in [0, W)), each
+    recorded probe failed with probability 0.5, so that some edges cross
+    a threshold of 0.4 or 0.7 this round and others do not."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.rand((c, k, window), generator=gen, device=device) < 0.5
+    weights = 1 << torch.arange(window, device=device, dtype=torch.int32)
+    hist = (bits.to(torch.int32) * weights).sum(dim=-1, dtype=torch.int32)
+    seen = torch.randint(0, window, (c, k), generator=gen, device=device, dtype=torch.uint8)
+    seen = torch.where(torch.rand((c, k), generator=gen, device=device) < 0.5,
+                       window, seen).to(torch.uint8)
+    return hist, seen
+
+
 def cold_sets(c: int, random: bool, device, k: int = 10):
     """Enough input sets (at least 4) that rotating through them exceeds the
     L2 twice."""
@@ -86,18 +107,24 @@ def quiet(sets):
     return [a[:8] + (torch.zeros_like(a[8]),) + a[9:] for a in sets]
 
 
-def profile_passes(sets, calls: int) -> dict:
+def profile_passes(sets, calls: int, planes=None) -> dict:
     """Device time per call of each CUDA pass of ``fd_phase_fused``, over
-    ``calls`` calls rotating through ``sets``."""
+    ``calls`` calls rotating through ``sets``; with ``planes`` (one
+    ``(fd_hist, fd_seen)`` a set) its windowed instantiation, W 10, t 4."""
     from torch.profiler import ProfilerActivity, profile
 
-    kw = dict(threshold=10)
-    for a in sets:
-        kernels.fd_phase_fused(*a, **kw)
+    def kw(i):
+        if planes is None:
+            return dict(threshold=10)
+        hist, seen = planes[i % len(planes)]
+        return dict(threshold=10, window=10, window_fire=4, fd_hist=hist, fd_seen=seen)
+
+    for i, a in enumerate(sets):
+        kernels.fd_phase_fused(*a, **kw(i))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(calls):
-            kernels.fd_phase_fused(*sets[i % len(sets)], **kw)
+            kernels.fd_phase_fused(*sets[i % len(sets)], **kw(i))
         torch.cuda.synchronize()
     us = collections.Counter()
     for e in prof.events():
@@ -122,11 +149,16 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     for c in args.sizes:
         sets = cold_sets(c, True, "cuda")
+        planes = [window_planes(c, 10, 9000 + i, "cuda") for i in range(len(sets))]
+        no_full_window = [(h, torch.zeros_like(n)) for h, n in planes]
         out = {"card": card, "size": [c, 10], "input_sets": len(sets),
                "bound_bytes": fused_bytes(c, 10, False, True),
                "quiet_bound_bytes": fused_bytes(c, 10, False, True, alerts=False),
                "us_per_call": profile_passes(sets, args.calls),
-               "quiet_us_per_call": profile_passes(quiet(sets), args.calls)}
+               "quiet_us_per_call": profile_passes(quiet(sets), args.calls),
+               "windowed_bound_bytes": fused_bytes(c, 10, False, True, window=True),
+               "windowed_us_per_call": profile_passes(sets, args.calls, planes),
+               "windowed_quiet_us_per_call": profile_passes(sets, args.calls, no_full_window)}
         print(json.dumps(out), flush=True)
         del sets
         torch.cuda.empty_cache()

@@ -27,7 +27,7 @@ from . import fd_bench, kernels
 _OBSERVER_LOOKUP = "  for (int i = 0; i < kVec; ++i) ss[i] = node_state(p, subj.i[i]);"
 _DROP_LOOKUP = ("if (kRandom && ok && subj_state == 3) "
                 "ok = !(draw < __ldg(p.drop_prob + subject));")
-_EDGE_STEP_CALL = "const Edge r = edge_step<kRandom, kGray>(p, up[i], ss[i], subj.i[i], drop.b[i],"
+_EDGE_STEP_CALL = "p, up[i], ss[i], subj.i[i], drop.b[i], draw.f[i],"
 _OBSERVER_BOUNDS = "__global__ void __launch_bounds__(kThreads) observer_pass(Params p)"
 
 VARIANTS = {

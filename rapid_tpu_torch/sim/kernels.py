@@ -7,7 +7,8 @@ their build and their launch counters.
   the Pallas contract, ``fd_phase_u8`` the engine's saturating counter.
 - ``fd_phase_fused`` (``csrc/fd_phase_fused.cu``) is the whole FD phase of one
   scan round, from the state tensors to the destination-indexed alert
-  arrivals; the scan path launches it every round.
+  arrivals, under either FD policy (the cumulative counter, or the paper's
+  window of the last W probes); the scan path launches it every round.
 
 Each source under ``csrc/`` is compiled with ``nvcc`` on first use into its
 own library under ``build/kernels/`` of the checkout (all sources at once, in
@@ -16,8 +17,10 @@ The build and the CUDA launch happen only for CUDA tensors; a wrapper given
 CPU tensors runs the kernel's plain version, which is also what the tests and
 ``chip_smoke.py`` hold the kernel against.
 
-``LAUNCHES`` counts launches per kernel: a wrapper adds one where it launches
-its kernel, and nowhere else.
+``LAUNCHES`` counts launches per kernel, and per policy for
+``fd_phase_fused`` (``fd_phase_fused_windowed`` counts its windowed
+instantiation): a wrapper adds one where it launches its kernel, and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -40,13 +43,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: Dict[str, int] = {"fd_phase_i32": 0, "fd_phase_u8": 0, "fd_phase_fused": 0}
+LAUNCHES: Dict[str, int] = {
+    "fd_phase_i32": 0, "fd_phase_u8": 0, "fd_phase_fused": 0, "fd_phase_fused_windowed": 0,
+}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fd_phase_i32": [_P] * 8 + [_LL, _I, _P],
     "fd_phase_u8": [_P] * 8 + [_LL, _I, _P],
-    "fd_phase_fused": [_P] * 21 + [_LL] + [_I] * 5 + [_P],
+    "fd_phase_fused": [_P] * 25 + [_LL] + [_I] * 7 + [_P],
 }
 
 _functions: Optional[Dict[str, ctypes._CFuncPtr]] = None
@@ -242,6 +247,35 @@ def probe_phases(capacity: int, rounds_per_interval: int, device=None) -> torch.
     return (((idx * 2654435761) & 0xFFFFFFFF) % rounds_per_interval).to(torch.int32)
 
 
+def popcount16(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each element of an integer tensor whose values lie in
+    [0, 2^16) (PyTorch has no population count): a SWAR count, two bits, then
+    four, then eight at a time."""
+    x = x - ((x >> 1) & 0x5555)
+    x = (x & 0x3333) + ((x >> 2) & 0x3333)
+    x = (x + (x >> 4)) & 0x0F0F
+    return (x + (x >> 8)) & 0x1F
+
+
+def window_update(
+    hist: torch.Tensor, seen: torch.Tensor, probed: torch.Tensor,
+    fail_event: torch.Tensor, window: int, fire: int,
+) -> FusedOutputs:
+    """One recorded-probe update of the windowed policy's per-edge state, the
+    rule of the JAX engine's ``window_step``: a probed edge shifts its outcome
+    into ``hist`` (int32 holding the JAX engine's uint16 bits, masked to the
+    last ``window`` probes) and counts it in ``seen`` (uint8, wrapping before
+    the clamp at ``window`` as the uint8 plane does); it is crossed once a full
+    window holds at least ``fire`` failures. Returns ``(hist, seen,
+    crossed)``."""
+    mask = (1 << window) - 1
+    shifted = ((hist << 1) | fail_event.to(torch.int32)) & mask
+    hist = torch.where(probed, shifted, hist)
+    seen = torch.where(probed, (seen + 1).clamp(max=window), seen)
+    crossed = probed & (seen >= window) & (popcount16(hist) >= fire)
+    return hist, seen, crossed
+
+
 def fd_phase_fused_plain(
     active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
     subjects: torch.Tensor, observers: torch.Tensor, probe_drop: torch.Tensor,
@@ -249,15 +283,21 @@ def fd_phase_fused_plain(
     fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
     fd_ok: torch.Tensor, round_: torch.Tensor, *, threshold: int,
     gray_confirm: int = 0, gray_warmup: int = 3, rounds_per_interval: int = 1,
+    fd_hist: Optional[torch.Tensor] = None, fd_seen: Optional[torch.Tensor] = None,
+    window: int = 0, window_fire: int = 0,
 ) -> FusedOutputs:
-    """The cumulative-policy FD phase of one round in plain PyTorch ops: probe
-    evaluation, the saturating counter, the gray streak path (when
-    ``gray_confirm > 0``), the alert latch and the dst-indexed alert routing.
+    """The FD phase of one round in plain PyTorch ops: probe evaluation, the
+    policy's per-edge state, the alert latch and the dst-indexed alert
+    routing. The policy is the cumulative counter with its gray streak path
+    (when ``gray_confirm > 0``), or, with ``window > 0``, the window of the
+    last ``window`` probes on ``fd_hist``/``fd_seen``, firing at
+    ``window_fire`` failures (``window_update``), which leaves ``fd_fail``
+    as it came in.
     ``draw`` is the round's uniform draw in [0, 1) (``None`` without random
     loss): the kernel relies on it being non-negative, so it skips the
     compare for subjects whose ``drop_prob`` is not positive.
-    Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals)``;
-    without the gray path ``fd_streak`` and ``fd_ok`` are the inputs."""
+    Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals,
+    fd_hist, fd_seen)``; a plane the policy does not update is its input."""
     c = subjects.shape[0]
     subj = subjects.long()
     alive = alive & active  # membership ∩ fault-model liveness
@@ -274,9 +314,17 @@ def fd_phase_fused_plain(
         )
         observer_up = observer_up & my_turn[:, None]
 
-    fd_fail, alerted_out, new_down = fd_phase_plain_u8(
-        edge_live, observer_up, probe_ok, fd_fail, alerted, threshold
-    )
+    if window > 0:
+        probed = edge_live & observer_up
+        fd_hist, fd_seen, crossed = window_update(
+            fd_hist, fd_seen, probed, probed & ~probe_ok, window, window_fire
+        )
+        new_down = crossed & ~alerted
+        alerted_out = alerted | new_down
+    else:
+        fd_fail, alerted_out, new_down = fd_phase_plain_u8(
+            edge_live, observer_up, probe_ok, fd_fail, alerted, threshold
+        )
     if gray_confirm > 0:
         # gray streak path: a probe that succeeds resets the streak; one that
         # fails extends it, and a streak of gray_confirm on an edge with
@@ -301,7 +349,7 @@ def fd_phase_fused_plain(
     down_arrivals = (
         new_down.gather(0, observers.long()) | down_reports
     ) & active[:, None]
-    return alive, fd_fail, alerted_out, fd_streak, fd_ok, down_arrivals
+    return alive, fd_fail, alerted_out, fd_streak, fd_ok, down_arrivals, fd_hist, fd_seen
 
 
 def fd_phase_fused(
@@ -311,15 +359,20 @@ def fd_phase_fused(
     fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
     fd_ok: torch.Tensor, round_: torch.Tensor, *, threshold: int,
     gray_confirm: int = 0, gray_warmup: int = 3, rounds_per_interval: int = 1,
+    fd_hist: Optional[torch.Tensor] = None, fd_seen: Optional[torch.Tensor] = None,
+    window: int = 0, window_fire: int = 0,
 ) -> FusedOutputs:
     """The whole FD phase of one scan round in the CUDA kernel
     ``fd_phase_fused`` (its plain version for CPU tensors). Arguments and
     results as ``fd_phase_fused_plain``; ``subjects`` and ``observers`` are
     int32, ``round_`` the state's 0-d int32 round counter, read on the
-    device."""
+    device. With ``window > 0`` the kernel's windowed instantiation runs: it
+    reads and writes ``fd_hist`` (int32) and ``fd_seen`` (uint8), and neither
+    reads nor writes ``fd_fail``, which is returned as it came in."""
     name = "fd_phase_fused"
     c, k = subjects.shape
     gray = gray_confirm > 0
+    windowed = window > 0
     want = [
         ("active", active, torch.bool, (c,)), ("alive", alive, torch.bool, (c,)),
         ("drop_prob", drop_prob, torch.float32, (c,)),
@@ -335,6 +388,11 @@ def fd_phase_fused(
     ]
     if draw is not None:
         want.append(("draw", draw, torch.float32, (c, k)))
+    if windowed:
+        if fd_hist is None or fd_seen is None:
+            raise ValueError(f"{name}: the windowed policy needs fd_hist and fd_seen")
+        want += [("fd_hist", fd_hist, torch.int32, (c, k)),
+                 ("fd_seen", fd_seen, torch.uint8, (c, k))]
     for arg, t, dtype, shape in want:
         if t.dtype != dtype:
             raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
@@ -345,21 +403,46 @@ def fd_phase_fused(
     if not (1 <= threshold <= 255 and 0 <= gray_confirm <= 255
             and 0 <= gray_warmup <= 255 and rounds_per_interval >= 1):
         raise ValueError(f"{name}: threshold, gray counts or rounds_per_interval out of range")
+    if not (0 <= window <= 16 and -(1 << 31) <= window_fire < (1 << 31)):
+        raise ValueError(f"{name}: window must be in [0, 16], window_fire an int32")
+    if windowed and gray:
+        raise ValueError(f"{name}: the gray streak path runs on the cumulative policy only")
     args = dict(threshold=threshold, gray_confirm=gray_confirm,
-                gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval)
+                gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
+                fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire)
     inputs = (active, alive, drop_prob, subjects, observers, probe_drop,
               down_reports, draw, fd_fail, alerted, fd_streak, fd_ok, round_)
     if active.device.type == "cpu":
         return fd_phase_fused_plain(*inputs, **args)
     if active.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {active.device}")
-    if not all(t.is_contiguous() for t in inputs if t is not None):
+    read = inputs + ((fd_hist, fd_seen) if windowed else ())
+    if not all(t.is_contiguous() for t in read if t is not None):
         raise ValueError(f"{name}: inputs must be contiguous")
+    outputs = _launch_fused(inputs, torch.cuda.current_stream(active.device).cuda_stream,
+                            **args)
+    if c * k:
+        LAUNCHES["fd_phase_fused_windowed" if windowed else name] += 1
+    return outputs
+
+
+def _launch_fused(inputs, stream: int, *, threshold: int, gray_confirm: int,
+                  gray_warmup: int, rounds_per_interval: int,
+                  fd_hist: Optional[torch.Tensor], fd_seen: Optional[torch.Tensor],
+                  window: int, window_fire: int) -> FusedOutputs:
+    """Allocate the outputs and scratch of ``fd_phase_fused`` and call its C
+    entry point on ``stream``, for inputs the wrapper has checked."""
+    (active, _, _, subjects, _, _, _, _, fd_fail, alerted, fd_streak, fd_ok,
+     round_) = inputs
+    c, k = subjects.shape
+    gray, windowed = gray_confirm > 0, window > 0
     alive_out = torch.empty_like(active)
-    fd_out = torch.empty_like(fd_fail)
+    fd_out = fd_fail if windowed else torch.empty_like(fd_fail)
     alerted_out = torch.empty_like(alerted)
     streak_out = torch.empty_like(fd_streak) if gray else fd_streak
     ok_out = torch.empty_like(fd_ok) if gray else fd_ok
+    hist_out = torch.empty_like(fd_hist) if windowed else fd_hist
+    seen_out = torch.empty_like(fd_seen) if windowed else fd_seen
     down_arrivals = torch.empty_like(alerted)
     # the kernel's scratch: the node state planes (2 bits a node) and a flag,
     # and one new_down bit an edge
@@ -367,19 +450,20 @@ def fd_phase_fused(
                              device=active.device)
     new_down = torch.empty((c * k + 32 + 31) // 32, dtype=torch.int32, device=active.device)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def ptr(t, used=True):
+        return t.data_ptr() if used and t is not None else None
 
-    err = _function(name)(
-        *(ptr(t) for t in inputs),
-        alive_out.data_ptr(), fd_out.data_ptr(), alerted_out.data_ptr(),
-        streak_out.data_ptr() if gray else None, ok_out.data_ptr() if gray else None,
-        down_arrivals.data_ptr(), node_table.data_ptr(), new_down.data_ptr(),
+    err = _function("fd_phase_fused")(
+        *(ptr(t) for t in inputs[:8]), ptr(fd_fail, not windowed), ptr(alerted),
+        ptr(fd_streak, gray), ptr(fd_ok, gray), ptr(fd_hist, windowed),
+        ptr(fd_seen, windowed), ptr(round_),
+        ptr(alive_out), ptr(fd_out, not windowed), ptr(alerted_out),
+        ptr(streak_out, gray), ptr(ok_out, gray), ptr(hist_out, windowed),
+        ptr(seen_out, windowed), ptr(down_arrivals), ptr(node_table), ptr(new_down),
         c, k, threshold, gray_confirm, gray_warmup, rounds_per_interval,
-        torch.cuda.current_stream(active.device).cuda_stream,
+        window, window_fire, stream,
     )
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    if c * k:
-        LAUNCHES[name] += 1
-    return alive_out, fd_out, alerted_out, streak_out, ok_out, down_arrivals
+        raise RuntimeError(f"fd_phase_fused: kernel launch failed with CUDA error {err}")
+    return (alive_out, fd_out, alerted_out, streak_out, ok_out, down_arrivals,
+            hist_out, seen_out)

@@ -1,6 +1,7 @@
 """Where one decided view change spends its time on the GPU.
 
     python -m rapid_tpu_torch.sim.profile_decision [--members 100000] [--seed 42]
+        [--fd-policy cumulative|windowed]
 
 For each dispatch branch of ``Simulator.run_until_decision`` (the closed form
 under a crash of 1% of members, the scan path under ingress loss 1.0 on 1%),
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from .driver import Simulator
-from .engine import pack_decision, run_rounds_const, run_until_decided_const, unpack_decision
+from .engine import SimConfig, pack_decision, run_rounds_const, run_until_decided_const, unpack_decision
 
 
 def _fault(branch: str, sim: Simulator, victims: np.ndarray) -> None:
@@ -109,15 +110,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--members", type=int, default=100_000)
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--fd-policy", choices=("cumulative", "windowed"), default="cumulative")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decision: no CUDA device", file=sys.stderr)
         return 2
     n, rng = args.members, np.random.default_rng(args.seed)
     n_fail = max(1, n // 100)
+    config = SimConfig(capacity=n, fd_policy=args.fd_policy)
 
     def fresh(branch: str, offset: int) -> Simulator:
-        sim = Simulator(n, seed=args.seed + offset, device="cuda")
+        sim = Simulator(n, config=config, seed=args.seed + offset, device="cuda")
         _fault(branch, sim, rng.choice(n, n_fail, replace=False))
         return sim.ready()
 
@@ -132,7 +135,7 @@ def main(argv=None) -> int:
             sim.ready()
             walls.append((time.perf_counter() - t0) * 1e3)
             assert rec is not None and rec.virtual_time_ms == 11_100
-        out = {"branch": branch, "members": n, "wall_ms": walls}
+        out = {"branch": branch, "fd_policy": args.fd_policy, "members": n, "wall_ms": walls}
         out.update(_split(fresh(branch, 2), branch))
         out["syncs"] = _syncs(fresh(branch, 3))
         out.update(_profile(fresh(branch, 4)))

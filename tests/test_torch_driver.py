@@ -203,13 +203,6 @@ def test_delivery_groups_and_delays():
     _drive(pair, lambda s: s.crash(np.array([11])), max_rounds=40)
 
 
-def test_classic_fallback_is_not_ported_yet():
-    sim = Simulator(8, seed=11, device="cpu")
-    sim.crash(np.array([6, 7]))  # fast quorum 7 of 8, only 6 can vote
-    with pytest.raises(NotImplementedError, match="classic"):
-        sim.run_until_decision(max_rounds=40)
-
-
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -229,7 +222,8 @@ def test_port_imports_neither_jax_nor_rapid_tpu():
     JAX or of the JAX package."""
     code = (
         "import runpy, sys\n"
-        "import rapid_tpu_torch.sim.driver, rapid_tpu_torch.sim.profile_decision\n"
+        "import rapid_tpu_torch.sim.driver, rapid_tpu_torch.sim.classic\n"
+        "import rapid_tpu_torch.sim.profile_decision\n"
         "runpy.run_path('chip_smoke.py')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu'))\n"
         "assert not bad, bad\n"

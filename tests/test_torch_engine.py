@@ -259,9 +259,6 @@ def test_const_inputs_and_initial_state_match_jax():
 
 
 def test_unported_options_raise():
-    cfg = teng.SimConfig(**{**BASE, "fd_policy": "windowed"})
-    with pytest.raises(NotImplementedError):
-        teng.initial_state(cfg, PortCluster.synthesize(32, 5), np.ones(32, bool), device="cpu")
     with pytest.raises(NotImplementedError):
         teng.step_fd_scan()
     with pytest.raises(NotImplementedError):

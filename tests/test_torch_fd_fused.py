@@ -1,7 +1,8 @@
 """The fused FD phase of the PyTorch port (``kernels.fd_phase_fused``): its
 plain version against the JAX engine's ``_fd_phase`` and against a numpy
 reference, the CPU path of its wrapper, and, on an NVIDIA GPU, the CUDA
-kernel against its plain version. Exact equality throughout: the phase is
+kernel against its plain version under both FD policies (the windowed
+policy's plain version is held against JAX in tests/test_torch_windowed.py). Exact equality throughout: the phase is
 integer and boolean only, and where a random draw enters, both sides read
 the same draw (or a drop probability of 0 or 1, where the draw cannot
 matter).
@@ -300,14 +301,18 @@ def test_scan_round_goes_through_the_fused_wrapper(monkeypatch):
 # --------------------------------------------------------------------- #
 
 
-def _assert_kernel_matches_plain(args, kw):
-    before = kernels.LAUNCHES["fd_phase_fused"]
+def _assert_kernel_matches_plain(args, kw, counter="fd_phase_fused"):
+    before = dict(kernels.LAUNCHES)
     got = kernels.fd_phase_fused(*args, **kw)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["fd_phase_fused"] == before + 1
+    assert kernels.LAUNCHES == {**before, counter: before[counter] + 1}
     want = kernels.fd_phase_fused_plain(*args, **kw)
-    for name, g, w in zip(OUTPUTS, got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w), name
+    for name, g, w in zip(OUTPUTS + ("fd_hist", "fd_seen"), got, want):
+        if w is None:
+            assert g is None, name
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    return got
 
 
 @pytest.mark.cuda
@@ -336,6 +341,55 @@ def test_cuda_fused_kernel_on_misaligned_slices(cuda_device, offset):
             args[i] = view
     kw = dict(threshold=10, gray_confirm=3, gray_warmup=3, rounds_per_interval=1)
     _assert_kernel_matches_plain(args, kw)
+
+
+def _window_kw(c, k, w, frac, rpi, seed, device):
+    """Windowed-policy arguments: partly filled windows from numpy, t by the
+    engine's float64 rounding."""
+    rng = np.random.default_rng(seed)
+    bits = rng.random((c, k, w)) < 0.5
+    hist = (bits << np.arange(w)).sum(axis=-1).astype(np.int32)
+    seen = np.where(rng.random((c, k)) < 0.5, w, rng.integers(0, w + 1, (c, k))).astype(np.uint8)
+    config = engine.SimConfig(capacity=c, fd_policy="windowed", fd_window=w,
+                              fd_window_threshold=frac)
+    return dict(threshold=10, rounds_per_interval=rpi, window=w,
+                window_fire=engine.window_params(config)[1],
+                fd_hist=torch.from_numpy(hist).to(device),
+                fd_seen=torch.from_numpy(seen).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w, frac, rpi, random", [
+    (10, 0.4, 1, True), (16, 0.7, 4, True), (10, 0.7, 4, False), (16, 0.4, 1, False),
+    (1, 1.0, 1, True),
+])
+@pytest.mark.parametrize("c", [1, 333, 100_000])
+def test_cuda_windowed_kernel_matches_plain(cuda_device, c, w, frac, rpi, random):
+    args = _case(c, 10, seed=c + w + rpi, device=cuda_device, random=random)
+    kw = _window_kw(c, 10, w, frac, rpi, seed=c * w, device=cuda_device)
+    got = _assert_kernel_matches_plain(args, kw, "fd_phase_fused_windowed")
+    assert got[1] is args[8]  # fd_fail passes through untouched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+def test_cuda_windowed_kernel_on_misaligned_slices(cuda_device, offset):
+    """As the cumulative case above, with fd_hist and fd_seen misaligned too."""
+    args = list(_case(333, 10, seed=offset, device=cuda_device))
+    kw = _window_kw(333, 10, 10, 0.4, 1, seed=offset, device=cuda_device)
+    for i, a in enumerate(args):
+        if a is not None and a.dim() == 2:
+            args[i] = _misaligned(a, offset)
+    kw["fd_hist"], kw["fd_seen"] = _misaligned(kw["fd_hist"], offset), _misaligned(kw["fd_seen"], offset)
+    _assert_kernel_matches_plain(args, kw, "fd_phase_fused_windowed")
+
+
+def _misaligned(a, offset):
+    buf = torch.zeros(a.numel() + offset, dtype=a.dtype, device=a.device)
+    view = buf[offset:].view(a.shape)
+    view.copy_(a)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
 
 
 @pytest.mark.cuda
