@@ -39,7 +39,19 @@ into build/kernels/. Phases, each of which must pass:
    JAX package gives for it (``CLASSIC_RECORD``);
 8. the port on the card against the port on the CPU at 1000 members, every
    state field and record: both branches under both FD policies, the
-   classic fallback, and bridged extern votes.
+   classic fallback, and bridged extern votes;
+9. the multi-device round loop (``rapid_tpu_torch/shard/engine.py``), every
+   shard on this one card: ``fd_phase_rows`` over each shard's rows, the
+   exchange into one bitset and ``fd_gather``, against
+   ``fd_phase_fused_plain`` over the whole array and each kernel against its
+   plain version, bit for bit, at [100_000, 10] over 4 and 8 shards and
+   [1_000_000, 10] over 8, under the cumulative, gray and windowed policies,
+   random loss on and off; the split timed cold beside ``fd_phase_fused``;
+   then the headline fault through ``Simulator(mesh=...)`` on meshes of 4
+   and 8 shards and a (2, 2) ("dcn", "ici") mesh, each deciding the crashed
+   set at 11 100 ms virtual with the single-device configuration id, one
+   sync per dispatch and the expected launches, beside the single-device
+   closed form and scan path of the same fault.
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -86,6 +98,10 @@ BYTES_PER_EDGE = {"fd_phase_i32": 5 + 4 + 5, "fd_phase_u8": 5 + 1 + 2,
 # the gather's OR and AND.
 OPS_PER_EDGE = {"fd_phase_i32": 10, "fd_phase_u8": 10, "fd_phase_fused": 24,
                 "fd_phase_fused_windowed": 26}
+# the split of the fused phase: the rows take all but the gather's OR and
+# AND, plus the bit a slot packs; the gather its OR and AND and the shard
+# lookup (a division, a multiply, a subtract)
+OPS_PER_EDGE.update({"fd_phase_rows": 23, "fd_phase_rows_windowed": 25, "fd_gather": 5})
 # (gray_confirm, rounds_per_interval, random loss): the headline variant
 # first, the only one timed
 FUSED_VARIANTS = ((0, 1, True), (3, 4, True), (0, 4, False))
@@ -109,6 +125,15 @@ CLASSIC_CRASHED = 1_000
 # third batch) plus the exchange's four hops, plus the batching window
 CLASSIC_RECORD = {"virtual_time_ms": 52_100, "configuration_id": 4651904502688146028,
                   "membership_size": 99_000, "via_classic_round": True}
+# the phase split around the mesh's alert exchange, checked at (C, shards)
+SPLIT_CASES = ((100_000, 4), (100_000, 8), (1_000_000, 8))
+SPLIT_TIMED_SHARDS = 8  # the timed split: [100_000, 10] over 8 shards
+# the meshes of the sharded decisions, every shard on the one card:
+# (label, make_mesh keywords, shards)
+MESHES = (("4 shards", {"n_devices": 4}, 4), ("8 shards", {"n_devices": 8}, 8),
+          ("(2, 2) dcn x ici", {"shape": (2, 2)}, 4))
+SHARDED_RUNS = 3  # decisions timed on each mesh, the first warming it
+SHARD_SEED = SEED + 8000
 
 
 def _time_ms(fn, reps=24, iters=11):
@@ -573,12 +598,246 @@ def _cross_check(Simulator, engine, device):
               f"members, virtual {outs[0][0][2]} ms)", flush=True)
 
 
+def _split_kw(engine, fd_bench, policy, c, seed, device):
+    """``fd_phase_rows``' policy keywords: the cumulative counter, the gray
+    path with 4 rounds per interval, or the window (W 10, 40%) from partly
+    filled windows."""
+    if policy == "cumulative":
+        return dict(threshold=10)
+    if policy == "gray":
+        return dict(threshold=10, gray_confirm=3, gray_warmup=3, rounds_per_interval=4)
+    hist, seen = fd_bench.window_planes(c, 10, seed, device)
+    return dict(_window_kw(engine, c, 10, 0.4, 1), fd_hist=hist, fd_seen=seen)
+
+
+def _max_err(got, want):
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got, want) if w is not None)
+
+
+def _split_round(kernels, calls, bits, args, rows):
+    """One round of the sharded FD phase: every shard's ``fd_phase_rows``
+    into its segment of ``bits``, then ``fd_gather`` on home."""
+    for a, kw in calls:
+        kernels.fd_phase_rows(*a, **kw)
+    return kernels.fd_gather(args[0], args[4], args[6], bits, rows)
+
+
+def _split_phase(kernels, fd_bench, engine, device):
+    """``fd_phase_rows`` on every shard, the exchange into one bitset and
+    ``fd_gather``, against ``fd_phase_fused_plain`` over the whole array and
+    each kernel against its plain version, bit for bit, in every case of
+    SPLIT_CASES x {cumulative, gray, windowed} x {random loss, none}; then the
+    split at [100_000, 10] over 8 shards timed cold (input sets rotated past
+    the L2) and hot, beside ``fd_phase_fused`` on the same inputs."""
+    worst = {"fd_phase_rows": 0, "fd_phase_rows_windowed": 0, "fd_gather": 0}
+    for c, shards in SPLIT_CASES:
+        for policy in ("cumulative", "gray", "windowed"):
+            for random in (True, False):
+                args = fd_bench.fused_case(c, c + shards + len(policy), device, random)
+                kw = _split_kw(engine, fd_bench, policy, c, c + shards, device)
+                calls, bits = fd_bench.split_case(args, kw, shards)
+                got = fd_bench.run_split(calls, bits, args)
+                plain_calls, plain_bits = fd_bench.split_case(args, kw, shards)
+                plain = fd_bench.run_split(plain_calls, plain_bits, args, kernel=False)
+                fused = kernels.fd_phase_fused_plain(*args, **kw)
+                torch.cuda.synchronize()
+                where = f"[{c}, 10] over {shards} shards, {policy}, random {random}"
+                for i, name in enumerate(("alive", "fd_fail", "alerted", "fd_streak", "fd_ok",
+                                          "down_arrivals", "fd_hist", "fd_seen")):
+                    if i == 0 or fused[i] is None:
+                        continue
+                    assert torch.equal(got[i], fused[i]), f"split {name} != fused plain at {where}"
+                    assert torch.equal(got[i], plain[i]), f"split {name} != its plain at {where}"
+                assert torch.equal(bits, plain_bits), f"bitset != plain at {where}"
+                assert (got[2] & ~args[9]).any(), "the case should raise alerts"
+                rows_err = max(_max_err(got[1:5] + got[6:], plain[1:5] + plain[6:]),
+                               _max_err([bits], [plain_bits]))
+                rows_name = "fd_phase_rows_windowed" if policy == "windowed" else "fd_phase_rows"
+                worst[rows_name] = max(worst[rows_name], rows_err)
+                worst["fd_gather"] = max(worst["fd_gather"], _max_err([got[5]], [plain[5]]))
+                print(f"split {where}: fd_phase_rows x {shards} + exchange + fd_gather "
+                      f"bit-identical to fd_phase_fused_plain and to their plain versions "
+                      f"(tolerance 0)", flush=True)
+                del args, calls, bits, plain_calls, plain_bits, got, plain, fused
+        torch.cuda.empty_cache()
+
+    c, shards = KERNEL_SIZES[0], SPLIT_TIMED_SHARDS
+    rows = c // shards
+    sets = fd_bench.cold_sets(c, True, device)
+    timed = {}
+    for policy in ("cumulative", "windowed"):
+        kws = [_split_kw(engine, fd_bench, policy, c, 9000 + i, device) for i in range(len(sets))]
+        cases = [fd_bench.split_case(a, kw, shards) for a, kw in zip(sets, kws)]
+        for a, (calls, bits) in zip(sets, cases):
+            fd_bench.run_split(calls, bits, a)  # the bitsets of a round with alerts
+        every_shard = [(a, kw) for calls, _ in cases for a, kw in calls]
+        name = "fd_phase_rows_windowed" if policy == "windowed" else "fd_phase_rows"
+        # cold: every shard of every set, more than the L2 holds
+        t = {"ms": _time_ms([lambda a=a, kw=kw: kernels.fd_phase_rows(*a, **kw)
+                             for a, kw in every_shard], reps=len(every_shard)),
+             "hot_ms": _time_ms(lambda: kernels.fd_phase_rows(*every_shard[0][0],
+                                                              **every_shard[0][1])),
+             "plain_ms": _time_ms([lambda a=a, kw=kw: kernels.fd_phase_rows_plain(*a, **kw)
+                                   for a, kw in every_shard], reps=len(every_shard)),
+             "round_ms": _time_ms([lambda a=a, c_=c_: _split_round(kernels, *c_, a, rows)
+                                   for a, c_ in zip(sets, cases)]),
+             "fused_ms": _time_ms([lambda a=a, kw=kw: kernels.fd_phase_fused(*a, **kw)
+                                   for a, kw in zip(sets, kws)])}
+        nbytes = fd_bench.rows_bytes(c, rows, 10, False, True, window=policy == "windowed")
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = OPS_PER_EDGE[name] * rows * 10 / PEAK_OPS_PER_S * 1e3
+        t.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 max_abs_err=worst[name], shape=[rows, 10], of=[c, 10], shards=shards)
+        timed[name] = t
+        if policy == "cumulative":
+            gather = {"ms": _time_ms([lambda a=a, b=b: kernels.fd_gather(a[0], a[4], a[6], b, rows)
+                                      for a, (_, b) in zip(sets, cases)]),
+                      "plain_ms": _time_ms([lambda a=a, b=b: kernels.fd_gather_plain(
+                          a[0], a[4], a[6], b, rows) for a, (_, b) in zip(sets, cases)])}
+            nbytes = fd_bench.gather_bytes(c, shards, 10)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = OPS_PER_EDGE["fd_gather"] * c * 10 / PEAK_OPS_PER_S * 1e3
+            gather.update(bound_ms=max(bytes_ms, ops_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                          max_abs_err=worst["fd_gather"], shape=[c, 10], shards=shards)
+            timed["fd_gather"] = gather
+        print(f"split timed, {policy}, [{c}, 10] over {shards} shards, random loss, cold over "
+              f"{len(sets)} input sets: fd_phase_rows {t['ms'] * 1e3:.2f} us a shard (hot "
+              f"{t['hot_ms'] * 1e3:.2f}, plain {t['plain_ms'] * 1e3:.2f}, bound "
+              f"{t['bound_ms'] * 1e3:.2f}); a whole round (every shard + fd_gather) "
+              f"{t['round_ms'] * 1e3:.2f} us against fd_phase_fused {t['fused_ms'] * 1e3:.2f} us",
+              flush=True)
+        del cases, every_shard, kws
+    g = timed["fd_gather"]
+    print(f"split timed: fd_gather over {shards} segments {g['ms'] * 1e3:.2f} us (plain "
+          f"{g['plain_ms'] * 1e3:.2f}, bound {g['bound_ms'] * 1e3:.2f})", flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    return timed
+
+
+def _profile(fn):
+    """``profile_decision.profile_gpu`` with the device µs of the split's
+    passes: ``rows_us`` (node and observer passes) and ``gather_us``."""
+    from rapid_tpu_torch.sim.profile_decision import profile_gpu
+
+    prof = profile_gpu(fn, ("node_pass", "observer_pass", "gather_pass"))
+    prof["rows_us"] = prof.pop("node_pass_us") + prof.pop("observer_pass_us")
+    prof["gather_us"] = prof.pop("gather_pass_us")
+    return prof
+
+
+def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
+    """The headline fault (100k members, 1% crashed, ``run_until_decision(16,
+    16)``) through ``Simulator(mesh=...)`` on each mesh of MESHES, every shard
+    on this card, beside the single-device closed form and scan path (ingress
+    loss 1.0) of the same members; and the windowed policy on 4 shards.
+    Counts are reset just before each decision and read just after."""
+    victims = rng.choice(N_NODES, N_NODES // 100, replace=False)
+    card = torch.device(device.type, torch.cuda.current_device())
+
+    def fresh(**kw):
+        return Simulator(N_NODES, seed=SHARD_SEED, **kw).ready()
+
+    def decide(sim, fault="crash"):
+        kernels.reset_launches()
+        rec, ms = _decide(sim, victims, sim.crash if fault == "crash" else
+                          (lambda v: sim.ingress_loss(v, 1.0)))
+        return rec, ms, dict(kernels.LAUNCHES)
+
+    out = {"single": {}}
+    for branch, fault in (("closed form", "crash"), ("scan", "ingress_loss")):
+        rec, ms, launches = decide(fresh(device=device), fault)
+        sim = fresh(device=device)
+        (sim.crash if fault == "crash" else (lambda v: sim.ingress_loss(v, 1.0)))(victims)
+        prof = _profile(lambda: sim.run_until_decision(max_rounds=16, batch=16))
+        out["single"][branch] = {"wall_ms": ms, "launches": launches, **prof}
+        if branch == "closed form":
+            reference_id = rec.configuration_id
+        else:
+            # the scan dispatch alone, to set the mesh dispatch's copies beside
+            sim = fresh(device=device)
+            sim.ingress_loss(victims, 1.0)
+            inputs = sim._const_inputs(None)
+            sim.ready()
+            scan_dispatch = _profile(lambda: engine.run_rounds_const(
+                sim.config, sim.state, inputs, 16, True, sim._generator))
+            out["single"][branch]["dispatch"] = scan_dispatch
+        print(f"single device, {branch}: cut ok, virtual {rec.virtual_time_ms} ms, wall "
+              f"{ms:.3f} ms, GPU ops {prof['kernels']}, device busy "
+              f"{prof['device_busy_ms']:.3f} ms, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+    for label, spec, size in MESHES:
+        mesh = shard.make_mesh(devices=[card] * size, **spec)
+        assert set(mesh.device_list) == {card} and mesh.size == size
+        walls = []
+        for _ in range(SHARDED_RUNS):
+            rec, ms, launches = decide(fresh(mesh=mesh))
+            walls.append(ms)
+            assert rec.configuration_id == reference_id, (label, rec.configuration_id)
+            want = {name: 0 for name in launches}
+            want.update(fd_phase_rows=16 * size, fd_gather=16)
+            assert launches == want, (label, launches)
+        sim = fresh(mesh=mesh)
+        sim.crash(victims)
+        syncs = _count_syncs(lambda: sim.run_until_decision(max_rounds=16, batch=16))
+        assert syncs == 1, f"{label}: {syncs} synchronizing calls in one dispatch"
+        sim = fresh(mesh=mesh)
+        sim.crash(victims)
+        prof = _profile(lambda: sim.run_until_decision(max_rounds=16, batch=16))
+        # the dispatch alone (the 16 rounds, no upload, no view change): its
+        # copies beyond the single-device scan dispatch's are the exchange's
+        sim = fresh(mesh=mesh)
+        sim.crash(victims)
+        inputs = sim._const_inputs(None)
+        sim.ready()
+        dispatch = _profile(lambda: sim._sharded_run_until(False)(
+            sim.state, inputs, 16, sim._generators))
+        words = kernels.segment_words(N_NODES // size, 10)
+        out[label] = {"walls_ms": walls, "launches": launches, "syncs": syncs, **prof,
+                      "dispatch": dispatch, "exchange_bytes_per_round": size * words * 4,
+                      "exchange_copies_per_round":
+                          (dispatch["copies"] - scan_dispatch["copies"]) / 16,
+                      "split_us_per_round": (dispatch["rows_us"] + dispatch["gather_us"]) / 16}
+        print(f"sharded decision, {label} ({mesh}): {N_NODES} members, "
+              f"{len(victims)} crashed, cut ok, {rec.membership_size} members, virtual "
+              f"{rec.virtual_time_ms} ms, configuration id {rec.configuration_id} (the "
+              f"single-device one), walls {[round(w, 3) for w in walls]} ms (the first "
+              f"warms the mesh), syncs per dispatch {syncs}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; profiled decision: GPU ops "
+              f"{prof['kernels']}, device busy {prof['device_busy_ms']:.3f} ms, idle "
+              f"{prof['idle_share']:.1%}, copies {prof['copies']} (uploads, the view "
+              f"change's placement); the dispatch alone: GPU ops {dispatch['kernels']}, "
+              f"copies a round {dispatch['copies'] / 16:g} ({dispatch['copy_us'] / 16:.2f} us) "
+              f"against {scan_dispatch['copies'] / 16:g} in the single-device scan dispatch; "
+              f"exchange {size * words * 4} B a round into home's bitset with "
+              f"{(dispatch['copies'] - scan_dispatch['copies']) / 16:g} copies a round; "
+              f"split device us a round: rows {dispatch['rows_us'] / 16:.2f}, gather "
+              f"{dispatch['gather_us'] / 16:.2f}", flush=True)
+
+    config = engine.SimConfig(capacity=N_NODES, fd_policy="windowed")
+    mesh = shard.make_mesh(devices=[card] * 4)
+    rec, ms, launches = decide(fresh(mesh=mesh, config=config))
+    want = {name: 0 for name in launches}
+    want.update(fd_phase_rows_windowed=64, fd_gather=16)
+    assert launches == want, launches
+    out["windowed 4 shards"] = {"wall_ms": ms, "launches": launches}
+    print(f"sharded decision, windowed, 4 shards: cut ok, virtual {rec.virtual_time_ms} ms, "
+          f"wall {ms:.3f} ms (first on this config), launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rapid_tpu_torch.shard import engine as shard
     from rapid_tpu_torch.sim import classic, engine, fd_bench, kernels
     from rapid_tpu_torch.sim.driver import Simulator
 
@@ -656,6 +915,10 @@ def main() -> int:
 
     _cross_check(Simulator, engine, device)
 
+    # --- the multi-device round loop, every shard on this card -------------
+    split = _split_phase(kernels, fd_bench, engine, device)
+    sharded = _sharded_decisions(Simulator, engine, shard, kernels, rng, device)
+
     # each kernel's launches are those of its own path's run: the scan path
     # (ingress loss 1.0) under the policy the kernel serves
     path_launches = dict(scan_launches)
@@ -688,10 +951,42 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes this fused phase
             "sizes": sizes,
         })
+    # the split's kernels: launches from the sharded decisions (8 shards; the
+    # windowed instantiation from the windowed one on 4 shards)
+    split_launches = {
+        "fd_phase_rows": sharded["8 shards"]["launches"]["fd_phase_rows"],
+        "fd_phase_rows_windowed":
+            sharded["windowed 4 shards"]["launches"]["fd_phase_rows_windowed"],
+        "fd_gather": sharded["8 shards"]["launches"]["fd_gather"],
+    }
+    for name, t in split.items():
+        line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "rapid_tpu_torch/csrc/fd_phase_fused.cu",
+            "replaces": "rapid_tpu/sim/pallas_kernels.py:54",
+            "on_main_path": True,
+            "path": ("sharded decision, windowed, 4 shards" if name.endswith("windowed")
+                     else "sharded decision, 8 shards"),
+            "launches": split_launches[name],
+            "match": True,
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "kernel_ms": t["ms"],
+            "hot_ms": t.get("hot_ms", t["ms"]),
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_us": t["bound_ms"] * 1e3,
+            "bound_by": t["bound_by"],
+            "tolerance": 0,
+            "library_ms": None,  # no single PyTorch call computes either half
+            "sizes": {f"{t['shape'][0]}x10": t},
+        })
     print(json.dumps(line))
     print(json.dumps({"headline_wall_ms": head_walls, "scan_wall_ms": scan_walls,
                       "headline_syncs": syncs, "scan_syncs": scan_syncs,
-                      "windowed": windowed, "classic_fallback": fallback, "card": card}))
+                      "windowed": windowed, "classic_fallback": fallback,
+                      "sharded": sharded, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

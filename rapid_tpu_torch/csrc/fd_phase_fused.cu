@@ -71,6 +71,30 @@
 // - PERF.md lists the designs tried and measured on the card that this one
 //   beat, among them recomputing new_down in the destination thread.
 //
+// The multi-device round (rapid_tpu_torch/shard/engine.py, the counterpart
+// of rapid_tpu/shard/engine.py::_sharded_round) row-shards the per-edge
+// state by observer, so the destination gather needs other shards' bits and
+// cannot run until they have been exchanged. Two more entry points run the
+// same passes on either side of that exchange:
+// - fd_phase_rows: the node pass over all C nodes and the observer pass over
+//   one shard's rows [row0, row0 + rows), on that shard's own [rows, K]
+//   tensors (subject ids global). Its new_down bits go to a caller-given
+//   segment of a per-shard bitset: ceil(rows * K / 32) words, local edge e
+//   at bit e, then one word that is non-zero iff a bit is set. Slots start
+//   at local edge 0 (16-byte accesses when every stream is aligned there,
+//   scalar ones otherwise), and the last data word is written whole, so the
+//   segment holds no stale bit.
+// - fd_gather: the gather pass over all [C, K] destinations, from the
+//   segments of every shard laid end to end; observer o's bit is bit
+//   (o - s * rows) * K + k of segment s = o / rows. It reads neither the
+//   observers nor the bits when no segment's flag is set.
+// Their bound is bytes too: fd_phase_rows moves its rows' streams (13 B an
+// edge with random loss) plus 6 B of every one of the C nodes, which each
+// shard reads again; fd_gather 6 B an edge plus the segments. What holds
+// them above it on an H100 is the observer pass's dependent reads, as in
+// the fused call, and, for a shard of few rows, a grid of few blocks: at
+// 12 500 rows the observer pass fills 16 of the 132 SMs (PERF.md).
+//
 // The kernel allocates nothing: the wrapper passes the outputs, the node
 // table, the new_down bits and the stream. Every launch is checked with
 // cudaGetLastError().
@@ -114,9 +138,13 @@ struct Params {
   uint8_t* seen_out;
   uint8_t* down_arrivals;
   uint16_t* new_down;  // the words of `bits`, written a slot at a time
-  int64_t n;           // C * K edges
+  int64_t n;           // edges of the [C, K] (or [rows, K]) streams
+  int64_t row0;        // global id of the streams' first observer row
   int64_t slots;       // slot j holds edges [16j - shift, 16j - shift + 16)
   int shift;
+  int32_t shard_rows;  // fd_gather: rows of each shard's segment
+  int32_t n_shards;
+  int64_t seg_words;   // fd_gather: words of one segment, its flag included
   bool vec_ok;  // every stream is 16-byte aligned at slot starts
   int k;
   int threshold;
@@ -161,8 +189,9 @@ __device__ __forceinline__ bool probing(const Params& p, int64_t o, uint32_t tur
           (static_cast<uint32_t>(o) * 2654435761u) % static_cast<uint32_t>(p.rpi) == turn);
 }
 
-// Pass 1: the alive output and the node state planes, a node a thread (a
-// warp's ballots make the two plane words of its 32 nodes); clears any_down.
+// Pass 1: the alive output (none when alive_out is null) and the node state
+// planes, a node a thread (a warp's ballots make the two plane words of its
+// 32 nodes); clears any_down.
 __global__ void node_pass(const uint8_t* __restrict__ active,
                           const uint8_t* __restrict__ alive_in,
                           const float* __restrict__ drop_prob, int64_t c,
@@ -180,7 +209,7 @@ __global__ void node_pass(const uint8_t* __restrict__ active,
       // draw < p can hold only for p > 0 (draws lie in [0, 1))
       const bool lossy = drop_prob != nullptr && drop_prob[i] > 0.0f;
       st = !a ? 0u : !up ? 1u : lossy ? 3u : 2u;
-      alive_out[i] = up;
+      if (alive_out != nullptr) alive_out[i] = up;
     }
     const uint32_t low = __ballot_sync(kFullMask, st & 1u);
     const uint32_t high = __ballot_sync(kFullMask, st >> 1);
@@ -275,8 +304,9 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
       okc.v = __ldcs(reinterpret_cast<const uint4*>(p.fd_ok + first));
     }
     if (kWindow) seen.v = __ldcs(reinterpret_cast<const uint4*>(p.seen + first));
-    int64_t o = first / p.k;
-    int kk = static_cast<int>(first - o * p.k);
+    const int64_t row = first / p.k;
+    int kk = static_cast<int>(first - row * p.k);
+    int64_t o = p.row0 + row;
     bool u = probing(p, o, turn);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
@@ -300,7 +330,7 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
       okc.b[i] = kGray && in ? __ldg(p.fd_ok + e) : 0;
       hist.i[i] = kWindow && in ? __ldg(p.hist + e) : 0;
       seen.b[i] = kWindow && in ? __ldg(p.seen + e) : 0;
-      up[i] = in && probing(p, e / p.k, turn);
+      up[i] = in && probing(p, p.row0 + e / p.k, turn);
     }
   }
   uint32_t ss[kVec];
@@ -361,14 +391,22 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
     *p.any_down = 1;
 }
 
-// new_down of the observer edge (o, kk).
+// new_down of the observer edge (o, kk): from the flat bits of one call
+// (kShards false), or from shard o / rows's segment (kShards true).
+template <bool kShards>
 __device__ __forceinline__ uint8_t observer_down(const Params& p, int32_t o, int kk) {
+  if (kShards) {
+    const int32_t s = o / p.shard_rows;
+    const int64_t b = static_cast<int64_t>(o - s * p.shard_rows) * p.k + kk;
+    return (__ldg(p.bits + s * p.seg_words + (b >> 5)) >> (b & 31)) & 1u;
+  }
   const int64_t b = static_cast<int64_t>(o) * p.k + kk + p.shift;
   return (__ldg(p.bits + (b >> 5)) >> (b & 31)) & 1u;
 }
 
 // down_arrivals of the destination edges of slot j. With `gather` false no
 // edge has new_down set, so the observers are not read.
+template <bool kShards>
 __device__ __forceinline__ void destination_slot(const Params& p, bool gather, int64_t j) {
   const int64_t first = slot_first(p, j);
   const bool vec = slot_vector(p, first);
@@ -410,7 +448,7 @@ __device__ __forceinline__ void destination_slot(const Params& p, bool gather, i
   uint8_t got[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i)
-    got[i] = gather ? observer_down(p, obs.i[i], ring[i]) : uint8_t(0);
+    got[i] = gather ? observer_down<kShards>(p, obs.i[i], ring[i]) : uint8_t(0);
 #pragma unroll
   for (int i = 0; i < kVec; ++i) out.b[i] = (got[i] | dr.b[i]) & act[i];
   if (vec) {
@@ -435,13 +473,23 @@ __global__ void __launch_bounds__(kThreads) observer_pass(Params p) {
 }
 
 // Pass 3: the destination gather from the new_down bits, skipped when no
-// edge raised an alert.
+// edge raised an alert: the any_down flag of the call (kShards false), or
+// the OR of every shard segment's flag (kShards true).
+template <bool kShards>
 __global__ void __launch_bounds__(kThreads) gather_pass(Params p) {
-  const bool gather = *p.any_down != 0;
+  bool gather;
+  if (kShards) {
+    int any = 0;
+    for (int s = threadIdx.x; s < p.n_shards; s += blockDim.x)
+      any |= __ldg(p.bits + (static_cast<int64_t>(s) + 1) * p.seg_words - 1) != 0u;
+    gather = __syncthreads_or(any) != 0;
+  } else {
+    gather = *p.any_down != 0;
+  }
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < p.slots; j += stride)
-    destination_slot(p, gather, j);
+    destination_slot<kShards>(p, gather, j);
 }
 
 bool aligned16(const void* ptr) {
@@ -454,11 +502,15 @@ const void* at(const T* stream, int64_t h) {
   return stream ? stream + h : nullptr;
 }
 
-// Slot layout: when every [C,K] stream reaches a 16-byte boundary at the
-// same edge h, slots start at h (the slot before it holds edges [0, h));
-// otherwise every slot takes the scalar path.
-void set_slots(Params& p) {
-  const int64_t h = (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(p.alerted) % 16)) % 16;
+// The first edge of a byte stream at a 16-byte boundary.
+int64_t first_boundary(const void* bytes) {
+  return (16 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(bytes) % 16)) % 16;
+}
+
+// Slot layout: when every stream reaches a 16-byte boundary at edge h,
+// slots start at h (the slot before it holds edges [0, h)); otherwise every
+// slot takes the scalar path.
+void set_slots(Params& p, int64_t h) {
   const void* streams[] = {
       at(p.subjects, h),     at(p.observers, h),  at(p.probe_drop, h),
       at(p.down_reports, h), at(p.draw, h),       at(p.fd_fail, h),
@@ -478,13 +530,89 @@ int blocks_for(int64_t work) {
   return static_cast<int>(need < 1 ? 1 : (need < kMaxBlocks ? need : kMaxBlocks));
 }
 
+bool bad_policy(int window, bool gray) { return window < 0 || window > 16 || (window > 0 && gray); }
+
+// Pass 1 of either call, on `stream`.
+int launch_nodes(const void* active, const void* alive, const void* drop_prob, long long c,
+                 void* alive_out, void* node_table, uint32_t* any_down, cudaStream_t stream) {
+  node_pass<<<blocks_for(c), kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(active), static_cast<const uint8_t*>(alive),
+      static_cast<const float*>(drop_prob), c, static_cast<uint8_t*>(alive_out),
+      static_cast<uint2*>(node_table), any_down);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The observer pass's parameters from the state pointers; the policy picks
+// which per-edge planes it reads and writes. The caller adds the gather's
+// streams and the slot layout.
+Params edge_params(const void* node_table, const void* drop_prob, const void* subjects,
+                   const void* probe_drop, const void* draw, const void* fd_fail,
+                   const void* alerted, const void* fd_streak, const void* fd_ok,
+                   const void* fd_hist, const void* fd_seen, const void* round,
+                   void* fd_fail_out, void* alerted_out, void* fd_streak_out,
+                   void* fd_ok_out, void* fd_hist_out, void* fd_seen_out, void* new_down,
+                   uint32_t* any_down, int64_t n, int k, int threshold, int gray_confirm,
+                   int gray_warmup, int rounds_per_interval, int window, int window_fire) {
+  const bool gray = gray_confirm > 0;
+  const bool windowed = window > 0;
+  Params p{};
+  p.node = static_cast<const uint2*>(node_table);
+  p.bits = static_cast<const uint32_t*>(new_down);
+  p.any_down = any_down;
+  p.round = static_cast<const int32_t*>(round);
+  p.rpi = rounds_per_interval;
+  p.drop_prob = static_cast<const float*>(drop_prob);
+  p.subjects = static_cast<const int32_t*>(subjects);
+  p.probe_drop = static_cast<const uint8_t*>(probe_drop);
+  p.draw = static_cast<const float*>(draw);
+  p.fd_fail = windowed ? nullptr : static_cast<const uint8_t*>(fd_fail);
+  p.alerted = static_cast<const uint8_t*>(alerted);
+  p.streak = gray ? static_cast<const uint8_t*>(fd_streak) : nullptr;
+  p.fd_ok = gray ? static_cast<const uint8_t*>(fd_ok) : nullptr;
+  p.hist = windowed ? static_cast<const int32_t*>(fd_hist) : nullptr;
+  p.seen = windowed ? static_cast<const uint8_t*>(fd_seen) : nullptr;
+  p.fd_fail_out = windowed ? nullptr : static_cast<uint8_t*>(fd_fail_out);
+  p.alerted_out = static_cast<uint8_t*>(alerted_out);
+  p.streak_out = gray ? static_cast<uint8_t*>(fd_streak_out) : nullptr;
+  p.fd_ok_out = gray ? static_cast<uint8_t*>(fd_ok_out) : nullptr;
+  p.hist_out = windowed ? static_cast<int32_t*>(fd_hist_out) : nullptr;
+  p.seen_out = windowed ? static_cast<uint8_t*>(fd_seen_out) : nullptr;
+  p.new_down = static_cast<uint16_t*>(new_down);
+  p.n = n;
+  p.k = k;
+  p.threshold = threshold;
+  p.confirm = gray_confirm;
+  p.warmup = gray_warmup;
+  p.window = window;
+  p.window_fire = window_fire;
+  p.window_mask = windowed ? (1u << window) - 1u : 0u;
+  return p;
+}
+
 template <bool kRandom, bool kGray, bool kWindow>
-int launch_edges(const Params& p, cudaStream_t stream) {
-  const int blocks = blocks_for(p.slots);
-  observer_pass<kRandom, kGray, kWindow><<<blocks, kThreads, 0, stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gather_pass<<<blocks, kThreads, 0, stream>>>(p);
+int launch_observer(const Params& p, cudaStream_t stream) {
+  observer_pass<kRandom, kGray, kWindow><<<blocks_for(p.slots), kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 2 in the instantiation of the call's policy and loss model.
+int launch_observer_pass(const Params& p, cudaStream_t st) {
+  const bool random = p.draw != nullptr;
+  if (p.window > 0) {
+    return random ? launch_observer<true, false, true>(p, st)
+                  : launch_observer<false, false, true>(p, st);
+  }
+  if (random) {
+    return p.confirm > 0 ? launch_observer<true, true, false>(p, st)
+                         : launch_observer<true, false, false>(p, st);
+  }
+  return p.confirm > 0 ? launch_observer<false, true, false>(p, st)
+                       : launch_observer<false, false, false>(p, st);
+}
+
+template <bool kShards>
+int launch_gather(const Params& p, cudaStream_t stream) {
+  gather_pass<kShards><<<blocks_for(p.slots), kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -512,67 +640,91 @@ extern "C" int fd_phase_fused(
     int gray_confirm, int gray_warmup, int rounds_per_interval, int window,
     int window_fire, void* stream) {
   if (c <= 0 || k <= 0) return 0;
+  if (bad_policy(window, gray_confirm > 0)) return static_cast<int>(cudaErrorInvalidValue);
   const bool random = draw != nullptr;
-  const bool gray = gray_confirm > 0;
-  const bool windowed = window > 0;
-  if (window < 0 || window > 16 || (windowed && gray))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  uint2* node = static_cast<uint2*>(node_table);
   uint32_t* any_down = static_cast<uint32_t*>(node_table) + 2 * ((c + 31) / 32);
+  int err = launch_nodes(active, alive, random ? drop_prob : nullptr, c, alive_out,
+                         node_table, any_down, st);
+  if (err != 0) return err;
 
-  node_pass<<<blocks_for(c), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(active), static_cast<const uint8_t*>(alive),
-      random ? static_cast<const float*>(drop_prob) : nullptr, c,
-      static_cast<uint8_t*>(alive_out), node, any_down);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  Params p;
-  p.node = node;
-  p.bits = static_cast<const uint32_t*>(new_down);
-  p.any_down = any_down;
-  p.round = static_cast<const int32_t*>(round);
-  p.rpi = rounds_per_interval;
-  p.drop_prob = static_cast<const float*>(drop_prob);
-  p.subjects = static_cast<const int32_t*>(subjects);
+  Params p = edge_params(node_table, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
+                         fd_streak, fd_ok, fd_hist, fd_seen, round, fd_fail_out, alerted_out,
+                         fd_streak_out, fd_ok_out, fd_hist_out, fd_seen_out, new_down, any_down,
+                         static_cast<int64_t>(c) * k, k, threshold, gray_confirm, gray_warmup,
+                         rounds_per_interval, window, window_fire);
   p.observers = static_cast<const int32_t*>(observers);
-  p.probe_drop = static_cast<const uint8_t*>(probe_drop);
   p.down_reports = static_cast<const uint8_t*>(down_reports);
-  p.draw = static_cast<const float*>(draw);
-  p.fd_fail = windowed ? nullptr : static_cast<const uint8_t*>(fd_fail);
-  p.alerted = static_cast<const uint8_t*>(alerted);
-  p.streak = gray ? static_cast<const uint8_t*>(fd_streak) : nullptr;
-  p.fd_ok = gray ? static_cast<const uint8_t*>(fd_ok) : nullptr;
-  p.hist = windowed ? static_cast<const int32_t*>(fd_hist) : nullptr;
-  p.seen = windowed ? static_cast<const uint8_t*>(fd_seen) : nullptr;
   p.active = static_cast<const uint8_t*>(active);
-  p.fd_fail_out = windowed ? nullptr : static_cast<uint8_t*>(fd_fail_out);
-  p.alerted_out = static_cast<uint8_t*>(alerted_out);
-  p.streak_out = gray ? static_cast<uint8_t*>(fd_streak_out) : nullptr;
-  p.fd_ok_out = gray ? static_cast<uint8_t*>(fd_ok_out) : nullptr;
-  p.hist_out = windowed ? static_cast<int32_t*>(fd_hist_out) : nullptr;
-  p.seen_out = windowed ? static_cast<uint8_t*>(fd_seen_out) : nullptr;
   p.down_arrivals = static_cast<uint8_t*>(down_arrivals);
-  p.new_down = static_cast<uint16_t*>(new_down);
+  set_slots(p, first_boundary(p.alerted));
+  err = launch_observer_pass(p, st);
+  if (err != 0) return err;
+  return launch_gather<false>(p, st);
+}
+
+// The node pass over all C nodes and the observer pass over rows [row0,
+// row0 + rows) of one shard. The [rows, K] pointers are the shard's own
+// blocks; active, alive and drop_prob are [C]. node_table holds 2 *
+// ceil(C / 32) words of scratch; bits is the shard's bitset segment of
+// ceil(rows * K / 32) + 1 words (see the note at the top), written whole.
+// Returns as fd_phase_fused does.
+extern "C" int fd_phase_rows(
+    const void* active, const void* alive, const void* drop_prob,
+    const void* subjects, const void* probe_drop, const void* draw, const void* fd_fail,
+    const void* alerted, const void* fd_streak, const void* fd_ok,
+    const void* fd_hist, const void* fd_seen, const void* round,
+    void* fd_fail_out, void* alerted_out, void* fd_streak_out, void* fd_ok_out,
+    void* fd_hist_out, void* fd_seen_out, void* node_table, void* bits,
+    long long c, long long row0, long long rows, int k, int threshold, int gray_confirm,
+    int gray_warmup, int rounds_per_interval, int window, int window_fire, void* stream) {
+  if (c <= 0 || k <= 0 || rows <= 0) return 0;
+  if (bad_policy(window, gray_confirm > 0) || row0 < 0 || row0 + rows > c)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool random = draw != nullptr;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(rows) * k;
+  const int64_t data_words = (n + 31) / 32;
+  uint32_t* any_down = static_cast<uint32_t*>(bits) + data_words;
+  int err = launch_nodes(active, alive, random ? drop_prob : nullptr, c, nullptr, node_table,
+                         any_down, st);
+  if (err != 0) return err;
+
+  Params p = edge_params(node_table, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
+                         fd_streak, fd_ok, fd_hist, fd_seen, round, fd_fail_out, alerted_out,
+                         fd_streak_out, fd_ok_out, fd_hist_out, fd_seen_out, bits, any_down, n,
+                         k, threshold, gray_confirm, gray_warmup, rounds_per_interval, window,
+                         window_fire);
+  p.row0 = row0;
+  // slots from local edge 0, so local edge e is bit e of the segment; two
+  // slots a word, the last word's lanes past n writing zeros
+  set_slots(p, 0);
+  p.slots = data_words * 2;
+  return launch_observer_pass(p, st);
+}
+
+// The destination gather over all [C, K] edges from the bitset segments of
+// C / shard_rows shards, each of seg_words words, laid end to end. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue when the
+// shards do not tile C.
+extern "C" int fd_gather(const void* active, const void* observers, const void* down_reports,
+                         const void* bits, void* down_arrivals, long long c, int k,
+                         long long shard_rows, long long seg_words, void* stream) {
+  if (c <= 0 || k <= 0) return 0;
+  if (shard_rows <= 0 || c % shard_rows != 0 ||
+      seg_words != (shard_rows * k + 31) / 32 + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.active = static_cast<const uint8_t*>(active);
+  p.observers = static_cast<const int32_t*>(observers);
+  p.down_reports = static_cast<const uint8_t*>(down_reports);
+  p.down_arrivals = static_cast<uint8_t*>(down_arrivals);
+  p.bits = static_cast<const uint32_t*>(bits);
   p.n = static_cast<int64_t>(c) * k;
   p.k = k;
-  p.threshold = threshold;
-  p.confirm = gray_confirm;
-  p.warmup = gray_warmup;
-  p.window = window;
-  p.window_fire = window_fire;
-  p.window_mask = windowed ? (1u << window) - 1u : 0u;
-  set_slots(p);
-
-  if (windowed) {
-    return random ? launch_edges<true, false, true>(p, st)
-                  : launch_edges<false, false, true>(p, st);
-  }
-  if (random) {
-    return gray ? launch_edges<true, true, false>(p, st)
-                : launch_edges<true, false, false>(p, st);
-  }
-  return gray ? launch_edges<false, true, false>(p, st)
-              : launch_edges<false, false, false>(p, st);
+  p.shard_rows = static_cast<int32_t>(shard_rows);
+  p.n_shards = static_cast<int32_t>(c / shard_rows);
+  p.seg_words = seg_words;
+  set_slots(p, first_boundary(p.down_arrivals));
+  return launch_gather<true>(p, static_cast<cudaStream_t>(stream));
 }

@@ -8,12 +8,14 @@ xxHash64, bit-compatible with the JVM), the append-only identifiersSeen set
 partitions, lossy ingress, flip-flop, leaves, join waves, delivery groups and
 delays), identities seated ahead of joins, bridged external voters, both
 dispatch branches of ``run_until_decision`` with the classic-Paxos fallback
-round (``classic.py``), and the configuration snapshot. Method names and
-signatures follow the JAX driver, plus a ``device`` argument.
+round (``classic.py``), the configuration snapshot, and the multi-device
+round loop over a mesh (``mesh=``, ``rapid_tpu_torch/shard/engine.py``).
+Method names and signatures follow the JAX driver, plus a ``device``
+argument.
 
 Not in this port yet (ROADMAP.md, Queue 1): the speculative view-change
-worker, the mesh, and the placement, handoff, serving, SLO, durability,
-hierarchy, forensics, profiling, metrics and tracing planes.
+worker, and the placement, handoff, serving, SLO, durability, hierarchy,
+forensics, profiling, metrics and tracing planes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,15 @@ import numpy as np
 import torch
 
 from ..hashing import xxh64_batch_auto
+from ..shard.engine import (
+    Mesh,
+    make_sharded_run,
+    make_sharded_run_until,
+    place_inputs,
+    place_state,
+    row_field,
+    shard_generators,
+)
 from .classic import ClassicCoordinator
 from .engine import (
     FAST_RANK,
@@ -87,6 +98,7 @@ class Simulator:
         seed: int = 0,
         identities=None,
         device=None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         """``identities``: optional [(hostname bytes, port, id_high, id_low)]
         seated into slots 0.. before any state is built, replacing the
@@ -94,8 +106,16 @@ class Simulator:
 
         ``device``: where the round loop runs; CUDA unless the caller names
         another (``"cpu"`` for the tests). Without a GPU and without an
-        explicit device, construction raises."""
-        self.device = resolve_device(device)
+        explicit device, construction raises.
+
+        ``mesh``: a ``shard.engine.Mesh`` (``make_mesh``) to run the round
+        loop over several devices, or several shards of one: per-edge state
+        row-sharded over every mesh axis, the rest on the mesh's home device,
+        which is then the simulator's ``device``; capacity must divide over
+        it. The fault, join, leave and view-change API is the same in both
+        modes; a mesh dispatch runs the rounds one by one (the closed form
+        is single-device)."""
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         capacity = capacity if capacity is not None else n_nodes
         assert n_nodes <= capacity
         self.config = config if config is not None else SimConfig(capacity=capacity)
@@ -103,6 +123,7 @@ class Simulator:
         assert self.config.fd_interval_ms % self.config.rounds_per_interval == 0, (
             "fd_interval_ms must divide evenly into sub-interval rounds"
         )
+        self.mesh = mesh
         self.cluster = VirtualCluster.synthesize(capacity, self.config.k, seed=seed)
         if identities is not None:
             assert len(identities) <= capacity
@@ -132,6 +153,7 @@ class Simulator:
         capacity, k, g = self.config.capacity, self.config.k, self.config.groups
         dev = self.device
         self._config_id: Optional[int] = None
+        self._sharded_runs: dict = {}
         # device-resident constants: the ring ranks (adjacency rebuilds never
         # re-upload them) and the all-clear fault-plane tensors
         self._ring_rank_dev = torch.as_tensor(self.cluster.ring_rank(), device=dev)
@@ -172,8 +194,10 @@ class Simulator:
 
     def _fresh_state(self, seed: int) -> SimState:
         """Fresh-configuration state, built on the device
-        (engine.device_initial_state), and this configuration's random-loss
-        generator, seeded as the JAX driver seeds its PRNG key."""
+        (engine.device_initial_state) and placed on the mesh if there is
+        one, and this configuration's random-loss generator, seeded as the
+        JAX driver seeds its PRNG key (on a mesh, one a shard,
+        ``shard.engine.shard_generators``)."""
         # extern proposal rows, the per-sender vote dedup, and the classic
         # round counter are per-configuration, like every consensus latch
         self._extern_rows: dict = {}  # proposal-mask bytes -> extern row
@@ -190,9 +214,7 @@ class Simulator:
         self._alive_dev = None
         self._probe_drop_dev = None  # partition set maps onto new adjacency
         self._down_reports_dev = None  # leave alerts map onto new adjacency
-        self._generator = torch.Generator(device=dev)
-        self._generator.manual_seed(seed)
-        return device_initial_state(
+        state = device_initial_state(
             self.config,
             self._ring_rank_dev,
             self._tensor(self.active),
@@ -200,6 +222,11 @@ class Simulator:
             self._tensor(self.group_of),
             self._tensor(self.auto_vote),
         )
+        if self.mesh is None:
+            self._generator = torch.Generator(device=dev).manual_seed(seed)
+            return state
+        self._generators = shard_generators(self.mesh, seed)
+        return place_state(state, self.mesh)
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         """A copy of a host array on the device: never a view of the array,
@@ -412,7 +439,9 @@ class Simulator:
             mask[list(self._ingress_partitioned)] = True
         if self._subjects_host is None:
             # one device->host copy per adjacency rebuild
-            self._subjects_host = self.state.subjects.cpu().numpy()
+            subjects = (self.state.subjects if self.mesh is None
+                        else row_field(self.state, "subjects"))
+            self._subjects_host = subjects.cpu().numpy()
         return mask[self._subjects_host]
 
     def _has_down_reports(self) -> bool:
@@ -436,7 +465,8 @@ class Simulator:
 
     def _const_inputs(self, join_reports: Optional[np.ndarray]) -> RoundInputs:
         """This dispatch's fault plane, reusing the device-resident all-clear
-        tensors whenever a fault class is inactive."""
+        tensors whenever a fault class is inactive; on a mesh, placed
+        (``probe_drop`` in row blocks on the shards' devices)."""
         if self._alive_dev is None:
             self._alive_dev = self._tensor(self.alive)
         if self._ingress_partitioned and self._probe_drop_dev is None:
@@ -447,7 +477,7 @@ class Simulator:
             if self._deliver_delay_dev is None:
                 self._deliver_delay_dev = self._tensor(self._deliver_delay)
             deliver_delay = self._deliver_delay_dev
-        return RoundInputs(
+        inputs = RoundInputs(
             alive=self._alive_dev,
             probe_drop=(
                 self._probe_drop_dev if self._ingress_partitioned else self._zero_ck
@@ -468,6 +498,7 @@ class Simulator:
             ),
             deliver_delay=deliver_delay,
         )
+        return inputs if self.mesh is None else place_inputs(inputs, self.mesh)
 
     # ------------------------------------------------------------------ #
     # Joins
@@ -548,8 +579,11 @@ class Simulator:
         Under a deterministic fault plane each batch is one closed-form
         dispatch (engine.run_until_decided_const); under random ingress loss
         it is a scan of ``step`` (engine.run_rounds_const), whose FD phase is
-        the CUDA kernel. Either way the host syncs once per batch, fetching
-        the packed decision words.
+        the CUDA kernel. On a mesh each batch is one dispatch of the sharded
+        runner (``shard.engine.make_sharded_run_until``), whose FD phase is
+        the CUDA kernels ``fd_phase_rows`` on every shard and ``fd_gather`` on
+        home. Either way the host syncs once per batch, fetching the packed
+        decision words.
 
         If the fast round stalls for ``classic_fallback_after_rounds``
         rounds, a classic Paxos recovery round runs (``_run_classic_round``,
@@ -570,7 +604,13 @@ class Simulator:
                 # the closed form pauses at the announcement round itself,
                 # so the whole remaining budget rides one dispatch
                 n = max_rounds - rounds_done
-            if random_loss:
+            if self.mesh is not None:
+                # rounds after the decision (and, for stop_when_announced,
+                # the announcement) run as masked no-ops; the budget is an
+                # argument, so every batch size shares one cached runner
+                self.state = self._sharded_run_until(random_loss, stop_when_announced)(
+                    self.state, inputs, n, self._generators)
+            elif random_loss:
                 for chunk in _pow2_chunks(n, batch):
                     self.state = run_rounds_const(
                         self.config, self.state, inputs, chunk, True, self._generator
@@ -630,6 +670,26 @@ class Simulator:
         """Protocol time per engine round (a whole FD interval, or a fraction
         of one under the staggered-phase asynchrony model)."""
         return self.config.fd_interval_ms // self.config.rounds_per_interval
+
+    def _sharded_run(self, rounds: int, random_loss: bool):
+        """The mesh round loop of ``rounds`` rounds, cached per (length,
+        loss model). Kept for differential testing against the runner the
+        driver dispatches."""
+        key = (rounds, random_loss)
+        if key not in self._sharded_runs:
+            self._sharded_runs[key] = make_sharded_run(
+                self.config, self.mesh, rounds, random_loss)
+        return self._sharded_runs[key]
+
+    def _sharded_run_until(self, random_loss: bool, stop_when_announced: bool = False):
+        """The mesh decision runner, cached per (loss model, announcement
+        stop): the round budget is an argument, so every batch size shares
+        one runner."""
+        key = ("until", random_loss, stop_when_announced)
+        if key not in self._sharded_runs:
+            self._sharded_runs[key] = make_sharded_run_until(
+                self.config, self.mesh, random_loss, stop_when_announced)
+        return self._sharded_runs[key]
 
     def _run_classic_round(self) -> Tuple[Optional[int], int]:
         """One classic recovery attempt with per-node acceptor state on the
@@ -786,8 +846,10 @@ class Simulator:
     def ready(self) -> "Simulator":
         """Block until construction/rebuild work has drained from the device
         queue -- separates setup cost from measured protocol time."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.mesh.device_list if self.mesh is not None else (self.device,)
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     @property
@@ -833,12 +895,14 @@ class Simulator:
 
     @staticmethod
     def from_configuration(
-        path: str, config_overrides: Optional[dict] = None, device=None
+        path: str, config_overrides: Optional[dict] = None, device=None,
+        mesh: Optional[Mesh] = None,
     ) -> "Simulator":
         """Rebuild a simulator from a configuration snapshot written by
         either package's ``save_configuration``; the configuration id of the
         restored instance equals the saved one. ``config_overrides``:
-        SimConfig fields to replace on top of the saved parameters."""
+        SimConfig fields to replace on top of the saved parameters.
+        ``device`` and ``mesh`` as for the constructor."""
         with np.load(path) as data:
             params = [int(x) for x in data["params"]]
             (capacity, k, h, l, fd_threshold, fd_interval_ms,
@@ -852,7 +916,8 @@ class Simulator:
             if config_overrides:
                 config = dataclasses.replace(config, **config_overrides)
             sim = Simulator.__new__(Simulator)
-            sim.device = resolve_device(device)
+            sim.device = mesh.home if mesh is not None else resolve_device(device)
+            sim.mesh = mesh
             sim.config = config
             sim.cluster = VirtualCluster(
                 hostnames=data["hostnames"],

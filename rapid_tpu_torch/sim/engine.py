@@ -491,6 +491,19 @@ def windowed_fd_phase(
     return fd_hist, fd_seen, crossed & ~state.alerted
 
 
+def fd_kernel_policy(config: SimConfig) -> dict:
+    """The FD kernels' policy keywords for ``config``: the counter's
+    threshold and gray path, the probe phases, and the window (0 under the
+    cumulative policy)."""
+    window, fire = 0, 0
+    if config.fd_policy == "windowed":
+        window, fire, _ = window_params(config)
+    return dict(threshold=config.fd_threshold, gray_confirm=config.fd_gray_confirm,
+                gray_warmup=config.fd_gray_warmup,
+                rounds_per_interval=config.rounds_per_interval,
+                window=window, window_fire=fire)
+
+
 def _fd_phase(
     config: SimConfig,
     state: SimState,
@@ -511,17 +524,11 @@ def _fd_phase(
         draw = torch.rand(
             (config.capacity, config.k), generator=generator, device=state.active.device
         )
-    window, fire = 0, 0
-    if config.fd_policy == "windowed":
-        window, fire, _ = window_params(config)
     return kernels.fd_phase_fused(
         state.active, inputs.alive, inputs.drop_prob, state.subjects,
         state.observers, inputs.probe_drop, inputs.down_reports, draw,
         state.fd_fail, state.alerted, state.fd_streak, state.fd_ok, state.round,
-        threshold=config.fd_threshold, gray_confirm=config.fd_gray_confirm,
-        gray_warmup=config.fd_gray_warmup,
-        rounds_per_interval=config.rounds_per_interval,
-        fd_hist=state.fd_hist, fd_seen=state.fd_seen, window=window, window_fire=fire,
+        fd_hist=state.fd_hist, fd_seen=state.fd_seen, **fd_kernel_policy(config),
     )
 
 

@@ -11,7 +11,10 @@ alerts and for a quiet round, in which none does, under the cumulative
 policy and (``windowed_*`` keys) under the windowed one (W 10, t 4).
 Needs an NVIDIA GPU; exits non-zero without one. ``chip_smoke.py`` builds
 its inputs with ``fused_case`` (and, for the windowed policy,
-``window_planes``) and its bound with ``fused_bytes``.
+``window_planes``) and its bound with ``fused_bytes``; for the phase split
+around the multi-device exchange, ``split_case`` and ``run_split`` cut a
+fused case into shards, and ``rows_bytes`` and ``gather_bytes`` bound its
+two kernels.
 """
 
 from __future__ import annotations
@@ -46,6 +49,69 @@ def fused_bytes(c: int, k: int, gray: bool, random: bool, alerts: bool = True,
             + (4 if random else 0) + (4 if gray else 0))
     node = 3 + (4 if random else 0)
     return c * k * edge + c * node + 4  # + the round counter
+
+
+def rows_bytes(c: int, rows: int, k: int, gray: bool, random: bool,
+               window: bool = False) -> int:
+    """Bytes ``fd_phase_rows`` must move for one shard of ``rows`` rows: per
+    edge, subjects (4 B), probe_drop and alerted in and alerted out (1 B
+    each), the policy's planes in and out (2 B, or 10 B for the window), the
+    draw (4 B) with random loss and the gray planes (4 B) with the gray path;
+    the rows' bitset segment out; per node of all C, active and alive, and
+    drop_prob (4 B) with random loss."""
+    edge = 4 + 3 + (10 if window else 2) + (4 if random else 0) + (4 if gray else 0)
+    return (rows * k * edge + 4 * kernels.segment_words(rows, k)
+            + c * (2 + (4 if random else 0)) + 4)  # + the round counter
+
+
+def gather_bytes(c: int, shards: int, k: int, alerts: bool = True) -> int:
+    """Bytes ``fd_gather`` must move: per edge, down_reports in and
+    down_arrivals out (1 B each), and, when some bit is set, the observers
+    (4 B) and every shard's bitset segment; per node, active; each shard's
+    flag."""
+    words = kernels.segment_words(c // shards, k)
+    return c * k * (2 + (4 if alerts else 0)) + c + 4 * shards * (words if alerts else 1)
+
+
+def split_case(args, kw: dict, shards: int):
+    """One fused case (``fused_case``'s positional inputs, ``kw`` its
+    keywords) cut into ``shards`` row blocks, each a fresh tensor as a shard
+    holds it. Returns ``(calls, bits)``: for each shard the positional
+    arguments and keywords of ``fd_phase_rows``, writing into its segment of
+    ``bits``, a bitset filled with -1 so that a word left unwritten shows."""
+    (active, alive, drop_prob, subjects, _, probe_drop, _, draw, fd_fail, alerted,
+     fd_streak, fd_ok, round_) = args
+    c, k = subjects.shape
+    rows = c // shards
+    words = kernels.segment_words(rows, k)
+    bits = torch.full((shards * words,), -1, dtype=torch.int32, device=active.device)
+    calls = []
+    for s in range(shards):
+        def block(t):
+            return None if t is None else t[s * rows:(s + 1) * rows].clone()
+        calls.append((
+            (active, alive, drop_prob, block(subjects), block(probe_drop), block(draw),
+             block(fd_fail), block(alerted), block(fd_streak), block(fd_ok), round_,
+             bits[s * words:(s + 1) * words]),
+            dict(kw, row0=s * rows, fd_hist=block(kw.get("fd_hist")),
+                 fd_seen=block(kw.get("fd_seen"))),
+        ))
+    return calls, bits
+
+
+def run_split(calls, bits, args, kernel: bool = True):
+    """Each shard's ``fd_phase_rows`` of ``split_case``, then ``fd_gather``
+    from the bitset (the kernels, or with ``kernel`` false their plain
+    versions). Returns ``fd_phase_fused``'s eight outputs, ``alive`` as
+    None."""
+    rows_fn = kernels.fd_phase_rows if kernel else kernels.fd_phase_rows_plain
+    outs = [rows_fn(*a, **kw) for a, kw in calls]
+    gather_fn = kernels.fd_gather if kernel else kernels.fd_gather_plain
+    rows = args[3].shape[0] // len(calls)
+    down = gather_fn(args[0], args[4], args[6], bits, rows)
+    planes = [None if outs[0][i] is None else torch.cat([o[i] for o in outs])
+              for i in range(6)]  # fd_fail, alerted, streak, ok, hist, seen
+    return (None, planes[0], planes[1], planes[2], planes[3], down, planes[4], planes[5])
 
 
 def fused_case(c: int, seed: int, device, random: bool, k: int = 10):

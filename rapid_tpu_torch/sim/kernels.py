@@ -9,6 +9,12 @@ their build and their launch counters.
   scan round, from the state tensors to the destination-indexed alert
   arrivals, under either FD policy (the cumulative counter, or the paper's
   window of the last W probes); the scan path launches it every round.
+- ``fd_phase_rows`` and ``fd_gather`` (the same source, the same device
+  functions) split that phase around the alert exchange of the multi-device
+  round (``rapid_tpu_torch/shard/engine.py``): each shard runs
+  ``fd_phase_rows`` over its own observer rows, writing their new_down bits
+  into its segment of a per-shard bitset (``segment_words``), and the home
+  device runs ``fd_gather`` over every destination from all the segments.
 
 Each source under ``csrc/`` is compiled with ``nvcc`` on first use into its
 own library under ``build/kernels/`` of the checkout (all sources at once, in
@@ -18,9 +24,9 @@ CPU tensors runs the kernel's plain version, which is also what the tests and
 ``chip_smoke.py`` hold the kernel against.
 
 ``LAUNCHES`` counts launches per kernel, and per policy for
-``fd_phase_fused`` (``fd_phase_fused_windowed`` counts its windowed
-instantiation): a wrapper adds one where it launches its kernel, and nowhere
-else.
+``fd_phase_fused`` and ``fd_phase_rows`` (``fd_phase_fused_windowed`` and
+``fd_phase_rows_windowed`` count their windowed instantiations): a wrapper
+adds one where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "fd_phase_i32": 0, "fd_phase_u8": 0, "fd_phase_fused": 0, "fd_phase_fused_windowed": 0,
+    "fd_phase_rows": 0, "fd_phase_rows_windowed": 0, "fd_gather": 0,
 }
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -52,6 +59,8 @@ _ARGTYPES = {
     "fd_phase_i32": [_P] * 8 + [_LL, _I, _P],
     "fd_phase_u8": [_P] * 8 + [_LL, _I, _P],
     "fd_phase_fused": [_P] * 25 + [_LL] + [_I] * 7 + [_P],
+    "fd_phase_rows": [_P] * 21 + [_LL] * 3 + [_I] * 7 + [_P],
+    "fd_gather": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
 }
 
 _functions: Optional[Dict[str, ctypes._CFuncPtr]] = None
@@ -276,42 +285,34 @@ def window_update(
     return hist, seen, crossed
 
 
-def fd_phase_fused_plain(
+def _observer_rows(
     active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
-    subjects: torch.Tensor, observers: torch.Tensor, probe_drop: torch.Tensor,
-    down_reports: torch.Tensor, draw: Optional[torch.Tensor],
+    subjects: torch.Tensor, probe_drop: torch.Tensor, draw: Optional[torch.Tensor],
     fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
-    fd_ok: torch.Tensor, round_: torch.Tensor, *, threshold: int,
-    gray_confirm: int = 0, gray_warmup: int = 3, rounds_per_interval: int = 1,
-    fd_hist: Optional[torch.Tensor] = None, fd_seen: Optional[torch.Tensor] = None,
-    window: int = 0, window_fire: int = 0,
+    fd_ok: torch.Tensor, round_: torch.Tensor, row0: int, *, threshold: int,
+    gray_confirm: int, gray_warmup: int, rounds_per_interval: int,
+    fd_hist: Optional[torch.Tensor], fd_seen: Optional[torch.Tensor],
+    window: int, window_fire: int,
 ) -> FusedOutputs:
-    """The FD phase of one round in plain PyTorch ops: probe evaluation, the
-    policy's per-edge state, the alert latch and the dst-indexed alert
-    routing. The policy is the cumulative counter with its gray streak path
-    (when ``gray_confirm > 0``), or, with ``window > 0``, the window of the
-    last ``window`` probes on ``fd_hist``/``fd_seen``, firing at
-    ``window_fire`` failures (``window_update``), which leaves ``fd_fail``
-    as it came in.
-    ``draw`` is the round's uniform draw in [0, 1) (``None`` without random
-    loss): the kernel relies on it being non-negative, so it skips the
-    compare for subjects whose ``drop_prob`` is not positive.
-    Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals,
-    fd_hist, fd_seen)``; a plane the policy does not update is its input."""
-    c = subjects.shape[0]
+    """The observer-indexed part of the FD phase over the observer rows
+    ``[row0, row0 + rows)``, in plain PyTorch ops: ``subjects`` and the
+    per-edge planes are those rows' ``[rows, K]`` blocks, the node arrays
+    ``[C]``. Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok, new_down,
+    fd_hist, fd_seen)``, ``alive`` over all C nodes."""
+    rows = subjects.shape[0]
+    mine = slice(row0, row0 + rows)
     subj = subjects.long()
     alive = alive & active  # membership ∩ fault-model liveness
-    edge_live = active[:, None] & active[subj]  # edge exists in this config
-    observer_up = alive[:, None]
+    edge_live = active[mine, None] & active[subj]  # edge exists in this config
+    observer_up = alive[mine, None]
     probe_ok = alive[subj] & ~probe_drop
     if draw is not None:
         probe_ok = probe_ok & ~(draw < drop_prob[subj])
     if rounds_per_interval > 1:
         # staggered FD phases: a node probes only in its own sub-interval
         # round (0-based round t probes nodes with phase == t mod rpi)
-        my_turn = probe_phases(c, rounds_per_interval, active.device) == (
-            round_ % rounds_per_interval
-        )
+        phases = probe_phases(active.shape[0], rounds_per_interval, active.device)
+        my_turn = phases[mine] == (round_ % rounds_per_interval)
         observer_up = observer_up & my_turn[:, None]
 
     if window > 0:
@@ -341,7 +342,39 @@ def fd_phase_fused_plain(
         fd_streak = streak
         new_down = new_down | gray_down
         alerted_out = alerted_out | gray_down
+    return alive, fd_fail, alerted_out, fd_streak, fd_ok, new_down, fd_hist, fd_seen
 
+
+def fd_phase_fused_plain(
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
+    subjects: torch.Tensor, observers: torch.Tensor, probe_drop: torch.Tensor,
+    down_reports: torch.Tensor, draw: Optional[torch.Tensor],
+    fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
+    fd_ok: torch.Tensor, round_: torch.Tensor, *, threshold: int,
+    gray_confirm: int = 0, gray_warmup: int = 3, rounds_per_interval: int = 1,
+    fd_hist: Optional[torch.Tensor] = None, fd_seen: Optional[torch.Tensor] = None,
+    window: int = 0, window_fire: int = 0,
+) -> FusedOutputs:
+    """The FD phase of one round in plain PyTorch ops: probe evaluation, the
+    policy's per-edge state, the alert latch and the dst-indexed alert
+    routing. The policy is the cumulative counter with its gray streak path
+    (when ``gray_confirm > 0``), or, with ``window > 0``, the window of the
+    last ``window`` probes on ``fd_hist``/``fd_seen``, firing at
+    ``window_fire`` failures (``window_update``), which leaves ``fd_fail``
+    as it came in.
+    ``draw`` is the round's uniform draw in [0, 1) (``None`` without random
+    loss): the kernel relies on it being non-negative, so it skips the
+    compare for subjects whose ``drop_prob`` is not positive.
+    Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals,
+    fd_hist, fd_seen)``; a plane the policy does not update is its input."""
+    alive, fd_fail, alerted_out, fd_streak, fd_ok, new_down, fd_hist, fd_seen = (
+        _observer_rows(
+            active, alive, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
+            fd_streak, fd_ok, round_, 0, threshold=threshold, gray_confirm=gray_confirm,
+            gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
+            fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire,
+        )
+    )
     # alert routing (dst-indexed): on ring k the subject and observer maps
     # are inverse permutations over the active set, so "alert from observer
     # i lands at (subjects[i,k], k)" is the gather new_down[observers[d,k], k].
@@ -350,6 +383,110 @@ def fd_phase_fused_plain(
         new_down.gather(0, observers.long()) | down_reports
     ) & active[:, None]
     return alive, fd_fail, alerted_out, fd_streak, fd_ok, down_arrivals, fd_hist, fd_seen
+
+
+def segment_words(rows: int, k: int) -> int:
+    """Words (int32) of one shard's segment of the new_down bitset: its
+    ``rows * k`` bits, local edge e at bit e (LSB first, zeros past the
+    last edge), then a flag word, non-zero iff some bit is set. Segments
+    start on a word, so shards write theirs independently."""
+    return (rows * k + 31) // 32 + 1
+
+
+def pack_segment(new_down: torch.Tensor) -> torch.Tensor:
+    """The bitset segment (``segment_words``) of a shard's ``[rows, K]``
+    new_down, as int32 words. Packed into little-endian bytes and viewed as
+    words: the kernel's layout on the card and on the host alike."""
+    flat = new_down.reshape(-1).to(torch.uint8)
+    words = (flat.numel() + 31) // 32
+    padded = torch.cat([flat, flat.new_zeros(words * 32 - flat.numel())])
+    shifts = torch.arange(8, dtype=torch.uint8, device=flat.device)
+    packed = (padded.view(-1, 8) << shifts).sum(dim=1).to(torch.uint8)
+    flag = new_down.any().to(torch.int32).reshape(1)
+    return torch.cat([packed.view(torch.int32), flag])
+
+
+def fd_phase_rows_plain(
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
+    subjects: torch.Tensor, probe_drop: torch.Tensor, draw: Optional[torch.Tensor],
+    fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
+    fd_ok: torch.Tensor, round_: torch.Tensor, bits: torch.Tensor, *, row0: int,
+    threshold: int, gray_confirm: int = 0, gray_warmup: int = 3,
+    rounds_per_interval: int = 1, fd_hist: Optional[torch.Tensor] = None,
+    fd_seen: Optional[torch.Tensor] = None, window: int = 0, window_fire: int = 0,
+) -> FusedOutputs:
+    """The observer side of ``fd_phase_fused_plain`` for one shard's rows
+    ``[row0, row0 + rows)``, in plain PyTorch ops: ``subjects`` (global ids),
+    ``probe_drop``, ``draw`` and the per-edge planes are the shard's ``[rows,
+    K]`` blocks; ``active``, ``alive`` and ``drop_prob`` are ``[C]``. Writes
+    the rows' new_down bits and flag into ``bits`` (the shard's segment, see
+    ``segment_words``) and returns ``(fd_fail, alerted, fd_streak, fd_ok,
+    fd_hist, fd_seen)`` of the rows; a plane the policy does not update is
+    its input."""
+    _, fd_fail, alerted_out, fd_streak, fd_ok, new_down, fd_hist, fd_seen = _observer_rows(
+        active, alive, drop_prob, subjects, probe_drop, draw, fd_fail, alerted, fd_streak,
+        fd_ok, round_, row0, threshold=threshold, gray_confirm=gray_confirm,
+        gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
+        fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire,
+    )
+    bits.copy_(pack_segment(new_down))
+    return fd_fail, alerted_out, fd_streak, fd_ok, fd_hist, fd_seen
+
+
+def fd_gather_plain(
+    active: torch.Tensor, observers: torch.Tensor, down_reports: torch.Tensor,
+    bits: torch.Tensor, shard_rows: int,
+) -> torch.Tensor:
+    """The destination gather of ``fd_phase_fused_plain`` from the bitset
+    segments of ``C / shard_rows`` shards laid end to end, in plain PyTorch
+    ops: observer o's new_down is bit ``(o - s * shard_rows) * K + k`` of
+    segment ``s = o // shard_rows``, and no bit counts when no segment's flag
+    is set (the kernel then reads no bit). Returns ``down_arrivals``."""
+    c, k = observers.shape
+    seg = bits.view(c // shard_rows, -1)
+    data = seg[:, :-1].contiguous().view(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    unpacked = ((data[..., None] >> shifts) & 1).reshape(seg.shape[0], -1)
+    new_down = unpacked[:, : shard_rows * k].reshape(c, k).bool() & (seg[:, -1] != 0).any()
+    return (new_down.gather(0, observers.long()) | down_reports) & active[:, None]
+
+
+def _check(name: str, want, device: torch.device) -> None:
+    """Raise on an argument of another dtype, shape or device than the
+    kernel takes: ``want`` lists ``(argument, tensor, dtype, shape)``."""
+    for arg, t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, want {shape}")
+        if t.device != device:
+            raise ValueError(f"{name}: all inputs must be on one device")
+
+
+def _check_policy(name: str, threshold: int, gray_confirm: int, gray_warmup: int,
+                  rounds_per_interval: int, window: int, window_fire: int) -> None:
+    if not (1 <= threshold <= 255 and 0 <= gray_confirm <= 255
+            and 0 <= gray_warmup <= 255 and rounds_per_interval >= 1):
+        raise ValueError(f"{name}: threshold, gray counts or rounds_per_interval out of range")
+    if not (0 <= window <= 16 and -(1 << 31) <= window_fire < (1 << 31)):
+        raise ValueError(f"{name}: window must be in [0, 16], window_fire an int32")
+    if window > 0 and gray_confirm > 0:
+        raise ValueError(f"{name}: the gray streak path runs on the cumulative policy only")
+
+
+def _policy_planes(name: str, rows: int, k: int, fd_hist, fd_seen, window: int) -> list:
+    """The windowed policy's planes as ``_check`` entries (none under the
+    cumulative policy)."""
+    if window == 0:
+        return []
+    if fd_hist is None or fd_seen is None:
+        raise ValueError(f"{name}: the windowed policy needs fd_hist and fd_seen")
+    return [("fd_hist", fd_hist, torch.int32, (rows, k)),
+            ("fd_seen", fd_seen, torch.uint8, (rows, k))]
+
+
+def _ptr(t: Optional[torch.Tensor], used: bool = True):
+    return t.data_ptr() if used and t is not None else None
 
 
 def fd_phase_fused(
@@ -371,7 +508,6 @@ def fd_phase_fused(
     reads nor writes ``fd_fail``, which is returned as it came in."""
     name = "fd_phase_fused"
     c, k = subjects.shape
-    gray = gray_confirm > 0
     windowed = window > 0
     want = [
         ("active", active, torch.bool, (c,)), ("alive", alive, torch.bool, (c,)),
@@ -388,25 +524,10 @@ def fd_phase_fused(
     ]
     if draw is not None:
         want.append(("draw", draw, torch.float32, (c, k)))
-    if windowed:
-        if fd_hist is None or fd_seen is None:
-            raise ValueError(f"{name}: the windowed policy needs fd_hist and fd_seen")
-        want += [("fd_hist", fd_hist, torch.int32, (c, k)),
-                 ("fd_seen", fd_seen, torch.uint8, (c, k))]
-    for arg, t, dtype, shape in want:
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, want {shape}")
-        if t.device != active.device:
-            raise ValueError(f"{name}: all inputs must be on one device")
-    if not (1 <= threshold <= 255 and 0 <= gray_confirm <= 255
-            and 0 <= gray_warmup <= 255 and rounds_per_interval >= 1):
-        raise ValueError(f"{name}: threshold, gray counts or rounds_per_interval out of range")
-    if not (0 <= window <= 16 and -(1 << 31) <= window_fire < (1 << 31)):
-        raise ValueError(f"{name}: window must be in [0, 16], window_fire an int32")
-    if windowed and gray:
-        raise ValueError(f"{name}: the gray streak path runs on the cumulative policy only")
+    want += _policy_planes(name, c, k, fd_hist, fd_seen, window)
+    _check(name, want, active.device)
+    _check_policy(name, threshold, gray_confirm, gray_warmup, rounds_per_interval,
+                  window, window_fire)
     args = dict(threshold=threshold, gray_confirm=gray_confirm,
                 gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
                 fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire)
@@ -449,17 +570,13 @@ def _launch_fused(inputs, stream: int, *, threshold: int, gray_confirm: int,
     node_table = torch.empty(2 * ((c + 31) // 32) + 1, dtype=torch.int32,
                              device=active.device)
     new_down = torch.empty((c * k + 32 + 31) // 32, dtype=torch.int32, device=active.device)
-
-    def ptr(t, used=True):
-        return t.data_ptr() if used and t is not None else None
-
     err = _function("fd_phase_fused")(
-        *(ptr(t) for t in inputs[:8]), ptr(fd_fail, not windowed), ptr(alerted),
-        ptr(fd_streak, gray), ptr(fd_ok, gray), ptr(fd_hist, windowed),
-        ptr(fd_seen, windowed), ptr(round_),
-        ptr(alive_out), ptr(fd_out, not windowed), ptr(alerted_out),
-        ptr(streak_out, gray), ptr(ok_out, gray), ptr(hist_out, windowed),
-        ptr(seen_out, windowed), ptr(down_arrivals), ptr(node_table), ptr(new_down),
+        *(_ptr(t) for t in inputs[:8]), _ptr(fd_fail, not windowed), _ptr(alerted),
+        _ptr(fd_streak, gray), _ptr(fd_ok, gray), _ptr(fd_hist, windowed),
+        _ptr(fd_seen, windowed), _ptr(round_),
+        _ptr(alive_out), _ptr(fd_out, not windowed), _ptr(alerted_out),
+        _ptr(streak_out, gray), _ptr(ok_out, gray), _ptr(hist_out, windowed),
+        _ptr(seen_out, windowed), _ptr(down_arrivals), _ptr(node_table), _ptr(new_down),
         c, k, threshold, gray_confirm, gray_warmup, rounds_per_interval,
         window, window_fire, stream,
     )
@@ -467,3 +584,120 @@ def _launch_fused(inputs, stream: int, *, threshold: int, gray_confirm: int,
         raise RuntimeError(f"fd_phase_fused: kernel launch failed with CUDA error {err}")
     return (alive_out, fd_out, alerted_out, streak_out, ok_out, down_arrivals,
             hist_out, seen_out)
+
+
+def fd_phase_rows(
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
+    subjects: torch.Tensor, probe_drop: torch.Tensor, draw: Optional[torch.Tensor],
+    fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
+    fd_ok: torch.Tensor, round_: torch.Tensor, bits: torch.Tensor, *, row0: int,
+    threshold: int, gray_confirm: int = 0, gray_warmup: int = 3,
+    rounds_per_interval: int = 1, fd_hist: Optional[torch.Tensor] = None,
+    fd_seen: Optional[torch.Tensor] = None, window: int = 0, window_fire: int = 0,
+) -> FusedOutputs:
+    """One shard's side of the FD phase in the CUDA kernel ``fd_phase_rows``
+    (its plain version for CPU tensors): the node pass over all C nodes and
+    the observer pass over rows ``[row0, row0 + rows)``. Arguments and
+    results as ``fd_phase_rows_plain``; ``bits`` is an int32 tensor of
+    ``segment_words(rows, K)`` words, which may be a slice of a bitset on the
+    same device. Launched with the shards' device current, on its stream."""
+    name = "fd_phase_rows"
+    c = active.shape[0]
+    rows, k = subjects.shape
+    windowed = window > 0
+    want = [
+        ("active", active, torch.bool, (c,)), ("alive", alive, torch.bool, (c,)),
+        ("drop_prob", drop_prob, torch.float32, (c,)),
+        ("subjects", subjects, torch.int32, (rows, k)),
+        ("probe_drop", probe_drop, torch.bool, (rows, k)),
+        ("fd_fail", fd_fail, torch.uint8, (rows, k)),
+        ("alerted", alerted, torch.bool, (rows, k)),
+        ("fd_streak", fd_streak, torch.uint8, (rows, k)),
+        ("fd_ok", fd_ok, torch.uint8, (rows, k)),
+        ("round_", round_, torch.int32, ()),
+        ("bits", bits, torch.int32, (segment_words(rows, k),)),
+    ]
+    if draw is not None:
+        want.append(("draw", draw, torch.float32, (rows, k)))
+    want += _policy_planes(name, rows, k, fd_hist, fd_seen, window)
+    _check(name, want, active.device)
+    _check_policy(name, threshold, gray_confirm, gray_warmup, rounds_per_interval,
+                  window, window_fire)
+    if not 0 <= row0 <= c - rows:
+        raise ValueError(f"{name}: rows [{row0}, {row0 + rows}) outside [0, {c})")
+    args = dict(row0=row0, threshold=threshold, gray_confirm=gray_confirm,
+                gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
+                fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire)
+    inputs = (active, alive, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
+              fd_streak, fd_ok, round_)
+    if active.device.type == "cpu":
+        return fd_phase_rows_plain(*inputs, bits, **args)
+    if active.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {active.device}")
+    read = inputs + (bits,) + ((fd_hist, fd_seen) if windowed else ())
+    if not all(t.is_contiguous() for t in read if t is not None):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    gray = gray_confirm > 0
+    fd_out = fd_fail if windowed else torch.empty_like(fd_fail)
+    alerted_out = torch.empty_like(alerted)
+    streak_out = torch.empty_like(fd_streak) if gray else fd_streak
+    ok_out = torch.empty_like(fd_ok) if gray else fd_ok
+    hist_out = torch.empty_like(fd_hist) if windowed else fd_hist
+    seen_out = torch.empty_like(fd_seen) if windowed else fd_seen
+    node_table = torch.empty(2 * ((c + 31) // 32), dtype=torch.int32, device=active.device)
+    with torch.cuda.device(active.device):
+        err = _function(name)(
+            *(_ptr(t) for t in inputs[:6]), _ptr(fd_fail, not windowed), _ptr(alerted),
+            _ptr(fd_streak, gray), _ptr(fd_ok, gray), _ptr(fd_hist, windowed),
+            _ptr(fd_seen, windowed), _ptr(round_),
+            _ptr(fd_out, not windowed), _ptr(alerted_out), _ptr(streak_out, gray),
+            _ptr(ok_out, gray), _ptr(hist_out, windowed), _ptr(seen_out, windowed),
+            _ptr(node_table), _ptr(bits), c, row0, rows, k, threshold, gray_confirm,
+            gray_warmup, rounds_per_interval, window, window_fire,
+            torch.cuda.current_stream(active.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    if rows * k:
+        LAUNCHES["fd_phase_rows_windowed" if windowed else name] += 1
+    return fd_out, alerted_out, streak_out, ok_out, hist_out, seen_out
+
+
+def fd_gather(
+    active: torch.Tensor, observers: torch.Tensor, down_reports: torch.Tensor,
+    bits: torch.Tensor, shard_rows: int,
+) -> torch.Tensor:
+    """The destination gather of the FD phase in the CUDA kernel
+    ``fd_gather`` (its plain version for CPU tensors), from the bitset
+    segments that ``fd_phase_rows`` wrote for ``C / shard_rows`` shards, laid
+    end to end in ``bits``. Returns ``down_arrivals`` ``[C, K]``. Launched
+    with the tensors' device current, on its stream."""
+    name = "fd_gather"
+    c, k = observers.shape
+    if shard_rows <= 0 or c % shard_rows:
+        raise ValueError(f"{name}: shards of {shard_rows} rows do not tile {c} rows")
+    words = segment_words(shard_rows, k)
+    _check(name, [
+        ("active", active, torch.bool, (c,)),
+        ("observers", observers, torch.int32, (c, k)),
+        ("down_reports", down_reports, torch.bool, (c, k)),
+        ("bits", bits, torch.int32, (c // shard_rows * words,)),
+    ], active.device)
+    if active.device.type == "cpu":
+        return fd_gather_plain(active, observers, down_reports, bits, shard_rows)
+    if active.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {active.device}")
+    if not all(t.is_contiguous() for t in (active, observers, down_reports, bits)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    down_arrivals = torch.empty_like(down_reports)
+    with torch.cuda.device(active.device):
+        err = _function(name)(
+            _ptr(active), _ptr(observers), _ptr(down_reports), _ptr(bits),
+            _ptr(down_arrivals), c, k, shard_rows, words,
+            torch.cuda.current_stream(active.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    if c * k:
+        LAUNCHES[name] += 1
+    return down_arrivals

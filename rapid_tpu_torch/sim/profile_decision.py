@@ -81,16 +81,24 @@ def _syncs(sim: Simulator) -> dict:
     return dict(sorted(lines.items()))
 
 
-def _profile(sim: Simulator) -> dict:
+def profile_gpu(fn, passes=()) -> dict:
+    """The GPU activity of ``fn()`` under torch.profiler, ending in a device
+    synchronize: ``kernels`` (kernels and copies), ``device_busy_ms``, the
+    host-clock ``profiled_wall_ms``, ``idle_share``, the operators with the
+    most GPU time, the ``copies`` and their ``copy_us``, and the device µs
+    of each name in ``passes`` (summed over the kernels whose name holds
+    it)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rec = sim.run_until_decision(max_rounds=16, batch=16)
-        sim.ready()
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    assert rec is not None
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def us(name):
+        return sum(e.time_range.elapsed_us() for e in device if name in e.name)
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     by_op = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -103,7 +111,17 @@ def _profile(sim: Simulator) -> dict:
         "kernels": len(device),
         "idle_share": 1.0 - busy_ms / wall_ms,
         "top_device_ops": [{"op": k, "device_ms": ms, "calls": n} for k, ms, n in by_op],
+        "copies": sum("emcpy" in e.name for e in device),  # Memcpy DtoD/HtoD/DtoH
+        "copy_us": us("emcpy"),
+        **{f"{name}_us": us(name) for name in passes},
     }
+
+
+def _profile(sim: Simulator) -> dict:
+    recs = []
+    prof = profile_gpu(lambda: recs.append(sim.run_until_decision(max_rounds=16, batch=16)))
+    assert recs[0] is not None
+    return prof
 
 
 def main(argv=None) -> int:

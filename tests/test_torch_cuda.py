@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from rapid_tpu_torch.shard.engine import gather_state, make_mesh
 from rapid_tpu_torch.sim import engine
 from rapid_tpu_torch.sim.driver import Simulator
 
@@ -50,6 +51,27 @@ def test_simulator_on_card_matches_cpu(cuda_device, name):
     assert records[0] == records[1]
     for field, value in states[0].items():
         np.testing.assert_array_equal(states[1][field], value, err_msg=field)
+
+
+@pytest.mark.parametrize("name", list(_scenarios()))
+def test_sharded_simulator_on_card_matches_cpu(cuda_device, name):
+    """A mesh of 8 shards, all on the card, against the same mesh on the
+    CPU: a dispatch that does not decide, then the decision; every field."""
+    records, states = [], []
+    for device in ("cpu", cuda_device):
+        sim = Simulator(990, capacity=1000, seed=5, mesh=make_mesh(devices=[device] * 8))
+        _scenarios()[name](sim)
+        rec = sim.run_until_decision(max_rounds=1, batch=1)
+        states.append(engine.state_to_numpy(gather_state(sim.state)))
+        rec = rec or sim.run_until_decision(max_rounds=32, batch=16)
+        assert rec is not None
+        records.append((rec.cut.tolist(), rec.configuration_id, rec.virtual_time_ms))
+        states.append(engine.state_to_numpy(gather_state(sim.state)))
+    assert records[0] == records[1]
+    for field, value in states[0].items():
+        np.testing.assert_array_equal(states[2][field], value, err_msg=field)
+    for field, value in states[1].items():
+        np.testing.assert_array_equal(states[3][field], value, err_msg=field)
 
 
 def test_scan_path_state_on_card_matches_cpu(cuda_device):

@@ -2,10 +2,13 @@
 plain version against the JAX engine's ``_fd_phase`` and against a numpy
 reference, the CPU path of its wrapper, and, on an NVIDIA GPU, the CUDA
 kernel against its plain version under both FD policies (the windowed
-policy's plain version is held against JAX in tests/test_torch_windowed.py). Exact equality throughout: the phase is
-integer and boolean only, and where a random draw enters, both sides read
-the same draw (or a drop probability of 0 or 1, where the draw cannot
-matter).
+policy's plain version is held against JAX in tests/test_torch_windowed.py).
+Then its split around the multi-device alert exchange: ``fd_phase_rows``
+over row blocks followed by ``fd_gather`` equals the fused phase, in plain
+versions on the CPU and in the kernels on the card. Exact equality
+throughout: the phase is integer and boolean only, and where a random draw
+enters, both sides read the same draw (or a drop probability of 0 or 1,
+where the draw cannot matter).
 
 JAX is imported only inside the JAX comparisons, so the CUDA tests also run
 where JAX is not installed (see tests/test_torch_cuda.py for the command)."""
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from rapid_tpu_torch.sim import engine, kernels
+from rapid_tpu_torch.sim import engine, fd_bench, kernels
 
 OUTPUTS = ("alive", "fd_fail", "alerted", "fd_streak", "fd_ok", "down_arrivals")
 
@@ -403,3 +406,150 @@ def test_cuda_fused_wrapper_rejects_int64_and_non_contiguous(cuda_device):
     strided[8] = args[8].t().contiguous().t()
     with pytest.raises(ValueError):
         kernels.fd_phase_fused(*strided, threshold=10)
+
+
+# --------------------------------------------------------------------- #
+# The split around the alert exchange: fd_phase_rows + fd_gather
+# --------------------------------------------------------------------- #
+
+# (policy keyword arguments; gray and staggered phases; the window)
+POLICIES = {
+    "cumulative": dict(threshold=10),
+    "gray": dict(threshold=10, gray_confirm=3, gray_warmup=3, rounds_per_interval=4),
+    "windowed": dict(threshold=10, window=10, rounds_per_interval=2),
+}
+# capacities and shard counts: misaligned row blocks (333 / 3: rows of 1110
+# edges start off a 16-edge slot) and partial last words (1000 / 8: 1250
+# edges, 1250 mod 32 = 2)
+SPLITS = [(64, 1), (64, 4), (64, 8), (333, 3), (333, 9), (1000, 5), (1000, 8)]
+
+
+def _policy_kw(policy, c, seed, device):
+    kw = dict(POLICIES[policy])
+    if policy == "windowed":
+        kw = dict(_window_kw(c, 10, 10, 0.4, kw["rounds_per_interval"], seed, device),
+                  threshold=10)
+    return kw
+
+
+def _split_phase(args, kw, shards, kernel=False):
+    """``fd_phase_rows`` over ``shards`` row blocks into one bitset, then
+    ``fd_gather`` (``fd_bench.split_case``, ``fd_bench.run_split``): the
+    kernels with ``kernel``, else the plain versions. Returns the fused
+    phase's eight outputs (``alive`` as None) and the bitset."""
+    calls, bits = fd_bench.split_case(args, kw, shards)
+    return fd_bench.run_split(calls, bits, args, kernel), bits
+
+
+def _assert_split_equals_fused(args, kw, shards, kernel=False):
+    got, bits = _split_phase(args, kw, shards, kernel)
+    want = kernels.fd_phase_fused_plain(*args, **kw)
+    for name, g, w in zip(OUTPUTS + ("fd_hist", "fd_seen"), got, want):
+        if name == "alive":
+            continue
+        if w is None:
+            assert g is None, name
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    return got, bits
+
+
+@pytest.mark.parametrize("random", [False, True])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("c, shards", SPLITS)
+def test_split_plain_equals_fused_plain(c, shards, policy, random):
+    args = _case(c, 10, seed=c + shards, random=random)
+    kw = _policy_kw(policy, c, seed=c * shards, device="cpu")
+    got, _ = _assert_split_equals_fused(args, kw, shards)
+    assert (got[2] & ~args[9]).any(), "the case should raise alerts"
+
+
+@pytest.mark.parametrize("c, shards", [(333, 3), (1000, 8)])
+def test_split_plain_quiet_round_sets_no_flag(c, shards):
+    """No edge crosses: every segment's flag is 0, and the gather reads no
+    bit (down_arrivals is the down reports of active destinations)."""
+    args = list(_case(c, 10, seed=5))
+    args[8] = torch.zeros_like(args[8])  # no counter near the threshold
+    got, bits = _assert_split_equals_fused(tuple(args), dict(threshold=10), shards)
+    words = kernels.segment_words(c // shards, 10)
+    assert not bits.view(shards, words)[:, -1].any()
+    assert torch.equal(got[5], args[6] & args[0][:, None])
+
+
+def test_segment_layout_is_lsb_first_words_and_a_flag():
+    rng = np.random.default_rng(3)
+    new_down = rng.random((37, 10)) < 0.1
+    seg = kernels.pack_segment(torch.from_numpy(new_down))
+    assert seg.dtype == torch.int32 and seg.shape == (kernels.segment_words(37, 10),)
+    want = np.packbits(np.concatenate([new_down.reshape(-1), np.zeros(14, bool)]),
+                       bitorder="little").view("<i4")
+    np.testing.assert_array_equal(seg[:-1].numpy(), want)
+    assert int(seg[-1]) == 1
+    assert int(kernels.pack_segment(torch.zeros(37, 10, dtype=torch.bool))[-1]) == 0
+
+
+def test_split_wrappers_take_plain_path_on_cpu_and_check_arguments():
+    args = _case(64, 10, seed=9)
+    before = dict(kernels.LAUNCHES)
+    _assert_split_equals_fused(args, dict(threshold=10), 4, kernel=True)
+    assert kernels.LAUNCHES == before
+    words = kernels.segment_words(16, 10)
+    bits = torch.zeros(4 * words, dtype=torch.int32)
+    block = [None if a is None or a.dim() != 2 else a[:16].clone() for a in args]
+    row_args = (args[0], args[1], args[2], block[3], block[5], block[7], block[8], block[9],
+                block[10], block[11], args[12])
+    with pytest.raises(ValueError, match="outside"):
+        kernels.fd_phase_rows(*row_args, bits[:words], row0=50, threshold=10)
+    with pytest.raises(ValueError, match="bits"):
+        kernels.fd_phase_rows(*row_args, bits[:words - 1], row0=0, threshold=10)
+    with pytest.raises(TypeError):
+        kernels.fd_phase_rows(*row_args, bits[:words].long(), row0=0, threshold=10)
+    with pytest.raises(ValueError, match="tile"):
+        kernels.fd_gather(args[0], args[4], args[6], bits, 15)
+    with pytest.raises(ValueError, match="bits"):
+        kernels.fd_gather(args[0], args[4], args[6], bits[1:], 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("random", [False, True])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("c, shards", [(1, 1), (333, 3), (333, 9), (1000, 8), (100_000, 8)])
+def test_cuda_split_kernels_match_plain(cuda_device, c, shards, policy, random):
+    """Each shard's fd_phase_rows and the gather against their plain
+    versions (the whole bitset included, flag and padding), and the split
+    against the fused phase."""
+    args = _case(c, 10, seed=c + shards, device=cuda_device, random=random)
+    kw = _policy_kw(policy, c, seed=c * shards, device=cuda_device)
+    counter = "fd_phase_rows_windowed" if policy == "windowed" else "fd_phase_rows"
+    before = dict(kernels.LAUNCHES)
+    got, bits = _assert_split_equals_fused(args, kw, shards, kernel=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**before, counter: before[counter] + shards,
+                                "fd_gather": before["fd_gather"] + 1}
+    want, want_bits = _split_phase(args, kw, shards)
+    assert torch.equal(bits, want_bits)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+def test_cuda_rows_kernel_on_misaligned_blocks(cuda_device, offset):
+    """Row blocks that start ``offset`` elements into their buffers take the
+    scalar path; the segment and the planes still match the plain version."""
+    args = _case(333, 10, seed=offset, device=cuda_device)
+    kw = dict(threshold=10, gray_confirm=3, gray_warmup=3, rounds_per_interval=1)
+    rows, words = 111, kernels.segment_words(111, 10)
+    for s in range(3):
+        block = [None if a is None or a.dim() != 2 else
+                 _misaligned(a[s * rows:(s + 1) * rows], offset) for a in args]
+        row_args = (args[0], args[1], args[2], block[3], block[5], block[7], block[8],
+                    block[9], block[10], block[11], args[12])
+        got_bits = torch.full((words,), -1, dtype=torch.int32, device=cuda_device)
+        want_bits = torch.zeros(words, dtype=torch.int32, device=cuda_device)
+        got = kernels.fd_phase_rows(*row_args, got_bits, row0=s * rows, **kw)
+        want = kernels.fd_phase_rows_plain(*row_args, want_bits, row0=s * rows, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got_bits, want_bits)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
