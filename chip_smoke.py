@@ -41,17 +41,19 @@ into build/kernels/. Phases, each of which must pass:
    state field and record: both branches under both FD policies, the
    classic fallback, and bridged extern votes;
 9. the multi-device round loop (``rapid_tpu_torch/shard/engine.py``), every
-   shard on this one card: ``fd_phase_rows`` over each shard's rows, the
-   exchange into one bitset and ``fd_gather``, against
+   shard on this one card: one ``fd_phase_rows`` call over every shard's
+   rows, the exchange into one bitset and ``fd_gather``, against
    ``fd_phase_fused_plain`` over the whole array and each kernel against its
    plain version, bit for bit, at [100_000, 10] over 4 and 8 shards and
    [1_000_000, 10] over 8, under the cumulative, gray and windowed policies,
-   random loss on and off; the split timed cold beside ``fd_phase_fused``;
-   then the headline fault through ``Simulator(mesh=...)`` on meshes of 4
-   and 8 shards and a (2, 2) ("dcn", "ici") mesh, each deciding the crashed
-   set at 11 100 ms virtual with the single-device configuration id, one
-   sync per dispatch and the expected launches, beside the single-device
-   closed form and scan path of the same fault.
+   random loss on and off, and halted; the split timed cold beside
+   ``fd_phase_fused``: the per-device call, one shard alone and one call a
+   shard; then the headline fault through ``Simulator(mesh=...)`` on meshes
+   of 4 and 8 shards and a (2, 2) ("dcn", "ici") mesh, each deciding the
+   crashed set at 11 100 ms virtual with the single-device configuration
+   id, one sync per dispatch and one ``fd_phase_rows`` and one
+   ``fd_gather`` launch a round, beside the single-device closed form and
+   scan path of the same fault.
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -100,8 +102,8 @@ OPS_PER_EDGE = {"fd_phase_i32": 10, "fd_phase_u8": 10, "fd_phase_fused": 24,
                 "fd_phase_fused_windowed": 26}
 # the split of the fused phase: the rows take all but the gather's OR and
 # AND, plus the bit a slot packs; the gather its OR and AND and the shard
-# lookup (a division, a multiply, a subtract)
-OPS_PER_EDGE.update({"fd_phase_rows": 23, "fd_phase_rows_windowed": 25, "fd_gather": 5})
+# lookup (a shift, a multiply-high and a shift, a multiply and a subtract)
+OPS_PER_EDGE.update({"fd_phase_rows": 23, "fd_phase_rows_windowed": 25, "fd_gather": 7})
 # (gray_confirm, rounds_per_interval, random loss): the headline variant
 # first, the only one timed
 FUSED_VARIANTS = ((0, 1, True), (3, 4, True), (0, 4, False))
@@ -137,33 +139,13 @@ SHARD_SEED = SEED + 8000
 
 
 def _time_ms(fn, reps=24, iters=11):
-    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
-    graph, the replay timed with CUDA events, median over ``iters`` replays
-    divided by ``reps``. The graph keeps the Python wrapper's launch overhead
-    out of the measurement, which at these sizes would otherwise swamp it.
-    ``fn`` may be a list of calls, taken in turn (to rotate input sets)."""
-    fns = fn if isinstance(fn, list) else [fn]
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(reps):
-            fns[i % len(fns)]()
-    graph.replay()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    ms = statistics.median(s.elapsed_time(e) for s, e in events) / reps
-    del graph
-    return ms
+    """Device time of one call of ``fn`` (``fd_bench.graph_ms``): ``reps``
+    calls captured in a CUDA graph, the replay timed with CUDA events, median
+    over ``iters`` replays divided by ``reps``; ``fn`` may be a list of calls,
+    taken in turn (to rotate input sets)."""
+    from rapid_tpu_torch.sim.fd_bench import graph_ms
+
+    return graph_ms(fn, reps, iters)
 
 
 def _kernel_phase(kernels, device):
@@ -615,31 +597,57 @@ def _max_err(got, want):
                for g, w in zip(got, want) if w is not None)
 
 
-def _split_round(kernels, calls, bits, args, rows):
-    """One round of the sharded FD phase: every shard's ``fd_phase_rows``
-    into its segment of ``bits``, then ``fd_gather`` on home."""
+def _split_round(kernels, calls, bits, args, rows, halt):
+    """One round of the sharded FD phase: the ``fd_phase_rows`` calls of
+    ``calls`` into the segments of ``bits`` (one call over every shard, as a
+    device that holds them all makes it, or one call a shard), then
+    ``fd_gather`` on home."""
     for a, kw in calls:
-        kernels.fd_phase_rows(*a, **kw)
+        kernels.fd_phase_rows(*a, **kw, halt=halt)
     return kernels.fd_gather(args[0], args[4], args[6], bits, rows)
 
 
+def _assert_halted(kernels, fd_bench, args, kw, shards, halt, where):
+    """The per-device call halted: every plane as it came in, every segment
+    zero, and equal to its plain version halted."""
+    calls, bits = fd_bench.split_case(args, kw, shards)
+    merged, merged_kw = fd_bench.device_call(calls)
+    got = kernels.fd_phase_rows(*merged, **merged_kw, halt=halt)
+    plain_calls, plain_bits = fd_bench.split_case(args, kw, shards)
+    plain_merged, plain_kw = fd_bench.device_call(plain_calls)
+    plain = kernels.fd_phase_rows_plain(*plain_merged, **plain_kw, halt=halt)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, plain_bits) and not bits.any(), f"halted bitset not zero at {where}"
+    for (a, a_kw), g, p in zip(calls, got, plain):
+        planes_in = (a[6], a[7], a[8], a[9], a_kw["fd_hist"], a_kw["fd_seen"])
+        for i, x, y in zip(planes_in, g, p):
+            assert (i is None and x is None and y is None) or (
+                torch.equal(x, i) and torch.equal(y, i)), f"a halted plane moved at {where}"
+
+
 def _split_phase(kernels, fd_bench, engine, device):
-    """``fd_phase_rows`` on every shard, the exchange into one bitset and
-    ``fd_gather``, against ``fd_phase_fused_plain`` over the whole array and
-    each kernel against its plain version, bit for bit, in every case of
-    SPLIT_CASES x {cumulative, gray, windowed} x {random loss, none}; then the
-    split at [100_000, 10] over 8 shards timed cold (input sets rotated past
-    the L2) and hot, beside ``fd_phase_fused`` on the same inputs."""
+    """The per-device ``fd_phase_rows`` over every shard, the exchange into
+    one bitset and ``fd_gather``, against ``fd_phase_fused_plain`` over the
+    whole array and each kernel against its plain version, bit for bit, in
+    every case of SPLIT_CASES x {cumulative, gray, windowed} x {random loss,
+    none}, and halted (every plane as it came in, no bit) with random loss;
+    then at [100_000, 10] over 8 shards, timed cold (input sets rotated past
+    the L2): the per-device call, one shard's call alone, and 8 one-shard
+    calls, each round with ``fd_gather``, beside
+    ``fd_phase_fused`` on the same inputs."""
     worst = {"fd_phase_rows": 0, "fd_phase_rows_windowed": 0, "fd_gather": 0}
+    running = torch.zeros((), dtype=torch.bool, device=device)
+    halted = torch.ones((), dtype=torch.bool, device=device)
     for c, shards in SPLIT_CASES:
         for policy in ("cumulative", "gray", "windowed"):
             for random in (True, False):
                 args = fd_bench.fused_case(c, c + shards + len(policy), device, random)
                 kw = _split_kw(engine, fd_bench, policy, c, c + shards, device)
                 calls, bits = fd_bench.split_case(args, kw, shards)
-                got = fd_bench.run_split(calls, bits, args)
+                got = fd_bench.run_split(calls, bits, args, halt=running)
                 plain_calls, plain_bits = fd_bench.split_case(args, kw, shards)
-                plain = fd_bench.run_split(plain_calls, plain_bits, args, kernel=False)
+                plain = fd_bench.run_split(plain_calls, plain_bits, args, kernel=False,
+                                           halt=running)
                 fused = kernels.fd_phase_fused_plain(*args, **kw)
                 torch.cuda.synchronize()
                 where = f"[{c}, 10] over {shards} shards, {policy}, random {random}"
@@ -656,9 +664,13 @@ def _split_phase(kernels, fd_bench, engine, device):
                 rows_name = "fd_phase_rows_windowed" if policy == "windowed" else "fd_phase_rows"
                 worst[rows_name] = max(worst[rows_name], rows_err)
                 worst["fd_gather"] = max(worst["fd_gather"], _max_err([got[5]], [plain[5]]))
-                print(f"split {where}: fd_phase_rows x {shards} + exchange + fd_gather "
-                      f"bit-identical to fd_phase_fused_plain and to their plain versions "
-                      f"(tolerance 0)", flush=True)
+                print(f"split {where}: one fd_phase_rows call over {shards} shards + exchange "
+                      f"+ fd_gather bit-identical to fd_phase_fused_plain and to their plain "
+                      f"versions (tolerance 0)", flush=True)
+                if random:
+                    _assert_halted(kernels, fd_bench, args, kw, shards, halted, where)
+                    print(f"split {where}, halted: every plane as it came in, no bit, "
+                          f"bit-identical to the plain version (tolerance 0)", flush=True)
                 del args, calls, bits, plain_calls, plain_bits, got, plain, fused
         torch.cuda.empty_cache()
 
@@ -669,27 +681,54 @@ def _split_phase(kernels, fd_bench, engine, device):
     for policy in ("cumulative", "windowed"):
         kws = [_split_kw(engine, fd_bench, policy, c, 9000 + i, device) for i in range(len(sets))]
         cases = [fd_bench.split_case(a, kw, shards) for a, kw in zip(sets, kws)]
+        merged = [fd_bench.device_call(calls) for calls, _ in cases]
         for a, (calls, bits) in zip(sets, cases):
-            fd_bench.run_split(calls, bits, a)  # the bitsets of a round with alerts
+            # the bitsets of a round with alerts; one call a shard gives the same
+            one_by_one = fd_bench.run_split(calls, bits, a, per_device=False, halt=running)
+            per_shard_bits = bits.clone()
+            together = fd_bench.run_split(calls, bits, a, halt=running)
+            torch.cuda.synchronize()
+            assert torch.equal(bits, per_shard_bits) and all(
+                (x is None and y is None) or torch.equal(x, y)
+                for x, y in zip(one_by_one[1:], together[1:])), "one call a shard disagrees"
         every_shard = [(a, kw) for calls, _ in cases for a, kw in calls]
         name = "fd_phase_rows_windowed" if policy == "windowed" else "fd_phase_rows"
-        # cold: every shard of every set, more than the L2 holds
-        t = {"ms": _time_ms([lambda a=a, kw=kw: kernels.fd_phase_rows(*a, **kw)
-                             for a, kw in every_shard], reps=len(every_shard)),
-             "hot_ms": _time_ms(lambda: kernels.fd_phase_rows(*every_shard[0][0],
-                                                              **every_shard[0][1])),
-             "plain_ms": _time_ms([lambda a=a, kw=kw: kernels.fd_phase_rows_plain(*a, **kw)
-                                   for a, kw in every_shard], reps=len(every_shard)),
-             "round_ms": _time_ms([lambda a=a, c_=c_: _split_round(kernels, *c_, a, rows)
-                                   for a, c_ in zip(sets, cases)]),
+
+        def device_call(m, fn=kernels.fd_phase_rows):
+            return lambda: fn(*m[0], **m[1], halt=running)
+
+        def shard_call(a, kw, fn=kernels.fd_phase_rows):
+            return lambda: fn(*a, **kw, halt=running)
+
+        def shard_calls(calls):
+            return lambda: [kernels.fd_phase_rows(*a, **kw, halt=running) for a, kw in calls]
+
+        def round_(a, calls, bits):
+            return lambda: _split_round(kernels, calls, bits, a, rows, running)
+
+        # cold: every set in turn, more than the L2 holds
+        t = {"ms": _time_ms([device_call(m) for m in merged]),
+             "hot_ms": _time_ms(device_call(merged[0])),
+             "plain_ms": _time_ms([device_call(m, kernels.fd_phase_rows_plain) for m in merged]),
+             "one_shard_ms": _time_ms([shard_call(a, kw) for a, kw in every_shard],
+                                      reps=len(every_shard)),
+             "per_shard_calls_ms": _time_ms([shard_calls(calls) for calls, _ in cases]),
+             "round_ms": _time_ms([round_(a, [m], bits)
+                                   for a, m, (_, bits) in zip(sets, merged, cases)]),
+             "per_shard_round_ms": _time_ms([round_(a, calls, bits)
+                                             for a, (calls, bits) in zip(sets, cases)]),
              "fused_ms": _time_ms([lambda a=a, kw=kw: kernels.fd_phase_fused(*a, **kw)
                                    for a, kw in zip(sets, kws)])}
-        nbytes = fd_bench.rows_bytes(c, rows, 10, False, True, window=policy == "windowed")
+        windowed = policy == "windowed"
+        nbytes = fd_bench.rows_bytes(c, rows, 10, False, True, window=windowed, shards=shards)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_EDGE[name] * rows * 10 / PEAK_OPS_PER_S * 1e3
+        ops_ms = OPS_PER_EDGE[name] * c * 10 / PEAK_OPS_PER_S * 1e3
+        one_bytes_ms = (fd_bench.rows_bytes(c, rows, 10, False, True, window=windowed)
+                        / HBM_BYTES_PER_S * 1e3)
         t.update(bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                 max_abs_err=worst[name], shape=[rows, 10], of=[c, 10], shards=shards)
+                 one_shard_bound_ms=max(one_bytes_ms, ops_ms / shards),
+                 max_abs_err=worst[name], shape=[c, 10], shards=shards)
         timed[name] = t
         if policy == "cumulative":
             gather = {"ms": _time_ms([lambda a=a, b=b: kernels.fd_gather(a[0], a[4], a[6], b, rows)
@@ -704,12 +743,15 @@ def _split_phase(kernels, fd_bench, engine, device):
                           max_abs_err=worst["fd_gather"], shape=[c, 10], shards=shards)
             timed["fd_gather"] = gather
         print(f"split timed, {policy}, [{c}, 10] over {shards} shards, random loss, cold over "
-              f"{len(sets)} input sets: fd_phase_rows {t['ms'] * 1e3:.2f} us a shard (hot "
-              f"{t['hot_ms'] * 1e3:.2f}, plain {t['plain_ms'] * 1e3:.2f}, bound "
-              f"{t['bound_ms'] * 1e3:.2f}); a whole round (every shard + fd_gather) "
-              f"{t['round_ms'] * 1e3:.2f} us against fd_phase_fused {t['fused_ms'] * 1e3:.2f} us",
-              flush=True)
-        del cases, every_shard, kws
+              f"{len(sets)} input sets: fd_phase_rows over all {shards} shards in one call "
+              f"{t['ms'] * 1e3:.2f} us (hot {t['hot_ms'] * 1e3:.2f}, plain "
+              f"{t['plain_ms'] * 1e3:.2f}, bound {t['bound_ms'] * 1e3:.2f}); one shard alone "
+              f"{t['one_shard_ms'] * 1e3:.2f} us (bound {t['one_shard_bound_ms'] * 1e3:.2f}); "
+              f"{shards} one-shard calls {t['per_shard_calls_ms'] * 1e3:.2f} us; a whole round "
+              f"(+ fd_gather) {t['round_ms'] * 1e3:.2f} us, with {shards} one-shard calls "
+              f"{t['per_shard_round_ms'] * 1e3:.2f} us, against fd_phase_fused "
+              f"{t['fused_ms'] * 1e3:.2f} us", flush=True)
+        del cases, merged, every_shard, kws
     g = timed["fd_gather"]
     print(f"split timed: fd_gather over {shards} segments {g['ms'] * 1e3:.2f} us (plain "
           f"{g['plain_ms'] * 1e3:.2f}, bound {g['bound_ms'] * 1e3:.2f})", flush=True)
@@ -719,12 +761,15 @@ def _split_phase(kernels, fd_bench, engine, device):
 
 
 def _profile(fn):
-    """``profile_decision.profile_gpu`` with the device µs of the split's
-    passes: ``rows_us`` (node and observer passes) and ``gather_us``."""
+    """``profile_decision.profile_gpu`` with the device µs of the FD passes:
+    ``rows_us`` (the node pass and the observer pass, ``rows_pass`` in
+    ``fd_phase_rows``, ``observer_pass`` in ``fd_phase_fused``) and
+    ``gather_us``."""
     from rapid_tpu_torch.sim.profile_decision import profile_gpu
 
-    prof = profile_gpu(fn, ("node_pass", "observer_pass", "gather_pass"))
-    prof["rows_us"] = prof.pop("node_pass_us") + prof.pop("observer_pass_us")
+    prof = profile_gpu(fn, ("node_pass", "observer_pass", "rows_pass", "gather_pass"))
+    prof["rows_us"] = (prof.pop("node_pass_us") + prof.pop("observer_pass_us")
+                       + prof.pop("rows_pass_us"))
     prof["gather_us"] = prof.pop("gather_pass_us")
     return prof
 
@@ -779,7 +824,8 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
             walls.append(ms)
             assert rec.configuration_id == reference_id, (label, rec.configuration_id)
             want = {name: 0 for name in launches}
-            want.update(fd_phase_rows=16 * size, fd_gather=16)
+            # one fd_phase_rows call a round covers every shard of the card
+            want.update(fd_phase_rows=16, fd_gather=16)
             assert launches == want, (label, launches)
         sim = fresh(mesh=mesh)
         sim.crash(victims)
@@ -822,7 +868,7 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
     mesh = shard.make_mesh(devices=[card] * 4)
     rec, ms, launches = decide(fresh(mesh=mesh, config=config))
     want = {name: 0 for name in launches}
-    want.update(fd_phase_rows_windowed=64, fd_gather=16)
+    want.update(fd_phase_rows_windowed=16, fd_gather=16)
     assert launches == want, launches
     out["windowed 4 shards"] = {"wall_ms": ms, "launches": launches}
     print(f"sharded decision, windowed, 4 shards: cut ok, virtual {rec.virtual_time_ms} ms, "

@@ -76,29 +76,39 @@
 // state by observer, so the destination gather needs other shards' bits and
 // cannot run until they have been exchanged. Two more entry points run the
 // same passes on either side of that exchange:
-// - fd_phase_rows: the node pass over all C nodes and the observer pass over
-//   one shard's rows [row0, row0 + rows), on that shard's own [rows, K]
-//   tensors (subject ids global). Its new_down bits go to a caller-given
-//   segment of a per-shard bitset: ceil(rows * K / 32) words, local edge e
-//   at bit e, then one word that is non-zero iff a bit is set. Slots start
+// - fd_phase_rows: one call a device a round, over every shard the device
+//   holds (up to kMaxShards a call). The node pass runs once over all C
+//   nodes, then one observer launch covers every shard: blockIdx.y picks the
+//   shard from a table passed as a __grid_constant__ parameter, and
+//   blockIdx.x strides over its rows [row0, row0 + rows), on the shard's own
+//   [rows, K] tensors (subject ids global). Each shard's new_down bits go to
+//   its segment of a per-shard bitset: ceil(rows * K / 32) words, local edge
+//   e at bit e, then one word that is non-zero iff a bit is set. Slots start
 //   at local edge 0 (16-byte accesses when every stream is aligned there,
 //   scalar ones otherwise), and the last data word is written whole, so the
-//   segment holds no stale bit.
+//   segment holds no stale bit. A halt flag, read on the device as the round
+//   is, stops every observer's probe: the planes come out as they went in
+//   and the segments hold no bit (the mesh masks the rounds after its
+//   decision this way).
 // - fd_gather: the gather pass over all [C, K] destinations, from the
 //   segments of every shard laid end to end; observer o's bit is bit
-//   (o - s * rows) * K + k of segment s = o / rows. It reads neither the
-//   observers nor the bits when no segment's flag is set.
+//   (o - s * rows) * K + k of segment s = o / rows, the division a multiply
+//   by a reciprocal the host computes. It reads neither the observers nor
+//   the bits when no segment's flag is set.
 // Their bound is bytes too: fd_phase_rows moves its rows' streams (13 B an
-// edge with random loss) plus 6 B of every one of the C nodes, which each
-// shard reads again; fd_gather 6 B an edge plus the segments. What holds
-// them above it on an H100 is the observer pass's dependent reads, as in
-// the fused call, and, for a shard of few rows, a grid of few blocks: at
-// 12 500 rows the observer pass fills 16 of the 132 SMs (PERF.md).
+// edge with random loss) plus 6 B of every one of the C nodes, once a call;
+// fd_gather 6 B an edge plus the segments. What holds them above it on an
+// H100 is the observer pass's dependent reads, as in the fused call; and a
+// shard of few rows gives few slots. So both take blocks of kSplitThreads
+// threads over a grid sized to the card (its SMs times the kernel's
+// occupancy, queried once): a shard of 12 500 rows spreads over 123 blocks,
+// not 16 of 512 threads.
 //
 // The kernel allocates nothing: the wrapper passes the outputs, the node
 // table, the new_down bits and the stream. Every launch is checked with
 // cudaGetLastError().
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -108,6 +118,13 @@ constexpr int kVec = 16;  // edges per slot: one 16-byte access per byte stream
 constexpr int kThreads = 512;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr long long kMaxBlocks = 132 * 16;
+constexpr int kSplitThreads = 64;  // block size of fd_phase_rows' observer pass and fd_gather
+constexpr int kMaxShards = 16;     // shards of one fd_phase_rows call
+constexpr int kMaxDevices = 64;
+constexpr uint32_t kNoTurn = 0xffffffffu;  // the turn of a halted round: nobody's
+// fd_phase_rows' observer pass is a programmatic dependent launch of its
+// node pass (rows_pass)
+constexpr bool kDependentLaunch = true;
 
 struct Params {
   // node state, 2 bits per node as two bit planes per 32 nodes: 0 inactive,
@@ -116,6 +133,7 @@ struct Params {
   const uint32_t* bits;  // bit e + shift is edge e's new_down
   uint32_t* any_down;    // some edge has new_down set
   const int32_t* round;
+  const uint8_t* halt;   // null, or a flag that, when set, stops every probe
   int rpi;
   const float* drop_prob;
   const int32_t* subjects;
@@ -142,9 +160,11 @@ struct Params {
   int64_t row0;        // global id of the streams' first observer row
   int64_t slots;       // slot j holds edges [16j - shift, 16j - shift + 16)
   int shift;
-  int32_t shard_rows;  // fd_gather: rows of each shard's segment
+  uint32_t shard_rows;  // fd_gather: rows of each shard's segment
+  uint32_t row_magic;   // fd_gather: o / shard_rows = umulhi(2o, row_magic) >> row_shift
+  int row_shift;
   int32_t n_shards;
-  int64_t seg_words;   // fd_gather: words of one segment, its flag included
+  uint32_t seg_words;   // fd_gather: words of one segment, its flag included
   bool vec_ok;  // every stream is 16-byte aligned at slot starts
   int k;
   int threshold;
@@ -189,16 +209,27 @@ __device__ __forceinline__ bool probing(const Params& p, int64_t o, uint32_t tur
           (static_cast<uint32_t>(o) * 2654435761u) % static_cast<uint32_t>(p.rpi) == turn);
 }
 
+// The any_down words that a node pass clears: the call's own, or one a
+// shard of a per-device fd_phase_rows call.
+struct Flags {
+  uint32_t* word[kMaxShards];
+  int n;
+};
+
 // Pass 1: the alive output (none when alive_out is null) and the node state
 // planes, a node a thread (a warp's ballots make the two plane words of its
-// 32 nodes); clears any_down.
+// 32 nodes); clears the flags: fd_phase_fused's one word, or with kShards
+// each shard's, and then it lets the observer pass launched after it as a
+// dependent (kDependentLaunch) start at once.
+template <bool kShards>
 __global__ void node_pass(const uint8_t* __restrict__ active,
                           const uint8_t* __restrict__ alive_in,
                           const float* __restrict__ drop_prob, int64_t c,
                           uint8_t* __restrict__ alive_out, uint2* __restrict__ node,
-                          uint32_t* __restrict__ any_down) {
+                          const Flags flags) {
+  if (kShards && kDependentLaunch) asm volatile("griddepcontrol.launch_dependents;");
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid == 0) *any_down = 0;
+  if (kShards ? tid < flags.n : tid == 0) *flags.word[kShards ? tid : 0] = 0;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t padded = (c + 31) / 32 * 32;  // whole warps take every step
   for (int64_t i = tid; i < padded; i += stride) {
@@ -392,13 +423,17 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
 }
 
 // new_down of the observer edge (o, kk): from the flat bits of one call
-// (kShards false), or from shard o / rows's segment (kShards true).
+// (kShards false), or from shard o / rows's segment (kShards true). The
+// shard is a multiply-high and a shift (exact for 0 <= o < 2^31), and every
+// index fits 32 bits: the wrapper bounds C * K by 2^31 and the bitset by
+// 2^32 words.
 template <bool kShards>
 __device__ __forceinline__ uint8_t observer_down(const Params& p, int32_t o, int kk) {
   if (kShards) {
-    const int32_t s = o / p.shard_rows;
-    const int64_t b = static_cast<int64_t>(o - s * p.shard_rows) * p.k + kk;
-    return (__ldg(p.bits + s * p.seg_words + (b >> 5)) >> (b & 31)) & 1u;
+    const uint32_t u = static_cast<uint32_t>(o);
+    const uint32_t s = __umulhi(u << 1, p.row_magic) >> p.row_shift;
+    const uint32_t b = (u - s * p.shard_rows) * static_cast<uint32_t>(p.k) + kk;
+    return (__ldg(p.bits + (s * p.seg_words + (b >> 5))) >> (b & 31)) & 1u;
   }
   const int64_t b = static_cast<int64_t>(o) * p.k + kk + p.shift;
   return (__ldg(p.bits + (b >> 5)) >> (b & 31)) & 1u;
@@ -472,6 +507,129 @@ __global__ void __launch_bounds__(kThreads) observer_pass(Params p) {
     observer_slot<kRandom, kGray, kWindow>(p, turn, j);
 }
 
+// What differs between the shards of a per-device fd_phase_rows call: the
+// streams of the shard's [rows, K] blocks, its bitset segment (the data
+// words, then the any_down word) and its slot layout.
+struct Shard {
+  const int32_t* subjects;
+  const uint8_t* probe_drop;
+  const float* draw;
+  const uint8_t* fd_fail;
+  const uint8_t* alerted;
+  const uint8_t* streak;
+  const uint8_t* fd_ok;
+  const int32_t* hist;
+  const uint8_t* seen;
+  uint8_t* fd_fail_out;
+  uint8_t* alerted_out;
+  uint8_t* streak_out;
+  uint8_t* fd_ok_out;
+  int32_t* hist_out;
+  uint8_t* seen_out;
+  uint32_t* bits;
+  uint32_t* any_down;
+  int64_t n;
+  int64_t row0;
+  int64_t slots;
+  bool vec_ok;
+};
+
+// The observer pass's parameter: what the shards share (the per-shard
+// fields of `p` are shard 0's) and each shard. It fits the classic 4 KB of
+// kernel parameters.
+struct ShardTable {
+  Params p;
+  Shard shard[kMaxShards];
+};
+static_assert(sizeof(ShardTable) <= 4096, "the shard table must fit 4 KB of kernel parameters");
+
+Shard shard_of(const Params& p) {
+  return Shard{p.subjects,    p.probe_drop,  p.draw,       p.fd_fail,   p.alerted,
+               p.streak,      p.fd_ok,       p.hist,       p.seen,      p.fd_fail_out,
+               p.alerted_out, p.streak_out,  p.fd_ok_out,  p.hist_out,  p.seen_out,
+               const_cast<uint32_t*>(p.bits), p.any_down,  p.n,         p.row0,
+               p.slots,       p.vec_ok};
+}
+
+__device__ __forceinline__ Params shard_params(const ShardTable& t, int s) {
+  const Shard& h = t.shard[s];
+  Params p = t.p;
+  p.subjects = h.subjects;
+  p.probe_drop = h.probe_drop;
+  p.draw = h.draw;
+  p.fd_fail = h.fd_fail;
+  p.alerted = h.alerted;
+  p.streak = h.streak;
+  p.fd_ok = h.fd_ok;
+  p.hist = h.hist;
+  p.seen = h.seen;
+  p.fd_fail_out = h.fd_fail_out;
+  p.alerted_out = h.alerted_out;
+  p.streak_out = h.streak_out;
+  p.fd_ok_out = h.fd_ok_out;
+  p.hist_out = h.hist_out;
+  p.seen_out = h.seen_out;
+  p.bits = h.bits;
+  p.new_down = reinterpret_cast<uint16_t*>(h.bits);
+  p.any_down = h.any_down;
+  p.n = h.n;
+  p.row0 = h.row0;
+  p.slots = h.slots;
+  p.shift = 0;
+  p.vec_ok = h.vec_ok;
+  return p;
+}
+
+// Pulls the lines of the first and last edge in [0, n) of the slot that
+// starts at `first` into L2, in every stream the observer pass reads.
+template <bool kRandom, bool kGray, bool kWindow>
+__device__ __forceinline__ void prefetch_slot(const Params& p, int64_t first) {
+  const int64_t lo = first < 0 ? 0 : first;
+  const int64_t hi = (first + kVec < p.n ? first + kVec : p.n) - 1;
+  if (lo > hi) return;
+  const auto pull = [lo, hi](const void* stream, int size) {
+    const char* base = static_cast<const char*>(stream);
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(base + lo * size));
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(base + hi * size));
+  };
+  pull(p.subjects, 4);
+  pull(p.probe_drop, 1);
+  pull(p.alerted, 1);
+  if (kRandom) pull(p.draw, 4);
+  if (!kWindow) pull(p.fd_fail, 1);
+  if (kGray) {
+    pull(p.streak, 1);
+    pull(p.fd_ok, 1);
+  }
+  if (kWindow) {
+    pull(p.hist, 4);
+    pull(p.seen, 1);
+  }
+}
+
+// Pass 2 of a per-device fd_phase_rows call: shard blockIdx.y of the table,
+// its slots strided over blockIdx.x. Launched as a dependent of the node
+// pass, it starts while that pass runs: it pulls its first slot's streams
+// into L2 and reads the round and the halt flag (all written before the node
+// pass), then waits for the node pass to end (griddepcontrol.wait, which
+// returns at once for a pass launched the usual way) before it reads the
+// node table or writes. A halted round is nobody's turn: with rpi at least 2
+// no observer's phase equals kNoTurn, so no observer probes.
+template <bool kRandom, bool kGray, bool kWindow>
+__global__ void __launch_bounds__(kSplitThreads) rows_pass(const __grid_constant__ ShardTable t) {
+  Params p = shard_params(t, blockIdx.y);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j0 < p.slots) prefetch_slot<kRandom, kGray, kWindow>(p, slot_first(p, j0));
+  const bool halted = p.halt != nullptr && *p.halt != 0;
+  const uint32_t due = this_turn(p);
+  const uint32_t turn = halted ? kNoTurn : due;
+  p.rpi = halted && p.rpi < 2 ? 2 : p.rpi;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int64_t j = j0; j < p.slots; j += stride)
+    observer_slot<kRandom, kGray, kWindow>(p, turn, j);
+}
+
 // Pass 3: the destination gather from the new_down bits, skipped when no
 // edge raised an alert: the any_down flag of the call (kShards false), or
 // the OR of every shard segment's flag (kShards true).
@@ -530,15 +688,43 @@ int blocks_for(int64_t work) {
   return static_cast<int>(need < 1 ? 1 : (need < kMaxBlocks ? need : kMaxBlocks));
 }
 
+// Blocks of kSplitThreads threads of kKernel that the current card runs at
+// once: its SM count times the kernel's occupancy, queried once a card.
+template <auto kKernel>
+int resident_blocks(int* blocks) {
+  static int known[kMaxDevices] = {};
+  int dev = 0;
+  int err = cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (known[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == 0) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
+                                                                      kSplitThreads, 0);
+    if (err != 0) return err;
+    known[dev] = std::max(1, sms * per_sm);
+  }
+  *blocks = known[dev];
+  return 0;
+}
+
+// Blocks along x for `slots` slots, a slot a thread, at most `cap`.
+unsigned split_blocks(int64_t slots, int cap) {
+  const int64_t need = (slots + kSplitThreads - 1) / kSplitThreads;
+  return static_cast<unsigned>(std::max<int64_t>(1, std::min<int64_t>(need, std::max(cap, 1))));
+}
+
 bool bad_policy(int window, bool gray) { return window < 0 || window > 16 || (window > 0 && gray); }
 
 // Pass 1 of either call, on `stream`.
+template <bool kShards>
 int launch_nodes(const void* active, const void* alive, const void* drop_prob, long long c,
-                 void* alive_out, void* node_table, uint32_t* any_down, cudaStream_t stream) {
-  node_pass<<<blocks_for(c), kThreads, 0, stream>>>(
+                 void* alive_out, void* node_table, const Flags& flags, cudaStream_t stream) {
+  node_pass<kShards><<<blocks_for(c), kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(active), static_cast<const uint8_t*>(alive),
       static_cast<const float*>(drop_prob), c, static_cast<uint8_t*>(alive_out),
-      static_cast<uint2*>(node_table), any_down);
+      static_cast<uint2*>(node_table), flags);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,32 +775,74 @@ Params edge_params(const void* node_table, const void* drop_prob, const void* su
   return p;
 }
 
-template <bool kRandom, bool kGray, bool kWindow>
-int launch_observer(const Params& p, cudaStream_t stream) {
-  observer_pass<kRandom, kGray, kWindow><<<blocks_for(p.slots), kThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
 
-// Pass 2 in the instantiation of the call's policy and loss model.
-int launch_observer_pass(const Params& p, cudaStream_t st) {
+// Launch<kRandom, kGray, kWindow>::run(args...) in the instantiation of the
+// loss model and policy of `p`.
+template <template <bool, bool, bool> class Launch, class... Args>
+int by_policy(const Params& p, const Args&... args) {
   const bool random = p.draw != nullptr;
   if (p.window > 0) {
-    return random ? launch_observer<true, false, true>(p, st)
-                  : launch_observer<false, false, true>(p, st);
+    return random ? Launch<true, false, true>::run(args...)
+                  : Launch<false, false, true>::run(args...);
   }
   if (random) {
-    return p.confirm > 0 ? launch_observer<true, true, false>(p, st)
-                         : launch_observer<true, false, false>(p, st);
+    return p.confirm > 0 ? Launch<true, true, false>::run(args...)
+                         : Launch<true, false, false>::run(args...);
   }
-  return p.confirm > 0 ? launch_observer<false, true, false>(p, st)
-                       : launch_observer<false, false, false>(p, st);
+  return p.confirm > 0 ? Launch<false, true, false>::run(args...)
+                       : Launch<false, false, false>::run(args...);
 }
 
-template <bool kShards>
-int launch_gather(const Params& p, cudaStream_t stream) {
-  gather_pass<kShards><<<blocks_for(p.slots), kThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// Pass 2 of fd_phase_fused.
+template <bool kRandom, bool kGray, bool kWindow>
+struct ObserverLaunch {
+  static int run(const Params& p, cudaStream_t stream) {
+    observer_pass<kRandom, kGray, kWindow><<<blocks_for(p.slots), kThreads, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Pass 2 of fd_phase_rows: a row of blocks a shard, as long as the largest
+// shard's slots need (a slot a thread), all rows together at most what the
+// card runs at once.
+template <bool kRandom, bool kGray, bool kWindow>
+struct RowsLaunch {
+  static int run(const ShardTable& t, int n_shards, int64_t slots, cudaStream_t stream) {
+    int resident = 0;
+    const int err = resident_blocks<rows_pass<kRandom, kGray, kWindow>>(&resident);
+    if (err != 0) return err;
+    cudaLaunchAttribute dependent{};
+    dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    dependent.val.programmaticStreamSerializationAllowed = kDependentLaunch ? 1 : 0;
+    cudaLaunchConfig_t config{};
+    config.gridDim = dim3(split_blocks(slots, resident / n_shards), n_shards);
+    config.blockDim = dim3(kSplitThreads);
+    config.stream = stream;
+    config.attrs = &dependent;
+    config.numAttrs = 1;
+    const int launched = cudaLaunchKernelEx(&config, rows_pass<kRandom, kGray, kWindow>, t);
+    return launched != 0 ? launched : static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The reciprocal of d that observer_down applies, for 1 <= d <= 2^31:
+// shift = ceil(log2 d) and magic = ceil(2^(31 + shift) / d), below 2^32.
+// Then o / d = floor(2o * magic / 2^(32 + shift)) for every 0 <= o < 2^31
+// (kernels.row_reciprocal computes them and shows why).
+bool is_reciprocal(long long d, unsigned magic, int shift) {
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  return shift == l && magic == ((1ULL << (31 + l)) + d - 1) / d;
 }
+
+// A row of the host table that fd_phase_rows takes, one a shard: the
+// pointers of the shard's [rows, K] blocks and of their outputs (0 for a
+// stream the call does not use), of its bitset segment, then row0 and rows.
+enum ShardField {
+  kSubjects, kProbeDrop, kDraw, kFdFail, kAlerted, kStreak, kFdOk, kHist, kSeen,
+  kFdFailOut, kAlertedOut, kStreakOut, kFdOkOut, kHistOut, kSeenOut, kBits, kRow0, kRows,
+  kShardFields
+};
 
 }  // namespace
 
@@ -643,76 +871,97 @@ extern "C" int fd_phase_fused(
   if (bad_policy(window, gray_confirm > 0)) return static_cast<int>(cudaErrorInvalidValue);
   const bool random = draw != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  uint32_t* any_down = static_cast<uint32_t*>(node_table) + 2 * ((c + 31) / 32);
-  int err = launch_nodes(active, alive, random ? drop_prob : nullptr, c, alive_out,
-                         node_table, any_down, st);
+  Flags flags{};
+  flags.word[0] = static_cast<uint32_t*>(node_table) + 2 * ((c + 31) / 32);
+  flags.n = 1;
+  int err = launch_nodes<false>(active, alive, random ? drop_prob : nullptr, c, alive_out,
+                                node_table, flags, st);
   if (err != 0) return err;
 
   Params p = edge_params(node_table, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
                          fd_streak, fd_ok, fd_hist, fd_seen, round, fd_fail_out, alerted_out,
-                         fd_streak_out, fd_ok_out, fd_hist_out, fd_seen_out, new_down, any_down,
-                         static_cast<int64_t>(c) * k, k, threshold, gray_confirm, gray_warmup,
-                         rounds_per_interval, window, window_fire);
+                         fd_streak_out, fd_ok_out, fd_hist_out, fd_seen_out, new_down,
+                         flags.word[0], static_cast<int64_t>(c) * k, k, threshold, gray_confirm,
+                         gray_warmup, rounds_per_interval, window, window_fire);
   p.observers = static_cast<const int32_t*>(observers);
   p.down_reports = static_cast<const uint8_t*>(down_reports);
   p.active = static_cast<const uint8_t*>(active);
   p.down_arrivals = static_cast<uint8_t*>(down_arrivals);
   set_slots(p, first_boundary(p.alerted));
-  err = launch_observer_pass(p, st);
+  err = by_policy<ObserverLaunch>(p, p, st);
   if (err != 0) return err;
-  return launch_gather<false>(p, st);
+  gather_pass<false><<<blocks_for(p.slots), kThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The node pass over all C nodes and the observer pass over rows [row0,
-// row0 + rows) of one shard. The [rows, K] pointers are the shard's own
-// blocks; active, alive and drop_prob are [C]. node_table holds 2 *
-// ceil(C / 32) words of scratch; bits is the shard's bitset segment of
-// ceil(rows * K / 32) + 1 words (see the note at the top), written whole.
-// Returns as fd_phase_fused does.
+// The FD phase's observer side over the shards one device holds: the node
+// pass over all C nodes once, then the observer pass over every shard's
+// rows [row0, row0 + rows) in one launch. `shards` is a host table of
+// n_shards rows of kShardFields values (ShardField), at most kMaxShards,
+// each of at least one row; the [rows, K] pointers are the shard's own
+// blocks, its segment ceil(rows * K / 32) + 1 words (see the note at the
+// top), written whole. active, alive and drop_prob are [C]; round is the
+// int32 round and halt a bool flag (null: never halted), both read on the
+// device. node_table holds 2 * ceil(C / 32) words of scratch. Returns as
+// fd_phase_fused does, and cudaErrorInvalidValue for a table it cannot take.
 extern "C" int fd_phase_rows(
-    const void* active, const void* alive, const void* drop_prob,
-    const void* subjects, const void* probe_drop, const void* draw, const void* fd_fail,
-    const void* alerted, const void* fd_streak, const void* fd_ok,
-    const void* fd_hist, const void* fd_seen, const void* round,
-    void* fd_fail_out, void* alerted_out, void* fd_streak_out, void* fd_ok_out,
-    void* fd_hist_out, void* fd_seen_out, void* node_table, void* bits,
-    long long c, long long row0, long long rows, int k, int threshold, int gray_confirm,
-    int gray_warmup, int rounds_per_interval, int window, int window_fire, void* stream) {
-  if (c <= 0 || k <= 0 || rows <= 0) return 0;
-  if (bad_policy(window, gray_confirm > 0) || row0 < 0 || row0 + rows > c)
+    const void* active, const void* alive, const void* drop_prob, const void* round,
+    const void* halt, const long long* shards, int n_shards, void* node_table, long long c,
+    int k, int threshold, int gray_confirm, int gray_warmup, int rounds_per_interval,
+    int window, int window_fire, void* stream) {
+  if (c <= 0 || k <= 0) return 0;
+  if (bad_policy(window, gray_confirm > 0) || n_shards < 1 || n_shards > kMaxShards)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool random = draw != nullptr;
+  const bool random = shards[kDraw] != 0;
+  ShardTable t{};
+  Flags flags{};
+  int64_t slots = 0;
+  for (int s = 0; s < n_shards; ++s) {
+    const long long* f = shards + static_cast<int64_t>(s) * kShardFields;
+    if (f[kRow0] < 0 || f[kRows] < 1 || f[kRow0] + f[kRows] > c || (f[kDraw] != 0) != random)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto at = [f](int i) { return reinterpret_cast<void*>(f[i]); };
+    const int64_t n = f[kRows] * k;
+    const int64_t data_words = (n + 31) / 32;
+    uint32_t* bits = static_cast<uint32_t*>(at(kBits));
+    Params p = edge_params(node_table, drop_prob, at(kSubjects), at(kProbeDrop), at(kDraw),
+                           at(kFdFail), at(kAlerted), at(kStreak), at(kFdOk), at(kHist),
+                           at(kSeen), round, at(kFdFailOut), at(kAlertedOut), at(kStreakOut),
+                           at(kFdOkOut), at(kHistOut), at(kSeenOut), bits, bits + data_words, n,
+                           k, threshold, gray_confirm, gray_warmup, rounds_per_interval, window,
+                           window_fire);
+    p.row0 = f[kRow0];
+    p.halt = static_cast<const uint8_t*>(halt);
+    // slots from local edge 0, so local edge e is bit e of the segment; two
+    // slots a word, the last word's lanes past n writing zeros
+    set_slots(p, 0);
+    p.slots = data_words * 2;
+    if (s == 0) t.p = p;
+    t.shard[s] = shard_of(p);
+    flags.word[s] = p.any_down;
+    slots = std::max(slots, p.slots);
+  }
+  flags.n = n_shards;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n = static_cast<int64_t>(rows) * k;
-  const int64_t data_words = (n + 31) / 32;
-  uint32_t* any_down = static_cast<uint32_t*>(bits) + data_words;
-  int err = launch_nodes(active, alive, random ? drop_prob : nullptr, c, nullptr, node_table,
-                         any_down, st);
+  const int err = launch_nodes<true>(active, alive, random ? drop_prob : nullptr, c, nullptr,
+                                     node_table, flags, st);
   if (err != 0) return err;
-
-  Params p = edge_params(node_table, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
-                         fd_streak, fd_ok, fd_hist, fd_seen, round, fd_fail_out, alerted_out,
-                         fd_streak_out, fd_ok_out, fd_hist_out, fd_seen_out, bits, any_down, n,
-                         k, threshold, gray_confirm, gray_warmup, rounds_per_interval, window,
-                         window_fire);
-  p.row0 = row0;
-  // slots from local edge 0, so local edge e is bit e of the segment; two
-  // slots a word, the last word's lanes past n writing zeros
-  set_slots(p, 0);
-  p.slots = data_words * 2;
-  return launch_observer_pass(p, st);
+  return by_policy<RowsLaunch>(t.p, t, n_shards, slots, st);
 }
 
 // The destination gather over all [C, K] edges from the bitset segments of
-// C / shard_rows shards, each of seg_words words, laid end to end. Returns
+// C / shard_rows shards, each of seg_words words, laid end to end; row_magic
+// and row_shift are the reciprocal of shard_rows (is_reciprocal). Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue when the
-// shards do not tile C.
+// shards do not tile C, C * K exceeds 2^31 or the bitset 2^32 words.
 extern "C" int fd_gather(const void* active, const void* observers, const void* down_reports,
                          const void* bits, void* down_arrivals, long long c, int k,
-                         long long shard_rows, long long seg_words, void* stream) {
+                         long long shard_rows, long long seg_words, unsigned row_magic,
+                         int row_shift, void* stream) {
   if (c <= 0 || k <= 0) return 0;
-  if (shard_rows <= 0 || c % shard_rows != 0 ||
-      seg_words != (shard_rows * k + 31) / 32 + 1)
+  if (shard_rows <= 0 || c % shard_rows != 0 || c * k > (1LL << 31) ||
+      seg_words != (shard_rows * k + 31) / 32 + 1 || c / shard_rows * seg_words > 0xffffffffLL ||
+      !is_reciprocal(shard_rows, row_magic, row_shift))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.active = static_cast<const uint8_t*>(active);
@@ -722,9 +971,16 @@ extern "C" int fd_gather(const void* active, const void* observers, const void* 
   p.bits = static_cast<const uint32_t*>(bits);
   p.n = static_cast<int64_t>(c) * k;
   p.k = k;
-  p.shard_rows = static_cast<int32_t>(shard_rows);
+  p.shard_rows = static_cast<uint32_t>(shard_rows);
+  p.row_magic = row_magic;
+  p.row_shift = row_shift;
   p.n_shards = static_cast<int32_t>(c / shard_rows);
-  p.seg_words = seg_words;
+  p.seg_words = static_cast<uint32_t>(seg_words);
   set_slots(p, first_boundary(p.down_arrivals));
-  return launch_gather<true>(p, static_cast<cudaStream_t>(stream));
+  int resident = 0;
+  const int err = resident_blocks<gather_pass<true>>(&resident);
+  if (err != 0) return err;
+  gather_pass<true><<<split_blocks(p.slots, resident), kSplitThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

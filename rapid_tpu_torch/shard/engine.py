@@ -4,9 +4,10 @@ The port of ``rapid_tpu/shard/engine.py``. As there, the per-edge state (the
 [C, K] planes that dominate memory and work) is row-sharded by *observer*
 over every mesh axis, and the rest of the state is replicated. One round:
 
-- local: each shard runs the FD phase over its own observer rows
-  (``kernels.fd_phase_rows``) and writes their new DOWN alerts as bits into
-  its segment of a per-shard bitset (``kernels.segment_words``);
+- local: each device runs the FD phase over the observer rows of every
+  shard it holds, in one ``kernels.fd_phase_rows`` call (``device_groups``),
+  and each shard's new DOWN alerts go as bits into its segment of a
+  per-shard bitset (``kernels.segment_words``);
 - exchange: the segments meet on the mesh's first ("home") device, C*K/8
   bytes (125 KB at 100k members). JAX's ``pmax`` over a destination-indexed
   int32 [C, K] delta moves 4 MB for the same bits;
@@ -28,16 +29,18 @@ slots map to themselves and raise no alert, and a joiner's row of expected
 observers is masked out by ``active`` in both forms.
 
 A mesh is a grid of ``torch.device`` that may repeat: on one card every
-shard is a separate set of tensors on ``cuda:0``, with its own launches; in
-the tests every shard is on ``cpu``; on a machine with several cards the
-shards spread over them, and the exchange is a peer copy into home's bitset.
-A shard on the home device writes its segment in place.
+shard is a separate set of tensors on ``cuda:0``, and one call a round
+covers them all; in the tests every shard is on ``cpu``; on a machine with
+several cards the shards spread over them, and the exchange is a peer copy
+into home's bitset, one a device when its shards are consecutive in mesh
+order. Shards on the home device write their segments in place.
 
 Eager PyTorch cannot leave a loop on device data without a host sync, so the
 "until" runner evaluates its whole budget, with the rounds after the
 decision (and, under ``stop_when_announced``, after the first announcement)
 as masked no-ops, as the single-device loops do; halted state stays
-bit-equal.
+bit-equal. The FD kernel reads the halt flag on the device and leaves a
+halted round's planes as they were, so no plane is masked after it.
 
 Random ingress loss: each shard draws its ``[C / n, K]`` block from its own
 ``torch.Generator`` on its device (``shard_generators``). JAX folds the shard
@@ -313,22 +316,83 @@ def shard_generators(mesh: Mesh, seed: int) -> List[torch.Generator]:
             for s, d in enumerate(mesh.device_list)]
 
 
+def device_groups(mesh: Mesh) -> List[Tuple[torch.device, List[int]]]:
+    """The mesh's shards grouped by device, in the mesh order of each
+    device's first shard, and within a device in mesh order, cut into runs of
+    at most ``kernels.MAX_SHARDS_PER_CALL``: one ``fd_phase_rows`` call a
+    group a round. On one card every mesh of up to 16 shards is one group."""
+    by_device: Dict[torch.device, List[int]] = {}
+    for s, d in enumerate(mesh.device_list):
+        by_device.setdefault(_device(d), []).append(s)
+    step = kernels.MAX_SHARDS_PER_CALL
+    return [(d, shards[i:i + step]) for d, shards in by_device.items()
+            for i in range(0, len(shards), step)]
+
+
+def _copy_in(segment: torch.Tensor, source: torch.Tensor) -> None:
+    """One copy of the exchange: segments into home's bitset (a peer copy
+    between cards)."""
+    segment.copy_(source, non_blocking=True)
+
+
+def _exchange(bits: torch.Tensor, buffer: torch.Tensor, shards: Sequence[int],
+              words: int) -> None:
+    """Home's bitset ``bits`` takes the segments that a device off home wrote
+    into ``buffer``, in the order of ``shards``: one copy when the shards are
+    consecutive in mesh order, else one a shard."""
+    first = shards[0]
+    if list(shards) == list(range(first, first + len(shards))):
+        _copy_in(bits[first * words:(first + len(shards)) * words], buffer)
+    else:
+        for i, s in enumerate(shards):
+            _copy_in(bits[s * words:(s + 1) * words], buffer[i * words:(i + 1) * words])
+
+
+@dataclass(frozen=True)
+class _DeviceCall:
+    """What one device's ``fd_phase_rows`` call reuses every round of a
+    dispatch: its shards, the [C] node inputs and the node table on its
+    device, and its segments, which are home's bitset itself on home and
+    slices of ``buffer`` elsewhere."""
+
+    device: torch.device
+    shards: List[int]
+    nodes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    node_table: torch.Tensor
+    segments: List[torch.Tensor]
+    buffer: Optional[torch.Tensor]
+
+
 def _run(
     config: SimConfig, mesh: Mesh, state: ShardedState, inputs: ShardedInputs,
     rounds: int, random_loss: bool, generators: Optional[Sequence[torch.Generator]],
     stop_when_announced: bool,
 ) -> ShardedState:
     """``rounds`` sharded rounds, each masked once the state has decided
-    (or, with ``stop_when_announced``, once a group has announced)."""
-    devices = mesh.device_list
-    if random_loss and (generators is None or len(generators) != len(devices)):
+    (or, with ``stop_when_announced``, once a group has announced): the FD
+    kernel reads the halt flag and leaves the planes as they were, and the
+    replicated state takes ``_select``."""
+    if random_loss and (generators is None or len(generators) != mesh.size):
         raise ValueError("random_loss needs one torch.Generator a shard")
     rows, k, g = config.capacity // mesh.size, config.k, config.groups
     words = kernels.segment_words(rows, k)
     policy = fd_kernel_policy(config)
-    # once per dispatch: the [C] node inputs of the FD phase on every shard
-    nodes = [(_to(state.active, d), _to(inputs.alive, d), _to(inputs.drop_prob, d))
-             for d in devices]
+    # once per dispatch: home's bitset, and for each device call its node
+    # inputs, node table and segments
+    bits = torch.empty(mesh.size * words, dtype=torch.int32, device=mesh.home)
+    calls = []
+    for dev, shards in device_groups(mesh):
+        on_home = _same_device(dev, mesh.home)
+        buffer = None if on_home else torch.empty(len(shards) * words, dtype=torch.int32,
+                                                  device=dev)
+        calls.append(_DeviceCall(
+            dev, shards, (_to(state.active, dev), _to(inputs.alive, dev),
+                          _to(inputs.drop_prob, dev)),
+            kernels.new_node_table(config.capacity, dev),
+            [bits[s * words:(s + 1) * words] if on_home else buffer[i * words:(i + 1) * words]
+             for i, s in enumerate(shards)],
+            buffer,
+        ))
     alive = inputs.alive & state.active
     obs = state.observers.long()
     blocks = list(state.rows)
@@ -337,28 +401,25 @@ def _run(
         halt = home.decided
         if stop_when_announced:
             halt = halt | home.announced[:g].any()
-        bits = torch.empty(len(devices) * words, dtype=torch.int32, device=mesh.home)
-        for s, dev in enumerate(devices):
-            block = blocks[s]
-            segment = bits[s * words:(s + 1) * words]
-            target = (segment if _same_device(dev, mesh.home)
-                      else torch.empty(words, dtype=torch.int32, device=dev))
-            draw = (torch.rand((rows, k), generator=generators[s], device=dev)
-                    if random_loss else None)
-            out = kernels.fd_phase_rows(
-                *nodes[s], block["subjects"], inputs.probe_drop_rows[s], draw,
-                block["fd_fail"], block["alerted"], block["fd_streak"], block["fd_ok"],
-                _to(home.round, dev), target, row0=s * rows, fd_hist=block["fd_hist"],
-                fd_seen=block["fd_seen"], **policy,
+        for call in calls:
+            dev, mine = call.device, [blocks[s] for s in call.shards]
+
+            def column(name):
+                return [block[name] for block in mine]
+            draws = ([torch.rand((rows, k), generator=generators[s], device=dev)
+                      for s in call.shards] if random_loss else None)
+            outs = kernels.fd_phase_rows(
+                *call.nodes, column("subjects"), [inputs.probe_drop_rows[s] for s in call.shards],
+                draws, column("fd_fail"), column("alerted"), column("fd_streak"),
+                column("fd_ok"), _to(home.round, dev), call.segments,
+                row0=[s * rows for s in call.shards], fd_hist=column("fd_hist"),
+                fd_seen=column("fd_seen"), halt=_to(halt, dev), node_table=call.node_table,
+                **policy,
             )
-            if target is not segment:
-                segment.copy_(target, non_blocking=True)  # the exchange
-            halt_s = _to(halt, dev)
-            new = dict(block)
-            for name, plane in zip(_FD_OUTPUTS, out):
-                if plane is not block[name]:
-                    new[name] = torch.where(halt_s, block[name], plane)
-            blocks[s] = new
+            if call.buffer is not None:
+                _exchange(bits, call.buffer, call.shards, words)
+            for s, block, out in zip(call.shards, mine, outs):
+                blocks[s] = {**block, **dict(zip(_FD_OUTPUTS, out))}
         down_arrivals = kernels.fd_gather(home.active, home.observers, inputs.down_reports,
                                           bits, rows)
         tallied = route_and_tally(config, home, down_arrivals, inputs, home.active, alive,

@@ -13,8 +13,10 @@ Needs an NVIDIA GPU; exits non-zero without one. ``chip_smoke.py`` builds
 its inputs with ``fused_case`` (and, for the windowed policy,
 ``window_planes``) and its bound with ``fused_bytes``; for the phase split
 around the multi-device exchange, ``split_case`` and ``run_split`` cut a
-fused case into shards, and ``rows_bytes`` and ``gather_bytes`` bound its
-two kernels.
+fused case into shards (``device_call`` merges them into one per-device
+call), and ``rows_bytes`` and ``gather_bytes`` bound its two kernels.
+``graph_ms`` times a call on the card (CUDA graph replays, CUDA events);
+``split_us`` times the mesh's kernels with it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import argparse
 import collections
 import json
 import math
+import statistics
 import subprocess
 import sys
 
@@ -52,16 +55,16 @@ def fused_bytes(c: int, k: int, gray: bool, random: bool, alerts: bool = True,
 
 
 def rows_bytes(c: int, rows: int, k: int, gray: bool, random: bool,
-               window: bool = False) -> int:
-    """Bytes ``fd_phase_rows`` must move for one shard of ``rows`` rows: per
-    edge, subjects (4 B), probe_drop and alerted in and alerted out (1 B
-    each), the policy's planes in and out (2 B, or 10 B for the window), the
-    draw (4 B) with random loss and the gray planes (4 B) with the gray path;
-    the rows' bitset segment out; per node of all C, active and alive, and
-    drop_prob (4 B) with random loss."""
+               window: bool = False, shards: int = 1) -> int:
+    """Bytes one ``fd_phase_rows`` call must move over ``shards`` shards of
+    ``rows`` rows: per edge, subjects (4 B), probe_drop and alerted in and
+    alerted out (1 B each), the policy's planes in and out (2 B, or 10 B for
+    the window), the draw (4 B) with random loss and the gray planes (4 B)
+    with the gray path; each shard's bitset segment out; per node of all C,
+    once a call, active and alive, and drop_prob (4 B) with random loss."""
     edge = 4 + 3 + (10 if window else 2) + (4 if random else 0) + (4 if gray else 0)
-    return (rows * k * edge + 4 * kernels.segment_words(rows, k)
-            + c * (2 + (4 if random else 0)) + 4)  # + the round counter
+    return (shards * (rows * k * edge + 4 * kernels.segment_words(rows, k))
+            + c * (2 + (4 if random else 0)) + 4 + 1)  # + the round and the halt flag
 
 
 def gather_bytes(c: int, shards: int, k: int, alerts: bool = True) -> int:
@@ -99,13 +102,33 @@ def split_case(args, kw: dict, shards: int):
     return calls, bits
 
 
-def run_split(calls, bits, args, kernel: bool = True):
-    """Each shard's ``fd_phase_rows`` of ``split_case``, then ``fd_gather``
-    from the bitset (the kernels, or with ``kernel`` false their plain
-    versions). Returns ``fd_phase_fused``'s eight outputs, ``alive`` as
+def device_call(calls):
+    """The calls of ``split_case`` as one ``fd_phase_rows`` call over every
+    shard, as a device that holds them all makes it: each per-shard argument
+    a list, one value a shard (None where no shard has it). Returns its
+    positional arguments and keywords."""
+    columns = list(zip(*(a for a, _ in calls)))
+    args = tuple(column[0] if i in (0, 1, 2, 10) or column[0] is None else list(column)
+                 for i, column in enumerate(columns))  # active, alive, drop_prob, round_ shared
+    kws = [kw for _, kw in calls]
+    kw = dict(kws[0], **{name: None if kws[0][name] is None else [w[name] for w in kws]
+                         for name in ("row0", "fd_hist", "fd_seen")})
+    return args, kw
+
+
+def run_split(calls, bits, args, kernel: bool = True, per_device: bool = True, **extra):
+    """``fd_phase_rows`` over the shards of ``split_case``, one call over all
+    of them (``device_call``) or, without ``per_device``, one a shard, then
+    ``fd_gather`` from the bitset (the kernels, or with ``kernel`` false
+    their plain versions); ``extra`` goes to every ``fd_phase_rows`` call
+    (``halt``). Returns ``fd_phase_fused``'s eight outputs, ``alive`` as
     None."""
     rows_fn = kernels.fd_phase_rows if kernel else kernels.fd_phase_rows_plain
-    outs = [rows_fn(*a, **kw) for a, kw in calls]
+    if per_device:
+        merged, kw = device_call(calls)
+        outs = rows_fn(*merged, **kw, **extra)
+    else:
+        outs = [rows_fn(*a, **kw, **extra) for a, kw in calls]
     gather_fn = kernels.fd_gather if kernel else kernels.fd_gather_plain
     rows = args[3].shape[0] // len(calls)
     down = gather_fn(args[0], args[4], args[6], bits, rows)
@@ -171,6 +194,59 @@ def quiet(sets):
     """The same input sets with every failure counter at 0, so that no edge
     reaches the threshold of 10 this round (as in most rounds of a scan)."""
     return [a[:8] + (torch.zeros_like(a[8]),) + a[9:] for a in sets]
+
+
+def graph_ms(fn, reps: int = 24, iters: int = 11) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, the replay timed with CUDA events, median over ``iters`` replays
+    divided by ``reps``. The graph keeps the Python wrapper's launch overhead
+    out of the measurement, which at these sizes would otherwise swamp it.
+    ``fn`` may be a list of calls, taken in turn (to rotate input sets)."""
+    fns = fn if isinstance(fn, list) else [fn]
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = statistics.median(s.elapsed_time(e) for s, e in events) / reps
+    del graph
+    return ms
+
+
+def split_us(sets, shards: int) -> dict:
+    """Device µs of the mesh's FD kernels on ``sets`` (``cold_sets``) cut
+    into ``shards`` shards, cold (``graph_ms`` over the sets in turn): one
+    ``fd_phase_rows`` call over every shard (``device_call``), one shard's
+    call alone, and ``fd_gather``."""
+    halt = torch.zeros((), dtype=torch.bool, device=sets[0][0].device)
+    cases = [split_case(a, dict(threshold=10), shards) for a in sets]
+    merged = [device_call(calls) for calls, _ in cases]
+    for a, (calls, bits) in zip(sets, cases):
+        run_split(calls, bits, a, halt=halt)  # the bitsets of a round with alerts
+    rows = sets[0][3].shape[0] // shards
+    return {
+        "device_call": 1e3 * graph_ms(
+            [lambda m=m: kernels.fd_phase_rows(*m[0], **m[1], halt=halt) for m in merged]),
+        "one_shard": 1e3 * graph_ms(
+            [lambda a=a, kw=kw: kernels.fd_phase_rows(*a, **kw, halt=halt)
+             for calls, _ in cases for a, kw in calls], reps=len(sets) * shards),
+        "gather": 1e3 * graph_ms(
+            [lambda a=a, b=b: kernels.fd_gather(a[0], a[4], a[6], b, rows)
+             for a, (_, b) in zip(sets, cases)]),
+    }
 
 
 def profile_passes(sets, calls: int, planes=None) -> dict:

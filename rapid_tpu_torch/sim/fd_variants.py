@@ -1,15 +1,20 @@
-"""What holds ``fd_phase_fused`` above its byte bound: per-pass device time
-of variants of its source, each a textual change to ``csrc/fd_phase_fused.cu``.
+"""What holds the FD kernels above their byte bound: device time of variants
+of their source, each a textual change to ``csrc/fd_phase_fused.cu``.
 
     python -m rapid_tpu_torch.sim.fd_variants [--sizes 100000 1000000]
+        [--variants kernel no_dependent_launch ...]
 
 Some variants compute wrong results on purpose (they drop a read the
 function needs, to time what that read costs); they are timed only, never
-used. Each variant is built with ``nvcc`` into ``build/kernels/variants/``,
-swapped in for the real kernel, and profiled as ``fd_bench`` profiles it (input
-sets rotated through more than the L2). Prints one JSON line per size and
-variant. A patch that no longer applies to the source fails loudly. Needs an
-NVIDIA GPU; exits non-zero without one.
+used. Each variant is built with ``nvcc`` into ``build/kernels/variants/``
+and swapped in for the real kernels. For each size and variant it prints one
+JSON line: the per-pass device time of ``fd_phase_fused`` as ``fd_bench``
+profiles it, and the mesh's kernels over 8 shards (``fd_bench.split_us``:
+the per-device ``fd_phase_rows`` call, one shard's call, ``fd_gather``), all
+with input sets rotated through more than the L2. The variants run twice,
+the second time in reverse order, so that drift on the card shows. A patch
+that no longer applies to the source fails loudly. Needs an NVIDIA GPU;
+exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ VARIANTS = {
     # lossy subjects never read drop_prob
     "no_drop_read": [(_DROP_LOOKUP, "")],
     # the gather pass always takes its no-alert path
-    "no_gather_reads": [("const bool gather = *p.any_down != 0;", "const bool gather = false;")],
+    "no_gather_reads": [("gather = *p.any_down != 0;", "gather = false;")],
     # drop_prob read for every lane beside the node state, not after it
     "drop_read_early": [
         (_DROP_LOOKUP, "if (kRandom && ok && subj_state == 3) "
@@ -50,16 +55,27 @@ VARIANTS = {
     "two_blocks_per_sm": [(_OBSERVER_BOUNDS, _OBSERVER_BOUNDS.replace(
         "(kThreads)", "(kThreads, 2)"))],
     "threads_256": [("constexpr int kThreads = 512;", "constexpr int kThreads = 256;")],
+    # fd_phase_rows' observer pass launched after the node pass has ended
+    "no_dependent_launch": [("constexpr bool kDependentLaunch = true;",
+                             "constexpr bool kDependentLaunch = false;")],
+    # blocks of 128 threads for the mesh's kernels
+    "split_threads_128": [("constexpr int kSplitThreads = 64;",
+                           "constexpr int kSplitThreads = 128;")],
 }
+# the functions each variant library replaces
+_SWAPPED = ("fd_phase_fused", "fd_phase_rows", "fd_gather")
+SPLIT_SHARDS = 8  # the mesh of chip_smoke.py's split timings
 
 
-def build_variants() -> dict:
-    """Compile every variant, all at once; returns ``{name: library path}``."""
+def build_variants(names=tuple(VARIANTS)) -> dict:
+    """Compile the variants ``names``, all at once; returns ``{name: library
+    path}``."""
     source = (kernels._CSRC / "fd_phase_fused.cu").read_text()
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs, libs = [], {}
-    for name, patches in VARIANTS.items():
+    for name in names:
+        patches = VARIANTS[name]
         text = source
         for old, new in patches:
             if old not in text:
@@ -85,6 +101,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sizes", type=int, nargs="+", default=[100_000, 1_000_000])
     parser.add_argument("--calls", type=int, default=24)
+    parser.add_argument("--variants", nargs="+", choices=sorted(VARIANTS), default=list(VARIANTS))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("fd_variants: no CUDA device", file=sys.stderr)
@@ -93,23 +110,29 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-    libs = build_variants()
-    real = kernels._function("fd_phase_fused")
+    libs = build_variants(args.variants)
+    real = {name: kernels._function(name) for name in _SWAPPED}
     try:
         for c in args.sizes:
             sets = fd_bench.cold_sets(c, True, "cuda")
-            for name, path in libs.items():
-                fn = ctypes.CDLL(str(path)).fd_phase_fused
-                fn.argtypes = kernels._ARGTYPES["fd_phase_fused"]
-                fn.restype = ctypes.c_int
-                kernels._functions["fd_phase_fused"] = fn
-                us = fd_bench.profile_passes(sets, args.calls)
-                print(json.dumps({"card": card, "size": [c, 10], "variant": name,
-                                  "us_per_call": us, "total_us": sum(us.values())}), flush=True)
+            for r in range(2):
+                for name in args.variants[::-1] if r % 2 else args.variants:
+                    lib = ctypes.CDLL(str(libs[name]))
+                    for fn_name in _SWAPPED:
+                        fn = getattr(lib, fn_name)
+                        fn.argtypes = kernels._ARGTYPES[fn_name]
+                        fn.restype = ctypes.c_int
+                        kernels._functions[fn_name] = fn
+                    us = fd_bench.profile_passes(sets, args.calls)
+                    print(json.dumps({"card": card, "size": [c, 10], "variant": name,
+                                      "round": r, "us_per_call": us,
+                                      "total_us": sum(us.values()),
+                                      "split_us": fd_bench.split_us(sets, SPLIT_SHARDS),
+                                      "shards": SPLIT_SHARDS}), flush=True)
             del sets
             torch.cuda.empty_cache()
     finally:
-        kernels._functions["fd_phase_fused"] = real
+        kernels._functions.update(real)
     return 0
 
 

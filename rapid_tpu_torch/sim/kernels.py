@@ -11,9 +11,10 @@ their build and their launch counters.
   window of the last W probes); the scan path launches it every round.
 - ``fd_phase_rows`` and ``fd_gather`` (the same source, the same device
   functions) split that phase around the alert exchange of the multi-device
-  round (``rapid_tpu_torch/shard/engine.py``): each shard runs
-  ``fd_phase_rows`` over its own observer rows, writing their new_down bits
-  into its segment of a per-shard bitset (``segment_words``), and the home
+  round (``rapid_tpu_torch/shard/engine.py``): each device makes one
+  ``fd_phase_rows`` call over the observer rows of every shard it holds
+  (up to ``MAX_SHARDS_PER_CALL``), writing each shard's new_down bits into
+  its segment of a per-shard bitset (``segment_words``), and the home
   device runs ``fd_gather`` over every destination from all the segments.
 
 Each source under ``csrc/`` is compiled with ``nvcc`` on first use into its
@@ -59,9 +60,12 @@ _ARGTYPES = {
     "fd_phase_i32": [_P] * 8 + [_LL, _I, _P],
     "fd_phase_u8": [_P] * 8 + [_LL, _I, _P],
     "fd_phase_fused": [_P] * 25 + [_LL] + [_I] * 7 + [_P],
-    "fd_phase_rows": [_P] * 21 + [_LL] * 3 + [_I] * 7 + [_P],
-    "fd_gather": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
+    "fd_phase_rows": [_P] * 5 + [ctypes.POINTER(_LL), _I, _P, _LL] + [_I] * 7 + [_P],
+    "fd_gather": [_P] * 5 + [_LL, _I, _LL, _LL, ctypes.c_uint, _I, _P],
 }
+# shards of one fd_phase_rows call: its C entry point takes them as a table
+# in the kernel's parameters, which holds 16
+MAX_SHARDS_PER_CALL = 16
 
 _functions: Optional[Dict[str, ctypes._CFuncPtr]] = None
 
@@ -406,31 +410,102 @@ def pack_segment(new_down: torch.Tensor) -> torch.Tensor:
     return torch.cat([packed.view(torch.int32), flag])
 
 
+def row_reciprocal(rows: int) -> Tuple[int, int]:
+    """``(magic, shift)`` with ``o // rows == ((2 * o * magic) >> 32) >> shift``
+    for every ``0 <= o < 2**31``: how ``fd_gather`` finds the shard of
+    observer o, a multiply-high and a shift on the card. ``shift`` is
+    ``ceil(log2(rows))`` and ``magic`` is ``ceil(2**(31 + shift) / rows)``,
+    below 2**32. Exact: ``o * magic / 2**(31 + shift)`` exceeds ``o / rows``
+    by ``o * e / 2**(31 + shift)`` with ``0 <= e < 1``, less than ``2**-shift
+    <= 1 / rows``, and ``o / rows`` lies at least ``1 / rows`` below the next
+    integer."""
+    if not 1 <= rows <= 1 << 31:
+        raise ValueError(f"shard rows {rows} outside [1, 2**31]")
+    shift = (rows - 1).bit_length()
+    return -(-(1 << (31 + shift)) // rows), shift
+
+
+def new_node_table(c: int, device) -> torch.Tensor:
+    """Scratch for ``fd_phase_rows``' node pass over ``c`` nodes (2 bits a
+    node), which a caller may allocate once and pass to every call."""
+    return torch.empty(2 * ((c + 31) // 32), dtype=torch.int32, device=device)
+
+
+# the arguments of fd_phase_rows that differ between the shards of a call,
+# besides row0
+_SHARD_ARGS = ("subjects", "probe_drop", "draw", "fd_fail", "alerted", "fd_streak", "fd_ok",
+               "bits", "fd_hist", "fd_seen")
+
+
+def _shards(name: str, row0, *values) -> list:
+    """The per-shard arguments of an ``fd_phase_rows`` call, ``values`` in
+    the order of ``_SHARD_ARGS``, as one dict a shard. One shard's call
+    gives each as a value and ``row0`` as an int; a call over several shards
+    gives each as a sequence of one value a shard (None where no shard has
+    it) and ``row0`` as a sequence."""
+    if isinstance(row0, int):
+        return [dict(zip(_SHARD_ARGS, values), row0=row0)]
+    columns = dict(zip(_SHARD_ARGS, values), row0=list(row0))
+    n = len(columns["row0"])
+    if not n:
+        raise ValueError(f"{name}: a call needs a shard")
+    for arg, v in columns.items():
+        if v is not None and len(v) != n:
+            raise ValueError(f"{name}: {arg} has {len(v)} values for {n} shards")
+    return [{arg: None if v is None else v[s] for arg, v in columns.items()} for s in range(n)]
+
+
+def _rows_plain(active, alive, drop_prob, shard: dict, round_, halt, **policy) -> FusedOutputs:
+    """One shard of ``fd_phase_rows_plain``: its planes, its segment written
+    into ``shard["bits"]``."""
+    planes_in = tuple(shard[name] for name in ("fd_fail", "alerted", "fd_streak", "fd_ok",
+                                               "fd_hist", "fd_seen"))
+    _, fd_fail, alerted_out, fd_streak, fd_ok, new_down, fd_hist, fd_seen = _observer_rows(
+        active, alive, drop_prob, shard["subjects"], shard["probe_drop"], shard["draw"],
+        shard["fd_fail"], shard["alerted"], shard["fd_streak"], shard["fd_ok"], round_,
+        shard["row0"], fd_hist=shard["fd_hist"], fd_seen=shard["fd_seen"], **policy,
+    )
+    planes = (fd_fail, alerted_out, fd_streak, fd_ok, fd_hist, fd_seen)
+    segment = pack_segment(new_down)
+    if halt is not None:  # a halted round: every plane as it came in, no bit
+        planes = tuple(p if p is i else torch.where(halt, i, p) for i, p in zip(planes_in, planes))
+        segment = segment.masked_fill(halt, 0)
+    shard["bits"].copy_(segment)
+    return planes
+
+
 def fd_phase_rows_plain(
     active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
-    subjects: torch.Tensor, probe_drop: torch.Tensor, draw: Optional[torch.Tensor],
-    fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
-    fd_ok: torch.Tensor, round_: torch.Tensor, bits: torch.Tensor, *, row0: int,
-    threshold: int, gray_confirm: int = 0, gray_warmup: int = 3,
-    rounds_per_interval: int = 1, fd_hist: Optional[torch.Tensor] = None,
-    fd_seen: Optional[torch.Tensor] = None, window: int = 0, window_fire: int = 0,
-) -> FusedOutputs:
-    """The observer side of ``fd_phase_fused_plain`` for one shard's rows
-    ``[row0, row0 + rows)``, in plain PyTorch ops: ``subjects`` (global ids),
-    ``probe_drop``, ``draw`` and the per-edge planes are the shard's ``[rows,
-    K]`` blocks; ``active``, ``alive`` and ``drop_prob`` are ``[C]``. Writes
-    the rows' new_down bits and flag into ``bits`` (the shard's segment, see
-    ``segment_words``) and returns ``(fd_fail, alerted, fd_streak, fd_ok,
-    fd_hist, fd_seen)`` of the rows; a plane the policy does not update is
-    its input."""
-    _, fd_fail, alerted_out, fd_streak, fd_ok, new_down, fd_hist, fd_seen = _observer_rows(
-        active, alive, drop_prob, subjects, probe_drop, draw, fd_fail, alerted, fd_streak,
-        fd_ok, round_, row0, threshold=threshold, gray_confirm=gray_confirm,
-        gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
-        fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire,
-    )
-    bits.copy_(pack_segment(new_down))
-    return fd_fail, alerted_out, fd_streak, fd_ok, fd_hist, fd_seen
+    subjects, probe_drop, draw, fd_fail, alerted, fd_streak, fd_ok,
+    round_: torch.Tensor, bits, *, row0, threshold: int, gray_confirm: int = 0,
+    gray_warmup: int = 3, rounds_per_interval: int = 1, fd_hist=None, fd_seen=None,
+    window: int = 0, window_fire: int = 0, halt: Optional[torch.Tensor] = None,
+):
+    """The observer side of ``fd_phase_fused_plain`` for the rows of one
+    shard, or of several shards of one device, in plain PyTorch ops.
+
+    One shard's call: its rows are ``[row0, row0 + rows)``; ``subjects``
+    (global ids), ``probe_drop``, ``draw`` and the per-edge planes are the
+    shard's ``[rows, K]`` blocks; ``active``, ``alive`` and ``drop_prob`` are
+    ``[C]``. Writes the rows' new_down bits and flag into ``bits`` (the
+    shard's segment, see ``segment_words``) and returns ``(fd_fail, alerted,
+    fd_streak, fd_ok, fd_hist, fd_seen)`` of the rows; a plane the policy
+    does not update is its input. A call over several shards gives each
+    per-shard argument (``_SHARD_ARGS`` and ``row0``) as a sequence, one
+    value a shard, or None where no shard has it, and returns a list of each
+    shard's planes.
+
+    ``halt``, a 0-d bool tensor: when it holds True the round is halted, and
+    every plane comes out as it went in, every segment with no bit and its
+    flag 0."""
+    shards = _shards("fd_phase_rows_plain", row0, subjects, probe_drop, draw, fd_fail,
+                     alerted, fd_streak, fd_ok, bits, fd_hist, fd_seen)
+    outs = [_rows_plain(active, alive, drop_prob, shard, round_, halt, threshold=threshold,
+                        gray_confirm=gray_confirm, gray_warmup=gray_warmup,
+                        rounds_per_interval=rounds_per_interval, window=window,
+                        window_fire=window_fire)
+            for shard in shards]
+    return outs[0] if isinstance(row0, int) else outs
 
 
 def fd_gather_plain(
@@ -588,79 +663,106 @@ def _launch_fused(inputs, stream: int, *, threshold: int, gray_confirm: int,
 
 def fd_phase_rows(
     active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
-    subjects: torch.Tensor, probe_drop: torch.Tensor, draw: Optional[torch.Tensor],
-    fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
-    fd_ok: torch.Tensor, round_: torch.Tensor, bits: torch.Tensor, *, row0: int,
-    threshold: int, gray_confirm: int = 0, gray_warmup: int = 3,
-    rounds_per_interval: int = 1, fd_hist: Optional[torch.Tensor] = None,
-    fd_seen: Optional[torch.Tensor] = None, window: int = 0, window_fire: int = 0,
-) -> FusedOutputs:
-    """One shard's side of the FD phase in the CUDA kernel ``fd_phase_rows``
-    (its plain version for CPU tensors): the node pass over all C nodes and
-    the observer pass over rows ``[row0, row0 + rows)``. Arguments and
-    results as ``fd_phase_rows_plain``; ``bits`` is an int32 tensor of
-    ``segment_words(rows, K)`` words, which may be a slice of a bitset on the
-    same device. Launched with the shards' device current, on its stream."""
+    subjects, probe_drop, draw, fd_fail, alerted, fd_streak, fd_ok,
+    round_: torch.Tensor, bits, *, row0, threshold: int, gray_confirm: int = 0,
+    gray_warmup: int = 3, rounds_per_interval: int = 1, fd_hist=None, fd_seen=None,
+    window: int = 0, window_fire: int = 0, halt: Optional[torch.Tensor] = None,
+    node_table: Optional[torch.Tensor] = None,
+):
+    """The observer side of the FD phase for the rows of one shard, or of
+    every shard one device holds (at most ``MAX_SHARDS_PER_CALL``), in the
+    CUDA kernel ``fd_phase_rows`` (its plain version for CPU tensors): the
+    node pass over all C nodes once, then one observer pass over every
+    shard's rows. Arguments and results as ``fd_phase_rows_plain``; each
+    shard's ``bits`` is an int32 tensor of ``segment_words(rows, K)`` words,
+    which may be a slice of a bitset on the same device, and each shard has
+    at least one row. ``halt`` (0-d bool) and ``round_`` are read on the
+    device. ``node_table`` is the node pass's scratch (``new_node_table``),
+    allocated here when not given. Launched with the shards' device current,
+    on its stream; one launch counted a call."""
     name = "fd_phase_rows"
     c = active.shape[0]
-    rows, k = subjects.shape
-    windowed = window > 0
+    shards = _shards(name, row0, subjects, probe_drop, draw, fd_fail, alerted, fd_streak,
+                     fd_ok, bits, fd_hist, fd_seen)
+    if len(shards) > MAX_SHARDS_PER_CALL:
+        raise ValueError(f"{name}: {len(shards)} shards, at most {MAX_SHARDS_PER_CALL} a call")
+    k = shards[0]["subjects"].shape[-1]
+    windowed, gray = window > 0, gray_confirm > 0
     want = [
         ("active", active, torch.bool, (c,)), ("alive", alive, torch.bool, (c,)),
         ("drop_prob", drop_prob, torch.float32, (c,)),
-        ("subjects", subjects, torch.int32, (rows, k)),
-        ("probe_drop", probe_drop, torch.bool, (rows, k)),
-        ("fd_fail", fd_fail, torch.uint8, (rows, k)),
-        ("alerted", alerted, torch.bool, (rows, k)),
-        ("fd_streak", fd_streak, torch.uint8, (rows, k)),
-        ("fd_ok", fd_ok, torch.uint8, (rows, k)),
         ("round_", round_, torch.int32, ()),
-        ("bits", bits, torch.int32, (segment_words(rows, k),)),
     ]
-    if draw is not None:
-        want.append(("draw", draw, torch.float32, (rows, k)))
-    want += _policy_planes(name, rows, k, fd_hist, fd_seen, window)
+    if halt is not None:
+        want.append(("halt", halt, torch.bool, ()))
+    if node_table is not None:
+        want.append(("node_table", node_table, torch.int32, (2 * ((c + 31) // 32),)))
+    for shard in shards:
+        rows = shard["subjects"].shape[0]
+        want += [
+            ("subjects", shard["subjects"], torch.int32, (rows, k)),
+            ("probe_drop", shard["probe_drop"], torch.bool, (rows, k)),
+            ("fd_fail", shard["fd_fail"], torch.uint8, (rows, k)),
+            ("alerted", shard["alerted"], torch.bool, (rows, k)),
+            ("fd_streak", shard["fd_streak"], torch.uint8, (rows, k)),
+            ("fd_ok", shard["fd_ok"], torch.uint8, (rows, k)),
+            ("bits", shard["bits"], torch.int32, (segment_words(rows, k),)),
+        ]
+        if (shard["draw"] is None) != (shards[0]["draw"] is None):
+            raise ValueError(f"{name}: every shard draws, or none")
+        if shard["draw"] is not None:
+            want.append(("draw", shard["draw"], torch.float32, (rows, k)))
+        want += _policy_planes(name, rows, k, shard["fd_hist"], shard["fd_seen"], window)
+        if not (rows >= 1 and 0 <= shard["row0"] <= c - rows):
+            raise ValueError(f"{name}: rows [{shard['row0']}, {shard['row0'] + rows}) "
+                             f"outside [0, {c}) or empty")
     _check(name, want, active.device)
     _check_policy(name, threshold, gray_confirm, gray_warmup, rounds_per_interval,
                   window, window_fire)
-    if not 0 <= row0 <= c - rows:
-        raise ValueError(f"{name}: rows [{row0}, {row0 + rows}) outside [0, {c})")
-    args = dict(row0=row0, threshold=threshold, gray_confirm=gray_confirm,
-                gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
-                fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire)
-    inputs = (active, alive, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
-              fd_streak, fd_ok, round_)
+    policy = dict(threshold=threshold, gray_confirm=gray_confirm, gray_warmup=gray_warmup,
+                  rounds_per_interval=rounds_per_interval, window=window,
+                  window_fire=window_fire)
     if active.device.type == "cpu":
-        return fd_phase_rows_plain(*inputs, bits, **args)
+        return fd_phase_rows_plain(active, alive, drop_prob, subjects, probe_drop, draw,
+                                   fd_fail, alerted, fd_streak, fd_ok, round_, bits, row0=row0,
+                                   fd_hist=fd_hist, fd_seen=fd_seen, halt=halt, **policy)
     if active.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {active.device}")
-    read = inputs + (bits,) + ((fd_hist, fd_seen) if windowed else ())
-    if not all(t.is_contiguous() for t in read if t is not None):
+    if not all(t.is_contiguous() for _, t, _, _ in want):
         raise ValueError(f"{name}: inputs must be contiguous")
-    gray = gray_confirm > 0
-    fd_out = fd_fail if windowed else torch.empty_like(fd_fail)
-    alerted_out = torch.empty_like(alerted)
-    streak_out = torch.empty_like(fd_streak) if gray else fd_streak
-    ok_out = torch.empty_like(fd_ok) if gray else fd_ok
-    hist_out = torch.empty_like(fd_hist) if windowed else fd_hist
-    seen_out = torch.empty_like(fd_seen) if windowed else fd_seen
-    node_table = torch.empty(2 * ((c + 31) // 32), dtype=torch.int32, device=active.device)
+    if node_table is None:
+        node_table = new_node_table(c, active.device)
+    outs, table = [], []
+    for shard in shards:
+        out = (shard["fd_fail"] if windowed else torch.empty_like(shard["fd_fail"]),
+               torch.empty_like(shard["alerted"]),
+               torch.empty_like(shard["fd_streak"]) if gray else shard["fd_streak"],
+               torch.empty_like(shard["fd_ok"]) if gray else shard["fd_ok"],
+               torch.empty_like(shard["fd_hist"]) if windowed else shard["fd_hist"],
+               torch.empty_like(shard["fd_seen"]) if windowed else shard["fd_seen"])
+        outs.append(out)
+        # a row of the C entry point's table (ShardField in the source)
+        table += [
+            _ptr(shard["subjects"]), _ptr(shard["probe_drop"]), _ptr(shard["draw"]),
+            _ptr(shard["fd_fail"], not windowed), _ptr(shard["alerted"]),
+            _ptr(shard["fd_streak"], gray), _ptr(shard["fd_ok"], gray),
+            _ptr(shard["fd_hist"], windowed), _ptr(shard["fd_seen"], windowed),
+            _ptr(out[0], not windowed), _ptr(out[1]), _ptr(out[2], gray), _ptr(out[3], gray),
+            _ptr(out[4], windowed), _ptr(out[5], windowed), _ptr(shard["bits"]),
+            shard["row0"], shard["subjects"].shape[0],
+        ]
     with torch.cuda.device(active.device):
         err = _function(name)(
-            *(_ptr(t) for t in inputs[:6]), _ptr(fd_fail, not windowed), _ptr(alerted),
-            _ptr(fd_streak, gray), _ptr(fd_ok, gray), _ptr(fd_hist, windowed),
-            _ptr(fd_seen, windowed), _ptr(round_),
-            _ptr(fd_out, not windowed), _ptr(alerted_out), _ptr(streak_out, gray),
-            _ptr(ok_out, gray), _ptr(hist_out, windowed), _ptr(seen_out, windowed),
-            _ptr(node_table), _ptr(bits), c, row0, rows, k, threshold, gray_confirm,
-            gray_warmup, rounds_per_interval, window, window_fire,
+            _ptr(active), _ptr(alive), _ptr(drop_prob), _ptr(round_), _ptr(halt),
+            (_LL * len(table))(*(v or 0 for v in table)), len(shards), _ptr(node_table), c, k,
+            threshold, gray_confirm, gray_warmup, rounds_per_interval, window, window_fire,
             torch.cuda.current_stream(active.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    if rows * k:
+    if c * k:
         LAUNCHES["fd_phase_rows_windowed" if windowed else name] += 1
-    return fd_out, alerted_out, streak_out, ok_out, hist_out, seen_out
+    return outs[0] if isinstance(row0, int) else outs
 
 
 def fd_gather(
@@ -670,8 +772,9 @@ def fd_gather(
     """The destination gather of the FD phase in the CUDA kernel
     ``fd_gather`` (its plain version for CPU tensors), from the bitset
     segments that ``fd_phase_rows`` wrote for ``C / shard_rows`` shards, laid
-    end to end in ``bits``. Returns ``down_arrivals`` ``[C, K]``. Launched
-    with the tensors' device current, on its stream."""
+    end to end in ``bits``; the kernel finds an observer's shard with
+    ``row_reciprocal(shard_rows)``. Returns ``down_arrivals`` ``[C, K]``.
+    Launched with the tensors' device current, on its stream."""
     name = "fd_gather"
     c, k = observers.shape
     if shard_rows <= 0 or c % shard_rows:
@@ -689,11 +792,14 @@ def fd_gather(
         raise ValueError(f"{name}: unsupported device {active.device}")
     if not all(t.is_contiguous() for t in (active, observers, down_reports, bits)):
         raise ValueError(f"{name}: inputs must be contiguous")
+    if c * k > 1 << 31:
+        raise ValueError(f"{name}: C * K = {c * k} exceeds the kernel's 2**31 edges")
+    magic, shift = row_reciprocal(shard_rows)
     down_arrivals = torch.empty_like(down_reports)
     with torch.cuda.device(active.device):
         err = _function(name)(
             _ptr(active), _ptr(observers), _ptr(down_reports), _ptr(bits),
-            _ptr(down_arrivals), c, k, shard_rows, words,
+            _ptr(down_arrivals), c, k, shard_rows, words, magic, shift,
             torch.cuda.current_stream(active.device).cuda_stream,
         )
     if err != 0:

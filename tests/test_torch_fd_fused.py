@@ -4,8 +4,10 @@ reference, the CPU path of its wrapper, and, on an NVIDIA GPU, the CUDA
 kernel against its plain version under both FD policies (the windowed
 policy's plain version is held against JAX in tests/test_torch_windowed.py).
 Then its split around the multi-device alert exchange: ``fd_phase_rows``
-over row blocks followed by ``fd_gather`` equals the fused phase, in plain
-versions on the CPU and in the kernels on the card. Exact equality
+over row blocks (one call a shard, or one call over every shard of a
+device, halted or not) followed by ``fd_gather`` equals the fused phase, in
+plain versions on the CPU and in the kernels on the card; the gather's
+multiply-shift reciprocal is exact. Exact equality
 throughout: the phase is integer and boolean only, and where a random draw
 enters, both sides read the same draw (or a drop probability of 0 or 1,
 where the draw cannot matter).
@@ -432,17 +434,18 @@ def _policy_kw(policy, c, seed, device):
     return kw
 
 
-def _split_phase(args, kw, shards, kernel=False):
-    """``fd_phase_rows`` over ``shards`` row blocks into one bitset, then
+def _split_phase(args, kw, shards, kernel=False, per_device=True, **extra):
+    """``fd_phase_rows`` over ``shards`` row blocks into one bitset, in one
+    call over every shard (``per_device``) or one a shard, then
     ``fd_gather`` (``fd_bench.split_case``, ``fd_bench.run_split``): the
     kernels with ``kernel``, else the plain versions. Returns the fused
     phase's eight outputs (``alive`` as None) and the bitset."""
     calls, bits = fd_bench.split_case(args, kw, shards)
-    return fd_bench.run_split(calls, bits, args, kernel), bits
+    return fd_bench.run_split(calls, bits, args, kernel, per_device, **extra), bits
 
 
-def _assert_split_equals_fused(args, kw, shards, kernel=False):
-    got, bits = _split_phase(args, kw, shards, kernel)
+def _assert_split_equals_fused(args, kw, shards, kernel=False, per_device=True):
+    got, bits = _split_phase(args, kw, shards, kernel, per_device)
     want = kernels.fd_phase_fused_plain(*args, **kw)
     for name, g, w in zip(OUTPUTS + ("fd_hist", "fd_seen"), got, want):
         if name == "alive":
@@ -454,14 +457,79 @@ def _assert_split_equals_fused(args, kw, shards, kernel=False):
     return got, bits
 
 
+@pytest.mark.parametrize("per_device", [False, True])
 @pytest.mark.parametrize("random", [False, True])
 @pytest.mark.parametrize("policy", sorted(POLICIES))
 @pytest.mark.parametrize("c, shards", SPLITS)
-def test_split_plain_equals_fused_plain(c, shards, policy, random):
+def test_split_plain_equals_fused_plain(c, shards, policy, random, per_device):
+    """One plain call a shard, or one plain call over every shard."""
     args = _case(c, 10, seed=c + shards, random=random)
     kw = _policy_kw(policy, c, seed=c * shards, device="cpu")
-    got, _ = _assert_split_equals_fused(args, kw, shards)
+    got, bits = _assert_split_equals_fused(args, kw, shards, per_device=per_device)
     assert (got[2] & ~args[9]).any(), "the case should raise alerts"
+    other, other_bits = _split_phase(args, kw, shards, per_device=not per_device)
+    assert torch.equal(bits, other_bits)
+    for g, w in zip(got, other):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+def _assert_halted(args, kw, shards, kernel=False, alerts=True):
+    """A halted call over every shard: each plane as it came in, every
+    segment (padding and flag included) zero; with ``alerts`` the same call
+    not halted raises some. Returns the halted planes and bitset."""
+    calls, bits = fd_bench.split_case(args, kw, shards)
+    merged, merged_kw = fd_bench.device_call(calls)
+    rows_fn = kernels.fd_phase_rows if kernel else kernels.fd_phase_rows_plain
+    halt = torch.tensor(True, device=args[0].device)
+    outs = rows_fn(*merged, **merged_kw, halt=halt)
+    assert len(outs) == shards
+    for (a, a_kw), out in zip(calls, outs):
+        planes_in = (a[6], a[7], a[8], a[9], a_kw["fd_hist"], a_kw["fd_seen"])
+        for name, i, o in zip(("fd_fail", "alerted", "fd_streak", "fd_ok", "fd_hist",
+                               "fd_seen"), planes_in, out):
+            assert (i is None and o is None) or (o.dtype == i.dtype and torch.equal(o, i)), name
+    halted = bits.clone()
+    assert not halted.any()
+    rows_fn(*merged, **merged_kw, halt=~halt)
+    words = kernels.segment_words(args[3].shape[0] // shards, 10)
+    assert bits.view(shards, words)[:, -1].any() or not alerts, "the call should raise alerts"
+    return outs, halted
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("c, shards", [(64, 1), (333, 3), (1000, 8)])
+def test_halted_rows_call_leaves_planes_and_writes_no_bit(c, shards, policy):
+    args = _case(c, 10, seed=c + shards)
+    _assert_halted(args, _policy_kw(policy, c, seed=c * shards, device="cpu"), shards)
+
+
+@pytest.mark.parametrize("c", [1, 333, 1000, 100_000, 1_000_000])
+def test_gather_reciprocal_is_exact(c):
+    """``row_reciprocal`` finds the shard of every observer o < C for every
+    shard size that tiles C, as the kernel computes it: a 32-bit 2o, the
+    high word of its product with the magic number, a shift."""
+    o = np.arange(c, dtype=np.uint64)
+    for rows in (d for d in range(1, c + 1) if c % d == 0):
+        magic, shift = kernels.row_reciprocal(rows)
+        assert 0 < magic < 1 << 32
+        got = ((2 * o * np.uint64(magic)) >> np.uint64(32)) >> np.uint64(shift)
+        np.testing.assert_array_equal(got, o // rows, err_msg=f"C {c}, rows {rows}")
+
+
+def test_gather_reciprocal_at_the_int32_edge():
+    """Observers up to 2**31 - 1 and shard sizes up to 2**31."""
+    o = np.concatenate([np.arange(1 << 16), (1 << 31) - 1 - np.arange(1 << 16),
+                        np.random.default_rng(0).integers(0, 1 << 31, 1 << 16)]).astype(np.uint64)
+    sizes = [1, 2, 3, 5, 7, 10, 12_500, 65_537, (1 << 31) // 10, (1 << 30) + 1,
+             (1 << 31) - 1, 1 << 31]
+    for rows in sizes:
+        magic, shift = kernels.row_reciprocal(rows)
+        assert 0 < magic < 1 << 32
+        got = ((2 * o * np.uint64(magic)) >> np.uint64(32)) >> np.uint64(shift)
+        np.testing.assert_array_equal(got, o // np.uint64(rows), err_msg=f"rows {rows}")
+    for bad in (0, (1 << 31) + 1):
+        with pytest.raises(ValueError):
+            kernels.row_reciprocal(bad)
 
 
 @pytest.mark.parametrize("c, shards", [(333, 3), (1000, 8)])
@@ -510,21 +578,71 @@ def test_split_wrappers_take_plain_path_on_cpu_and_check_arguments():
         kernels.fd_gather(args[0], args[4], args[6], bits[1:], 16)
 
 
+def test_per_device_wrapper_checks_its_shards():
+    """A call over several shards: one value a shard in every per-shard
+    argument, all shards drawing or none, at most MAX_SHARDS_PER_CALL, no
+    empty shard, and a 0-d bool halt."""
+    args = _case(64, 10, seed=9)
+    calls, _ = fd_bench.split_case(args, dict(threshold=10), 4)
+    merged, kw = fd_bench.device_call(calls)
+    kernels.fd_phase_rows(*merged, **kw)
+    short = list(merged)
+    short[3] = merged[3][:3]  # three subjects blocks for four shards
+    with pytest.raises(ValueError, match="subjects"):
+        kernels.fd_phase_rows(*short, **kw)
+    mixed = list(merged)
+    mixed[5] = [None] + merged[5][1:]  # one shard without its draw
+    with pytest.raises(ValueError, match="draws"):
+        kernels.fd_phase_rows(*mixed, **kw)
+    with pytest.raises(TypeError):
+        kernels.fd_phase_rows(*merged, **kw, halt=torch.tensor(1))
+    with pytest.raises(ValueError, match="halt"):
+        kernels.fd_phase_rows(*merged, **kw, halt=torch.tensor([True]))
+    many = fd_bench.split_case(args, dict(threshold=10), 32)[0]
+    merged, kw = fd_bench.device_call(many[:kernels.MAX_SHARDS_PER_CALL + 1])
+    with pytest.raises(ValueError, match="at most"):
+        kernels.fd_phase_rows(*merged, **kw)
+    empty = list(fd_bench.device_call(calls[:1])[0])
+    for i in (3, 4, 5, 6, 7, 8, 9):
+        empty[i] = [empty[i][0][:0]]
+    empty[11] = [torch.zeros(1, dtype=torch.int32)]
+    with pytest.raises(ValueError, match="empty"):
+        kernels.fd_phase_rows(*empty, row0=[0], threshold=10)
+
+
+CUDA_SPLITS = [(1, 1), (333, 3), (333, 9), (1000, 8), (100_000, 8)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("halted", [False, True])
 @pytest.mark.parametrize("random", [False, True])
 @pytest.mark.parametrize("policy", sorted(POLICIES))
-@pytest.mark.parametrize("c, shards", [(1, 1), (333, 3), (333, 9), (1000, 8), (100_000, 8)])
-def test_cuda_split_kernels_match_plain(cuda_device, c, shards, policy, random):
-    """Each shard's fd_phase_rows and the gather against their plain
-    versions (the whole bitset included, flag and padding), and the split
-    against the fused phase."""
+@pytest.mark.parametrize("c, shards", CUDA_SPLITS)
+def test_cuda_split_kernels_match_plain(cuda_device, c, shards, policy, random, halted):
+    """The per-device fd_phase_rows over every shard and the gather against
+    their plain versions (the whole bitset included, flag and padding), and
+    the split against the fused phase; halted, every plane as it came in and
+    no bit. One launch a call."""
     args = _case(c, 10, seed=c + shards, device=cuda_device, random=random)
     kw = _policy_kw(policy, c, seed=c * shards, device=cuda_device)
     counter = "fd_phase_rows_windowed" if policy == "windowed" else "fd_phase_rows"
     before = dict(kernels.LAUNCHES)
+    if halted:
+        got, bits = _assert_halted(args, kw, shards, kernel=True, alerts=c > 1)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == {**before, counter: before[counter] + 2}
+        calls, want_bits = fd_bench.split_case(args, kw, shards)
+        merged, merged_kw = fd_bench.device_call(calls)
+        want = kernels.fd_phase_rows_plain(*merged, **merged_kw,
+                                           halt=torch.tensor(True, device=cuda_device))
+        assert torch.equal(bits, want_bits)
+        for g_shard, w_shard in zip(got, want):
+            for g, w in zip(g_shard, w_shard):
+                assert (g is None and w is None) or torch.equal(g, w)
+        return
     got, bits = _assert_split_equals_fused(args, kw, shards, kernel=True)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {**before, counter: before[counter] + shards,
+    assert kernels.LAUNCHES == {**before, counter: before[counter] + 1,
                                 "fd_gather": before["fd_gather"] + 1}
     want, want_bits = _split_phase(args, kw, shards)
     assert torch.equal(bits, want_bits)
@@ -533,23 +651,48 @@ def test_cuda_split_kernels_match_plain(cuda_device, c, shards, policy, random):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quiet", [False, True])
+@pytest.mark.parametrize("c, shards", CUDA_SPLITS)
+def test_cuda_gather_matches_plain(cuda_device, c, shards, quiet):
+    """fd_gather alone against its plain version, from bitsets the plain
+    split writes: every segment's bits random (flags set), or every flag 0."""
+    args = _case(c, 10, seed=c * 7 + shards, device=cuda_device)
+    rows, words = c // shards, kernels.segment_words(c // shards, 10)
+    rng = np.random.default_rng(c + shards)
+    new_down = torch.from_numpy(rng.random((c, 10)) < 0.3).to(cuda_device)
+    bits = torch.cat([kernels.pack_segment(new_down[s * rows:(s + 1) * rows] & (not quiet))
+                      for s in range(shards)])
+    assert bits.shape == (shards * words,)
+    got = kernels.fd_gather(args[0], args[4], args[6], bits, rows)
+    want = kernels.fd_gather_plain(args[0], args[4], args[6], bits, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("offset", [1, 3])
 def test_cuda_rows_kernel_on_misaligned_blocks(cuda_device, offset):
     """Row blocks that start ``offset`` elements into their buffers take the
-    scalar path; the segment and the planes still match the plain version."""
+    scalar path, in a call over all three shards and in one call a shard;
+    the segments and the planes still match the plain version."""
     args = _case(333, 10, seed=offset, device=cuda_device)
     kw = dict(threshold=10, gray_confirm=3, gray_warmup=3, rounds_per_interval=1)
     rows, words = 111, kernels.segment_words(111, 10)
+    blocks = [[None if a is None or a.dim() != 2 else
+               _misaligned(a[s * rows:(s + 1) * rows], offset) for a in args] for s in range(3)]
+    per_shard = [(b[3], b[5], b[7], b[8], b[9], b[10], b[11]) for b in blocks]
+    merged = (args[0], args[1], args[2], *(list(col) for col in zip(*per_shard)), args[12])
+    got_bits = torch.full((3 * words,), -1, dtype=torch.int32, device=cuda_device)
+    want_bits = torch.zeros(3 * words, dtype=torch.int32, device=cuda_device)
+    segments = [list(bits.split(words)) for bits in (got_bits, want_bits)]
+    got = kernels.fd_phase_rows(*merged, segments[0], row0=[0, rows, 2 * rows], **kw)
+    want = kernels.fd_phase_rows_plain(*merged, segments[1], row0=[0, rows, 2 * rows], **kw)
     for s in range(3):
-        block = [None if a is None or a.dim() != 2 else
-                 _misaligned(a[s * rows:(s + 1) * rows], offset) for a in args]
-        row_args = (args[0], args[1], args[2], block[3], block[5], block[7], block[8],
-                    block[9], block[10], block[11], args[12])
-        got_bits = torch.full((words,), -1, dtype=torch.int32, device=cuda_device)
-        want_bits = torch.zeros(words, dtype=torch.int32, device=cuda_device)
-        got = kernels.fd_phase_rows(*row_args, got_bits, row0=s * rows, **kw)
-        want = kernels.fd_phase_rows_plain(*row_args, want_bits, row0=s * rows, **kw)
+        one_bits = torch.full((words,), -1, dtype=torch.int32, device=cuda_device)
+        one = kernels.fd_phase_rows(args[0], args[1], args[2], *per_shard[s], args[12],
+                                    one_bits, row0=s * rows, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(got_bits, want_bits)
-        for g, w in zip(got, want):
-            assert (g is None and w is None) or torch.equal(g, w)
+        assert torch.equal(one_bits, want_bits[s * words:(s + 1) * words])
+        for g, o, w in zip(got[s], one, want[s]):
+            assert (g is None and w is None) or (torch.equal(g, w) and torch.equal(o, w))
+    assert torch.equal(got_bits, want_bits)

@@ -38,6 +38,7 @@ from rapid_tpu_torch.shard.engine import (
     shard_generators,
 )
 from rapid_tpu_torch.sim import engine as teng
+from rapid_tpu_torch.sim import kernels
 from rapid_tpu_torch.sim.driver import Simulator
 
 CPU8 = ["cpu"] * 8
@@ -443,9 +444,10 @@ def test_join_headroom_and_leaves_match_jax_sharded(jax_mesh, mesh):
 
 
 def test_exchange_copy_path_matches_in_place_segments(mesh, monkeypatch):
-    """A shard on another device than home writes its own segment, which is
-    then copied into home's bitset (the peer copy between cards); forced
-    here on the CPU, the result is the same."""
+    """A device other than home writes its shards' segments into one buffer,
+    which is then copied into home's bitset (the peer copy between cards):
+    one copy a round, its shards being consecutive in mesh order. Forced here
+    on the CPU, the result is the same."""
     jconfig, pconfig, _, pstate = build(seed=24)
     alive = np.ones(64, dtype=bool)
     alive[[2, 60]] = False
@@ -453,14 +455,65 @@ def test_exchange_copy_path_matches_in_place_segments(mesh, monkeypatch):
     run = make_sharded_run(pconfig, mesh, 12, random_loss=False)
     want = run(place_state(pstate, mesh), inputs)
     copies = []
-    real_copy = torch.Tensor.copy_
+    real_copy = shard._copy_in
     monkeypatch.setattr(shard, "_same_device", lambda a, b: False)
-    monkeypatch.setattr(torch.Tensor, "copy_",
-                        lambda self, src, **kw: copies.append(1) or real_copy(self, src, **kw))
+    monkeypatch.setattr(shard, "_copy_in",
+                        lambda segment, source: copies.append(segment.numel())
+                        or real_copy(segment, source))
     got = run(place_state(pstate, mesh), inputs)
     monkeypatch.undo()
-    assert len(copies) >= 12 * 8
+    assert copies == [8 * kernels.segment_words(8, pconfig.k)] * 12
     _assert_equal(got, want, "copied segments vs in-place segments")
+
+
+@pytest.mark.parametrize("layout, calls_a_round, copies_a_round", [
+    ("one device", [8], 0),           # every shard on home: one call, segments in place
+    ("interleaved", [4, 4], 8),       # two devices off home, shards alternating: a copy a shard
+    ("runs of 3", [3, 3, 2], 3),      # at most 3 shards a call: a call and a copy a run
+])
+def test_one_fd_call_a_device_group_a_round(mesh, monkeypatch, layout, calls_a_round,
+                                            copies_a_round):
+    """Each group of ``device_groups`` makes one ``fd_phase_rows`` call a
+    round over its shards; groups off home copy their segments in. Under
+    random loss every shard still draws from its own generator, so the state
+    equals the one-device run's, field for field."""
+    _, pconfig, _, pstate = build(seed=26)
+    alive = np.ones(64, dtype=bool)
+    alive[[4, 37]] = False
+    drop = np.zeros(64, dtype=np.float32)
+    drop[[9, 50]] = 0.5
+    inputs = place_inputs(teng.const_inputs(pconfig, alive, drop_prob=drop, device="cpu"), mesh)
+    run = make_sharded_run(pconfig, mesh, 12, random_loss=True)
+    want = run(place_state(pstate, mesh), inputs, shard_generators(mesh, 3))
+    calls, copies = [], []
+    real_rows, real_copy = kernels.fd_phase_rows, shard._copy_in
+    monkeypatch.setattr(kernels, "fd_phase_rows",
+                        lambda *a, **kw: calls.append(len(kw["row0"])) or real_rows(*a, **kw))
+    monkeypatch.setattr(shard, "_copy_in",
+                        lambda segment, source: copies.append(1) or real_copy(segment, source))
+    if layout != "one device":
+        monkeypatch.setattr(shard, "_same_device", lambda a, b: False)
+    if layout == "interleaved":
+        cpu = torch.device("cpu")
+        monkeypatch.setattr(shard, "device_groups",
+                            lambda m: [(cpu, [0, 2, 4, 6]), (cpu, [1, 3, 5, 7])])
+    if layout == "runs of 3":
+        monkeypatch.setattr(kernels, "MAX_SHARDS_PER_CALL", 3)
+    got = run(place_state(pstate, mesh), inputs, shard_generators(mesh, 3))
+    monkeypatch.undo()
+    assert calls == calls_a_round * 12
+    assert len(copies) == copies_a_round * 12
+    _assert_equal(got, want, layout)
+    assert bool(got.decided)
+
+
+def test_device_groups_by_device_in_mesh_order(monkeypatch):
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    m = shard.Mesh(np.array([cpu, meta, cpu, meta, cpu, cpu], dtype=object), ("nodes",))
+    assert shard.device_groups(m) == [(cpu, [0, 2, 4, 5]), (meta, [1, 3])]
+    assert shard.device_groups(make_mesh(devices=CPU8)) == [(cpu, list(range(8)))]
+    monkeypatch.setattr(kernels, "MAX_SHARDS_PER_CALL", 3)
+    assert shard.device_groups(m) == [(cpu, [0, 2, 4]), (cpu, [5]), (meta, [1, 3])]
 
 
 @pytest.mark.parametrize("probability", [1.0, 0.5])
