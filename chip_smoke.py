@@ -53,7 +53,21 @@ into build/kernels/. Phases, each of which must pass:
    crashed set at 11 100 ms virtual with the single-device configuration
    id, one sync per dispatch and one ``fd_phase_rows`` and one
    ``fd_gather`` launch a round, beside the single-device closed form and
-   scan path of the same fault.
+   scan path of the same fault;
+10. telemetry, speculation, profiling: the headline decision and a crash
+   under ingress loss 1.0 (the scan) with ``speculate`` on and off in
+   alternating pairs (asked for explicitly: the default leaves it off on
+   the card; identical records, speculation hits only when on, one sync
+   either way), walls and the host view change beside each other; the
+   speculation worker alone, and a decision of each branch with metrics,
+   tracer, speculation and profiling on, inside ``jitwatch.timed_window``
+   (sync debug mode "error": they must raise and record nothing, and both
+   speculation hits must land) and every sync counted in the same decision
+   audited by ``jitwatch``; ``enable_profiling`` on the
+   scan path sampling every dispatch (four phases above 0, ``fd_phase_fused``
+   launched by each prefix); the GPU ops of one step and of its prefixes;
+   and ``observability.device_trace`` around one decision, whose Chrome
+   trace must name ``fd_phase_fused``.
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -136,6 +150,8 @@ MESHES = (("4 shards", {"n_devices": 4}, 4), ("8 shards", {"n_devices": 8}, 8),
           ("(2, 2) dcn x ici", {"shape": (2, 2)}, 4))
 SHARDED_RUNS = 3  # decisions timed on each mesh, the first warming it
 SHARD_SEED = SEED + 8000
+SPEC_PAIRS = 3  # speculate on/off pairs of decisions timed per branch
+PLANES_SEED = SEED + 9000
 
 
 def _time_ms(fn, reps=24, iters=11):
@@ -407,7 +423,8 @@ def classic_scenario(Simulator, SimConfig, device, n=N_NODES, blind=CLASSIC_BLIN
 def _count_syncs(fn, out=None):
     """Synchronizing CUDA calls made by ``fn`` (torch's sync debug mode:
     device->host fetches and blocking host->device copies); ``fn``'s result
-    is appended to ``out`` when given."""
+    is appended to ``out`` when given. Only the mode's per-call warning
+    counts, not its one-time notice that the mode is a prototype."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -417,7 +434,7 @@ def _count_syncs(fn, out=None):
             torch.cuda.set_sync_debug_mode("default")
     if out is not None:
         out.append(result)
-    return sum("synchronizing" in str(w.message) for w in caught)
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def _windowed_decisions(Simulator, engine, kernels, rng, device):
@@ -760,6 +777,206 @@ def _split_phase(kernels, fd_bench, engine, device):
     return timed
 
 
+def _record(rec):
+    return (rec.cut.tolist(), rec.configuration_id, rec.virtual_time_ms, rec.membership_size)
+
+
+def _planes_fault(sim, branch):
+    """The fault of a branch: a crash (closed form), or a crash under
+    ingress loss 1.0 on the same members (the scan, whose random loss has no
+    closed form). Speculation predicts crashed and leaving members, so both
+    give it a prediction."""
+    if branch == "closed form":
+        return sim.crash
+
+    def crash_and_loss(victims):
+        sim.crash(victims)
+        sim.ingress_loss(victims, 1.0)
+    return crash_and_loss
+
+
+def _speculation_pairs(Simulator, rng, device):
+    """Each branch's decision with ``speculate`` on and off on the same
+    fresh members and victims, SPEC_PAIRS alternating pairs (on-off,
+    off-on, ...): identical records, hits only when on, the decision's wall
+    and its host view change (``_apply_view_change``, whose device work runs
+    on after it returns) side by side, and the syncs of one decision each
+    way."""
+    out = {}
+    for branch in ("closed form", "scan"):
+        rows = {True: [], False: []}
+        for i in range(SPEC_PAIRS):
+            victims = rng.choice(N_NODES, N_NODES // 100, replace=False)
+            records = {}
+            for speculate in ((True, False) if i % 2 == 0 else (False, True)):
+                sim = Simulator(N_NODES, seed=PLANES_SEED + i, speculate=speculate,
+                                device=device).ready()
+                view_ms = []
+                apply = sim._apply_view_change
+
+                def timed_apply(*args, apply=apply, view_ms=view_ms):
+                    t0 = time.perf_counter()
+                    rec = apply(*args)
+                    view_ms.append((time.perf_counter() - t0) * 1e3)
+                    return rec
+
+                sim._apply_view_change = timed_apply
+                _planes_fault(sim, branch)(victims)
+                t0 = time.perf_counter()
+                rec = sim.run_until_decision(max_rounds=16, batch=16)
+                sim.ready()
+                wall = (time.perf_counter() - t0) * 1e3
+                assert rec is not None and sorted(rec.cut.tolist()) == sorted(victims.tolist())
+                hits = (sim.metrics.get("speculation_hits_config_id"),
+                        sim.metrics.get("speculation_hits_fresh_state"))
+                assert (hits == (1, 1)) if speculate else (hits == (0, 0)), (branch, hits)
+                records[speculate] = _record(rec)
+                rows[speculate].append({"wall_ms": wall, "view_change_ms": view_ms[0]})
+            assert records[True] == records[False], (branch, records)
+        syncs = {}
+        for speculate in (True, False):
+            sim = Simulator(N_NODES, seed=PLANES_SEED + 99, speculate=speculate,
+                            device=device).ready()
+            _planes_fault(sim, branch)(rng.choice(N_NODES, N_NODES // 100, replace=False))
+            syncs[speculate] = _count_syncs(
+                lambda: sim.run_until_decision(max_rounds=16, batch=16))
+        assert syncs == {True: 1, False: 1}, (branch, syncs)
+        out[branch] = {"on": rows[True], "off": rows[False], "syncs": syncs}
+        print(f"speculation, {branch}: {SPEC_PAIRS} alternating pairs on the same members and "
+              f"victims, records identical, hits (config id, fresh state) 1 and 1 when on, 0 "
+              f"when off; walls on {[round(r['wall_ms'], 3) for r in rows[True]]} ms, off "
+              f"{[round(r['wall_ms'], 3) for r in rows[False]]} ms; host view change on "
+              f"{[round(r['view_change_ms'], 3) for r in rows[True]]} ms, off "
+              f"{[round(r['view_change_ms'], 3) for r in rows[False]]} ms; syncs per decision "
+              f"on {syncs[True]}, off {syncs[False]}", flush=True)
+    return out
+
+
+def _everything_on(Simulator, observability, ProfilingSettings, seed, device):
+    sim = Simulator(N_NODES, seed=seed, speculate=True, metrics=observability.Metrics(),
+                    tracer=observability.Tracer(plane="sim", track="sim"), device=device).ready()
+    return sim, sim.enable_profiling(ProfilingSettings(enabled=True))
+
+
+def _timed_windows(Simulator, observability, jitwatch, ProfilingSettings, rng, device):
+    """A decision of each branch with speculation, metrics, tracer and
+    profiling (1 dispatch in 16 sampled) on, inside ``jitwatch.timed_window``
+    (sync debug mode "error"): nothing may raise, no violation is recorded,
+    and both speculation hits land. The speculation worker alone inside a
+    timed window, with no audited seam lifting the mode while it runs. The
+    same decision on a twin simulator counted under "warn": every counted
+    sync is audited. Then a second decision on the twin, whose dispatch is
+    not sampled."""
+    out = {}
+    for branch in ("closed form", "scan"):
+        victims = rng.choice(N_NODES, N_NODES // 100, replace=False)
+        solo = Simulator(N_NODES, seed=PLANES_SEED + 51, speculate=True, device=device).ready()
+        _planes_fault(solo, branch)(victims)
+        with jitwatch.timed_window(f"{branch} speculation worker"):
+            solo._speculate_view_change().join()
+        assert solo._spec is not None and not jitwatch.violations(), jitwatch.violations()
+
+        sim, prof = _everything_on(Simulator, observability, ProfilingSettings,
+                                   PLANES_SEED + 50, device)
+        _planes_fault(sim, branch)(victims)
+        before = jitwatch.sync_counts()
+        with jitwatch.timed_window(f"{branch} decision"):
+            rec = sim.run_until_decision(max_rounds=16, batch=16)
+        audited = _diff(jitwatch.sync_counts(), before)
+        hits = (sim.metrics.get("speculation_hits_config_id"),
+                sim.metrics.get("speculation_hits_fresh_state"))
+        assert rec is not None and prof.samples == 1 and hits == (1, 1), (prof.samples, hits)
+        assert not jitwatch.violations(), jitwatch.violations()
+
+        twin, twin_prof = _everything_on(Simulator, observability, ProfilingSettings,
+                                         PLANES_SEED + 50, device)
+        _planes_fault(twin, branch)(victims)
+        before = jitwatch.sync_counts()
+        counted = _count_syncs(lambda: twin.run_until_decision(max_rounds=16, batch=16))
+        twin_audited = _diff(jitwatch.sync_counts(), before)
+        # an explicit device synchronize (a drain) may escape the debug mode;
+        # what it counts must be audited either way
+        drains = sum(v for k, v in audited.items() if k != "sim.decision_words")
+        assert twin_audited == audited and counted in (
+            audited["sim.decision_words"], audited["sim.decision_words"] + drains), (
+            branch, counted, audited, twin_audited)
+        _planes_fault(twin, branch)(rng.choice(twin.members(), 10, replace=False))
+        before = jitwatch.sync_counts()
+        unsampled = _count_syncs(lambda: twin.run_until_decision(max_rounds=16, batch=16))
+        unsampled_audited = _diff(jitwatch.sync_counts(), before)
+        assert twin_prof.samples == 1 and unsampled == 1 and unsampled_audited == {
+            "sim.decision_words": 1}, (unsampled, unsampled_audited)
+        out[branch] = {"audited": audited, "counted": counted, "unsampled_syncs": unsampled,
+                       "metrics": sim.metrics.snapshot()}
+        print(f"timed window, {branch}: the speculation worker alone and a decision with "
+              f"speculation (hits {hits}), metrics, tracer and profiling on, sync "
+              f"debug mode error, nothing raised, no violation; syncs in the sampled decision counted "
+              f"{counted}, audited {audited}; in the next, unsampled decision counted "
+              f"{unsampled}, audited {unsampled_audited}; counters {sim.metrics.snapshot()}",
+              flush=True)
+    return out
+
+
+def _diff(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
+    """``enable_profiling`` sampling every dispatch on the 100k scan path:
+    samples, the four phases, and the prefixes' own ``fd_phase_fused``
+    launches; then the GPU ops of one step and of each prefix on the
+    simulator's state (``profile_decision.profile_gpu``)."""
+    from rapid_tpu_torch.profiling.phases import _copy
+    from rapid_tpu_torch.sim.profile_decision import profile_gpu
+
+    sim = Simulator(N_NODES, seed=PLANES_SEED + 70, device=device).ready()
+    prof = sim.enable_profiling(ProfilingSettings(enabled=True, sample_every_dispatches=1))
+    _planes_fault(sim, "scan")(rng.choice(N_NODES, N_NODES // 100, replace=False))
+    inputs = sim._const_inputs(None)
+    state, generator = sim.state, _copy(sim._generator)
+    ops = {name: profile_gpu(lambda fn=fn: fn(sim.config, state, inputs, True,
+                                              _copy(generator)))["kernels"]
+           for name, fn in (("step", engine.step), ("step_cut_detector", engine.step_cut_detector),
+                            ("step_fd_scan", engine.step_fd_scan))}
+    kernels.reset_launches()
+    rec = sim.run_until_decision(max_rounds=16, batch=16)
+    sim.ready()
+    launches = dict(kernels.LAUNCHES)
+    totals = prof.attribution()
+    assert rec is not None and prof.samples >= 1, prof.samples
+    assert all(totals[p] > 0 for p in ("fd_scan", "cut_detector", "consensus_count",
+                                       "host_transfer")), totals
+    assert launches["fd_phase_fused"] == 16 + 3 * prof.samples, launches
+    per_sample = {p: totals[p] / prof.samples for p in ("fd_scan", "cut_detector",
+                                                        "consensus_count")}
+    print(f"profiling, scan path, every dispatch sampled: {prof.samples} sample(s), phase ms a "
+          f"sample {({p: round(v, 3) for p, v in per_sample.items()})}, host transfer "
+          f"{totals['host_transfer']:.3f} ms over {sim.metrics.get('device_dispatches')} "
+          f"dispatch(es); fd_phase_fused launches {launches['fd_phase_fused']} (16 in the "
+          f"dispatch + 3 a sample, one a prefix); GPU ops of one round: {ops}", flush=True)
+    return {"samples": prof.samples, "attribution": totals, "per_sample": per_sample,
+            "launches": launches, "gpu_ops": ops}
+
+
+def _device_trace(Simulator, observability, rng, device):
+    """``observability.device_trace`` around one scan-path decision: the
+    Chrome trace must name ``fd_phase_fused``."""
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace")
+    sim = Simulator(N_NODES, seed=PLANES_SEED + 80, device=device).ready()
+    _planes_fault(sim, "scan")(rng.choice(N_NODES, N_NODES // 100, replace=False))
+    with observability.device_trace(trace_dir):
+        rec = sim.run_until_decision(max_rounds=16, batch=16)
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = sum(e.get("name") == "fd_phase_fused" for e in events)
+    passes = sum(e.get("cat") == "kernel" and "observer_pass" in e.get("name", "")
+                 for e in events)
+    assert rec is not None and ranges >= 16, (ranges, passes)
+    print(f"device trace: {len(events)} events in {trace_dir}/trace.json, {ranges} "
+          f"fd_phase_fused ranges, {passes} observer_pass kernels", flush=True)
+    return {"events": len(events), "fd_phase_fused_ranges": ranges}
+
+
 def _profile(fn):
     """``profile_decision.profile_gpu`` with the device µs of the FD passes:
     ``rows_us`` (the node pass and the observer pass, ``rows_pass`` in
@@ -883,6 +1100,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rapid_tpu_torch import observability
+    from rapid_tpu_torch.runtime import jitwatch
+    from rapid_tpu_torch.settings import ProfilingSettings
     from rapid_tpu_torch.shard import engine as shard
     from rapid_tpu_torch.sim import classic, engine, fd_bench, kernels
     from rapid_tpu_torch.sim.driver import Simulator
@@ -961,6 +1181,15 @@ def main() -> int:
 
     _cross_check(Simulator, engine, device)
 
+    # --- telemetry, speculation, profiling ---------------------------------
+    os.environ["RAPID_JITWATCH"] = "1"
+    planes = {"speculation": _speculation_pairs(Simulator, rng, device),
+              "timed_window": _timed_windows(Simulator, observability, jitwatch,
+                                             ProfilingSettings, rng, device),
+              "profiling": _profiling(Simulator, engine, kernels, ProfilingSettings, rng,
+                                      device),
+              "device_trace": _device_trace(Simulator, observability, rng, device)}
+
     # --- the multi-device round loop, every shard on this card -------------
     split = _split_phase(kernels, fd_bench, engine, device)
     sharded = _sharded_decisions(Simulator, engine, shard, kernels, rng, device)
@@ -1032,7 +1261,7 @@ def main() -> int:
     print(json.dumps({"headline_wall_ms": head_walls, "scan_wall_ms": scan_walls,
                       "headline_syncs": syncs, "scan_syncs": scan_syncs,
                       "windowed": windowed, "classic_fallback": fallback,
-                      "sharded": sharded, "card": card}))
+                      "sharded": sharded, "planes": planes, "card": card}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,20 +8,24 @@ xxHash64, bit-compatible with the JVM), the append-only identifiersSeen set
 partitions, lossy ingress, flip-flop, leaves, join waves, delivery groups and
 delays), identities seated ahead of joins, bridged external voters, both
 dispatch branches of ``run_until_decision`` with the classic-Paxos fallback
-round (``classic.py``), the configuration snapshot, and the multi-device
-round loop over a mesh (``mesh=``, ``rapid_tpu_torch/shard/engine.py``).
-Method names and signatures follow the JAX driver, plus a ``device``
-argument.
+round (``classic.py``), the configuration snapshot, the multi-device round
+loop over a mesh (``mesh=``, ``rapid_tpu_torch/shard/engine.py``), the
+speculative view change (``speculate=``), the telemetry plane (``metrics``,
+``tracer``, the stable-view timer, the flight ``recorder``, stamped by a
+hybrid logical clock when ``SimConfig.forensics`` is set) and the profiling
+plane (``enable_profiling``). Method names and signatures follow the JAX
+driver, with a ``device`` argument last.
 
-Not in this port yet (ROADMAP.md, Queue 1): the speculative view-change
-worker, and the placement, handoff, serving, SLO, durability, hierarchy,
-forensics, profiling, metrics and tracing planes.
+Not in this port yet (ROADMAP.md, Queue 1): the placement, handoff, serving,
+SLO, durability and hierarchy planes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Set, Tuple
@@ -29,7 +33,20 @@ from typing import List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ..forensics.hlc import HlcClock
 from ..hashing import xxh64_batch_auto
+from ..observability import (
+    FlightRecorder,
+    Metrics,
+    StableViewTimer,
+    TraceContext,
+    Tracer,
+    global_metrics,
+    global_tracer,
+)
+from ..profiling import PhaseProfiler
+from ..runtime import jitwatch
+from ..settings import ProfilingSettings
 from ..shard.engine import (
     Mesh,
     make_sharded_run,
@@ -75,6 +92,26 @@ def _pow2_chunks(n: int, batch: int) -> List[int]:
     return chunks
 
 
+def _speculates(speculate: Optional[bool], device: torch.device) -> bool:
+    """``Simulator(speculate=)``: as given, else on except on a CUDA device."""
+    return speculate if speculate is not None else device.type != "cuda"
+
+
+def _tensors(tree):
+    """Every tensor of a state: a dataclass, its lists, tuples and dicts."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _tensors(x)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from _tensors(x)
+
+
 @dataclass
 class ViewChangeRecord:
     """One decided configuration change."""
@@ -96,17 +133,14 @@ class Simulator:
         capacity: Optional[int] = None,
         config: Optional[SimConfig] = None,
         seed: int = 0,
-        identities=None,
-        device=None,
         mesh: Optional[Mesh] = None,
+        speculate: Optional[bool] = None,
+        identities=None,
+        metrics: Optional[Metrics] = None,
+        tracer: Optional[Tracer] = None,
+        device=None,
     ) -> None:
-        """``identities``: optional [(hostname bytes, port, id_high, id_low)]
-        seated into slots 0.. before any state is built, replacing the
-        synthesized identities.
-
-        ``device``: where the round loop runs; CUDA unless the caller names
-        another (``"cpu"`` for the tests). Without a GPU and without an
-        explicit device, construction raises.
+        """The JAX ``Simulator``'s parameters in its order, then ``device``.
 
         ``mesh``: a ``shard.engine.Mesh`` (``make_mesh``) to run the round
         loop over several devices, or several shards of one: per-edge state
@@ -114,7 +148,28 @@ class Simulator:
         which is then the simulator's ``device``; capacity must divide over
         it. The fault, join, leave and view-change API is the same in both
         modes; a mesh dispatch runs the rounds one by one (the closed form
-        is single-device)."""
+        is single-device).
+
+        ``speculate``: overlap the predicted view change (configuration-id
+        fold, fresh state) with the decision fetch
+        (``_speculate_view_change``). Invisible in every result. ``None``,
+        the default, speculates except on a CUDA device, where the round
+        loop is host-bound and the fetch returns at once, so the worker
+        costs more host time than the view change it saves (PERF.md §6);
+        elsewhere it is the JAX driver's default, on.
+
+        ``identities``: optional [(hostname bytes, port, id_high, id_low)]
+        seated into slots 0.. before any state is built, replacing the
+        synthesized identities.
+
+        ``metrics`` / ``tracer``: registries to record into (any object with
+        the methods of ``observability.Metrics`` / ``Tracer``); by default
+        fresh per-simulator ones attached to the port's process-global
+        registry and tracer.
+
+        ``device``: where the round loop runs; CUDA unless the caller names
+        another (``"cpu"`` for the tests). Without a GPU and without an
+        explicit device, construction raises."""
         self.device = mesh.home if mesh is not None else resolve_device(device)
         capacity = capacity if capacity is not None else n_nodes
         assert n_nodes <= capacity
@@ -143,20 +198,30 @@ class Simulator:
         self._seen_set: Optional[Set[Tuple[int, int]]] = None
         self._seen_hashes: Optional[np.ndarray] = None  # [M, 2] uint64
         self.seed = seed
+        self.speculate = _speculates(speculate, self.device)
         self.virtual_ms = 0
+        # kept so from_configuration's path builds the telemetry alike
+        self._metrics_override = metrics
+        self._tracer_override = tracer
         self._init_runtime_state()
 
     def _init_runtime_state(self) -> None:
-        """Everything past identity/membership: device caches, fresh device
-        state, the all-clear fault plane, and the hash pre-warms. Shared by
-        __init__ and from_configuration."""
+        """Everything past identity/membership: telemetry, device caches,
+        fresh device state, the all-clear fault plane, and the hash
+        pre-warms. Shared by __init__ and from_configuration."""
         capacity, k, g = self.config.capacity, self.config.k, self.config.groups
         dev = self.device
+        self._init_telemetry()
         self._config_id: Optional[int] = None
+        # the speculative view change (_speculate_view_change): (predicted
+        # active bytes, seed, config id, fresh state, alive bytes)
+        self._spec: Optional[Tuple[bytes, int, int, SimState, bytes]] = None
+        self._spec_stream: Optional[torch.cuda.Stream] = None  # the worker's, on the card
+        self._profiler = None  # enable_profiling attaches one
         self._sharded_runs: dict = {}
         # device-resident constants: the ring ranks (adjacency rebuilds never
         # re-upload them) and the all-clear fault-plane tensors
-        self._ring_rank_dev = torch.as_tensor(self.cluster.ring_rank(), device=dev)
+        self._ring_rank_dev = self._tensor(self.cluster.ring_rank())
         self._ring_rank_dirty = False
         self._zero_ck = torch.zeros((capacity, k), dtype=torch.bool, device=dev)
         self._zero_drop_prob = torch.zeros(capacity, dtype=torch.float32, device=dev)
@@ -173,6 +238,7 @@ class Simulator:
         self._ids_sorted: Optional[np.ndarray] = None
         self.state = self._fresh_state(self.seed)
         self._billed_rounds = 0  # rounds of this configuration already billed
+        self._rounds_executed = 0  # host mirror of state.round (per config)
         self.view_changes: List[ViewChangeRecord] = []
         # fault plane
         self._ingress_partitioned: Set[int] = set()
@@ -192,12 +258,42 @@ class Simulator:
         self._sorted_identifiers()
         self._seen_id_hashes()
 
+    def _init_telemetry(self) -> None:
+        """The metrics registry and tracer (the caller's, or per-simulator
+        ones attached to the port's process-global plane), the stable-view
+        timer on the virtual clock, the churn episode's trace context, and
+        the flight recorder, stamped by an HLC on the virtual clock when
+        ``config.forensics`` is set -- as the JAX driver builds them."""
+        self.metrics = (
+            self._metrics_override if self._metrics_override is not None
+            else Metrics(parent=global_metrics(), plane="sim")
+        )
+        self.tracer = (
+            self._tracer_override if self._tracer_override is not None
+            else Tracer(parent=global_tracer(), plane="sim", track="sim")
+        )
+        # detection -> decision -> view installed on the virtual clock, with
+        # the protocol plane's bucket edges
+        self._stable_view = StableViewTimer(
+            self.metrics, "sim", clock=lambda: self.virtual_ms)
+        # the first fault injection of a churn episode mints a trace context;
+        # the view_change span parents onto it; cleared at the install
+        self._churn_ctx: Optional[TraceContext] = None
+        self.hlc = None
+        if self.config.forensics:
+            self.hlc = HlcClock(clock=lambda: self.virtual_ms)
+        self.recorder = FlightRecorder(
+            node="sim", clock=lambda: self.virtual_ms, hlc=self.hlc, metrics=self.metrics)
+
     def _fresh_state(self, seed: int) -> SimState:
         """Fresh-configuration state, built on the device
         (engine.device_initial_state) and placed on the mesh if there is
         one, and this configuration's random-loss generator, seeded as the
         JAX driver seeds its PRNG key (on a mesh, one a shard,
-        ``shard.engine.shard_generators``)."""
+        ``shard.engine.shard_generators``). A speculated state for exactly
+        this configuration (``_speculate_view_change``) is taken instead of
+        a new build; the generators and the per-configuration latches are
+        set here either way."""
         # extern proposal rows, the per-sender vote dedup, and the classic
         # round counter are per-configuration, like every consensus latch
         self._extern_rows: dict = {}  # proposal-mask bytes -> extern row
@@ -205,28 +301,51 @@ class Simulator:
         self._last_announcement: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._classic_attempts = 0
         dev = self.device
-        if self._ring_rank_dirty:
-            self._ring_rank_dev = torch.as_tensor(self.cluster.ring_rank(), device=dev)
-            self._ring_rank_dirty = False
+        self._upload_ring_rank()
         self._subjects_host = None
         self._observers_host = None
         self._ring_nodes = None
         self._alive_dev = None
         self._probe_drop_dev = None  # partition set maps onto new adjacency
         self._down_reports_dev = None  # leave alerts map onto new adjacency
+        if self.mesh is None:
+            self._generator = torch.Generator(device=dev).manual_seed(seed)
+        else:
+            self._generators = shard_generators(self.mesh, seed)
+        spec = self._spec
+        if (
+            spec is not None
+            and spec[0] == self.active.tobytes()
+            and spec[1] == seed
+            # the alive mask the worker baked in must still hold (a revive
+            # or crash between speculation and decision invalidates it)
+            and spec[4] == (self.alive & self.active).tobytes()
+        ):
+            self._spec = None
+            self.metrics.incr("speculation_hits_fresh_state")
+            return self._adopt(spec[3])
+        return self._build_state(self.active, self.alive & self.active)
+
+    def _build_state(self, active: np.ndarray, alive: np.ndarray) -> SimState:
+        """A fresh configuration's state for ``active``/``alive`` on the
+        device (engine.device_initial_state), placed on the mesh if there is
+        one. Device ops and queued uploads only: no synchronizing call, so
+        the speculation worker can run it."""
         state = device_initial_state(
             self.config,
             self._ring_rank_dev,
-            self._tensor(self.active),
-            self._tensor(self.alive & self.active),
+            self._tensor(active),
+            self._tensor(alive),
             self._tensor(self.group_of),
             self._tensor(self.auto_vote),
         )
-        if self.mesh is None:
-            self._generator = torch.Generator(device=dev).manual_seed(seed)
-            return state
-        self._generators = shard_generators(self.mesh, seed)
-        return place_state(state, self.mesh)
+        return state if self.mesh is None else place_state(state, self.mesh)
+
+    def _upload_ring_rank(self) -> None:
+        """Upload the ring rank table after identity seatings, once."""
+        if self._ring_rank_dirty:
+            self._ring_rank_dev = self._tensor(self.cluster.ring_rank())
+            self._ring_rank_dirty = False
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         """A copy of a host array on the device: never a view of the array,
@@ -241,8 +360,23 @@ class Simulator:
     # Fault injection (BASELINE.json configs)
     # ------------------------------------------------------------------ #
 
+    def _fd_signal(self, **attrs: object) -> None:
+        """Root of a churn episode's trace: the protocol plane's edge-FD
+        signal, so merged traces show one trace id from injection to view
+        install whatever the plane; the journal entry carries it too."""
+        signal = self.tracer.event("fd_signal", virtual_ms=self.virtual_ms, **attrs)
+        if self._churn_ctx is None:
+            self._churn_ctx = TraceContext(
+                trace_id=signal.trace_id or signal.span_id,
+                parent_span_id=signal.span_id,
+                origin="sim",
+            )
+        self.recorder.record("fd_signal", trace_id=self._churn_ctx.trace_id, **attrs)
+
     def crash(self, node_ids: np.ndarray) -> None:
         """Crash-stop burst: nodes stop responding to probes and stop voting."""
+        self._stable_view.detection()
+        self._fd_signal(cause="crash", nodes=len(np.atleast_1d(node_ids)))
         self.alive[np.atleast_1d(node_ids)] = False
         self._alive_dev = self._tensor(self.alive)
 
@@ -258,6 +392,8 @@ class Simulator:
         which broadcast DOWN alerts immediately (MembershipService.java:366-371,
         534-554). Leavers keep responding to probes until the view change
         removes them."""
+        self._stable_view.detection()
+        self._fd_signal(cause="leave", nodes=len(np.atleast_1d(node_ids)))
         for node in np.atleast_1d(node_ids):
             node = int(node)
             assert self.active[node], f"node {node} is not a member"
@@ -270,6 +406,8 @@ class Simulator:
     def inject_down_report(self, dst: int, rings) -> None:
         """Externally sourced DOWN reports for ``dst`` on the given rings.
         One-shot per configuration, like any other alert."""
+        self._stable_view.detection()
+        self._fd_signal(cause="injected_report", dst=int(dst))
         self._injected_down[dst, list(rings)] = True
         self._down_reports_dev = None
 
@@ -290,6 +428,7 @@ class Simulator:
         # (_fresh_state), so a burst of seatings uploads it once
         self._ring_rank_dirty = True
         self._ring_nodes = None
+        self._spec = None  # endpoint hashes / rank table changed
 
     def _seen_identifier_set(self) -> Set[Tuple[int, int]]:
         """Membership test over the identifier history, built on first use."""
@@ -321,6 +460,7 @@ class Simulator:
         """Asymmetric failure: probes TO these nodes are lost, their own
         traffic still flows (paper §7, iptables INPUT partitions). Persists
         across view changes until lifted."""
+        self._stable_view.detection()
         self._ingress_partitioned.update(int(i) for i in np.atleast_1d(node_ids))
         self._probe_drop_dev = None
 
@@ -349,6 +489,7 @@ class Simulator:
         assert group_of.max(initial=0) < self.config.groups
         self.group_of = group_of
         self.state = dataclasses.replace(self.state, group_of=self._tensor(group_of))
+        self._spec = None  # a speculated fresh state baked in the old groups
 
     def drop_broadcasts(self, receiver_group: int, sender_nodes: np.ndarray) -> None:
         """Group ``receiver_group`` stops hearing broadcasts originating from
@@ -379,6 +520,7 @@ class Simulator:
         configuration as a member: an already-cast vote is not retracted."""
         self.auto_vote[slot] = bool(enabled)
         self.state = dataclasses.replace(self.state, auto_vote=self._tensor(self.auto_vote))
+        self._spec = None  # a speculated fresh state baked in the old owner
 
     def register_extern_vote(self, slot: int, cut: np.ndarray) -> bool:
         """Count an external member's fast-round vote in the device tally
@@ -429,8 +571,9 @@ class Simulator:
         return True
 
     def _classic_rank(self, slot: int) -> int:
-        """The highest classic rank ``slot`` has promised (one host sync)."""
-        return int(self.state.classic_rnd[slot])
+        """The highest classic rank ``slot`` has promised (one audited
+        sync)."""
+        return int(jitwatch.fetch("sim.extern_vote_rank", self.state.classic_rnd[slot]))
 
     def _probe_drop_mask(self) -> np.ndarray:
         """Map the partitioned-destination set onto the current adjacency."""
@@ -441,7 +584,7 @@ class Simulator:
             # one device->host copy per adjacency rebuild
             subjects = (self.state.subjects if self.mesh is None
                         else row_field(self.state, "subjects"))
-            self._subjects_host = subjects.cpu().numpy()
+            self._subjects_host = jitwatch.fetch("sim.subjects", subjects)
         return mask[self._subjects_host]
 
     def _has_down_reports(self) -> bool:
@@ -456,7 +599,7 @@ class Simulator:
             if self._pending_leavers:
                 if self._observers_host is None:
                     # one device->host copy per adjacency rebuild
-                    self._observers_host = self.state.observers.cpu().numpy()
+                    self._observers_host = jitwatch.fetch("sim.observers", self.state.observers)
                 leavers = sorted(self._pending_leavers)
                 obs = self._observers_host[leavers]  # [L, K]
                 mask[leavers] |= self.alive[obs] & self.active[obs]
@@ -501,6 +644,36 @@ class Simulator:
         return inputs if self.mesh is None else place_inputs(inputs, self.mesh)
 
     # ------------------------------------------------------------------ #
+    # Profiling plane
+    # ------------------------------------------------------------------ #
+
+    def enable_profiling(self, settings=None):
+        """Attach the continuous profiling plane (``profiling/``): sampled
+        shadow attribution of the dispatch pipeline into FD-scan /
+        cut-detector / consensus-count phases, the real decision fetch timed
+        as the host-transfer phase, and a metric history ring ticked once
+        per dispatch. ``settings.enabled`` is the kill switch: when False
+        this is a no-op returning None and the loop stays the raw path. The
+        shadow prefixes run once here for both loss models, so the kernels
+        are built and loaded before any timed window. Shadow sampling is
+        single-device; on a mesh only the history ring and the
+        host-transfer phase are recorded. Returns the PhaseProfiler (or
+        None when disabled)."""
+        if settings is None:
+            settings = ProfilingSettings(enabled=True)
+        if not settings.enabled:
+            self._profiler = None
+            return None
+        prof = PhaseProfiler(self.metrics, settings, plane="sim")
+        if self.mesh is None:
+            inputs = self._const_inputs(None)
+            for random_loss in (False, True):
+                prof.warm(self.config, self.state, inputs, random_loss,
+                          generator=self._generator)
+        self._profiler = prof
+        return prof
+
+    # ------------------------------------------------------------------ #
     # Joins
     # ------------------------------------------------------------------ #
 
@@ -509,6 +682,7 @@ class Simulator:
         alerts with the ring numbers the joiner assigned
         (MembershipService.java:229-251). Pending joiners re-attempt in every
         new configuration until admitted."""
+        self._stable_view.detection()
         for node in np.atleast_1d(node_ids):
             node = int(node)
             assert not self.active[node], f"node {node} already a member"
@@ -535,13 +709,18 @@ class Simulator:
         k = self.config.k
         join_reports = np.zeros((self.config.capacity, k), dtype=bool)
         # once per join wave, not per dispatch
-        observers = self.state.observers.cpu().numpy().copy()
+        observers = jitwatch.fetch("sim.observers", self.state.observers).copy()
         for node in sorted(self._pending_joiners):
             obs_ids, obs_alive = self._expected_observers(node)
             join_reports[node, :] = obs_alive
             observers[node, :] = obs_ids
         self.state = dataclasses.replace(self.state, observers=self._tensor(observers))
         return join_reports
+
+    def expected_observers(self, node: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Public alias of ``_expected_observers`` (the messaging bridge's
+        call)."""
+        return self._expected_observers(node)
 
     def _expected_observers(self, node: int) -> Tuple[np.ndarray, np.ndarray]:
         """The node's ring predecessors (MembershipView.java:293-304 for
@@ -583,7 +762,12 @@ class Simulator:
         runner (``shard.engine.make_sharded_run_until``), whose FD phase is
         the CUDA kernels ``fd_phase_rows`` on every shard and ``fd_gather`` on
         home. Either way the host syncs once per batch, fetching the packed
-        decision words.
+        decision words (``jitwatch.fetch("sim.decision_words")``); while it
+        waits, a worker builds the view change the fault plane predicts
+        (``_speculate_view_change``). Each batch bills the ``rounds`` it
+        executed (masked no-op rounds are not billed) and one
+        ``device_dispatches``, inside a ``device_rounds`` span; with
+        ``enable_profiling`` a sampled batch is first attributed in shadow.
 
         If the fast round stalls for ``classic_fallback_after_rounds``
         rounds, a classic Paxos recovery round runs (``_run_classic_round``,
@@ -600,33 +784,65 @@ class Simulator:
             inputs = self._const_inputs(join_reports)
             n = min(batch, max_rounds - rounds_done)
             random_loss = bool((self._drop_prob > 0).any())
+            prof = self._profiler
+            if prof is not None:
+                # shadow attribution of 1-of-N dispatches against the live
+                # pre-dispatch state (the prefixes leave it, and the
+                # generator, as they were); the history ring ticks every one
+                if self.mesh is None and prof.should_sample():
+                    prof.sample(self.config, self.state, inputs, random_loss,
+                                generator=self._generator)
+                prof.tick_history()
             if stop_when_announced and not random_loss:
                 # the closed form pauses at the announcement round itself,
                 # so the whole remaining budget rides one dispatch
                 n = max_rounds - rounds_done
-            if self.mesh is not None:
-                # rounds after the decision (and, for stop_when_announced,
-                # the announcement) run as masked no-ops; the budget is an
-                # argument, so every batch size shares one cached runner
-                self.state = self._sharded_run_until(random_loss, stop_when_announced)(
-                    self.state, inputs, n, self._generators)
-            elif random_loss:
-                for chunk in _pow2_chunks(n, batch):
-                    self.state = run_rounds_const(
-                        self.config, self.state, inputs, chunk, True, self._generator
-                    )
-            else:
-                self.state = run_until_decided_const(
-                    self.config, self.state, inputs, n,
-                    bool(self._deliver.all()), stop_when_announced,
-                )
-            # ONE device->host copy syncs the batch and fetches everything a
-            # decision needs
-            words = pack_decision(self.config, self.state).cpu().numpy()
+            spec_worker = None
+            try:
+                with self.tracer.span("device_rounds", virtual_ms=self.virtual_ms,
+                                      rounds=n) as dispatch_span:
+                    if self.mesh is not None:
+                        # rounds after the decision (and, for
+                        # stop_when_announced, the announcement) run as masked
+                        # no-ops; the budget is an argument, so every batch
+                        # size shares one cached runner
+                        self.state = self._sharded_run_until(random_loss, stop_when_announced)(
+                            self.state, inputs, n, self._generators)
+                    elif random_loss:
+                        for chunk in _pow2_chunks(n, batch):
+                            self.state = run_rounds_const(
+                                self.config, self.state, inputs, chunk, True, self._generator
+                            )
+                    else:
+                        self.state = run_until_decided_const(
+                            self.config, self.state, inputs, n,
+                            bool(self._deliver.all()), stop_when_announced,
+                        )
+                    # ONE device->host copy syncs the batch and fetches
+                    # everything a decision needs; the speculation worker
+                    # runs while the host waits for it (started after the
+                    # enqueue: its host work would slow the enqueue down)
+                    packed = pack_decision(self.config, self.state)
+                    spec_worker = self._speculate_view_change()
+                    t_fetch = time.perf_counter()
+                    words = jitwatch.fetch("sim.decision_words", packed)
+                    if prof is not None:
+                        prof.record_host_transfer((time.perf_counter() - t_fetch) * 1000.0)
+            finally:
+                if spec_worker is not None:
+                    spec_worker.join()
             (decided, announced_np, announced_round_np, proposal_np,
-             decided_group, decided_round, round_np) = unpack_decision(
-                self.config, words
-            )
+             decided_group, decided_round, round_np) = unpack_decision(self.config, words)
+            # bill the rounds that executed: a dispatch runs its whole budget,
+            # but rounds after the decision (or before the closed form's
+            # fast-forward start) leave the round counter as it was
+            self.metrics.incr("rounds", round_np - self._rounds_executed)
+            self._rounds_executed = round_np
+            self.metrics.incr("device_dispatches")
+            # the span is recorded already; its virtual extent closes on the
+            # rounds executed (billing happens at decision/announcement)
+            dispatch_span.virtual_end_ms = self.virtual_ms + (
+                self._rounds_executed - self._billed_rounds) * self._round_ms
             rounds_done += n
             if decided:
                 return self._apply_view_change(
@@ -657,6 +873,85 @@ class Simulator:
         self.virtual_ms += rounds_done * self._round_ms
         self._billed_rounds += rounds_done
         return None
+
+    def _speculate_view_change(self) -> Optional[threading.Thread]:
+        """Start a worker that builds the view change the fault plane
+        predicts (cut = dead or leaving members) -- its configuration-id fold
+        and its fresh state -- while the calling thread waits in the
+        decision fetch. ``_fresh_state`` and
+        ``configuration_id`` take the results only when the decided
+        membership (and, for the state, the seed and the alive mask) matches
+        bit for bit; any surprise falls back to the normal path. Joins are
+        never speculated (admissions grow the identifier history).
+
+        Every cache the worker reads is warmed here, so it only reads shared
+        state. On the card its device work runs on a side stream that first
+        waits for the work queued so far on the caller's stream, so the
+        fetch's copy never queues behind it (``_adopt`` hands the state
+        back). It makes no synchronizing call
+        (torch's sync debug mode is process-global, so one would trip a
+        timed window armed on the calling thread; a sync error it meets is
+        recorded in ``jitwatch.violations()``). It creates no generator and
+        touches no per-configuration latch: ``_fresh_state`` sets those on a
+        hit as on a miss."""
+        if not self.speculate or self._pending_joiners:
+            return None
+        cut_pred = self.active & ~self.alive
+        if self._pending_leavers:
+            leavers = list(self._pending_leavers)
+            cut_pred[leavers] = self.active[leavers]
+        if not cut_pred.any():
+            return None
+        new_active = self.active & ~cut_pred
+        key = new_active.tobytes()
+        if self._spec is not None and self._spec[0] == key:
+            return None  # this outcome is already speculated
+        self._sorted_identifiers()
+        self._seen_id_hashes()
+        self.cluster.node_hashes()
+        self.cluster.full_ring_order()
+        self._upload_ring_rank()
+        seed = self.seed + len(self.view_changes) + 1
+        alive_pred = self.alive & new_active
+        stream = None
+        if self.device.type == "cuda":
+            if self._spec_stream is None:
+                self._spec_stream = torch.cuda.Stream(self.device)
+            stream = self._spec_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+
+        def work() -> None:
+            try:
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    cid = self._fold_configuration_id(new_active)
+                    state = self._build_state(new_active, alive_pred)
+                self._spec = (key, seed, cid, state, alive_pred.tobytes())
+            except Exception as exc:  # a failed guess must never break the run
+                jitwatch.record_sync_error("the speculation worker", exc)
+                logging.getLogger(__name__).warning(
+                    "speculative view change failed; the view change is built after "
+                    "the fetch", exc_info=True)
+                self._spec = None
+
+        worker = threading.Thread(target=work, daemon=True)
+        worker.start()
+        return worker
+
+    def _adopt(self, state: SimState) -> SimState:
+        """A state the speculation worker built, handed to the caller's
+        stream: on the card, that stream waits for the side stream's build,
+        and the state's memory on this card is kept from reuse until the
+        caller's stream is done with it."""
+        side = self._spec_stream
+        if side is None:
+            return state
+        current = torch.cuda.current_stream(self.device)
+        current.wait_stream(side)
+        for t in _tensors(state):
+            if t.device == side.device:
+                t.record_stream(current)
+        return state
 
     @property
     def last_announcement(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -736,9 +1031,8 @@ class Simulator:
             if won is not None and decided is None:
                 decided = won
                 exchange_rounds = coordinator.elapsed_rounds
-        # the JAX driver counts racing > 1 as "classic_coordinator_races" in
-        # its metrics plane, which the port gains with the host planes
-        # (ROADMAP.md, Queue 1 item 5)
+        if racing > 1:
+            self.metrics.incr("classic_coordinator_races")
         return decided, exchange_rounds
 
     def _apply_view_change(
@@ -746,6 +1040,14 @@ class Simulator:
         t0: float,
         fetched: Tuple[np.ndarray, int, int],  # (proposal[P,C], group, round)
     ) -> ViewChangeRecord:
+        self.metrics.incr("view_changes")
+        vc_span = self.tracer.begin("view_change", virtual_ms=self.virtual_ms)
+        if self._churn_ctx is not None:
+            # remote-span edge: parent the install under the churn episode's
+            # root, so a merged trace stitches injection -> install
+            vc_span.parent_id = self._churn_ctx.parent_span_id
+            vc_span.trace_id = self._churn_ctx.trace_id or vc_span.trace_id
+            vc_span.attrs.setdefault("origin", self._churn_ctx.origin)
         self._config_id = None  # membership / identifier history change below
         proposal_np, decided_group, decided_round = fetched
         # the winning proposal row's value is the decided cut
@@ -788,6 +1090,8 @@ class Simulator:
         unbilled = decided_round - self._billed_rounds
         self.virtual_ms += unbilled * self._round_ms + self.config.batching_window_ms
         self._billed_rounds = 0
+        self._rounds_executed = 0  # fresh configuration: state.round resets
+        self._stable_view.decision(self.virtual_ms)
         record = ViewChangeRecord(
             cut=np.flatnonzero(cut),
             added=added,
@@ -801,23 +1105,60 @@ class Simulator:
         # new configuration: rebuild adjacency, reset per-config state;
         # crashes persist across configurations
         self.state = self._fresh_state(self.seed + len(self.view_changes))
+        # a speculation serves exactly one view change: the identifier
+        # history can grow afterwards, which changes the fold even for an
+        # identical active mask
+        self._spec = None
+        self._stable_view.view_installed(self.virtual_ms)
+        # fault-plane occupancy from the host mirrors, once per view change
+        self.metrics.set_gauge("sim.fault.crashed", int((self.active & ~self.alive).sum()))
+        self.metrics.set_gauge("sim.fault.ingress_partitioned", len(self._ingress_partitioned))
+        self.metrics.set_gauge("sim.fault.lossy", int((self._drop_prob > 0).sum()))
+        self.metrics.set_gauge("sim.membership_size", record.membership_size)
+        self.metrics.set_gauge("sim.pending_joiners", len(self._pending_joiners))
+        vc_span.attrs.update(
+            cut=len(record.cut), added=len(record.added), removed=len(record.removed),
+            configuration_id=record.configuration_id,
+        )
+        self.tracer.end(vc_span, virtual_ms=self.virtual_ms)
+        self.recorder.record(
+            "view_install", configuration_id=record.configuration_id,
+            size=record.membership_size, trace_id=vc_span.trace_id,
+            removed=len(record.removed), added=len(record.added),
+        )
+        self._churn_ctx = None  # the next churn episode roots a fresh trace
         return record
 
     # ------------------------------------------------------------------ #
 
     def configuration_id(self) -> int:
         """Bit-exact configuration identity of the current membership,
-        memoized until the next view change."""
+        memoized until the next view change; the speculation worker's fold
+        when it folded exactly this membership."""
         if self._config_id is not None:
             return self._config_id
+        if self._spec is not None and self._spec[0] == self.active.tobytes():
+            self.metrics.incr("speculation_hits_config_id")
+            self._config_id = self._spec[2]
+            return self._config_id
+        self._config_id = self._fold_configuration_id(self.active)
+        return self._config_id
+
+    def _fold_configuration_id(self, active: np.ndarray) -> int:
+        """The chained configuration-id fold over the identifier history and
+        ``active``'s ring-0 endpoints, from the cached element hashes."""
         _, _, host_h, port_h = self.cluster.node_hashes()
         order = self._sorted_identifiers()
         seen_h = self._seen_id_hashes()
-        order0 = ring_order(self.cluster, self.active, 0)
-        self._config_id = config_fold(
+        order0 = ring_order(self.cluster, active, 0)
+        return config_fold(
             seen_h[order, 0], seen_h[order, 1], host_h[order0], port_h[order0]
         )
-        return self._config_id
+
+    def sorted_identifiers(self) -> np.ndarray:
+        """The identifier history as [M, 2] (high, low) values in NodeId
+        (signed-lexicographic) order."""
+        return self._seen_ids[self._sorted_identifiers()]
 
     def _sorted_identifiers(self) -> np.ndarray:
         """Indices into the seen-identifier history in NodeId (high, low)
@@ -847,9 +1188,7 @@ class Simulator:
         """Block until construction/rebuild work has drained from the device
         queue -- separates setup cost from measured protocol time."""
         devices = self.mesh.device_list if self.mesh is not None else (self.device,)
-        for dev in dict.fromkeys(devices):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        jitwatch.drain("sim.ready", *devices)
         return self
 
     @property
@@ -895,14 +1234,15 @@ class Simulator:
 
     @staticmethod
     def from_configuration(
-        path: str, config_overrides: Optional[dict] = None, device=None,
-        mesh: Optional[Mesh] = None,
+        path: str, mesh: Optional[Mesh] = None,
+        config_overrides: Optional[dict] = None, device=None,
     ) -> "Simulator":
         """Rebuild a simulator from a configuration snapshot written by
         either package's ``save_configuration``; the configuration id of the
         restored instance equals the saved one. ``config_overrides``:
         SimConfig fields to replace on top of the saved parameters.
-        ``device`` and ``mesh`` as for the constructor."""
+        ``mesh`` and ``device`` as for the constructor; speculation as its
+        default, fresh telemetry."""
         with np.load(path) as data:
             params = [int(x) for x in data["params"]]
             (capacity, k, h, l, fd_threshold, fd_interval_ms,
@@ -919,6 +1259,9 @@ class Simulator:
             sim.device = mesh.home if mesh is not None else resolve_device(device)
             sim.mesh = mesh
             sim.config = config
+            sim.speculate = _speculates(None, sim.device)
+            sim._metrics_override = None
+            sim._tracer_override = None
             sim.cluster = VirtualCluster(
                 hostnames=data["hostnames"],
                 host_lengths=data["host_lengths"],

@@ -46,8 +46,6 @@ import torch
 from . import kernels
 from .topology import VirtualCluster, build_adjacency
 
-_ROADMAP = "see ROADMAP.md, Queue 1"
-
 
 @dataclass(frozen=True)
 class SimConfig:
@@ -299,6 +297,7 @@ def route_and_tally(
     *,
     uniform_delivery: bool = False,
     observers_idx: Optional[torch.Tensor] = None,
+    stop_after_cut: bool = False,
 ) -> SimState:
     """Alert delivery, per-group cut detection, per-node vote casting, the
     vote delivery hop, and the fast-round tally.
@@ -314,6 +313,11 @@ def route_and_tally(
     with a ``lax.cond`` in rounds where the pass is the identity. Eager
     PyTorch cannot branch on device data without a host sync, so here the
     pass always runs; the result is the same.
+
+    ``stop_after_cut`` returns right after proposal emission with the
+    vote/tally fields untouched: the cut-detector phase boundary that the
+    profiling plane's shadow attribution times against
+    (``profiling/phases.py``); no dispatch path uses it.
 
     Returns ``state`` with the tally-owned fields replaced; the caller layers
     the FD fields and the round increment on top.
@@ -378,6 +382,16 @@ def route_and_tally(
         state.round + 1,
         state.announced_round,
     )
+    if stop_after_cut:
+        return dataclasses.replace(
+            state,
+            reports=reports,
+            arrival_hist=arrival_hist,
+            seen_down=seen_down,
+            announced=announced,
+            announced_round=announced_round,
+            proposal=proposal,
+        )
 
     # --- per-node fast-round votes (FastPaxos.java:125-156) ----------------
     live = active & alive
@@ -570,15 +584,80 @@ def step(
     return _step(config, state, inputs, random_loss, generator, state.observers.long())
 
 
-def step_fd_scan(*args, **kwargs):
-    """Profiling prefix of the JAX engine (FD scan only): not ported yet."""
-    raise NotImplementedError(f"profiling prefixes are not ported yet ({_ROADMAP})")
+# --------------------------------------------------------------------- #
+# Profiling phase prefixes (profiling/phases.py)
+# --------------------------------------------------------------------- #
+# Each entry point executes only the leading phases of one round, so the
+# shadow profiler can time consecutive prefixes and difference them:
+# per-phase wall time then sums to the full step by construction. No
+# dispatch path calls them. They leave their arguments as they came (the
+# FD kernel writes fresh outputs), and with ``random_loss`` they draw from
+# ``generator``, so the profiler hands them a copy of the simulator's.
 
 
-def step_cut_detector(*args, **kwargs):
-    """Profiling prefix of the JAX engine (through cut detection): not
-    ported yet."""
-    raise NotImplementedError(f"profiling prefixes are not ported yet ({_ROADMAP})")
+def step_fd_scan(
+    config: SimConfig, state: SimState, inputs: RoundInputs,
+    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+) -> Tuple[SimState, torch.Tensor]:
+    """FD-scan prefix: probe evaluation and alert routing only, through the
+    same ``_fd_phase`` as ``step`` (on a CUDA state, the kernel
+    ``fd_phase_fused``). Returns the partially updated state (the round not
+    advanced) and the ``down_arrivals`` gather."""
+    (_alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
+     fd_seen) = _fd_phase(config, state, inputs, random_loss, generator)
+    partial = dataclasses.replace(
+        state,
+        alive=inputs.alive,
+        fd_fail=fd_fail,
+        fd_hist=fd_hist,
+        fd_seen=fd_seen,
+        fd_streak=fd_streak,
+        fd_ok=fd_ok,
+        alerted=alerted,
+    )
+    return partial, down_arrivals
+
+
+def step_cut_detector(
+    config: SimConfig, state: SimState, inputs: RoundInputs,
+    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+) -> SimState:
+    """FD-scan + cut-detector prefix: everything in ``step`` through
+    proposal emission; vote casting and the fast-round tally are skipped
+    (``route_and_tally(stop_after_cut=True)``)."""
+    (alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
+     fd_seen) = _fd_phase(config, state, inputs, random_loss, generator)
+    tallied = route_and_tally(config, state, down_arrivals, inputs, state.active, alive,
+                              stop_after_cut=True)
+    return dataclasses.replace(
+        tallied,
+        alive=inputs.alive,
+        fd_fail=fd_fail,
+        fd_hist=fd_hist,
+        fd_seen=fd_seen,
+        fd_streak=fd_streak,
+        fd_ok=fd_ok,
+        alerted=alerted,
+        round=state.round + 1,
+    )
+
+
+def run_rounds(
+    config: SimConfig, state: SimState, inputs: RoundInputs,
+    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+) -> SimState:
+    """``step`` over stacked per-round inputs (each field's leading axis is
+    the round), one round per slice; rounds after a decision are masked
+    no-ops. JAX's ``run_rounds`` always draws (``random_loss`` on); without
+    loss (drop probability 0) the draw cannot matter, so the port may skip
+    it."""
+    rounds = inputs.alive.shape[0]
+    obs = state.observers.long()
+    for r in range(rounds):
+        per_round = RoundInputs(
+            **{f.name: getattr(inputs, f.name)[r] for f in dataclasses.fields(RoundInputs)})
+        state = _step(config, state, per_round, random_loss, generator, obs)
+    return state
 
 
 def run_rounds_const(

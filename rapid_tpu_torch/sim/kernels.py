@@ -27,21 +27,28 @@ CPU tensors runs the kernel's plain version, which is also what the tests and
 ``LAUNCHES`` counts launches per kernel, and per policy for
 ``fd_phase_fused`` and ``fd_phase_rows`` (``fd_phase_fused_windowed`` and
 ``fd_phase_rows_windowed`` count their windowed instantiations): a wrapper
-adds one where it launches its kernel, and nowhere else.
+adds one where it launches its kernel, and nowhere else. Under a running
+``torch.profiler`` each launch sits in a host range named after its counter,
+so a trace names the kernel whose passes it shows. Every build and library
+load is reported to ``runtime.jitwatch`` as a compile event.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..runtime import jitwatch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -103,6 +110,7 @@ def build() -> Dict[str, Path]:
     if not todo:
         return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = []
     try:
         for name, out in todo.items():
@@ -127,7 +135,16 @@ def build() -> Dict[str, Path]:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    jitwatch.record_compile(",".join(sorted(todo)), time.perf_counter() - t0, "nvcc")
     return libs
+
+
+def _traced(name: str):
+    """A host range named ``name`` while ``torch.profiler`` records (so a
+    trace names the kernel around its passes), else nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def _function(name: str):
@@ -135,7 +152,9 @@ def _function(name: str):
     global _functions
     if _functions is None:
         found = {}
-        for path in build().values():
+        paths = build().values()
+        t0 = time.perf_counter()
+        for path in paths:
             lib = ctypes.CDLL(str(path))
             for fn_name, argtypes in _ARGTYPES.items():
                 if hasattr(lib, fn_name):
@@ -147,6 +166,8 @@ def _function(name: str):
         if missing:
             raise RuntimeError(f"built kernels lack {sorted(missing)}")
         _functions = found
+        jitwatch.record_compile(",".join(p.name for p in paths),
+                                time.perf_counter() - t0, "load")
     return _functions[name]
 
 
@@ -213,11 +234,12 @@ def _launch(
     alerted_out = torch.empty_like(alerted)
     new_down = torch.empty_like(alerted)
     stream = torch.cuda.current_stream(fd_fail.device).cuda_stream
-    err = _function(name)(
-        *(t.data_ptr() for t in args),
-        fd_out.data_ptr(), alerted_out.data_ptr(), new_down.data_ptr(),
-        fd_fail.numel(), threshold, stream,
-    )
+    with _traced(name):
+        err = _function(name)(
+            *(t.data_ptr() for t in args),
+            fd_out.data_ptr(), alerted_out.data_ptr(), new_down.data_ptr(),
+            fd_fail.numel(), threshold, stream,
+        )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     if fd_fail.numel():
@@ -615,10 +637,12 @@ def fd_phase_fused(
     read = inputs + ((fd_hist, fd_seen) if windowed else ())
     if not all(t.is_contiguous() for t in read if t is not None):
         raise ValueError(f"{name}: inputs must be contiguous")
-    outputs = _launch_fused(inputs, torch.cuda.current_stream(active.device).cuda_stream,
-                            **args)
+    counter = "fd_phase_fused_windowed" if windowed else name
+    with _traced(counter):
+        outputs = _launch_fused(
+            inputs, torch.cuda.current_stream(active.device).cuda_stream, **args)
     if c * k:
-        LAUNCHES["fd_phase_fused_windowed" if windowed else name] += 1
+        LAUNCHES[counter] += 1
     return outputs
 
 
@@ -751,7 +775,8 @@ def fd_phase_rows(
             _ptr(out[4], windowed), _ptr(out[5], windowed), _ptr(shard["bits"]),
             shard["row0"], shard["subjects"].shape[0],
         ]
-    with torch.cuda.device(active.device):
+    counter = "fd_phase_rows_windowed" if windowed else name
+    with torch.cuda.device(active.device), _traced(counter):
         err = _function(name)(
             _ptr(active), _ptr(alive), _ptr(drop_prob), _ptr(round_), _ptr(halt),
             (_LL * len(table))(*(v or 0 for v in table)), len(shards), _ptr(node_table), c, k,
@@ -761,7 +786,7 @@ def fd_phase_rows(
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     if c * k:
-        LAUNCHES["fd_phase_rows_windowed" if windowed else name] += 1
+        LAUNCHES[counter] += 1
     return outs[0] if isinstance(row0, int) else outs
 
 
@@ -796,7 +821,7 @@ def fd_gather(
         raise ValueError(f"{name}: C * K = {c * k} exceeds the kernel's 2**31 edges")
     magic, shift = row_reciprocal(shard_rows)
     down_arrivals = torch.empty_like(down_reports)
-    with torch.cuda.device(active.device):
+    with torch.cuda.device(active.device), _traced(name):
         err = _function(name)(
             _ptr(active), _ptr(observers), _ptr(down_reports), _ptr(bits),
             _ptr(down_arrivals), c, k, shard_rows, words, magic, shift,

@@ -1,17 +1,24 @@
 """Where one decided view change spends its time on the GPU.
 
     python -m rapid_tpu_torch.sim.profile_decision [--members 100000] [--seed 42]
-        [--fd-policy cumulative|windowed]
+        [--fd-policy cumulative|windowed] [--no-speculate]
 
-For each dispatch branch of ``Simulator.run_until_decision`` (the closed form
-under a crash of 1% of members, the scan path under ingress loss 1.0 on 1%),
-after one warm-up decision, it prints one JSON line with:
+For each branch (``closed_form``: the closed form under a crash of 1% of
+members; ``scan``: the scan path under ingress loss 1.0 on 1% of members,
+random loss having no closed form; ``scan_crash``: the scan path under a
+crash of 1% with ingress loss 1.0 on the same members, the scan decision
+that speculation predicts), after one warm-up decision, it prints one JSON
+line with:
 
 - ``wall_ms``: one decision on each of five fresh simulators, host clock,
   ending in a device synchronize;
 - ``enqueue_ms`` / ``fetch_wait_ms`` / ``view_change_ms``: the same decision
-  split into the host issuing the dispatch, the host waiting for the packed
-  decision words, and the view change (config-id fold, fresh state);
+  split into the host issuing the dispatch and packing the decision words,
+  the host waiting for them and for the speculation worker, which builds
+  the predicted view change meanwhile (``fetch_ms`` and ``worker_wait_ms``,
+  its two parts: a worker that overlapped the fetch leaves little to wait
+  for), and the view change (config-id fold, fresh state, each taken from
+  the worker on a hit); ``speculation_hits``;
 - ``device_busy_ms``, ``kernels``, ``idle_share``: from a torch.profiler trace
   of a third decision, the summed duration of the GPU activity (kernels and
   copies), their count, and 1 - busy / profiled wall;
@@ -19,7 +26,9 @@ after one warm-up decision, it prints one JSON line with:
 - ``syncs``: synchronizing CUDA calls (torch's sync debug mode), by source
   line.
 
-Needs an NVIDIA GPU; exits non-zero without one.
+Every simulator runs with ``speculate=True`` (the driver's default on the
+card is off), or with ``speculate=False`` under ``--no-speculate``. Needs an
+NVIDIA GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -34,14 +43,18 @@ import warnings
 import numpy as np
 import torch
 
+from ..runtime import jitwatch
 from .driver import Simulator
 from .engine import SimConfig, pack_decision, run_rounds_const, run_until_decided_const, unpack_decision
 
 
+BRANCHES = ("closed_form", "scan", "scan_crash")
+
+
 def _fault(branch: str, sim: Simulator, victims: np.ndarray) -> None:
-    if branch == "closed_form":
+    if branch != "scan":
         sim.crash(victims)
-    else:
+    if branch != "closed_form":
         sim.ingress_loss(victims, 1.0)
 
 
@@ -53,17 +66,25 @@ def _split(sim: Simulator, branch: str) -> dict:
         state = run_until_decided_const(sim.config, sim.state, inputs, 16, True)
     else:
         state = run_rounds_const(sim.config, sim.state, inputs, 16, True, sim._generator)
+    sim.state = state
+    packed = pack_decision(sim.config, state)
     t1 = time.perf_counter()
-    words = pack_decision(sim.config, state).cpu().numpy()
+    worker = sim._speculate_view_change()
+    words = jitwatch.fetch("sim.decision_words", packed)
+    t_fetched = time.perf_counter()
+    if worker is not None:
+        worker.join()
     t2 = time.perf_counter()
     decided, _, _, proposal, group, decided_round, _ = unpack_decision(sim.config, words)
     assert decided
-    sim.state = state
     sim._apply_view_change(t0, (proposal, group, decided_round))
     sim.ready()
     t3 = time.perf_counter()
+    hits = sim.metrics.get("speculation_hits_config_id") + sim.metrics.get(
+        "speculation_hits_fresh_state")
     return {"enqueue_ms": (t1 - t0) * 1e3, "fetch_wait_ms": (t2 - t1) * 1e3,
-            "view_change_ms": (t3 - t2) * 1e3}
+            "fetch_ms": (t_fetched - t1) * 1e3, "worker_wait_ms": (t2 - t_fetched) * 1e3,
+            "view_change_ms": (t3 - t2) * 1e3, "speculation_hits": hits}
 
 
 def _syncs(sim: Simulator) -> dict:
@@ -76,7 +97,7 @@ def _syncs(sim: Simulator) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     lines = collections.Counter(
         f"{w.filename.rsplit('rapid_tpu_torch/', 1)[-1]}:{w.lineno}"
-        for w in caught if "synchronizing" in str(w.message)
+        for w in caught if "synchronizing CUDA operation" in str(w.message)
     )
     return dict(sorted(lines.items()))
 
@@ -129,6 +150,8 @@ def main(argv=None) -> int:
     parser.add_argument("--members", type=int, default=100_000)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--fd-policy", choices=("cumulative", "windowed"), default="cumulative")
+    parser.add_argument("--no-speculate", action="store_true",
+                        help="build each view change after the fetch, not during it")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decision: no CUDA device", file=sys.stderr)
@@ -138,11 +161,12 @@ def main(argv=None) -> int:
     config = SimConfig(capacity=n, fd_policy=args.fd_policy)
 
     def fresh(branch: str, offset: int) -> Simulator:
-        sim = Simulator(n, config=config, seed=args.seed + offset, device="cuda")
+        sim = Simulator(n, config=config, seed=args.seed + offset,
+                        speculate=not args.no_speculate, device="cuda")
         _fault(branch, sim, rng.choice(n, n_fail, replace=False))
         return sim.ready()
 
-    for branch in ("closed_form", "scan"):
+    for branch in BRANCHES:
         warm = fresh(branch, 0)
         assert warm.run_until_decision(max_rounds=16, batch=16) is not None
         walls = []
@@ -153,7 +177,8 @@ def main(argv=None) -> int:
             sim.ready()
             walls.append((time.perf_counter() - t0) * 1e3)
             assert rec is not None and rec.virtual_time_ms == 11_100
-        out = {"branch": branch, "fd_policy": args.fd_policy, "members": n, "wall_ms": walls}
+        out = {"branch": branch, "fd_policy": args.fd_policy, "members": n,
+               "speculate": not args.no_speculate, "wall_ms": walls}
         out.update(_split(fresh(branch, 2), branch))
         out["syncs"] = _syncs(fresh(branch, 3))
         out.update(_profile(fresh(branch, 4)))

@@ -1,11 +1,14 @@
 """Host-side control plane: vectorized ring/adjacency construction.
 
-The port's copy of the numpy paths of ``rapid_tpu/sim/topology.py``: all K
-ring orderings are computed at once with the batched xxHash64
-(``rapid_tpu_torch.hashing.xxh64_batch``) and numpy argsorts --
-bit-identical ordering to the JVM reference's seeded TreeSets
-(Utils.java:211-230), so the observer/subject adjacency and the configuration
-identity of the simulated cluster match what real Rapid nodes compute.
+The port's copy of the numpy paths of ``rapid_tpu/sim/topology.py``, with
+its ``LatencyTopology`` (the rack/zone/region RTT model the fault plane's
+WAN plans compile onto delivery groups and delays) and the standalone
+``configuration_id_vectorized``. All K ring orderings are computed at once
+with the batched xxHash64 (``rapid_tpu_torch.hashing.xxh64_batch``) and
+numpy argsorts -- bit-identical ordering to the JVM reference's seeded
+TreeSets (Utils.java:211-230), so the observer/subject adjacency and the
+configuration identity of the simulated cluster match what real Rapid nodes
+compute.
 
 Ring construction happens only at configuration changes (rare); the
 per-round protocol work stays on the device (``rapid_tpu_torch.sim.engine``).
@@ -18,7 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..hashing import endpoint_hash, endpoint_hash_batch, xxh64, xxh64_batch_auto
+from ..hashing import endpoint_hash, endpoint_hash_batch, xxh64, xxh64_batch, xxh64_batch_auto
 
 _U64 = np.uint64
 
@@ -180,6 +183,103 @@ class VirtualCluster:
         )
 
 
+@dataclass(frozen=True)
+class LatencyTopology:
+    """Deterministic rack/zone/region placement with a tiered RTT model.
+
+    Node ``i`` lives in rack ``i % racks``, zone ``rack % zones``, region
+    ``zone % regions`` -- pure functions of the index, so the same topology
+    object describes the protocol plane (endpoints mapped to indices by the
+    fault plane) and the device plane (slots ARE indices) with no shared
+    state. The RTT between two nodes is the widest tier that separates them:
+
+        same rack    -> rack_rtt_ms      (ToR switch hop)
+        same zone    -> zone_rtt_ms      (aggregation fabric)
+        same region  -> region_rtt_ms    (inter-zone backbone)
+        cross-region -> inter_region_rtt_ms  (WAN)
+
+    Everything derives from these five integers; there is no RNG anywhere,
+    so a topology is replayable bit-identically wherever it is consulted.
+    """
+
+    racks: int = 4
+    zones: int = 2
+    regions: int = 1
+    rack_rtt_ms: int = 0
+    zone_rtt_ms: int = 1
+    region_rtt_ms: int = 2
+    inter_region_rtt_ms: int = 150
+
+    def __post_init__(self) -> None:
+        if not (self.racks >= self.zones >= self.regions >= 1):
+            raise ValueError(
+                f"need racks >= zones >= regions >= 1, got "
+                f"{self.racks}/{self.zones}/{self.regions}"
+            )
+        if not (0 <= self.rack_rtt_ms <= self.zone_rtt_ms
+                <= self.region_rtt_ms <= self.inter_region_rtt_ms):
+            raise ValueError("tier RTTs must be non-decreasing outward")
+
+    # -- placement (pure functions of the node index) -----------------------
+
+    def rack_of(self, i: int) -> int:
+        return i % self.racks
+
+    def zone_of(self, i: int) -> int:
+        return self.rack_of(i) % self.zones
+
+    def region_of(self, i: int) -> int:
+        return self.zone_of(i) % self.regions
+
+    # -- latency -------------------------------------------------------------
+
+    def rtt_ms(self, i: int, j: int) -> int:
+        if i == j:
+            return 0
+        if self.region_of(i) != self.region_of(j):
+            return self.inter_region_rtt_ms
+        if self.zone_of(i) != self.zone_of(j):
+            return self.region_rtt_ms
+        if self.rack_of(i) != self.rack_of(j):
+            return self.zone_rtt_ms
+        return self.rack_rtt_ms
+
+    def one_way_ms(self, i: int, j: int) -> int:
+        return self.rtt_ms(i, j) // 2
+
+    def rtt_matrix(self, n: int) -> np.ndarray:
+        """[n, n] int32 RTT matrix, vectorized over the tier comparisons."""
+        idx = np.arange(n, dtype=np.int64)
+        rack = idx % self.racks
+        zone = rack % self.zones
+        region = zone % self.regions
+        out = np.full((n, n), self.rack_rtt_ms, dtype=np.int32)
+        out[rack[:, None] != rack[None, :]] = self.zone_rtt_ms
+        out[zone[:, None] != zone[None, :]] = self.region_rtt_ms
+        out[region[:, None] != region[None, :]] = self.inter_region_rtt_ms
+        np.fill_diagonal(out, 0)
+        return out
+
+    # -- device-plane compilation helpers ------------------------------------
+
+    def group_assignment(self, capacity: int) -> np.ndarray:
+        """Per-slot delivery group (= zone id) for
+        ``Simulator.set_delivery_groups``: zones are the unit of broadcast
+        heterogeneity on the device plane."""
+        idx = np.arange(capacity, dtype=np.int64)
+        return ((idx % self.racks) % self.zones).astype(np.int32)
+
+    def delay_rounds(self, zone_a: int, zone_b: int, round_ms: int) -> int:
+        """One-way broadcast latency between two zones in whole device
+        rounds (floor: sub-round latency is absorbed by the round model,
+        mirroring the fault plane's DelayRule compilation rule)."""
+        if zone_a == zone_b:
+            return 0
+        if zone_a % self.regions != zone_b % self.regions:
+            return (self.inter_region_rtt_ms // 2) // round_ms
+        return (self.region_rtt_ms // 2) // round_ms
+
+
 def build_adjacency(
     cluster: VirtualCluster, active: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -209,6 +309,35 @@ def ring_order(cluster: VirtualCluster, active: np.ndarray, ring: int = 0) -> np
     """Active node ids in ring-``ring`` order (the reference's getRing)."""
     fo = cluster.full_ring_order()[ring]
     return fo[active[fo]]
+
+
+def configuration_id_vectorized(
+    id_high: np.ndarray,
+    id_low: np.ndarray,
+    hostnames: np.ndarray,
+    host_lengths: np.ndarray,
+    ports: np.ndarray,
+) -> int:
+    """Chained configuration hash (MembershipView.java:535-547), vectorized.
+
+    The fold h = h*37 + x_i over m elements equals
+    ``37^m + sum_i x_i * 37^(m-1-i)`` (mod 2^64); with precomputed power
+    ladders this is O(m) vector ops instead of an O(m) Python loop.
+    Inputs must already be ordered: identifiers by NodeId order, endpoints in
+    ring-0 order.
+    """
+    with np.errstate(over="ignore"):
+        id_high_h = xxh64_batch(
+            _int64_le_bytes(id_high), np.full(len(id_high), 8, dtype=np.int64), 0
+        )
+        id_low_h = xxh64_batch(
+            _int64_le_bytes(id_low), np.full(len(id_low), 8, dtype=np.int64), 0
+        )
+        host_h = xxh64_batch(hostnames, host_lengths, 0)
+        port_bytes = _port_le_bytes(ports)
+        port_h = xxh64_batch(port_bytes, np.full(len(ports), 4, dtype=np.int64), 0)
+
+    return config_fold(id_high_h, id_low_h, host_h, port_h)
 
 
 _POWER_LADDER = np.ones(1, dtype=_U64)  # [37^0, 37^1, ...], grown on demand

@@ -93,3 +93,77 @@ def test_scan_path_state_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(outs[1][1], outs[0][1])
     for field, value in outs[0][0].items():
         np.testing.assert_array_equal(outs[1][0][field], value, err_msg=field)
+
+
+def _decide_in_window(sim, name):
+    from rapid_tpu_torch.runtime import jitwatch
+
+    with jitwatch.timed_window(name):
+        rec = sim.run_until_decision(max_rounds=16, batch=16)
+    assert rec is not None and not jitwatch.consume_violations()
+    return rec.cut.tolist(), rec.configuration_id, rec.virtual_time_ms, rec.membership_size
+
+
+@pytest.mark.parametrize("branch", ["closed_form", "scan"])
+def test_speculation_and_timed_window_on_card(cuda_device, monkeypatch, branch):
+    """At 1000 members on the card, each decision inside a timed window
+    (sync debug mode "error": only the audited seams may sync): speculation
+    on and off give identical records, equal to the CPU's, with both hits
+    only when on; the speculation worker alone in a timed window, which no
+    seam lifts while it runs; then a decision with metrics, tracer and
+    profiling (every dispatch sampled) on."""
+    from rapid_tpu_torch.runtime import jitwatch
+    from rapid_tpu_torch.settings import ProfilingSettings
+
+    monkeypatch.setenv("RAPID_JITWATCH", "1")
+    victims = np.arange(0, 1000, 97)
+
+    def fresh(speculate, device, profiled=False):
+        sim = Simulator(1000, seed=5, speculate=speculate, device=device).ready()
+        if profiled:
+            sim.enable_profiling(ProfilingSettings(enabled=True, sample_every_dispatches=1))
+        sim.crash(victims)
+        if branch == "scan":
+            sim.ingress_loss(victims, 1.0)
+        return sim
+
+    want = fresh(True, "cpu").run_until_decision(max_rounds=16, batch=16)
+    want = (want.cut.tolist(), want.configuration_id, want.virtual_time_ms,
+            want.membership_size)
+    jitwatch.reset()
+    for speculate in (True, False):
+        sim = fresh(speculate, cuda_device)
+        assert _decide_in_window(sim, f"{branch} {speculate}") == want
+        hits = (sim.metrics.get("speculation_hits_config_id"),
+                sim.metrics.get("speculation_hits_fresh_state"))
+        assert hits == ((1, 1) if speculate else (0, 0))
+    sim = fresh(True, cuda_device)
+    with jitwatch.timed_window(f"{branch} speculation worker"):
+        sim._speculate_view_change().join()
+    assert sim._spec is not None and not jitwatch.consume_violations()
+    sim = fresh(True, cuda_device, profiled=True)
+    assert _decide_in_window(sim, f"{branch} profiled") == want
+    assert sim._profiler.samples == 1
+    counts = jitwatch.sync_counts()
+    assert counts["sim.decision_words"] == 3 and counts["sim.profile.sample"] == 3
+
+
+def test_profiling_prefixes_on_card_match_cpu(cuda_device):
+    """``step_fd_scan`` and ``step_cut_detector`` on the card (through
+    ``fd_phase_fused``) against the CPU, every field, mid-decision."""
+    outs = []
+    for device in ("cpu", cuda_device):
+        sim = Simulator(1000, seed=8, device=device)
+        sim.crash(np.arange(3, 1000, 101))
+        sim.ingress_loss(np.arange(5, 1000, 89), 1.0)
+        inputs = sim._const_inputs(None)
+        state = engine.run_rounds_const(sim.config, sim.state, inputs, 9, True, sim._generator)
+        partial, down = engine.step_fd_scan(sim.config, state, inputs, True, sim._generator)
+        cut = engine.step_cut_detector(sim.config, state, inputs, True, sim._generator)
+        outs.append((engine.state_to_numpy(partial), down.cpu().numpy(),
+                     engine.state_to_numpy(cut)))
+    np.testing.assert_array_equal(outs[1][1], outs[0][1])
+    for i in (0, 2):
+        for field, value in outs[0][i].items():
+            np.testing.assert_array_equal(outs[1][i][field], value, err_msg=field)
+    assert outs[0][2]["announced"].any()

@@ -224,6 +224,9 @@ def test_port_imports_neither_jax_nor_rapid_tpu():
         "import runpy, sys\n"
         "import rapid_tpu_torch.sim.driver, rapid_tpu_torch.sim.classic\n"
         "import rapid_tpu_torch.sim.profile_decision\n"
+        "import rapid_tpu_torch.observability, rapid_tpu_torch.profiling\n"
+        "import rapid_tpu_torch.runtime.jitwatch, rapid_tpu_torch.settings\n"
+        "import rapid_tpu_torch.forensics.hlc\n"
         "runpy.run_path('chip_smoke.py')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu'))\n"
         "assert not bad, bad\n"

@@ -259,9 +259,14 @@ def test_const_inputs_and_initial_state_match_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        teng.step_fd_scan()
-    with pytest.raises(NotImplementedError):
-        teng.step_cut_detector()
+    """Every engine entry point is ported (the profiling prefixes since they
+    were stubs); what raises is a random-loss round with no generator to
+    draw from, and a config the JAX engine rejects too."""
+    config, state, inputs = _scenario("crash")
+    args = (_port_config(config), _port_state(config, state), _port_inputs(config, inputs))
+    for prefix in (teng.step_fd_scan, teng.step_cut_detector, teng.step):
+        prefix(*args, False)
+        with pytest.raises(ValueError, match="Generator"):
+            prefix(*args, True)
     with pytest.raises(AssertionError):
         teng.SimConfig(capacity=8, fd_threshold=256)
