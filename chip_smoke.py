@@ -67,13 +67,26 @@ into build/kernels/. Phases, each of which must pass:
    scan path sampling every dispatch (four phases above 0, ``fd_phase_fused``
    launched by each prefix); the GPU ops of one step and of its prefixes;
    and ``observability.device_trace`` around one decision, whose Chrome
-   trace must name ``fd_phase_fused``.
+   trace must name ``fd_phase_fused``;
+11. the simulator bridge (``rapid_tpu_torch/sim/bridge.py``), run first after
+   the build: ``TpuSimMessaging`` at 100k virtual members on the port's
+   default protocol, ``warm_compile`` timed, and a scripted real member
+   (``ScriptedMember`` over ``ScriptNetwork``, both defined here) that joins
+   (one full configuration of 100 001 endpoints), votes in a crash of 1% in
+   the closed form (that pump inside a ``jitwatch`` timed window) and in one
+   under ingress loss 1.0 (the scan, launching ``fd_phase_fused``), leaves,
+   and joins and votes in the crash again on a mesh of 4 shards on the card
+   (``fd_phase_rows`` and ``fd_gather``); each decision's configuration id
+   equal to a plain simulator's driven alike, each pump's wall split into
+   dispatch, bridge host work and delivery, with its syncs by label and its
+   kernel launches (``bridge_sequence``).
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, it exits non-zero and prints no result.
 """
 
+import collections
 import itertools
 import json
 import os
@@ -1094,6 +1107,330 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
     return out
 
 
+class ScriptNetwork:
+    """The smallest network the bridge runs on: the bridge as the one
+    multi-endpoint handler, scripted members by address, and a queue that
+    ``scheduler.run_for`` drains, with what each delivery sends in turn.
+    ``dst=None`` is the wildcard broadcast (``handle_broadcast``)."""
+
+    def __init__(self, protocol):
+        self.protocol = protocol
+        self.scheduler = self
+        self.handlers = []
+        self.members = {}
+        self.queue = collections.deque()
+        self.deliver_s = 0.0  # host time spent delivering
+
+    def attach_handler(self, handler):
+        self.handlers.append(handler)
+
+    def is_listening(self, address):
+        return address in self.members
+
+    def deliver(self, src, dst, msg, timeout_ms):
+        promise = self.protocol.Promise()
+        self.queue.append((src, dst, msg, promise))
+        return promise
+
+    def run_for(self, ms):
+        t0 = time.perf_counter()
+        response = self.protocol.Response()
+        while self.queue:
+            src, dst, msg, promise = self.queue.popleft()
+            if dst in self.members:
+                self.members[dst].receive(src, msg)
+                promise.set_result(response)
+                continue
+            (handler,) = self.handlers
+            reply = handler.handle_broadcast(msg) if dst is None else handler.handle(dst, msg)
+            reply.add_callback(lambda r, p=promise: p.set_exception(r.exception())
+                               if r.exception() is not None else p.set_result(r.peek()))
+        self.deliver_s += time.perf_counter() - t0
+
+
+class ScriptedMember:
+    """A real member scripted after ``Cluster``: the two-phase join (one
+    JoinMessage per distinct expected observer, with its ring numbers), a
+    fast-round vote for each announced proposal (alerts on all K rings,
+    stamped with the configuration they were raised in), the view change
+    applied from a decision's alert batch and vote batch, and a graceful
+    leave. It keeps the member list it learns."""
+
+    def __init__(self, network, endpoint, node_id, k):
+        self.net, self.endpoint, self.node_id, self.k = network, endpoint, node_id, k
+        self.p = network.protocol
+        network.members[endpoint] = self
+        self.view = None  # endpoints of the configuration, once admitted
+        self.join_replies = []
+        self.announcements, self.votes, self.decisions = [], [], []
+        self.registered = []  # (slot, taken) of each vote the swarm registered
+        self._decision_alerts = None
+
+    def send(self, dst, msg):
+        promise = self.net.deliver(self.endpoint, dst, msg, 5000)
+        self.net.run_for(0)
+        return promise
+
+    def join(self, seed_endpoint):
+        p = self.p
+        reply = self.send(seed_endpoint, p.PreJoinMessage(self.endpoint, self.node_id)).peek()
+        assert reply.status_code == p.JoinStatusCode.SAFE_TO_JOIN, reply.status_code
+        rings = {}
+        for ring, observer in enumerate(reply.endpoints):
+            rings.setdefault(observer, []).append(ring)
+        for observer, numbers in rings.items():
+            self.send(observer, p.JoinMessage(self.endpoint, self.node_id, tuple(numbers),
+                                              reply.configuration_id)
+                      ).add_callback(lambda r: self.join_replies.append(r.peek()))
+        return len(rings)
+
+    def admitted(self):
+        """The join's one full configuration (the siblings answer
+        CONFIG_CHANGED), adopted as the member list."""
+        full = [r for r in self.join_replies if r.status_code == self.p.JoinStatusCode.SAFE_TO_JOIN]
+        assert len(full) == 1 and all(
+            r.status_code == self.p.JoinStatusCode.CONFIG_CHANGED
+            for r in self.join_replies if r is not full[0]), self.join_replies
+        self.view = set(full[0].endpoints)
+        assert len(self.view) == len(full[0].endpoints)
+        return full[0]
+
+    def leave(self):
+        self.send(None, self.p.LeaveMessage(self.endpoint))
+
+    def receive(self, src, msg):
+        from rapid_tpu_torch.hashing import address_comparator_key
+
+        p = self.p
+        if isinstance(msg, p.BatchedAlertMessage):
+            if all(len(a.ring_numbers) == self.k for a in msg.messages):
+                # an announced proposal: vote for its cut
+                cut = tuple(sorted((a.edge_dst for a in msg.messages), key=address_comparator_key))
+                self.announcements.append(msg)
+                vote = p.FastRoundPhase2bMessage(self.endpoint, msg.messages[0].configuration_id,
+                                                 cut)
+                self.votes.append(vote)
+                self.net.deliver(self.endpoint, None, vote, 5000)
+            else:
+                self._decision_alerts = msg
+        elif isinstance(msg, p.FastRoundVoteBatch):
+            alerts = self._decision_alerts.messages
+            assert {a.edge_dst for a in alerts} == set(msg.endpoints), "alerts != voted cut"
+            quorum = len(self.view) - (len(self.view) - 1) // 4
+            assert len(set(msg.senders)) >= quorum, (len(msg.senders), quorum)
+            self.decisions.append((self._decision_alerts, msg, quorum))
+            for a in alerts:
+                (self.view.add if a.edge_status == p.EdgeStatus.UP else self.view.discard)(
+                    a.edge_dst)
+            if self.endpoint not in self.view:
+                del self.net.members[self.endpoint]  # removed: the member shuts down
+
+
+def bridge_sequence(n, device, mesh_devices, seed=SEED):
+    """The bridge phase: ``TpuSimMessaging(ScriptNetwork, n)`` on the port's
+    default protocol, ``warm_compile`` timed, then a scripted member's join,
+    a crash of 1% of the virtual members (the closed form, this pump inside
+    a ``jitwatch`` timed window), a crash of 1% more under ingress loss 1.0
+    (the scan), its leave, and the join and first crash again on a bridge
+    over ``make_mesh(devices=mesh_devices)``. Each pump's wall is split into
+    the simulator's dispatches, delivery and the bridge's host work, with its
+    syncs by label and kernel launches. After each decision the swarm's
+    configuration id must equal that of a plain ``Simulator`` driven through
+    the same identity, joins, crashes and leave with no bridge, and the
+    member's list the swarm's members."""
+    from rapid_tpu_torch.runtime import jitwatch
+    from rapid_tpu_torch.shard.engine import make_mesh
+    from rapid_tpu_torch.sim import kernels
+    from rapid_tpu_torch.sim.bridge import TpuSimMessaging, default_protocol
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.sim.engine import SimConfig
+
+    protocol = default_protocol()
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 10_000)
+    victims = [np.sort(v) for v in np.split(rng.choice(n, 2 * (n // 100), replace=False), 2)]
+    node_id = protocol.NodeId(0x1234_5678_9ABC, -0x0FED_CBA9_8765)
+    member_ep = protocol.Endpoint.from_parts("10.77.0.1", 7000)
+    pumps = []
+
+    def new_bridge(mesh=None):
+        net = ScriptNetwork(protocol)
+        bridge = TpuSimMessaging(net, n, seed=seed, mesh=mesh,
+                                 device=None if mesh is not None else device)
+        member = ScriptedMember(net, member_ep, node_id, bridge.sim.config.k)
+        sim = bridge.sim
+        timers = [0.0, 0.0]  # the simulator's dispatches, the full configuration's build
+        run, register = sim.run_until_decision, sim.register_extern_vote
+        full_config = bridge._full_config_response
+
+        def timed(fn, i):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    timers[i] += time.perf_counter() - t0
+            return call
+
+        def counted_register(slot, cut):
+            ok = register(slot, cut)
+            member.registered.append((slot, ok))
+            return ok
+
+        sim.run_until_decision, sim.register_extern_vote = timed(run, 0), counted_register
+        bridge._full_config_response = timed(full_config, 1)
+        return net, bridge, member, timers
+
+    def pump(name, net, bridge, member, timers, window=False):
+        sim = bridge.sim
+        n_before = sim.membership_size
+        kernels.reset_launches()
+        before, timers[:], net.deliver_s = jitwatch.sync_counts(), [0.0, 0.0], 0.0
+        out = []
+        t0 = time.perf_counter()
+        if window:
+            with jitwatch.timed_window(f"bridged pump, {name}"):
+                out.append(bridge.pump())
+            counted = None
+        elif on_card:
+            counted = _count_syncs(bridge.pump, out)
+        else:
+            out.append(bridge.pump())
+            counted = None
+        pump_s = time.perf_counter() - t0
+        in_pump_delivery = net.deliver_s
+        net.run_for(0)  # the decision's packets to the member
+        rec = out[0]
+        assert rec is not None, f"bridged {name}: no decision"
+        row = {"name": name, "wall_ms": (pump_s + net.deliver_s - in_pump_delivery) * 1e3,
+               "dispatch_ms": timers[0] * 1e3, "delivery_ms": net.deliver_s * 1e3,
+               "host_ms": (pump_s - timers[0] - in_pump_delivery) * 1e3,
+               "full_configuration_ms": timers[1] * 1e3,
+               "syncs": _diff(jitwatch.sync_counts(), before), "counted_syncs": counted,
+               "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+               "cut": rec.cut.tolist(), "members_before": n_before,
+               "configuration_id": rec.configuration_id,
+               "virtual_time_ms": rec.virtual_time_ms}
+        if member.view is not None:
+            assert member.view == {bridge.endpoint(int(s)) for s in sim.members()}, name
+        pumps.append(row)
+        return rec, row
+
+    def expect_vote_and_decision(name, bridge, member, cut_slots, n_before):
+        """The member got the announced proposal, voted it, the bridge took
+        the vote, and the decision reached it as one alert batch and one vote
+        batch naming exactly the cut, with at least the quorum of senders."""
+        slot = bridge._slot_of[member_ep]
+        cut = {bridge.endpoint(int(s)) for s in cut_slots}
+        assert len(member.announcements) == 1 and len(member.votes) == 1, name
+        assert set(member.votes[0].endpoints) == cut, name
+        assert member.registered == [(slot, True)], (name, member.registered)
+        assert len(member.decisions) == 1, name
+        alerts, votes, quorum = member.decisions[0]
+        assert {a.edge_dst for a in alerts.messages} == set(votes.endpoints) == cut, name
+        assert quorum == n_before - (n_before - 1) // 4 and len(votes.senders) >= quorum, name
+        member.announcements, member.votes, member.decisions, member.registered = [], [], [], []
+        return {"vote_registered": True, "alert_batch": len(alerts.messages),
+                "vote_senders": len(votes.senders), "quorum": quorum}
+
+    net, bridge, member, timers = new_bridge()
+    sim = bridge.sim
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    bridge.warm_compile()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    twin_bytes = (torch.cuda.max_memory_allocated() - resident) if on_card else None
+
+    observers = member.join(bridge.endpoint(0))
+    rec, row = pump("join", net, bridge, member, timers)
+    full = member.admitted()
+    assert rec.added.tolist() == [bridge._slot_of[member_ep]] and len(full.endpoints) == n + 1
+    assert full.configuration_id == sim.configuration_id() == rec.configuration_id
+    row.update(full_configuration=len(full.endpoints), distinct_observers=observers)
+    assert row["full_configuration_ms"] > 0
+
+    sim.crash(victims[0])
+    rec, row = pump("crash, closed form", net, bridge, member, timers, window=True)
+    assert rec.cut.tolist() == victims[0].tolist()
+    row.update(expect_vote_and_decision(row["name"], bridge, member, victims[0], n + 1))
+
+    sim.crash(victims[1])
+    sim.ingress_loss(victims[1], 1.0)
+    rec, row = pump("crash, scan", net, bridge, member, timers)
+    assert rec.cut.tolist() == victims[1].tolist()
+    row.update(expect_vote_and_decision(row["name"], bridge, member, victims[1],
+                                        n + 1 - len(victims[0])))
+    if on_card:
+        assert row["launches"].get("fd_phase_fused", 0) > 0, row["launches"]
+
+    before = rec.virtual_time_ms
+    slot = bridge._slot_of[member_ep]
+    member.leave()
+    rec, row = pump("leave", net, bridge, member, timers)
+    assert rec.cut.tolist() == [slot] and member_ep not in net.members
+    assert member_ep not in bridge._real and slot in bridge._free_slots
+    row["decided_in_ms"] = rec.virtual_time_ms - before
+    assert row["decided_in_ms"] == 2 * sim.config.fd_interval_ms + sim.config.batching_window_ms
+
+    del net, bridge, member, sim
+    mesh = make_mesh(devices=mesh_devices)
+    net, bridge, member, timers = new_bridge(mesh)
+    member.join(bridge.endpoint(0))
+    pump("mesh join", net, bridge, member, timers)
+    member.admitted()
+    bridge.sim.crash(victims[0])
+    rec, row = pump("mesh crash", net, bridge, member, timers)
+    row.update(expect_vote_and_decision(row["name"], bridge, member, victims[0], n + 1))
+    if on_card:
+        assert row["launches"].get("fd_phase_rows", 0) > 0, row["launches"]
+        assert row["launches"].get("fd_gather", 0) > 0, row["launches"]
+    del net, bridge, member
+
+    # the cross-check: a plain simulator driven alike, with no bridge
+    capacity = -(-(n + 16) // mesh.size) * mesh.size
+    plain = Simulator(n, capacity=capacity, config=SimConfig(capacity=capacity, extern_proposals=4),
+                      seed=seed, device=device)
+    plain.assign_identity(n, member_ep.hostname, member_ep.port, node_id.high, node_id.low)
+    steps = (lambda: plain.request_joins(np.array([n])),
+             lambda: plain.crash(victims[0]),
+             lambda: (plain.crash(victims[1]), plain.ingress_loss(victims[1], 1.0)),
+             lambda: plain.leave(np.array([n])))
+    ids = []
+    for step in steps:
+        step()
+        prec = plain.run_until_decision(max_rounds=32, batch=8)
+        assert prec is not None
+        ids.append(prec.configuration_id)
+    for row, want in zip(pumps, ids + ids[:2]):
+        row["plain_configuration_id"] = want
+        assert row["configuration_id"] == want, (row["name"], row["configuration_id"], want)
+    for row in pumps:
+        print(f"bridged pump, {row['name']}: {row['members_before']} members, cut "
+              f"{len(row['cut'])}, configuration id {row['configuration_id']} (== the plain "
+              f"simulator's), virtual {row['virtual_time_ms']} ms; wall {row['wall_ms']:.3f} ms "
+              f"= dispatch {row['dispatch_ms']:.3f} + bridge host {row['host_ms']:.3f} + "
+              f"delivery {row['delivery_ms']:.3f}; syncs by label {row['syncs']}"
+              + ("" if row["counted_syncs"] is None else
+                 f" (debug mode counted {row['counted_syncs']})")
+              + f"; kernel launches {row['launches']}"
+              + "".join(f"; {k} {row[k]}" for k in (
+                  "full_configuration", "full_configuration_ms", "distinct_observers",
+                  "vote_registered", "alert_batch",
+                  "vote_senders", "quorum", "decided_in_ms") if row.get(k)), flush=True)
+    steady = [row["wall_ms"] for row in pumps[1:4]]
+    print(f"bridge warm_compile: {warm_ms:.3f} ms"
+          + ("" if twin_bytes is None else f" (peak {twin_bytes / 2**20:.1f} MiB above the "
+             "swarm's own state: the twin simulator and its decisions)")
+          + f"; first pump after it {pumps[0]['wall_ms']:.3f} ms, median of the next three "
+          f"{statistics.median(steady):.3f} ms", flush=True)
+    return {"protocol": protocol.Endpoint.__module__, "warm_compile_ms": warm_ms,
+            "twin_peak_bytes": twin_bytes, "first_pump_ms": pumps[0]["wall_ms"],
+            "steady_median_ms": statistics.median(steady), "pumps": pumps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1120,6 +1457,16 @@ def main() -> int:
     libs = kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})", flush=True)
+
+    # --- the simulator bridge, first in the process: warm_compile does the
+    # process's first-time work, the pumps after it show what is left -------
+    os.environ["RAPID_JITWATCH"] = "1"
+    card_device = torch.device("cuda", torch.cuda.current_device())
+    bridge = bridge_sequence(N_NODES, device, [card_device] * 4)
+    bridged_launches = {}
+    for row in bridge["pumps"]:
+        for name, count in row["launches"].items():
+            bridged_launches.setdefault(name, []).append((row["name"], count))
 
     kernel_results = _kernel_phase(kernels, device)
     kernel_results["fd_phase_fused"] = _fused_phase(kernels, fd_bench, device)
@@ -1182,7 +1529,6 @@ def main() -> int:
     _cross_check(Simulator, engine, device)
 
     # --- telemetry, speculation, profiling ---------------------------------
-    os.environ["RAPID_JITWATCH"] = "1"
     planes = {"speculation": _speculation_pairs(Simulator, rng, device),
               "timed_window": _timed_windows(Simulator, observability, jitwatch,
                                              ProfilingSettings, rng, device),
@@ -1213,6 +1559,8 @@ def main() -> int:
                      else "scan (ingress loss 1.0)"),
             "launches": path_launches[name],
             "launches_headline": headline_launches[name],
+            # (bridged pump, launches) of each pump of the bridge phase that ran it
+            "launches_bridged": bridged_launches.get(name, []),
             "match": True,
             "max_abs_err": max(s["max_abs_err"] for s in sizes.values()),
             "ms": main_shape["ms"],
@@ -1244,6 +1592,7 @@ def main() -> int:
             "path": ("sharded decision, windowed, 4 shards" if name.endswith("windowed")
                      else "sharded decision, 8 shards"),
             "launches": split_launches[name],
+            "launches_bridged": bridged_launches.get(name, []),
             "match": True,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
@@ -1261,7 +1610,10 @@ def main() -> int:
     print(json.dumps({"headline_wall_ms": head_walls, "scan_wall_ms": scan_walls,
                       "headline_syncs": syncs, "scan_syncs": scan_syncs,
                       "windowed": windowed, "classic_fallback": fallback,
-                      "sharded": sharded, "planes": planes, "card": card}, default=str))
+                      "sharded": sharded, "planes": planes, "card": card,
+                      "bridge": dict(bridge, pumps=[dict(p, cut=len(p["cut"]))
+                                                    for p in bridge["pumps"]])},
+                     default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -101,6 +101,18 @@ def endpoint_hash(hostname: bytes, port: int, seed: int) -> int:
     return (xxh64(hostname, seed) * 31 + xxh64_int(port, seed)) & _MASK
 
 
+def to_signed(h: int) -> int:
+    """uint64 -> Java signed long, the comparison domain for ring order."""
+    return h - (1 << 64) if h >= (1 << 63) else h
+
+
+def address_comparator_key(endpoint) -> int:
+    """Seed-0 ring order of an endpoint (anything with ``hostname`` bytes and
+    ``port``), the order proposals are canonicalized in before consensus
+    (MembershipService.java:340-342)."""
+    return to_signed(endpoint_hash(endpoint.hostname, endpoint.port, 0))
+
+
 # ---------------------------------------------------------------------------
 # Vectorized batch implementation (numpy, uint64 lanes)
 # ---------------------------------------------------------------------------

@@ -167,3 +167,21 @@ def test_profiling_prefixes_on_card_match_cpu(cuda_device):
         for field, value in outs[0][i].items():
             np.testing.assert_array_equal(outs[1][i][field], value, err_msg=field)
     assert outs[0][2]["announced"].any()
+
+
+def test_bridged_join_crash_and_leave_on_card_match_cpu(cuda_device):
+    """``chip_smoke.py``'s bridge phase at 1000 members (the port's default
+    protocol, a scripted member's join, a crash in the closed form and one
+    under ingress loss 1.0, its leave, then the join and crash on a mesh of
+    4 shards) on the card and on the CPU: the same records and
+    configuration ids, each equal to a plain simulator's."""
+    import chip_smoke
+
+    runs = [chip_smoke.bridge_sequence(1000, device, [device] * 4)
+            for device in ("cpu", cuda_device)]
+    keys = ("name", "cut", "configuration_id", "plain_configuration_id", "virtual_time_ms",
+            "members_before")
+    assert [[p[k] for k in keys] for p in runs[1]["pumps"]] == [
+        [p[k] for k in keys] for p in runs[0]["pumps"]]
+    scan = runs[1]["pumps"][2]
+    assert scan["name"] == "crash, scan" and scan["launches"]["fd_phase_fused"] > 0

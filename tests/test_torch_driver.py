@@ -218,8 +218,9 @@ def test_pow2_chunks():
 
 
 def test_port_imports_neither_jax_nor_rapid_tpu():
-    """In a fresh interpreter, the port and chip_smoke.py load no module of
-    JAX or of the JAX package."""
+    """In a fresh interpreter, the port (its simulator bridge and protocol
+    classes too) and chip_smoke.py load no module of JAX or of the JAX
+    package."""
     code = (
         "import runpy, sys\n"
         "import rapid_tpu_torch.sim.driver, rapid_tpu_torch.sim.classic\n"
@@ -227,6 +228,8 @@ def test_port_imports_neither_jax_nor_rapid_tpu():
         "import rapid_tpu_torch.observability, rapid_tpu_torch.profiling\n"
         "import rapid_tpu_torch.runtime.jitwatch, rapid_tpu_torch.settings\n"
         "import rapid_tpu_torch.forensics.hlc\n"
+        "import rapid_tpu_torch.sim.bridge, rapid_tpu_torch.types\n"
+        "import rapid_tpu_torch.runtime.futures\n"
         "runpy.run_path('chip_smoke.py')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu'))\n"
         "assert not bad, bad\n"
