@@ -79,7 +79,25 @@ into build/kernels/. Phases, each of which must pass:
    (``fd_phase_rows`` and ``fd_gather``); each decision's configuration id
    equal to a plain simulator's driven alike, each pump's wall split into
    dispatch, bridge host work and delivery, with its syncs by label and its
-   kernel launches (``bridge_sequence``).
+   kernel launches (``bridge_sequence``);
+12. the wire: the port's codec (``rapid_tpu_torch/messaging/codec.py`` on
+   its pure-Python MessagePack subset, no C library in the process) gives
+   every frame of ``tests/golden/torch_wire_frames.json``, which
+   ``rapid_tpu``'s codec wrote, byte for byte and decodes each back to an
+   equal message; each frame class's encode and decode time, and a
+   100k-member ``JoinResponse``'s and a 75 001-sender vote batch's
+   (``wire_phase``);
+13. the socket gateway (``rapid_tpu_torch/messaging/gateway.py``), after the
+   bridge phase: ``SwarmGateway`` at 100k virtual members on the card,
+   ``warm()`` timed, and a real member in a child OS process
+   (``chip_smoke.py --gateway-member``, the ``ScriptedMember`` on the port's
+   TCP transport, routed client and swarm broadcaster) that joins over TCP
+   (one full configuration of 100 001 endpoints), votes in a crash of 1% run
+   on the gateway's protocol thread (the closed form) and in one under
+   ingress loss 1.0 (the scan, launching ``fd_phase_fused``), and leaves;
+   every configuration id equal on the gateway, in the member's own view and
+   on a plain simulator driven alike, and every sync of the protocol thread
+   accounted for by a ``jitwatch`` label (``gateway_sequence``).
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -90,9 +108,12 @@ import collections
 import itertools
 import json
 import os
+import queue
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -165,6 +186,16 @@ SHARDED_RUNS = 3  # decisions timed on each mesh, the first warming it
 SHARD_SEED = SEED + 8000
 SPEC_PAIRS = 3  # speculate on/off pairs of decisions timed per branch
 PLANES_SEED = SEED + 9000
+# the gateway phase: tests/test_gateway.py's GatewayHarness settings, the
+# member's identity of the bridge phase, a bound on every wait
+GATEWAY_SETTINGS = {"failure_detector_interval_ms": 100, "batching_window_ms": 50,
+                    "consensus_fallback_base_delay_ms": 1000}
+GATEWAY_PUMP_MS = 50
+MEMBER_NODE_ID = (0x1234_5678_9ABC, -0x0FED_CBA9_8765)
+GATEWAY_WAIT_S = 180.0
+LARGE_FRAME = 64 * 1024  # frames listed one by one: (class, bytes, encode or decode ms)
+WIRE_FRAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "torch_wire_frames.json")
 
 
 def _time_ms(fn, reps=24, iters=11):
@@ -1173,7 +1204,7 @@ class ScriptedMember:
 
     def join(self, seed_endpoint):
         p = self.p
-        reply = self.send(seed_endpoint, p.PreJoinMessage(self.endpoint, self.node_id)).peek()
+        reply = self.send(seed_endpoint, p.PreJoinMessage(self.endpoint, self.node_id)).result(60)
         assert reply.status_code == p.JoinStatusCode.SAFE_TO_JOIN, reply.status_code
         rings = {}
         for ring, observer in enumerate(reply.endpoints):
@@ -1431,7 +1462,669 @@ def bridge_sequence(n, device, mesh_devices, seed=SEED):
             "steady_median_ms": statistics.median(steady), "pumps": pumps}
 
 
+
+def view_configuration_id(endpoints, identifiers) -> int:
+    """The configuration id a member computes from its own view
+    (MembershipView.java:535-547): identifiers in NodeId order, endpoints in
+    ring-0 order, with the port's vectorized hashing."""
+    from rapid_tpu_torch.hashing import endpoint_hash_batch
+    from rapid_tpu_torch.sim.topology import configuration_id_vectorized
+
+    eps = list(endpoints)
+    width = max(len(e.hostname) for e in eps)
+    hosts = np.frombuffer(b"".join(e.hostname.ljust(width, b"\0") for e in eps),
+                          dtype=np.uint8).reshape(len(eps), width)
+    lengths = np.array([len(e.hostname) for e in eps], dtype=np.int64)
+    ports = np.array([e.port for e in eps], dtype=np.int64)
+    order = np.argsort(endpoint_hash_batch(hosts, lengths, ports, 0).view(np.int64),
+                       kind="stable")
+    ids = sorted(identifiers)
+    return configuration_id_vectorized(
+        np.array([i.high for i in ids], dtype=np.int64),
+        np.array([i.low for i in ids], dtype=np.int64), hosts[order], lengths[order],
+        ports[order])
+
+
+class GatewayMemberNet:
+    """``ScriptedMember``'s network over the port's wire: sends ride the
+    member's ``GatewayRoutedClient`` to the gateway, a broadcast (``dst``
+    None) its ``GatewaySwarmBroadcaster``'s one wildcard frame."""
+
+    def __init__(self, protocol, routed, broadcaster):
+        self.protocol, self.routed, self.broadcaster = protocol, routed, broadcaster
+        self.members = {}
+
+    def deliver(self, src, dst, msg, timeout_ms):
+        if dst is None:
+            (promise,) = self.broadcaster.broadcast(msg)
+            return promise
+        return self.routed.send_message(dst, msg)
+
+    def run_for(self, ms):
+        pass  # the sockets run on their own threads
+
+
+def gateway_member(gateway_address: str, port: int) -> int:
+    """``chip_smoke.py --gateway-member <host:port> <port>``: a real member
+    in its own OS process that speaks only through the port's wire. Its
+    ``TcpClientServer`` listens at 127.0.0.1:<port> with ``ScriptedMember``
+    as its membership service; a ``GatewayRoutedClient`` and a
+    ``GatewaySwarmBroadcaster`` carry its sends. It reads commands on its
+    standard input (``join <seed> <k>``, ``leave``, ``quit``) and prints one
+    JSON line per event it sees, each with its wall-clock time ``t``: its
+    configuration id is computed from its own view."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rapid_tpu_torch.messaging import codec, gateway, tcp
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.sim.bridge import default_protocol
+
+    protocol = default_protocol()
+    settings = Settings(**GATEWAY_SETTINGS)
+    lock = threading.Lock()
+    decoded = {"ms": 0.0, "bytes": 0, "largest": 0, "largest_ms": 0.0, "large": []}
+
+    def emit(event, t=None, **fields):
+        """One event line; ``t`` is when it happened (default: now)."""
+        with lock:
+            print(json.dumps(dict(event=event, t=time.time() if t is None else t, **fields),
+                             default=str), flush=True)
+
+    def timed_decode(frame):
+        t0 = time.perf_counter()
+        out = codec.decode(frame)
+        ms = (time.perf_counter() - t0) * 1e3
+        with lock:
+            decoded["ms"] += ms
+            decoded["bytes"] += len(frame)
+            if len(frame) > decoded["largest"]:
+                decoded["largest"], decoded["largest_ms"] = len(frame), ms
+            if len(frame) >= LARGE_FRAME:
+                decoded["large"].append((type(out[1]).__name__, len(frame), round(ms, 3)))
+        return out
+
+    tcp.decode = timed_decode  # every frame this process reads
+
+    def decode_stats():
+        """What this process decoded since the last event that reported it."""
+        with lock:
+            out = {"decoded_ms": decoded["ms"], "decoded_bytes": decoded["bytes"],
+                   "largest_frame": decoded["largest"], "largest_decode_ms": decoded["largest_ms"],
+                   "large_decodes": decoded["large"]}
+            decoded.update(ms=0.0, bytes=0, largest=0, largest_ms=0.0, large=[])
+        return out
+
+    me = protocol.Endpoint.from_parts("127.0.0.1", port)
+    transport = tcp.TcpClientServer(me, settings)
+    routed = gateway.GatewayRoutedClient(me, protocol.Endpoint.from_string(gateway_address),
+                                         transport, settings)
+    broadcaster = gateway.GatewaySwarmBroadcaster(routed)
+    net = GatewayMemberNet(protocol, routed, broadcaster)
+    member = ScriptedMember(net, me, protocol.NodeId(*MEMBER_NODE_ID), 0)
+    state = {"identifiers": set()}
+
+    def view_fields():
+        return {"members": len(member.view),
+                "configuration_id": view_configuration_id(member.view, state["identifiers"])}
+
+    class Service:
+        def handle_message(self, msg):
+            counts = (len(member.announcements), len(member.decisions))
+            member.receive(None, msg)
+            seen = time.time()
+            if len(member.announcements) > counts[0]:
+                emit("announcement", alerts=len(msg.messages),
+                     configuration_id=msg.messages[0].configuration_id)
+                emit("vote", cut=len(member.votes[-1].endpoints))
+            if len(member.decisions) > counts[1]:
+                alerts, votes, quorum = member.decisions[-1]
+                for a in alerts.messages:
+                    if a.edge_status == protocol.EdgeStatus.UP and a.node_id is not None:
+                        state["identifiers"].add(a.node_id)
+                removed = me not in member.view
+                emit("removed" if removed else "decision", t=seen, alerts=len(alerts.messages),
+                     vote_senders=len(set(votes.senders)), quorum=quorum,
+                     **({} if removed else view_fields()), **decode_stats())
+            return protocol.Promise.completed(protocol.Response())
+
+    transport.set_membership_service(Service())
+    transport.start()
+    broadcaster.set_membership([protocol.Endpoint(b"10.0.0.0", 0)])  # the swarm is a peer
+    emit("ready", endpoint=str(me))
+    try:
+        for line in sys.stdin:
+            cmd = line.split()
+            if not cmd:
+                continue
+            if cmd[0] == "join":
+                member.k = int(cmd[2])
+                t0 = time.time()
+                observers = member.join(protocol.Endpoint.from_string(cmd[1]))
+                deadline = time.time() + GATEWAY_WAIT_S
+                while len(member.join_replies) < observers and time.time() < deadline:
+                    time.sleep(0.005)
+                full = member.admitted()
+                admitted = time.time()
+                state["identifiers"] = set(full.identifiers)
+                broadcaster.set_membership(sorted(member.view - {me}))
+                emit("joined", t=admitted, started=t0, observers=observers, endpoints=len(full.endpoints),
+                     response_configuration_id=full.configuration_id, **view_fields(),
+                     **decode_stats())
+            elif cmd[0] == "leave":
+                member.leave()
+                emit("leave_sent")
+            elif cmd[0] == "quit":
+                break
+    finally:
+        routed.shutdown()
+        transport.shutdown()
+    return 0
+
+
+def _free_ports(k):
+    """``k`` ports free on 127.0.0.1 just now."""
+    socks = []
+    try:
+        for _ in range(k):
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            socks.append(sock)
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+class _ChildMember:
+    """The parent's handle on the ``--gateway-member`` process: commands on
+    its standard input, its JSON events read off its standard output by a
+    thread, every wait bounded."""
+
+    def __init__(self, gateway_address, port):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--gateway-member",
+             gateway_address, str(port)],
+            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        self.events = queue.Queue()
+        self.seen = []
+        self.stderr = []
+        threading.Thread(target=self._read, args=(self.proc.stdout, True), daemon=True).start()
+        threading.Thread(target=self._read, args=(self.proc.stderr, False), daemon=True).start()
+
+    def _read(self, stream, events):
+        for line in stream:
+            if events and line.startswith("{"):
+                self.events.put(json.loads(line))
+            else:
+                self.stderr.append(line)
+
+    def send(self, command):
+        self.proc.stdin.write(command + "\n")
+        self.proc.stdin.flush()
+
+    def wait(self, name, timeout=GATEWAY_WAIT_S):
+        deadline = time.time() + timeout
+        while True:
+            try:
+                event = self.events.get(timeout=max(0.01, deadline - time.time()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"gateway member: no '{name}' event in {timeout} s; events so far "
+                    f"{[e['event'] for e in self.seen]}; stderr tail "
+                    f"{''.join(self.stderr[-20:])}") from None
+            self.seen.append(event)
+            if event["event"] == name:
+                return event
+
+    def close(self):
+        try:
+            if self.proc.poll() is None:
+                self.send("quit")
+                self.proc.wait(timeout=30)
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+class _CodecClock:
+    """Encode and decode time, frames and bytes on every thread of this
+    process, through the codec names that ``messaging/tcp.py`` and
+    ``messaging/gateway.py`` call; the names are restored on exit."""
+
+    def __init__(self):
+        from rapid_tpu_torch.messaging import codec, gateway, tcp
+
+        self._modules = (tcp, gateway)
+        self._codec = codec
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        with self._lock:
+            self.totals = {"encode_ms": 0.0, "encodes": 0, "encoded_bytes": 0,
+                           "decode_ms": 0.0, "decodes": 0, "decoded_bytes": 0,
+                           "largest_frame": 0, "largest_frame_encode_ms": 0.0,
+                           "large_encodes": []}
+
+    def snapshot(self):
+        with self._lock:
+            return dict(self.totals, large_encodes=list(self.totals["large_encodes"]))
+
+    def _encode(self, request_no, msg):
+        t0 = time.perf_counter()
+        out = self._codec.encode(request_no, msg)
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            t = self.totals
+            t["encode_ms"] += ms
+            t["encodes"] += 1
+            t["encoded_bytes"] += len(out)
+            if len(out) > t["largest_frame"]:
+                t["largest_frame"], t["largest_frame_encode_ms"] = len(out), ms
+            if len(out) >= LARGE_FRAME:
+                t["large_encodes"].append((type(msg).__name__, len(out), round(ms, 3)))
+        return out
+
+    def _decode(self, frame):
+        t0 = time.perf_counter()
+        out = self._codec.decode(frame)
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self.totals["decode_ms"] += ms
+            self.totals["decodes"] += 1
+            self.totals["decoded_bytes"] += len(frame)
+        return out
+
+    def __enter__(self):
+        for module in self._modules:
+            module.encode, module.decode = self._encode, self._decode
+        return self
+
+    def __exit__(self, *exc):
+        for module in self._modules:
+            module.encode, module.decode = self._codec.encode, self._codec.decode
+
+
+def gateway_sequence(n, device, seed=SEED):
+    """The gateway phase: the port's ``SwarmGateway`` on 127.0.0.1 hosting
+    ``n`` virtual members (seed ``seed``, ``GATEWAY_SETTINGS``), warmed,
+    and a real member in a child OS process (``--gateway-member``) that
+    joins over TCP (one full configuration of n + 1 endpoints), votes in a
+    crash of 1% of the virtual members (the closed form) and in one of 1%
+    more under ingress loss 1.0 (the scan), and leaves. The crashes run as
+    tasks on the gateway's protocol thread. Each step: the wall as the
+    member sees it, each decision pump's wall split into the simulator's
+    dispatches, the phase-B vote window and the bridge's host work, the
+    codec's encode and decode across the process, the largest frame, syncs
+    by ``jitwatch`` label (on a card also counted by torch's sync debug
+    mode on the protocol thread) and kernel launches. Every configuration
+    id must be equal on three sides: the gateway's, the member's own view,
+    and a plain ``Simulator`` driven alike."""
+    from rapid_tpu_torch.messaging.gateway import SwarmGateway
+    from rapid_tpu_torch.runtime import jitwatch
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.sim import kernels
+    from rapid_tpu_torch.sim.bridge import default_protocol
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.sim.engine import SimConfig
+
+    protocol = default_protocol()
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 20_000)
+    victims = [np.sort(v) for v in np.split(rng.choice(n, 2 * (n // 100), replace=False), 2)]
+    gw_port, member_port = _free_ports(2)
+    member_ep = protocol.Endpoint.from_parts("127.0.0.1", member_port)
+    gateway = SwarmGateway(protocol.Endpoint.from_parts("127.0.0.1", gw_port), n_virtual=n,
+                           seed=seed, settings=Settings(**GATEWAY_SETTINGS),
+                           pump_interval_ms=GATEWAY_PUMP_MS, device=device)
+    bridge, sim = gateway.bridge, gateway.bridge.sim
+    lock = threading.Lock()
+    pumps, registered, task_syncs, task_labels = [], [], [0], {}
+    timers = {"dispatch": 0.0, "window": 0.0}
+    run, register, pump = sim.run_until_decision, sim.register_extern_vote, bridge.pump
+    window = gateway.network.scheduler.run_for
+    run_task = gateway._run_task  # noqa: SLF001
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                timers[key] += time.perf_counter() - t0
+        return call
+
+    window_marks = []
+
+    def marked_window(ms):
+        start = time.time()
+        try:
+            return window(ms)
+        finally:
+            window_marks.append((start, time.time()))
+
+    def counted_register(slot, cut):
+        ok = register(slot, cut)
+        with lock:
+            registered.append((slot, ok))
+        return ok
+
+    def recorded_pump(*args, **kw):
+        timers["dispatch"] = timers["window"] = 0.0
+        syncs, launches = jitwatch.sync_counts(), dict(kernels.LAUNCHES)
+        t0, start = time.perf_counter(), time.time()
+        rec = pump(*args, **kw)
+        wall = time.perf_counter() - t0
+        if rec is not None or timers["dispatch"] > 0:
+            with lock:
+                pumps.append({"start": start, "wall_ms": wall * 1e3, "rec": rec,
+                              "dispatch_ms": timers["dispatch"] * 1e3,
+                              "vote_window_ms": timers["window"] * 1e3,
+                              "syncs": _diff(jitwatch.sync_counts(), syncs),
+                              "launches": {k: v - launches.get(k, 0)
+                                           for k, v in kernels.LAUNCHES.items()
+                                           if v - launches.get(k, 0)}})
+        return rec
+
+    def counted_task(fn, label):
+        """Every protocol task's syncs by ``jitwatch`` label and, on a card,
+        under torch's sync debug mode "warn": both counts cover the same
+        tasks, whichever step a task straddles."""
+        before = jitwatch.sync_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card:
+                previous = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return run_task(fn, label)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(previous)
+                with lock:
+                    task_syncs[0] += sum("synchronizing CUDA operation" in str(w.message)
+                                         for w in caught)
+                    for key, n in _diff(jitwatch.sync_counts(), before).items():
+                        task_labels[key] = task_labels.get(key, 0) + n
+
+    sim.run_until_decision = timed(run, "dispatch")
+    sim.register_extern_vote = counted_register
+    bridge.pump = recorded_pump
+    gateway.network.scheduler.run_for = timed(marked_window, "window")
+    gateway._run_task = counted_task  # noqa: SLF001
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() if on_card else 0
+    child = None
+    steps = []
+    clock = _CodecClock()
+    try:
+        with clock:
+            gateway.start()
+            t0 = time.perf_counter()
+            gateway.warm()
+            warm_s = time.perf_counter() - t0
+            warm_bytes = (torch.cuda.max_memory_allocated() - resident) if on_card else None
+            child = _ChildMember(f"127.0.0.1:{gw_port}", member_port)
+            child.wait("ready", timeout=120)
+
+            def step(name, act, event, cut_slots):
+                n_before = sim.membership_size
+                with lock:
+                    del pumps[:]
+                    del registered[:]
+                    task_syncs[0] = 0
+                    task_labels.clear()
+                clock.reset()
+                kernels.reset_launches()
+                start = time.time()
+                act()
+                seen = child.wait(event)
+                deadline = time.time() + GATEWAY_WAIT_S
+                while time.time() < deadline:
+                    with lock:
+                        decided = [p for p in pumps if p["rec"] is not None]
+                    if decided:
+                        break
+                    time.sleep(0.01)
+                assert len(decided) == 1, (name, len(decided))
+                decision = decided[0]
+                rec = decision["rec"]
+                time.sleep(3 * GATEWAY_PUMP_MS / 1e3)  # the next pumps see nothing to do
+                with lock:
+                    work = list(pumps)
+                    votes = list(registered)
+                    syncs, counted = dict(task_labels), task_syncs[0]
+                assert sorted(rec.cut.tolist()) == sorted(int(s) for s in cut_slots), name
+                row = {"name": name, "members_before": n_before, "cut": len(rec.cut),
+                       "configuration_id": rec.configuration_id,
+                       "virtual_time_ms": rec.virtual_time_ms,
+                       "member_wall_ms": (seen["t"] - start) * 1e3,
+                       "pumps_with_work": len(work),
+                       "pump_wall_ms": decision["wall_ms"],
+                       "dispatch_ms": decision["dispatch_ms"],
+                       "vote_window_ms": decision["vote_window_ms"],
+                       "host_ms": decision["wall_ms"] - decision["dispatch_ms"]
+                       - decision["vote_window_ms"],
+                       "codec": clock.snapshot(),
+                       "member_decode_ms": seen.get("decoded_ms"),
+                       "member_largest_frame": seen.get("largest_frame"),
+                       "member_largest_decode_ms": seen.get("largest_decode_ms"),
+                       "member_large_decodes": seen.get("large_decodes"),
+                       "pump_syncs": decision["syncs"],
+                       "pump_launches": decision["launches"],
+                       "syncs": syncs,
+                       "counted_syncs": counted if on_card else None,
+                       "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+                       "registered": votes, "event": seen}
+                steps.append(row)
+                return row, seen
+
+            slot = n  # the first spare slot seats the joiner
+            row, seen = step("join", lambda: child.send(
+                f"join {gateway.seed_endpoint()} {sim.config.k}"), "joined", [slot])
+            assert seen["endpoints"] == n + 1 == seen["members"], seen
+            assert seen["configuration_id"] == seen["response_configuration_id"] \
+                == gateway.configuration_id() == row["configuration_id"], seen
+            assert bridge._slot_of[member_ep] == slot and member_ep in bridge._real  # noqa: SLF001
+            row["member_configuration_id"] = seen["configuration_id"]
+
+            quorum_of = {}
+            for name, fault, cut in (
+                    ("crash, closed form", lambda v=victims[0]: sim.crash(v), victims[0]),
+                    ("crash, scan", lambda v=victims[1]: (sim.crash(v), sim.ingress_loss(v, 1.0)),
+                     victims[1])):
+                n_before = sim.membership_size
+                row, seen = step(name, lambda f=fault: _on_protocol_thread(gateway, f),
+                                 "decision", cut)
+                quorum = n_before - (n_before - 1) // 4
+                quorum_of[name] = quorum
+                assert row["registered"] == [(slot, True)], (
+                    name, row["registered"], "vote window (start, end) s:", window_marks,
+                    "member events (name, t):", [(e["event"], e["t"]) for e in child.seen[-4:]])
+                assert seen["alerts"] == len(cut) and seen["quorum"] == quorum, (name, seen)
+                assert seen["vote_senders"] >= quorum, (name, seen)
+                assert seen["configuration_id"] == gateway.configuration_id() \
+                    == row["configuration_id"], (name, seen)
+                assert seen["members"] == sim.membership_size, (name, seen)
+                votes = [e for e in child.seen if e["event"] == "vote"]
+                assert votes and votes[-1]["cut"] == len(cut), name
+                row.update(vote_registered=True, alert_batch=seen["alerts"],
+                           vote_senders=seen["vote_senders"], quorum=quorum,
+                           member_configuration_id=seen["configuration_id"])
+                if on_card and name == "crash, scan":
+                    assert row["pump_launches"].get("fd_phase_fused", 0) > 0, row["pump_launches"]
+
+            row, seen = step("leave", lambda: child.send("leave"), "removed", [slot])
+            assert member_ep not in bridge._real  # noqa: SLF001
+            row["member_removed"] = True
+    finally:
+        if child is not None:
+            child.close()
+        gateway.shutdown()
+        for thread in gateway._threads:  # noqa: SLF001 -- a pump in flight ends first
+            thread.join(timeout=GATEWAY_WAIT_S)
+    if on_card:
+        for row in steps:
+            assert row["counted_syncs"] == sum(row["syncs"].values()), (
+                row["name"], row["counted_syncs"], row["syncs"])
+
+    # the cross-check: a plain simulator driven alike, with no gateway
+    capacity = n + 16
+    plain = Simulator(n, capacity=capacity,
+                      config=SimConfig(capacity=capacity, extern_proposals=4), seed=seed,
+                      device=device)
+    plain.assign_identity(n, member_ep.hostname, member_ep.port, *MEMBER_NODE_ID)
+    actions = (lambda: plain.request_joins(np.array([n])),
+               lambda: plain.crash(victims[0]),
+               lambda: (plain.crash(victims[1]), plain.ingress_loss(victims[1], 1.0)),
+               lambda: plain.leave(np.array([n])))
+    for row, act in zip(steps, actions):
+        act()
+        prec = plain.run_until_decision(max_rounds=32, batch=8)
+        assert prec is not None
+        row["plain_configuration_id"] = prec.configuration_id
+        assert row["configuration_id"] == prec.configuration_id, (row["name"], prec)
+    del gateway, bridge, sim
+    return {"warm_s": warm_s, "warm_peak_bytes": warm_bytes, "steps": steps}
+
+
+def _on_protocol_thread(gateway, fn, timeout=GATEWAY_WAIT_S):
+    """Run ``fn`` as a task on the gateway's protocol thread, the one thread
+    that touches the swarm, and wait for it."""
+    done, error = threading.Event(), []
+
+    def task():
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 -- re-raised on this thread
+            error.append(exc)
+        finally:
+            done.set()
+
+    gateway._put_task(task, gateway.PRIO_FRAME, "fault")  # noqa: SLF001
+    assert done.wait(timeout), "protocol task did not run"
+    if error:
+        raise error[0]
+
+
+def _print_gateway(result, card):
+    for row in result["steps"]:
+        c = row["codec"]
+        print(f"gateway, {row['name']} ({card}): {row['members_before']} members, cut "
+              f"{row['cut']}, configuration id {row['configuration_id']} (== the member's own "
+              f"view == the plain simulator's), virtual {row['virtual_time_ms']} ms; wall as "
+              f"the member sees it {row['member_wall_ms']:.3f} ms; decision pump "
+              f"{row['pump_wall_ms']:.3f} ms = dispatch {row['dispatch_ms']:.3f} + vote window "
+              f"(the announcement answered, then 100 ms) {row['vote_window_ms']:.3f} + bridge "
+              f"host {row['host_ms']:.3f}; codec in the "
+              f"gateway process: encode {c['encode_ms']:.3f} ms over {c['encodes']} frames "
+              f"({c['encoded_bytes']} B), decode {c['decode_ms']:.3f} ms over {c['decodes']} "
+              f"frames ({c['decoded_bytes']} B); largest frame {c['largest_frame']} B "
+              f"(encoded in {c['largest_frame_encode_ms']:.3f} ms); member decode "
+              f"{row['member_decode_ms']:.3f} ms, largest frame {row['member_largest_frame']} B "
+              f"in {row['member_largest_decode_ms']:.3f} ms; frames of 64 KiB and more, "
+              f"(class, bytes, ms): encoded {c['large_encodes']}, decoded by the member "
+              f"{row['member_large_decodes']}; the decision pump's syncs by label "
+              f"{row['pump_syncs']} and kernel launches {row['pump_launches']}; the step's "
+              f"{row['pumps_with_work']} pumps with device work and every other protocol task: "
+              f"syncs by label {row['syncs']}"
+              + ("" if row["counted_syncs"] is None else
+                 f" (debug mode counted {row['counted_syncs']})")
+              + f", kernel launches {row['launches']}"
+              + "".join(f"; {k} {row[k]}" for k in (
+                  "vote_registered", "alert_batch", "vote_senders", "quorum") if row.get(k)),
+              flush=True)
+    print(f"gateway warm(): {result['warm_s']:.3f} s"
+          + ("" if result["warm_peak_bytes"] is None else
+             f", peak {result['warm_peak_bytes'] / 2**20:.1f} MiB of device memory above the "
+             "swarm's own state") + f" ({card})", flush=True)
+
+
+def wire_phase(card, reps=5):
+    """The port's codec replays ``tests/golden/torch_wire_frames.json``
+    (frames ``rapid_tpu``'s codec wrote) byte for byte and decodes each
+    back to an equal message, with no C MessagePack library in the process;
+    then each frame class's encode and decode time (median of ``reps``,
+    fresh message objects, so no memo hits), and one run each of a
+    100k-member ``JoinResponse``, a 75 001-sender ``FastRoundVoteBatch`` and
+    an announcement of 1000 alerts."""
+    sys.path.insert(0, os.path.dirname(WIRE_FRAMES))
+    import torch_wire_fixtures as fx
+
+    assert "msgpack" not in sys.modules, "a C MessagePack library is loaded"
+    wire = fx.port_wire()
+    with open(WIRE_FRAMES) as f:
+        frames = json.load(f)["frames"]
+    classes = {}
+    for frame in frames:
+        data = bytes.fromhex(frame["hex"])
+        assert fx.frame_bytes(frame, wire) == data, frame["name"]
+        want = fx.message(frame, wire)
+        if frame["routed"] is not None:
+            got = wire.decode_routed(data)[2]
+        else:
+            got = wire.decode(memoryview(data))[1]
+        assert got == want and type(got) is type(want), frame["name"]
+        enc, dec = [], []
+        for _ in range(reps):
+            msg = fx.message(frame, wire)
+            t0 = time.perf_counter()
+            fx.encode_frame(frame, msg, wire)
+            enc.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            wire.decode_routed(data) if frame["routed"] is not None else wire.decode(data)
+            dec.append(time.perf_counter() - t0)
+        cls = type(want).__name__
+        entry = classes.setdefault(cls, {"frames": 0, "bytes": 0, "encode_ms": 0.0,
+                                         "decode_ms": 0.0})
+        entry["frames"] += 1
+        entry["bytes"] = max(entry["bytes"], len(data))
+        entry["encode_ms"] = max(entry["encode_ms"], statistics.median(enc) * 1e3)
+        entry["decode_ms"] = max(entry["decode_ms"], statistics.median(dec) * 1e3)
+    T = wire.types
+    big = {}
+    for name, make in (
+            ("JoinResponse, 100 001 endpoints and identifiers", lambda: T.JoinResponse(
+                T.Endpoint(b"10.0.0.1", 5000), T.JoinStatusCode.SAFE_TO_JOIN,
+                -4651904502688146028, fx.endpoints(T, 100_001, 5000), fx.node_ids(T, 100_001, 1))),
+            ("FastRoundVoteBatch, 75 001 senders, a 1000-member cut", lambda: T.FastRoundVoteBatch(
+                fx.endpoints(T, 75_001, 5000), -4651904502688146028,
+                fx.endpoints(T, 1000, 6000))),
+            ("BatchedAlertMessage, an announcement of 1000 alerts on 10 rings",
+             lambda: T.BatchedAlertMessage(T.Endpoint(b"10.0.0.1", 5000), tuple(
+                 T.AlertMessage(T.Endpoint(b"10.0.0.1", 5000), e, T.EdgeStatus.DOWN,
+                                -4651904502688146028, tuple(range(10)))
+                 for e in fx.endpoints(T, 1000, 6000))))):
+        msg = make()
+        t0 = time.perf_counter()
+        data = wire.encode(7, msg)
+        t1 = time.perf_counter()
+        back = wire.decode(data)[1]
+        t2 = time.perf_counter()
+        assert back == msg
+        big[name] = {"bytes": len(data), "encode_ms": (t1 - t0) * 1e3,
+                     "decode_ms": (t2 - t1) * 1e3}
+    print(f"wire: the port's codec gives all {len(frames)} golden frames byte for byte and "
+          f"decodes each back to an equal message ({len(classes)} classes, no C MessagePack "
+          f"library in the process) ({card})", flush=True)
+    for cls, e in sorted(classes.items()):
+        print(f"wire, {cls}: {e['frames']} frames, largest {e['bytes']} B, encode "
+              f"{e['encode_ms']:.4f} ms, decode {e['decode_ms']:.4f} ms (median of {reps}, the "
+              f"slowest frame of the class)", flush=True)
+    for name, e in big.items():
+        print(f"wire, {name}: {e['bytes']} B, encode {e['encode_ms']:.3f} ms, decode "
+              f"{e['decode_ms']:.3f} ms (one run, no memo) ({card})", flush=True)
+    return {"frames": len(frames), "classes": classes, "large": big}
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -1467,6 +2160,19 @@ def main() -> int:
     for row in bridge["pumps"]:
         for name, count in row["launches"].items():
             bridged_launches.setdefault(name, []).append((row["name"], count))
+
+    # --- the wire, then the socket gateway with a member in its own process
+    t0 = time.perf_counter()
+    wire = wire_phase(card)
+    t1 = time.perf_counter()
+    gateway = gateway_sequence(N_NODES, card_device)
+    _print_gateway(gateway, card)
+    print(f"wire phase {t1 - t0:.1f} s, gateway phase {time.perf_counter() - t1:.1f} s, "
+          f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    gateway_launches = {}
+    for row in gateway["steps"]:
+        for name, count in row["pump_launches"].items():
+            gateway_launches.setdefault(name, []).append((row["name"], count))
 
     kernel_results = _kernel_phase(kernels, device)
     kernel_results["fd_phase_fused"] = _fused_phase(kernels, fd_bench, device)
@@ -1561,6 +2267,8 @@ def main() -> int:
             "launches_headline": headline_launches[name],
             # (bridged pump, launches) of each pump of the bridge phase that ran it
             "launches_bridged": bridged_launches.get(name, []),
+            # (gateway step, launches) of each decision pump of the gateway phase that ran it
+            "launches_gateway": gateway_launches.get(name, []),
             "match": True,
             "max_abs_err": max(s["max_abs_err"] for s in sizes.values()),
             "ms": main_shape["ms"],
@@ -1593,6 +2301,7 @@ def main() -> int:
                      else "sharded decision, 8 shards"),
             "launches": split_launches[name],
             "launches_bridged": bridged_launches.get(name, []),
+            "launches_gateway": gateway_launches.get(name, []),
             "match": True,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
@@ -1606,13 +2315,15 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes either half
             "sizes": {f"{t['shape'][0]}x10": t},
         })
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps(line))
     print(json.dumps({"headline_wall_ms": head_walls, "scan_wall_ms": scan_walls,
                       "headline_syncs": syncs, "scan_syncs": scan_syncs,
                       "windowed": windowed, "classic_fallback": fallback,
                       "sharded": sharded, "planes": planes, "card": card,
                       "bridge": dict(bridge, pumps=[dict(p, cut=len(p["cut"]))
-                                                    for p in bridge["pumps"]])},
+                                                    for p in bridge["pumps"]]),
+                      "wire": wire, "gateway": gateway},
                      default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1623,4 +2334,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--gateway-member":
+        sys.exit(gateway_member(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -1,7 +1,8 @@
 """Hybrid logical clocks (Kulkarni et al., "Logical Physical Clocks").
 
-The port's copy of the clock of ``rapid_tpu/forensics/hlc.py`` (``HlcStamp``
-and ``HlcClock``; the protocol plane's message sidecar stays there). The
+The port's copy of the clock of ``rapid_tpu/forensics/hlc.py`` (``HlcStamp``,
+``HlcClock``, and the message sidecar ``stamp_hlc``/``hlc_of`` that the wire
+codec reads and writes under the frame's reserved ``__hlc`` key). The
 simulator stamps its flight recorder with an ``HlcClock`` on its virtual
 clock when ``SimConfig.forensics`` is set, so a simulated journal merges
 causally with real members' journals.
@@ -117,3 +118,23 @@ class HlcClock:
         """Current reading without advancing (status reporting)."""
         with self._lock:
             return HlcStamp(self._physical_ms, self._logical, self.incarnation)
+
+
+# --------------------------------------------------------------------------- #
+# Message sidecar (the trace-context pattern, observability.py)
+# --------------------------------------------------------------------------- #
+
+_HLC_ATTR = "hlc_stamp"
+
+
+def stamp_hlc(msg: object, stamp: HlcStamp) -> None:
+    """Attach a stamp to a (frozen) message out-of-band. Degrades to a
+    no-op on slotted/odd message objects -- forensics never breaks send."""
+    try:
+        object.__setattr__(msg, _HLC_ATTR, stamp)
+    except (AttributeError, TypeError):
+        pass
+
+
+def hlc_of(msg: object) -> Optional[HlcStamp]:
+    return getattr(msg, _HLC_ATTR, None)

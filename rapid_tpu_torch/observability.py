@@ -727,13 +727,46 @@ class TraceContext:
     ``trace_id`` names the whole causal chain (minted by the root span: the
     first fault injection of the episode); ``parent_span_id`` is that span,
     under which the view change parents; ``origin`` is its track for
-    display; ``flags`` is reserved (0 today). The messaging side's wire
-    form and propagation helpers come with the bridge."""
+    display; ``flags`` is reserved (0 today). On the wire it is a compact
+    4-list under the frame's reserved ``__tc`` key (``messaging/codec.py``).
+    """
 
     trace_id: int
     parent_span_id: int
     origin: str = ""
     flags: int = 0
+
+    def to_wire(self) -> List[object]:
+        return [self.trace_id, self.parent_span_id, self.origin, self.flags]
+
+    @classmethod
+    def from_wire(cls, raw: object) -> Optional["TraceContext"]:
+        try:
+            trace_id, parent_span_id, origin, flags = raw  # type: ignore[misc]
+            return cls(int(trace_id), int(parent_span_id), str(origin),
+                       int(flags))
+        except (TypeError, ValueError):
+            return None  # malformed context never breaks message handling
+
+
+# Messages are frozen dataclasses; the trace context rides as a sidecar
+# attribute (object.__setattr__) so it stays invisible to dataclass fields,
+# equality, hashing, and the codec's field walk.
+_TRACE_CTX_ATTR = "trace_ctx"
+
+
+def stamp_trace_context(msg: object, ctx: Optional[TraceContext]) -> object:
+    if ctx is not None:
+        try:
+            object.__setattr__(msg, _TRACE_CTX_ATTR, ctx)
+        except (AttributeError, TypeError):
+            pass  # slotted/immutable object: carriage degrades to none
+    return msg
+
+
+def trace_context_of(msg: object) -> Optional[TraceContext]:
+    ctx = getattr(msg, _TRACE_CTX_ATTR, None)
+    return ctx if isinstance(ctx, TraceContext) else None
 
 
 @dataclass

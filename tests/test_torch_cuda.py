@@ -185,3 +185,33 @@ def test_bridged_join_crash_and_leave_on_card_match_cpu(cuda_device):
         [p[k] for k in keys] for p in runs[0]["pumps"]]
     scan = runs[1]["pumps"][2]
     assert scan["name"] == "crash, scan" and scan["launches"]["fd_phase_fused"] > 0
+
+
+def test_gateway_join_crash_and_leave_on_card_match_cpu(cuda_device, monkeypatch):
+    """``chip_smoke.py``'s gateway phase at 1000 virtual members (the port's
+    ``SwarmGateway`` and a member in its own OS process over TCP: its join,
+    a closed-form crash and one under ingress loss 1.0 run on the gateway's
+    protocol thread, its leave) on the card and on the CPU: the same cuts,
+    virtual times (the leave's aside) and sizes; in each run every configuration id equal to the
+    member's own and to a plain simulator's (the ids differ between runs
+    only by the member's port until it leaves)."""
+    import chip_smoke
+
+    monkeypatch.setenv("RAPID_JITWATCH", "1")  # the labels the debug mode's count is held to
+    runs = [chip_smoke.gateway_sequence(1000, device) for device in ("cpu", cuda_device)]
+    # the leave's virtual time counts the idle pumps that ran while the loss
+    # stayed armed, which wall time decides; the steps before are exact
+    keys = ("name", "cut", "virtual_time_ms", "members_before")
+    assert [[r[k] for k in keys] for r in runs[1]["steps"][:3]] == [
+        [r[k] for k in keys] for r in runs[0]["steps"][:3]]
+    assert [r["cut"] for r in runs[1]["steps"]] == [r["cut"] for r in runs[0]["steps"]]
+    for run in runs:
+        for row in run["steps"]:
+            assert row["configuration_id"] == row["plain_configuration_id"], row["name"]
+            if "member_configuration_id" in row:
+                assert row["member_configuration_id"] == row["configuration_id"], row["name"]
+    assert runs[0]["steps"][-1]["configuration_id"] == runs[1]["steps"][-1]["configuration_id"]
+    scan = runs[1]["steps"][2]
+    assert scan["name"] == "crash, scan" and scan["pump_launches"]["fd_phase_fused"] > 0
+    for row in runs[1]["steps"]:
+        assert row["counted_syncs"] == sum(row["syncs"].values()), row["name"]

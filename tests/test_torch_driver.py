@@ -218,9 +218,9 @@ def test_pow2_chunks():
 
 
 def test_port_imports_neither_jax_nor_rapid_tpu():
-    """In a fresh interpreter, the port (its simulator bridge and protocol
-    classes too) and chip_smoke.py load no module of JAX or of the JAX
-    package."""
+    """In a fresh interpreter, the port (its simulator bridge, protocol
+    classes and socket gateway too) and chip_smoke.py load no module of JAX,
+    of the JAX package, of msgpack or of protobuf."""
     code = (
         "import runpy, sys\n"
         "import rapid_tpu_torch.sim.driver, rapid_tpu_torch.sim.classic\n"
@@ -230,8 +230,11 @@ def test_port_imports_neither_jax_nor_rapid_tpu():
         "import rapid_tpu_torch.forensics.hlc\n"
         "import rapid_tpu_torch.sim.bridge, rapid_tpu_torch.types\n"
         "import rapid_tpu_torch.runtime.futures\n"
+        "import rapid_tpu_torch.messaging.gateway, rapid_tpu_torch.cli.gateway\n"
         "runpy.run_path('chip_smoke.py')\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu', 'msgpack')\n"
+        "             or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
