@@ -97,7 +97,20 @@ into build/kernels/. Phases, each of which must pass:
    ingress loss 1.0 (the scan, launching ``fd_phase_fused``), and leaves;
    every configuration id equal on the gateway, in the member's own view and
    on a plain simulator driven alike, and every sync of the protocol thread
-   accounted for by a ``jitwatch`` label (``gateway_sequence``).
+   accounted for by a ``jitwatch`` label (``gateway_sequence``);
+14. the driver's host planes, last: the placement kernel ``placement_topr``
+   against its plain version, bit for bit, at [8192, 100_000] (R 3, one
+   virtual instance, 1% inactive), at [1024, 100_000] with weights 1-8 and
+   in an added-column merge of 1000 columns into 8192 prior rows, timed
+   cold and hot beside its bound and the plain version (``topr_phase``);
+   ``Simulator(100_000)`` with placement (8192 x 3), handoff, serving, the
+   SLO plane, durability and an 8-cell hierarchy, driven with the bench's
+   serving traffic through a crash of 1% and a slot restart, every plane's
+   invariant held and the decision's syncs equal to its labelled ones
+   (``planes_path``); and the bench's serving dimension, the sweep's
+   10 000-member placement point and hierarchy-zone-churn, each equal to
+   what the JAX package gave (``tests/golden/torch_planes.json``,
+   ``planes_golden_check``).
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -2123,6 +2136,512 @@ def wire_phase(card, reps=5):
     return {"frames": len(frames), "classes": classes, "large": big}
 
 
+# --------------------------------------------------------------------- #
+# The driver's host planes: placement (on placement_topr), handoff,
+# serving, SLO, durability and hierarchy
+# --------------------------------------------------------------------- #
+
+# the bench's serving dimension (bench.py SERVING_*)
+SERVING_N_NODES = 64
+SERVING_PARTITIONS = 256
+SERVING_KEYS = 64
+SERVING_OPS = (("steady", 300), ("view_change_window", 150), ("post_view", 150))
+SERVING_PUT_FRACTION = 0.2
+SERVING_RATE_PER_S = 600.0
+SERVING_ZIPF_S = 1.1
+SERVING_CLIENTS = 1_000_000
+SERVING_SLO_WINDOW_SCALE = 0.001
+# the bench sweep's placement point (bench.py run_sweep / warmed_run)
+SWEEP_N = 10_000
+SWEEP_PARTITIONS = 1024
+SWEEP_FAIL_FRACTION = 0.01
+# hierarchy-zone-churn at its defaults (scenarios.py)
+ZONE_CHURN = {"seed": 19, "zones": 8, "per_zone": 256}
+# the full-width path: test_sim_placement_at_scale's map, every plane on
+PLANES_PARTITIONS = 8192
+PLANES_REPLICAS = 3
+PLANES_CELLS = 8
+PLANES_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "golden", "torch_planes.json")
+HANDOFF_METRICS = (
+    "handoff.sessions_started", "handoff.sessions_completed",
+    "handoff.sessions_failed", "handoff.chunks_sent", "handoff.chunks_received",
+    "handoff.chunks_duplicate", "handoff.bytes_moved", "handoff.retries",
+    "handoff.failovers", "handoff.releases",
+)
+# placement_topr's bound: the INT32 lanes of an H100 SXM (132 SMs x 64 lanes a
+# clock) at its 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# operations a scored (row, column) pair costs: per virtual instance the
+# mix (xor, two multiplies, two shifts, two xors) and a max, then the compare
+# against the row's R-th best
+TOPR_OPS_PER_INSTANCE = 8
+TOPR_OPS_PER_PAIR = 1
+TOPR_CASES = (
+    # (name, rows, columns, replicas, weights from..to, inactive share)
+    ("full build [8192, 100000], R 3, V 1", 8192, 100_000, 3, (1, 1), 0.01),
+    ("weighted [1024, 100000], R 3, weights 1-8", 1024, 100_000, 3, (1, 8), 0.01),
+)
+TOPR_MERGE = ("merge of 1000 added columns into 8192 prior rows, R 3", 8192, 100_000, 3, 1000)
+TOPR_COLD_BYTES = 2 * 50 * 2**20  # cold runs rotate input sets past 2x the L2
+
+
+def _kv_digest(sim):
+    """The serving oracle as JSON: hex key -> [version, hex value]."""
+    return {k.hex(): [int(v), b.hex()] for k, (v, b) in sorted(sim.serving_acked.items())}
+
+
+def _record_digest(rec):
+    return {"cut": sorted(int(c) for c in rec.cut), "configuration_id": int(rec.configuration_id),
+            "virtual_time_ms": int(rec.virtual_time_ms),
+            "membership_size": int(rec.membership_size)}
+
+
+def drive_open_loop(sim, gen, n_ops):
+    """One serving window of the bench's: the arrival clock rebased to the
+    simulator's, ``n_ops`` open-loop arrivals driven. Returns the window's
+    statuses, latencies, elapsed virtual ms and end time."""
+    gen.rebase(sim.virtual_ms)
+    t0 = sim.virtual_ms
+    results = sim.serving_drive_open_loop(gen.arrivals(n_ops))
+    return {"statuses": [int(s) for _a, s, _l in results],
+            "latencies_ms": [float(lat) for _a, _s, lat in results],
+            "elapsed_ms": float(max(sim.virtual_ms - t0, 1)), "virtual_ms": int(sim.virtual_ms)}
+
+
+def _lost_acked(sim):
+    lost = 0
+    for key, (version, _value) in sim.serving_acked.items():
+        back = sim.serving_get(key)
+        if back.status != back.STATUS_OK or back.version < version:
+            lost += 1
+    return lost
+
+
+def serving_dimension_run(Simulator, SLOSettings, OpenLoopGenerator, seed=SEED, **sim_kw):
+    """The bench's serving dimension as written (``bench.run_serving_dimension``):
+    64 members, 256 partitions, placement, handoff, serving and the SLO plane;
+    a preload, then open-loop windows steady, through a crash (the churn
+    window) and after the decided view. Takes either package's classes, so
+    ``tests/golden/generate_torch_planes.py`` records the JAX package's run
+    and the port's is held to it. Returns the run as JSON-ready data."""
+    rng = np.random.default_rng(seed)
+    sim = Simulator(SERVING_N_NODES, seed=seed, **sim_kw)
+    sim.enable_placement(partitions=SERVING_PARTITIONS)
+    sim.enable_handoff()
+    sim.enable_serving()
+    plane = sim.enable_slo(SLOSettings(enabled=True, window_scale=SERVING_SLO_WINDOW_SCALE))
+    keys = [b"bench-key-%04d" % i for i in range(SERVING_KEYS)]
+    for i, key in enumerate(keys):
+        assert sim.serving_put(key, b"seed-%d" % i).status == 0, "preload write failed"
+    gen = OpenLoopGenerator(SERVING_RATE_PER_S, keys, put_fraction=SERVING_PUT_FRACTION,
+                            seed=seed, zipf_s=SERVING_ZIPF_S, clients=SERVING_CLIENTS)
+    versions = [int(sim.placement.version)]
+    windows = {}
+    windows["steady"] = drive_open_loop(sim, gen, SERVING_OPS[0][1])
+    victim = int(rng.integers(1, SERVING_N_NODES))
+    sim.crash(np.array([victim]))
+    windows["view_change_window"] = drive_open_loop(sim, gen, SERVING_OPS[1][1])
+    rec = sim.run_until_decision(max_rounds=64, batch=16)
+    assert rec is not None and set(int(c) for c in rec.cut) == {victim}, "cut parity"
+    versions.append(int(sim.placement.version))
+    windows["post_view"] = drive_open_loop(sim, gen, SERVING_OPS[2][1])
+    return {
+        "victim": victim, "record": _record_digest(rec), "windows": windows,
+        "lost_acked_writes": _lost_acked(sim), "acked": _kv_digest(sim),
+        "virtual_ms": int(sim.virtual_ms), "placement_versions": versions,
+        "moved": [int(d.moved) for d in sim.placement_diffs],
+        "handoff": {m: int(sim.metrics.get(m)) for m in HANDOFF_METRICS},
+        "slo": plane.summary(sim.virtual_ms),
+    }
+
+
+def sweep_point_run(Simulator, seed=SEED, n=SWEEP_N, partitions=SWEEP_PARTITIONS, **sim_kw):
+    """The bench sweep's placement point (``bench.warmed_run(n,
+    placement_partitions=partitions, handoff_partitions=partitions)``): its
+    timed simulator, with placement and handoff, 1% crashed, one
+    ``run_until_decision(16, 16)``. The victims are drawn after the warm-up
+    run's, as the bench draws them."""
+    rng = np.random.default_rng(seed)
+    n_fail = max(1, int(n * SWEEP_FAIL_FRACTION))
+    rng.choice(n, size=n_fail, replace=False)  # the bench's warm-up victims
+    sim = Simulator(n, seed=seed + 4444, **sim_kw)
+    sim.enable_placement(partitions=partitions)
+    sim.enable_handoff()
+    versions = [int(sim.placement.version)]
+    victims = rng.choice(n, size=n_fail, replace=False)
+    sim.crash(victims)
+    rec = sim.run_until_decision(max_rounds=16, batch=16)
+    assert rec is not None and set(int(c) for c in rec.cut) == set(int(v) for v in victims)
+    versions.append(int(sim.placement.version))
+    return {
+        "record": _record_digest(rec), "placement_versions": versions,
+        "moved": [int(d.moved) for d in sim.placement_diffs],
+        "moved_partitions": [int(p) for p in sim.placement_diffs[0].partitions_moved],
+        "handoff": {m: int(sim.metrics.get(m)) for m in HANDOFF_METRICS},
+        "transfers": len(sim.handoff_transfers[0]), "virtual_ms": int(sim.virtual_ms),
+    }
+
+
+def _hierarchy_rows(sim):
+    return [[int(r.cell), int(r.epoch), int(r.size), r.leader, int(r.fingerprint)]
+            for r in sim.hierarchy_rows()]
+
+
+def zone_churn_run(Simulator, SimConfig, LatencyTopology, Endpoint, cell_leaders,
+                   seed=19, zones=8, per_zone=256, **sim_kw):
+    """``scenarios.py``'s hierarchy-zone-churn: ``zones`` topology cells of
+    ``per_zone`` members, a scatter of 8 crashes across cells, then one
+    whole cell, its leader included, killed. Returns the cells, the rows,
+    the parent rounds and the global fingerprints after each step."""
+    n = zones * per_zone
+    topo = LatencyTopology(racks=zones * 2, zones=zones, rack_rtt_ms=0, zone_rtt_ms=2,
+                           region_rtt_ms=4, inter_region_rtt_ms=8)
+    rng = np.random.default_rng(seed)
+    sim = Simulator(n, config=SimConfig(capacity=n, groups=8), seed=seed, **sim_kw)
+    sim.enable_hierarchy(topology=topo, parent_round_ms=4)
+    fingerprints = [int(sim.global_fingerprint())]
+    lost_zone = int(rng.integers(zones))
+    zone_victims = [i for i in range(n) if topo.zone_of(i) == lost_zone]
+    members = [Endpoint(hostname=h, port=p) for h, p in (sim.endpoint_of(s) for s in zone_victims)]
+    leader = str(cell_leaders(members, 1)[0])
+    others = [i for i in range(n) if topo.zone_of(i) != lost_zone]
+    scatter = [int(i) for i in rng.choice(others, size=8, replace=False)]
+    records = []
+    for victims in (scatter, zone_victims):
+        sim.crash(np.array(victims))
+        rec = sim.run_until_decision(max_rounds=32, batch=16)
+        assert rec is not None
+        records.append(_record_digest(rec))
+        fingerprints.append(int(sim.global_fingerprint()))
+    rows = _hierarchy_rows(sim)
+    incremental = sim.global_fingerprint()
+    for state in sim.hierarchy_rows():
+        sim._hierarchy_recompute_cell(state.cell)
+    return {
+        "lost_zone": lost_zone, "leader": leader, "scatter": scatter, "records": records,
+        "rows": rows, "cells": {str(r[0]): r[2] for r in rows},
+        "parent_rounds": int(sim.parent_rounds), "global_fingerprints": fingerprints,
+        "fingerprint_ok": bool(incremental == sim.global_fingerprint()),
+        "virtual_ms": int(sim.virtual_ms),
+    }
+
+
+def planes_golden_runs(device):
+    """The three runs of ``tests/golden/torch_planes.json`` on the port, on
+    ``device``: the bench's serving dimension, the sweep's placement point
+    and hierarchy-zone-churn."""
+    from rapid_tpu_torch.hierarchy.parent import cell_leaders
+    from rapid_tpu_torch.settings import SLOSettings
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.sim.engine import SimConfig
+    from rapid_tpu_torch.sim.topology import LatencyTopology
+    from rapid_tpu_torch.slo import OpenLoopGenerator
+    from rapid_tpu_torch.types import Endpoint
+
+    return {
+        "serving_dimension": serving_dimension_run(Simulator, SLOSettings, OpenLoopGenerator,
+                                                   device=device),
+        "sweep_point": sweep_point_run(Simulator, device=device),
+        "zone_churn": zone_churn_run(Simulator, SimConfig, LatencyTopology, Endpoint,
+                                     cell_leaders, **ZONE_CHURN, device=device),
+    }
+
+
+def _golden_misses(got, want, path=""):
+    """Where ``got`` differs from ``want`` (JSON-ready data), as paths."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        misses = [f"{path}/{k}: missing" for k in want if k not in got]
+        for k in want:
+            if k in got:
+                misses += _golden_misses(got[k], want[k], f"{path}/{k}")
+        return misses
+    if isinstance(want, list) and isinstance(got, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{path}: {len(got)} items, want {len(want)}"]
+        return [m for i, (g, w) in enumerate(zip(got, want)) for m in _golden_misses(g, w, f"{path}[{i}]")]
+    return [] if got == want else [f"{path}: {got!r}, want {want!r}"]
+
+
+def planes_golden_check(device):
+    """The port's runs against ``tests/golden/torch_planes.json``, exactly.
+    Returns {run: misses}."""
+    with open(PLANES_GOLDEN) as f:
+        want = json.load(f)["runs"]
+    got = json.loads(json.dumps(planes_golden_runs(device)))
+    return {name: _golden_misses(got[name], want[name]) for name in want}
+
+
+def _topr_inputs(rng, rows, cols, weights, inactive, device):
+    part = torch.from_numpy(rng.integers(0, 2**32, rows, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(device)
+    w = rng.integers(weights[0], weights[1] + 1, cols).astype(np.int32)
+    inst = torch.from_numpy(rng.integers(0, 2**32, (int(w.max()), cols), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(device)
+    active = torch.from_numpy(rng.random(cols) >= inactive).to(device)
+    return part, inst, torch.from_numpy(w).to(device), active
+
+
+def _topr_bound(rows, weights, active, replicas, cols=None, prior_rows=0):
+    """(bound ms, "bytes" or "operations"): the operations this run's
+    candidates need over the INT32 rate, against each input read once and
+    the output written once over HBM's rate."""
+    w = weights.to(torch.int64)
+    if cols is None:
+        per_row = int((w * TOPR_OPS_PER_INSTANCE + TOPR_OPS_PER_PAIR)[active].sum())
+        scanned = weights.numel()
+    else:
+        per_row = int((w[cols.long()] * TOPR_OPS_PER_INSTANCE + TOPR_OPS_PER_PAIR).sum())
+        scanned = cols.numel()
+    ops = rows * per_row
+    n_inst = int(w.max())
+    nbytes = (4 * rows + 4 * n_inst * weights.numel() + 4 * scanned
+              + (active.numel() if cols is None else 4 * cols.numel())
+              + 8 * replicas * prior_rows + 8 * replicas * rows)
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _events_ms(fn, iters):
+    """Device ms of one call of ``fn``, over ``iters`` calls timed with CUDA
+    events (the plain version's Python loop cannot be graph-captured whole)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def topr_phase(device, card):
+    """``placement_topr`` against its plain version on the card, bit for
+    bit, at the full-width shapes (``TOPR_CASES``, ``TOPR_MERGE``): cold
+    (input sets rotated past 2x the L2) and hot device time, its bound, the
+    plain version's time. No single PyTorch call computes this function."""
+    from rapid_tpu_torch.placement import device as pdev
+
+    out = {}
+    rng = np.random.default_rng(SEED + 9900)
+    cases = [(name, rows, cols, r, w, inactive, None)
+             for name, rows, cols, r, w, inactive in TOPR_CASES]
+    name, rows, cols, r, added = TOPR_MERGE
+    cases.append((name, rows, cols, r, (1, 1), 0.01, added))
+    for name, rows, cols, r, weights, inactive, added in cases:
+        part, inst, w, active = _topr_inputs(rng, rows, cols, weights, inactive, device)
+        kw = {}
+        if added is not None:
+            prior = pdev.placement_topr(part, inst, w, active, r)
+            merge_cols = torch.from_numpy(np.sort(rng.choice(cols, added, replace=False))
+                                          .astype(np.int32)).to(device)
+            kw = {"cols": merge_cols, "prior": prior}
+        got = pdev.placement_topr(part, inst, w, None if kw else active, r, **kw)
+        want = pdev.placement_topr_plain(part, inst, w, None if kw else active, r, **kw)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        assert err == 0 and torch.equal(got, want), f"placement_topr disagrees: {name}"
+        call = (lambda p=part, i=inst, ww=w, a=active, k=kw:
+                pdev.placement_topr(p, i, ww, None if k else a, r, **k))
+        per_set = 4 * (part.numel() + inst.numel() + w.numel()) + active.numel()
+        n_sets = max(2, TOPR_COLD_BYTES // per_set + 1)
+        sets = []
+        for _ in range(n_sets):
+            p2, i2, w2, a2 = _topr_inputs(rng, rows, cols, weights, inactive, device)
+            sets.append(lambda p=p2, i=i2, ww=w2, a=a2, k=kw:
+                        pdev.placement_topr(p, i, ww, None if k else a, r, **k))
+        cold_ms = _time_ms(sets, reps=len(sets), iters=5)
+        hot_ms = _time_ms(call, reps=8, iters=5)
+        plain_ms = _events_ms(lambda: pdev.placement_topr_plain(
+            part, inst, w, None if kw else active, r, **kw), 2)
+        bound_ms, bound_by = _topr_bound(
+            rows, w, active, r, kw.get("cols"), rows if kw else 0)
+        out[name] = {"shape": [rows, cols], "replicas": r, "max_abs_err": err,
+                     "ms": cold_ms, "hot_ms": hot_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"placement_topr, {name}: bit-identical to plain (tolerance 0), cold "
+              f"{cold_ms * 1e3:.1f} us ({n_sets} input sets), hot {hot_ms * 1e3:.1f} us, bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by}, {100 * bound_ms / cold_ms:.0f}% of it), "
+              f"plain {plain_ms:.2f} ms; library: none ({card})", flush=True)
+    return out
+
+
+def planes_path(device, card, n=N_NODES, seed=SEED):
+    """The planes on the full-width path: ``Simulator(100_000)`` with
+    placement (8192 x 3, built by ``placement_topr``), handoff, serving, the
+    SLO plane, durability and an 8-cell hierarchy; the bench's serving
+    traffic steady, through a crash of 1% (the closed form) and after the
+    view; then ``restart_slot`` of a live slot. Holds every plane's
+    invariant, the configuration id against a plain simulator's, and the
+    decision's syncs (the debug mode's count equal to the labelled ones).
+    Launch counts are reset just before the path and read just after."""
+    from rapid_tpu_torch.placement.device import DevicePlacement
+    from rapid_tpu_torch.runtime import jitwatch
+    from rapid_tpu_torch.settings import SLOSettings
+    from rapid_tpu_torch.sim import kernels
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.slo import OpenLoopGenerator
+
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    rng = np.random.default_rng(seed + 9100)
+    rss_before = _rss_mib()
+    sim = timed("Simulator", lambda: Simulator(n, seed=seed, device=device).ready())
+    kernels.reset_launches()
+    syncs_before = dict(jitwatch.sync_counts())
+    timed("enable_placement", lambda: sim.enable_placement(
+        partitions=PLANES_PARTITIONS, replicas=PLANES_REPLICAS))
+    timed("enable_handoff", sim.enable_handoff)
+    timed("enable_serving", sim.enable_serving)
+    plane = timed("enable_slo", lambda: sim.enable_slo(
+        SLOSettings(enabled=True, window_scale=SERVING_SLO_WINDOW_SCALE)))
+    timed("enable_durability", sim.enable_durability)
+    timed("enable_hierarchy", lambda: sim.enable_hierarchy(cells=PLANES_CELLS))
+    keys = [b"bench-key-%04d" % i for i in range(SERVING_KEYS)]
+    for i, key in enumerate(keys):
+        assert sim.serving_put(key, b"seed-%d" % i).status == 0, "preload write failed"
+    gen = OpenLoopGenerator(SERVING_RATE_PER_S, keys, put_fraction=SERVING_PUT_FRACTION,
+                            seed=seed, zipf_s=SERVING_ZIPF_S, clients=SERVING_CLIENTS)
+    windows = {}
+    windows["steady"] = timed("window steady", lambda: drive_open_loop(sim, gen, 300))
+    victims = np.sort(rng.choice(n, n // 100, replace=False))
+    before_assign = sim.placement.assign.copy()
+    sim.crash(victims)
+    windows["view_change_window"] = timed("window view_change_window",
+                                          lambda: drive_open_loop(sim, gen, 150))
+    decided = []
+    labelled = dict(jitwatch.sync_counts())
+    t0 = time.perf_counter()
+    debug_syncs = _count_syncs(lambda: sim.run_until_decision(max_rounds=16, batch=16), decided)
+    torch.cuda.synchronize()
+    walls["view change, planes on"] = (time.perf_counter() - t0) * 1e3
+    decision_syncs = _diff(jitwatch.sync_counts(), labelled)
+    rec = decided[0]
+    assert rec is not None and np.array_equal(np.sort(rec.cut), victims), "planes: cut != victims"
+    windows["post_view"] = timed("window post_view", lambda: drive_open_loop(sim, gen, 150))
+    lost = _lost_acked(sim)
+    # restart a live replica of the first key's partition: it holds writes
+    slot = sim._serving_row(keys[0])[2][0]
+    pending = sim.durable_pending(slot)
+    replayed = timed("restart_slot", lambda: sim.restart_slot(slot))
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    syncs = _diff(jitwatch.sync_counts(), syncs_before)
+
+    # the invariants
+    diff = sim.placement_diffs[0]
+    expected = np.flatnonzero(np.isin(before_assign, victims).any(axis=1))
+    assert len(sim.placement_diffs) == 1
+    assert np.array_equal(np.sort(diff.partitions_moved), expected), "moved != rows meeting victims"
+    assert not np.isin(sim.placement.assign, victims).any(), "a victim is left in the map"
+    fresh = DevicePlacement(sim.placement.config, sim.cluster.hostnames, sim.cluster.host_lengths,
+                            sim.cluster.ports, device=device)
+    fresh.build(sim.active)
+    assert fresh.version == sim.placement.version, "map version != a fresh build's"
+    assert np.array_equal(fresh.assign, sim.placement.assign)
+    started = sim.metrics.get("handoff.sessions_started")
+    completed = sim.metrics.get("handoff.sessions_completed")
+    assert started > 0 and completed == started, (completed, started)
+    assert lost == 0, f"{lost} acked writes lost"
+    incremental = sim.global_fingerprint()
+    for state in sim.hierarchy_rows():
+        sim._hierarchy_recompute_cell(state.cell)
+    assert incremental == sim.global_fingerprint(), "hierarchy fingerprint != recompute"
+    assert pending > 0 and replayed == pending, (replayed, pending)
+    assert launches.get("placement_topr", 0) >= 2, launches
+    assert decision_syncs.get("placement.assign") == 1, decision_syncs
+    assert debug_syncs == sum(decision_syncs.values()), (debug_syncs, decision_syncs)
+    plain = Simulator(n, seed=seed, device=device).ready()
+    plain.crash(victims)
+    t0 = time.perf_counter()
+    plain_rec = plain.run_until_decision(max_rounds=16, batch=16)
+    plain.ready()
+    walls["view change, planes off"] = (time.perf_counter() - t0) * 1e3
+    assert plain_rec.configuration_id == rec.configuration_id, "configuration id != plain"
+
+    summary = plane.summary(sim.virtual_ms)
+    result = {
+        "walls_ms": walls, "launches": launches, "syncs": syncs,
+        "decision_syncs": decision_syncs, "debug_mode_syncs": debug_syncs,
+        "moved": int(diff.moved), "handoff_sessions": int(started),
+        "bytes_moved": int(sim.metrics.get("handoff.bytes_moved")),
+        "reconciled_replicas": int(sim.metrics.get("serving.reconciled_replicas")),
+        "parent_rounds": int(sim.parent_rounds), "replayed": int(replayed),
+        "acked": len(sim.serving_acked), "virtual_ms": int(sim.virtual_ms),
+        "configuration_id": int(rec.configuration_id),
+        "windows": {k: {"ops": len(v["statuses"]), "elapsed_ms": v["elapsed_ms"],
+                        "p99_ms": sorted(v["latencies_ms"])[int(0.99 * (len(v["latencies_ms"]) - 1))]}
+                    for k, v in windows.items()},
+        "slo_availability": {k: v["availability"] for k, v in summary.items()},
+        "host_rss_mib": _rss_mib(), "host_rss_growth_mib": _rss_mib() - rss_before,
+    }
+    print(f"planes, full width: {n} members, {len(victims)} crashed, cut ok, config id "
+          f"{rec.configuration_id} == a plain simulator's, {diff.moved} partitions moved == the rows "
+          f"meeting the victims, no victim left, version == a fresh build's; handoff {completed}/"
+          f"{started} sessions; 0 of {len(sim.serving_acked)} acked writes lost; hierarchy "
+          f"fingerprint == recompute ({sim.parent_rounds} parent round); restart_slot({slot}) "
+          f"replayed {replayed} == durable_pending ({card})", flush=True)
+    print(f"planes, walls ms: {json.dumps({k: round(v, 1) for k, v in walls.items()})} ({card})",
+          flush=True)
+    print(f"planes, the decision's syncs {decision_syncs} (debug mode: {debug_syncs}); the path's "
+          f"syncs {syncs}; launches {launches}; host RSS {result['host_rss_mib']:.0f} MiB, "
+          f"{result['host_rss_growth_mib']:.0f} MiB of it since before the simulator ({card})",
+          flush=True)
+    return result
+
+
+def planes_host_memory(device, card, n=N_NODES, seed=SEED):
+    """The host memory the planes hold at full width: a fresh
+    ``Simulator(n)`` with every plane enabled as in ``planes_path``, the
+    Python and numpy allocations of the ``enable_*`` calls traced by
+    ``tracemalloc`` (which slows them, so no wall is taken here). Returns
+    MiB held after each call and the peak."""
+    import tracemalloc
+
+    from rapid_tpu_torch.settings import SLOSettings
+    from rapid_tpu_torch.sim.driver import Simulator
+
+    sim = Simulator(n, seed=seed, device=device).ready()
+    held = {}
+    tracemalloc.start()
+    try:
+        for name, fn in (
+                ("enable_placement", lambda: sim.enable_placement(
+                    partitions=PLANES_PARTITIONS, replicas=PLANES_REPLICAS)),
+                ("enable_handoff", sim.enable_handoff),
+                ("enable_serving", sim.enable_serving),
+                ("enable_slo", lambda: sim.enable_slo(
+                    SLOSettings(enabled=True, window_scale=SERVING_SLO_WINDOW_SCALE))),
+                ("enable_durability", sim.enable_durability),
+                ("enable_hierarchy", lambda: sim.enable_hierarchy(cells=PLANES_CELLS))):
+            fn()
+            held[name] = tracemalloc.get_traced_memory()[0] / 2**20
+        peak = tracemalloc.get_traced_memory()[1] / 2**20
+    finally:
+        tracemalloc.stop()
+    print(f"planes, host memory at {n} members (tracemalloc, MiB held after each enable): "
+          f"{json.dumps({k: round(v, 1) for k, v in held.items()})}, peak {peak:.1f} ({card})",
+          flush=True)
+    return {"held_mib": held, "peak_mib": peak}
+
+
+def _rss_mib():
+    """This process's resident host memory, from /proc (Linux)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return float("nan")
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2246,6 +2765,19 @@ def main() -> int:
     split = _split_phase(kernels, fd_bench, engine, device)
     sharded = _sharded_decisions(Simulator, engine, shard, kernels, rng, device)
 
+    # --- the driver's host planes, after every timed window above --------
+    t0 = time.perf_counter()
+    topr = topr_phase(device, card)
+    planes_result = planes_path(device, card)
+    planes_result["host_memory"] = planes_host_memory(device, card)
+    golden_misses = planes_golden_check(device)
+    assert not any(golden_misses.values()), f"planes: runs differ from {PLANES_GOLDEN}: " + "; ".join(
+        m for misses in golden_misses.values() for m in misses[:5])
+    print(f"planes, golden: the bench's serving dimension, the sweep's {SWEEP_N}-member placement "
+          f"point and hierarchy-zone-churn equal tests/golden/torch_planes.json exactly ({card})",
+          flush=True)
+    print(f"planes phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # each kernel's launches are those of its own path's run: the scan path
     # (ingress loss 1.0) under the policy the kernel serves
     path_launches = dict(scan_launches)
@@ -2315,6 +2847,29 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes either half
             "sizes": {f"{t['shape'][0]}x10": t},
         })
+    main_case = topr[TOPR_CASES[0][0]]
+    line["kernels"].append({
+        "name": "placement_topr",
+        "route": "cuda",
+        "source": "rapid_tpu_torch/csrc/placement_topr.cu",
+        # no Pallas kernel: the XLA program of build_jit, and numpy topr_full
+        "replaces": "rapid_tpu/placement/device.py:194",
+        "on_main_path": True,
+        "path": "planes, full width (enable_placement and the crash's view change)",
+        "launches": planes_result["launches"]["placement_topr"],
+        "match": True,
+        "max_abs_err": max(t["max_abs_err"] for t in topr.values()),
+        "ms": main_case["ms"],
+        "kernel_ms": main_case["ms"],
+        "hot_ms": main_case["hot_ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_us": main_case["bound_ms"] * 1e3,
+        "bound_by": main_case["bound_by"],
+        "tolerance": 0,
+        "library_ms": None,  # no single PyTorch call computes a rendezvous top-R
+        "sizes": topr,
+    })
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps(line))
     print(json.dumps({"headline_wall_ms": head_walls, "scan_wall_ms": scan_walls,
@@ -2323,7 +2878,7 @@ def main() -> int:
                       "sharded": sharded, "planes": planes, "card": card,
                       "bridge": dict(bridge, pumps=[dict(p, cut=len(p["cut"]))
                                                     for p in bridge["pumps"]]),
-                      "wire": wire, "gateway": gateway},
+                      "wire": wire, "gateway": gateway, "planes": planes_result},
                      default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,833 @@
+"""Deterministic fault plans and their decisions: the plan half of
+``rapid_tpu/faults.py``.
+
+- :class:`FaultPlan`: a seeded, declarative schedule of per-link faults --
+  probabilistic drops, one-way partitions with open/heal windows,
+  flip-flop schedules, delay distributions, duplication, reordering, and
+  the gray and storage rules (slow node, lossy link, clock skew, wire
+  version, restart, torn write, disk stall) -- with ``to_json`` /
+  ``from_json``. A plan is pure data, so one plan replays across runs and
+  across the two packages: a ``rapid_tpu.faults.FaultPlan`` crosses into
+  the port through its JSON form, and message types resolve by name in the
+  port's ``types``.
+- :class:`Nemesis`: one *armed* instance of a plan for one run. It takes
+  time from a clock seam (``now_ms()``; the simulator passes its virtual
+  clock) and derives every probabilistic decision from ``(plan seed, rule,
+  link, per-link sequence number)`` through a keyed hash -- never from
+  shared RNG state -- so both packages draw alike for every rule kind.
+
+The simulator's handoff and serving planes consult ``Nemesis.decide`` per
+chunk pull and per replication write. The transport decorators
+(``NemesisClient`` / ``NemesisServer``), ``SkewedScheduler`` with
+``Nemesis.scheduler_for``, and the device-replay functions
+(``apply_plan_at``, ``replay_on_simulator``) are not ported yet
+(ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import random
+import struct
+import zlib
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+from .hierarchy.cells import cell_of as _hier_cell_of
+from .observability import Metrics, global_metrics
+from .runtime.lockdep import make_lock
+from .types import Endpoint, RapidMessage
+
+EGRESS = "egress"
+INGRESS = "ingress"
+
+# (start_ms, end_ms) relative to the nemesis arm epoch; end None = forever
+Window = Tuple[int, Optional[int]]
+_ALWAYS: Tuple[Window, ...] = ((0, None),)
+
+
+def _u01(seed: int, *parts) -> float:
+    """Deterministic uniform in [0, 1) keyed on ``(seed, parts)``.
+
+    blake2b, not ``hash()``: decisions must not depend on per-process hash
+    salting, and must not depend on draw interleaving across links -- each
+    (rule, link, sequence-number) tuple owns its value outright.
+    """
+    h = hashlib.blake2b(digest_size=8)
+    h.update(struct.pack("<q", seed))
+    for part in parts:
+        h.update(str(part).encode())
+        h.update(b"\x1f")
+    return int.from_bytes(h.digest(), "little") / 2.0**64
+
+
+@dataclass(frozen=True)
+class LinkMatch:
+    """Which (src, dst, message type) triples a rule applies to; None = any."""
+
+    src: Optional[Endpoint] = None
+    dst: Optional[Endpoint] = None
+    msg_types: Optional[Tuple[type, ...]] = None
+
+    def matches(self, src: Optional[Endpoint], dst: Optional[Endpoint],
+                msg: RapidMessage) -> bool:
+        if self.src is not None and src != self.src:
+            return False
+        if self.dst is not None and dst != self.dst:
+            return False
+        if self.msg_types is not None and not isinstance(msg, self.msg_types):
+            return False
+        return True
+
+
+@dataclass(frozen=True)
+class Rule:
+    """Base: a link selector, an application side, and open/heal windows."""
+
+    match: LinkMatch = LinkMatch()
+    at: str = EGRESS
+    windows: Tuple[Window, ...] = _ALWAYS
+
+    def active_at(self, t_ms: int) -> bool:
+        return any(
+            start <= t_ms and (end is None or t_ms < end)
+            for start, end in self.windows
+        )
+
+
+@dataclass(frozen=True)
+class DropRule(Rule):
+    """Drop each matching message independently with ``probability``."""
+
+    probability: float = 1.0
+
+
+@dataclass(frozen=True)
+class PartitionRule(Rule):
+    """Deterministic one-way cut while a window is open (iptables INPUT)."""
+
+
+@dataclass(frozen=True)
+class CellPartitionRule(Rule):
+    """Hierarchy-plane fault: cut every link CROSSING cell ``cell``'s
+    boundary while a window is open, leaving intra-cell traffic alone --
+    the cell keeps running Rapid internally but its leader can no longer
+    reach peer leaders (and vice versa). ``cells`` is the rendezvous cell
+    count (hierarchy/cells.py); with a plan topology the zone is the cell,
+    matching the engine's assignment discipline."""
+
+    cell: int = 0
+    cells: int = 2
+
+
+@dataclass(frozen=True)
+class FlipFlopRule(Rule):
+    """The paper's flip-flop failure: the link alternates cut/healed every
+    half ``period_ms``, starting cut at ``start_ms`` (within the windows)."""
+
+    period_ms: int = 2000
+    start_ms: int = 0
+
+    def active_at(self, t_ms: int) -> bool:
+        if t_ms < self.start_ms or not super().active_at(t_ms):
+            return False
+        half = max(1, self.period_ms // 2)
+        return ((t_ms - self.start_ms) // half) % 2 == 0
+
+
+@dataclass(frozen=True)
+class DelayRule(Rule):
+    """Extra one-way latency: ``base_ms`` plus uniform [0, jitter_ms]."""
+
+    base_ms: int = 0
+    jitter_ms: int = 0
+
+
+@dataclass(frozen=True)
+class DuplicateRule(Rule):
+    """Deliver a second copy of each matching message with ``probability``."""
+
+    probability: float = 0.0
+
+
+@dataclass(frozen=True)
+class ReorderRule(Rule):
+    """Hold back each matching message with ``probability`` by a uniform
+    [1, max_extra_ms] extra delay, letting later traffic overtake it."""
+
+    probability: float = 0.0
+    max_extra_ms: int = 100
+
+
+@dataclass(frozen=True)
+class LossyLinkRule(DropRule):
+    """Gray failure: the link stays *connected* but drops a sustained
+    ``probability`` of traffic -- below the one-way-cut threshold a
+    PartitionRule models. A distinct class (not just a DropRule with small
+    p) so plans, telemetry and the device catalog name the failure mode the
+    paper's flip-flop battery gestures at but never isolates."""
+
+
+@dataclass(frozen=True)
+class SlowNodeRule(Rule):
+    """Gray failure: the matched destination answers *every* message, just
+    ``response_delay_ms`` late. When that exceeds the sender's per-message
+    timeout the sender observes a timeout -- exactly what a gray node looks
+    like from an FD's perspective -- while the node itself keeps receiving
+    and processing traffic (it is alive, voting, and will answer probes it
+    receives; only its answers come back too late to matter)."""
+
+    response_delay_ms: int = 0
+
+
+@dataclass(frozen=True)
+class ClockSkewRule(Rule):
+    """Gray failure: the matched *source* node's clock runs at ``rate``×
+    real time, offset by ``offset_ms``. Consulted through
+    :meth:`Nemesis.scheduler_for`, not the message path: the skewed node's
+    timers (FD probe intervals, retry backoff, message deadlines) all fire
+    early or late by the drift while every other node keeps true time."""
+
+    offset_ms: int = 0
+    rate: float = 1.0
+
+
+@dataclass(frozen=True)
+class WireVersionRule(Rule):
+    """Rolling upgrade: the matched *source* node encodes every egress
+    message at wire ``version`` -- round-tripped through the real codec with
+    that version's reserved ``__``-prefixed extension keys injected (newer
+    peer) or optional defaulted fields thinned (older peer) -- proving the
+    mixed-version cluster converges on bytes a same-version cluster never
+    exercises. See messaging/codec.py:wire_roundtrip."""
+
+    version: int = 2
+
+
+@dataclass(frozen=True)
+class RestartNodeRule(Rule):
+    """Process restart: the matched destination is dead for the span of
+    each window (killed at its start, restarted -- with WAL recovery --
+    at its end). The windows ARE the down periods, so they must all be
+    closed: an open-ended window is a crash-stop, which PartitionRule and
+    the fabric's eviction machinery already model. While down the node
+    neither answers nor sends; at the window's end the harness recovers
+    its durable store (log-over-snapshot) and re-pulls whatever it missed
+    through verified handoff catch-up."""
+
+
+@dataclass(frozen=True)
+class TornWriteRule(Rule):
+    """Storage fault: the matched destination's WAL tail is torn while it
+    is down -- ``drop_bytes`` truncated off the last segment, or
+    (``corrupt``) a byte inside the final record flipped so its CRC fails
+    -- modeling a crash mid-append or a half-flushed page. Applied by the
+    recovery harness at restart (the message plane is untouched): recovery
+    must truncate at the first bad record and converge via catch-up."""
+
+    drop_bytes: int = 3
+    corrupt: bool = False
+
+
+@dataclass(frozen=True)
+class DiskStallRule(Rule):
+    """Gray storage failure: every fsync on the matched destination takes
+    ``stall_ms`` extra -- a dying disk, a saturated EBS volume. The rule
+    matches the ``Put`` wire (builder-enforced) so the serving plane's
+    quorum writes feel it while probes stay unaffected: the node looks
+    healthy to every FD while its write path quietly drags."""
+
+    stall_ms: int = 0
+
+
+# Device-plane behavior of every Rule subclass, as the JAX package's
+# catalog states it (its apply_plan_at is not ported yet):
+#   compiled  -- mapped onto the Simulator's fault arrays by apply_plan_at
+#   absorbed  -- invisible to the round model within a documented bound
+RULE_CATALOG = {
+    "DropRule": "compiled",        # -> Simulator.ingress_loss
+    "PartitionRule": "compiled",   # -> Simulator.one_way_ingress_partition
+    "CellPartitionRule": "compiled",  # cell slots -> ingress partition
+    "FlipFlopRule": "compiled",    # -> partition toggled at phase edges
+    "LossyLinkRule": "compiled",   # -> Simulator.ingress_loss
+    "SlowNodeRule": "compiled",    # >= one round -> partition-equivalent
+    "DelayRule": "absorbed",       # sub-round latency only
+    "DuplicateRule": "absorbed",   # probe exchanges are idempotent
+    "ReorderRule": "absorbed",     # intra-round reordering only
+    "ClockSkewRule": "absorbed",   # bounded drift never flips a round
+    "WireVersionRule": "absorbed", # wire bytes are not modeled on device
+    "RestartNodeRule": "compiled", # down window -> partition-equivalent cut
+    "TornWriteRule": "absorbed",   # storage-level; no device storage model
+    "DiskStallRule": "absorbed",   # Put-path latency; probes unaffected
+}
+
+
+class FaultPlan:
+    """A seeded, declarative fault schedule (pure data, reusable across runs).
+
+    Builder methods append immutable rules and return ``self``::
+
+        plan = (FaultPlan(seed=7)
+                .partition_one_way(dst=victim)                  # from t=0 on
+                .flip_flop(period_ms=4000, dst=other)
+                .drop(0.2, msg_types=(ProbeMessage,))
+                .delay(base_ms=10, jitter_ms=5, src=a, dst=b))
+    """
+
+    def __init__(self, seed: int = 0) -> None:
+        self.seed = int(seed)
+        self.rules: List[Rule] = []
+        # optional WAN latency structure (sim/topology.py LatencyTopology):
+        # every egress decision adds the topology's one-way latency for the
+        # (src, dst) pair; topology_slots maps protocol-plane endpoints to
+        # topology indices (device-plane slots ARE indices)
+        self.topology = None
+        self.topology_slots: Dict[Endpoint, int] = {}
+
+    def with_topology(self, topology,
+                      slots: Optional[Dict[Endpoint, int]] = None) -> "FaultPlan":
+        """Attach a :class:`~.sim.topology.LatencyTopology`. ``slots`` maps
+        each protocol-plane endpoint to its topology index (omit on the
+        device plane, where slot == index)."""
+        self.topology = topology
+        self.topology_slots = dict(slots) if slots else {}
+        return self
+
+    @staticmethod
+    def _check_windows(windows: Tuple[Window, ...]) -> None:
+        """Reject windows that could never fire (a silent no-op fault plan
+        is a test that asserts nothing)."""
+        for start, end in windows:
+            if start < 0:
+                raise ValueError(f"window start {start} < 0")
+            if end is not None and end <= start:
+                raise ValueError(
+                    f"window ({start}, {end}) can never fire: end <= start"
+                )
+
+    @staticmethod
+    def _overlap(a: Tuple[Window, ...], b: Tuple[Window, ...]) -> bool:
+        return any(
+            (e2 is None or s1 < e2) and (e1 is None or s2 < e1)
+            for s1, e1 in a
+            for s2, e2 in b
+        )
+
+    def _check_partition_conflicts(self, rule: Rule) -> None:
+        """A PartitionRule and a FlipFlopRule (or two schedule-bearing
+        partition rules) on the SAME link with overlapping windows
+        contradict each other -- the plain cut masks the flip-flop's healed
+        phases, so the plan silently tests less than it claims."""
+        if not isinstance(rule, (PartitionRule, FlipFlopRule)):
+            return
+        for prior in self.rules:
+            if not isinstance(prior, (PartitionRule, FlipFlopRule)):
+                continue
+            if (prior.match.src, prior.match.dst, prior.at) != (
+                rule.match.src, rule.match.dst, rule.at
+            ):
+                continue
+            if self._overlap(prior.windows, rule.windows):
+                raise ValueError(
+                    f"contradictory partition rules on the same link "
+                    f"{rule.match.src} -> {rule.match.dst}: "
+                    f"{type(prior).__name__}{prior.windows} overlaps "
+                    f"{type(rule).__name__}{rule.windows}"
+                )
+
+    def _add(self, rule: Rule) -> "FaultPlan":
+        assert rule.at in (EGRESS, INGRESS), rule.at
+        self._check_windows(rule.windows)
+        self._check_partition_conflicts(rule)
+        self.rules.append(rule)
+        return self
+
+    @staticmethod
+    def _match(src, dst, msg_types) -> LinkMatch:
+        return LinkMatch(
+            src=src, dst=dst,
+            msg_types=tuple(msg_types) if msg_types is not None else None,
+        )
+
+    def drop(self, probability: float, src: Optional[Endpoint] = None,
+             dst: Optional[Endpoint] = None, msg_types=None,
+             windows: Tuple[Window, ...] = _ALWAYS,
+             at: str = EGRESS) -> "FaultPlan":
+        assert 0.0 <= probability <= 1.0, probability
+        return self._add(DropRule(
+            match=self._match(src, dst, msg_types), at=at, windows=windows,
+            probability=probability,
+        ))
+
+    def partition_one_way(self, src: Optional[Endpoint] = None,
+                          dst: Optional[Endpoint] = None,
+                          windows: Tuple[Window, ...] = _ALWAYS,
+                          at: str = EGRESS) -> "FaultPlan":
+        return self._add(PartitionRule(
+            match=self._match(src, dst, None), at=at, windows=windows,
+        ))
+
+    def cell_partition(self, cell: int, cells: int,
+                       windows: Tuple[Window, ...] = _ALWAYS,
+                       at: str = EGRESS) -> "FaultPlan":
+        """Isolate hierarchy cell ``cell`` (of ``cells``) from every other
+        cell while a window is open: cross-boundary messages drop in both
+        directions, intra-cell traffic is untouched."""
+        if cells < 2:
+            raise ValueError(
+                f"a cell partition needs >= 2 cells, got {cells}"
+            )
+        if not 0 <= cell < cells:
+            raise ValueError(f"cell {cell} outside [0, {cells})")
+        return self._add(CellPartitionRule(
+            match=self._match(None, None, None), at=at, windows=windows,
+            cell=cell, cells=cells,
+        ))
+
+    def flip_flop(self, period_ms: int, src: Optional[Endpoint] = None,
+                  dst: Optional[Endpoint] = None, start_ms: int = 0,
+                  windows: Tuple[Window, ...] = _ALWAYS,
+                  at: str = EGRESS) -> "FaultPlan":
+        assert period_ms >= 2, period_ms
+        return self._add(FlipFlopRule(
+            match=self._match(src, dst, None), at=at, windows=windows,
+            period_ms=period_ms, start_ms=start_ms,
+        ))
+
+    def delay(self, base_ms: int, jitter_ms: int = 0,
+              src: Optional[Endpoint] = None, dst: Optional[Endpoint] = None,
+              msg_types=None, windows: Tuple[Window, ...] = _ALWAYS,
+              at: str = EGRESS) -> "FaultPlan":
+        assert base_ms >= 0 and jitter_ms >= 0
+        return self._add(DelayRule(
+            match=self._match(src, dst, msg_types), at=at, windows=windows,
+            base_ms=base_ms, jitter_ms=jitter_ms,
+        ))
+
+    def duplicate(self, probability: float, src: Optional[Endpoint] = None,
+                  dst: Optional[Endpoint] = None, msg_types=None,
+                  windows: Tuple[Window, ...] = _ALWAYS,
+                  at: str = EGRESS) -> "FaultPlan":
+        assert 0.0 <= probability <= 1.0, probability
+        return self._add(DuplicateRule(
+            match=self._match(src, dst, msg_types), at=at, windows=windows,
+            probability=probability,
+        ))
+
+    def reorder(self, probability: float, max_extra_ms: int = 100,
+                src: Optional[Endpoint] = None,
+                dst: Optional[Endpoint] = None, msg_types=None,
+                windows: Tuple[Window, ...] = _ALWAYS,
+                at: str = EGRESS) -> "FaultPlan":
+        assert 0.0 <= probability <= 1.0, probability
+        assert max_extra_ms >= 1
+        return self._add(ReorderRule(
+            match=self._match(src, dst, msg_types), at=at, windows=windows,
+            probability=probability, max_extra_ms=max_extra_ms,
+        ))
+
+    def lossy_link(self, probability: float, src: Optional[Endpoint] = None,
+                   dst: Optional[Endpoint] = None, msg_types=None,
+                   windows: Tuple[Window, ...] = _ALWAYS,
+                   at: str = EGRESS) -> "FaultPlan":
+        if not 0.0 < probability < 1.0:
+            raise ValueError(
+                f"a lossy link drops some but not all traffic; p="
+                f"{probability} is a {'partition' if probability == 1.0 else 'no-op'}"
+            )
+        return self._add(LossyLinkRule(
+            match=self._match(src, dst, msg_types), at=at, windows=windows,
+            probability=probability,
+        ))
+
+    def slow_node(self, node: Endpoint, response_delay_ms: int,
+                  windows: Tuple[Window, ...] = _ALWAYS) -> "FaultPlan":
+        assert response_delay_ms >= 1, response_delay_ms
+        return self._add(SlowNodeRule(
+            match=self._match(None, node, None), at=EGRESS, windows=windows,
+            response_delay_ms=response_delay_ms,
+        ))
+
+    def clock_skew(self, node: Endpoint, offset_ms: int = 0,
+                   rate: float = 1.0) -> "FaultPlan":
+        if rate <= 0.0:
+            raise ValueError(f"clock rate must be positive, got {rate}")
+        # no windows: a clock that jumps mid-run would retroactively reorder
+        # already-scheduled timers, which no real skewed clock does
+        return self._add(ClockSkewRule(
+            match=self._match(node, None, None), at=EGRESS, windows=_ALWAYS,
+            offset_ms=offset_ms, rate=rate,
+        ))
+
+    def wire_version(self, node: Endpoint, version: int,
+                     windows: Tuple[Window, ...] = _ALWAYS) -> "FaultPlan":
+        return self._add(WireVersionRule(
+            match=self._match(node, None, None), at=EGRESS, windows=windows,
+            version=version,
+        ))
+
+    def restart_node(self, node: Endpoint,
+                     windows: Tuple[Window, ...]) -> "FaultPlan":
+        """Kill ``node`` at each window's start and restart it (with
+        recovery) at its end. Windows must be closed -- an open-ended one
+        is a crash-stop, which partition_one_way already models."""
+        if not windows:
+            raise ValueError("restart_node needs at least one down window")
+        if any(end is None for _start, end in windows):
+            raise ValueError(
+                "restart_node windows must be closed (a restart implies a "
+                "return); use partition_one_way for a crash-stop"
+            )
+        return self._add(RestartNodeRule(
+            match=self._match(None, node, None), at=EGRESS, windows=windows,
+        ))
+
+    def torn_write(self, node: Endpoint,
+                   windows: Tuple[Window, ...] = _ALWAYS,
+                   drop_bytes: int = 3, corrupt: bool = False) -> "FaultPlan":
+        """Tear ``node``'s WAL tail during recovery from any restart that
+        overlaps a window: truncate ``drop_bytes`` off the last segment,
+        or flip a byte in its final record when ``corrupt``."""
+        if drop_bytes < 1:
+            raise ValueError(f"drop_bytes must be >= 1, got {drop_bytes}")
+        return self._add(TornWriteRule(
+            match=self._match(None, node, None), at=EGRESS, windows=windows,
+            drop_bytes=drop_bytes, corrupt=bool(corrupt),
+        ))
+
+    def disk_stall(self, node: Endpoint, stall_ms: int,
+                   windows: Tuple[Window, ...] = _ALWAYS) -> "FaultPlan":
+        """Every fsync on ``node`` takes ``stall_ms`` extra; surfaces on
+        the Put wire (quorum writes drag) while probes stay healthy."""
+        from .types import Put
+
+        if stall_ms < 1:
+            raise ValueError(f"stall_ms must be >= 1, got {stall_ms}")
+        return self._add(DiskStallRule(
+            match=self._match(None, node, (Put,)), at=EGRESS,
+            windows=windows, stall_ms=stall_ms,
+        ))
+
+    def to_json(self) -> dict:
+        """JSON-able dict of the whole plan: rules (with windows and link
+        matches), seed, topology + endpoint slots. ``from_json`` is the
+        inverse; the pair is what lets the nemesis search pin shrunk plans
+        as corpus files (scenarios/corpus/)."""
+        data: dict = {
+            "seed": self.seed,
+            "rules": [_rule_to_json(rule) for rule in self.rules],
+        }
+        if self.topology is not None:
+            data["topology"] = {
+                name: int(getattr(self.topology, name))
+                for name in _TOPOLOGY_FIELDS
+            }
+        if self.topology_slots:
+            data["topology_slots"] = {
+                str(ep): int(slot)
+                for ep, slot in sorted(self.topology_slots.items())
+            }
+        return data
+
+    @staticmethod
+    def from_json(data: dict) -> "FaultPlan":
+        """Rebuild a plan from ``to_json`` output by re-invoking the builder
+        methods, so every construction-time check (window sanity, partition
+        conflicts, parameter ranges) re-runs on load -- a corpus file cannot
+        smuggle in a plan the builders would have rejected. Raises
+        ValueError on unknown rule/message/topology fields and whatever the
+        builders raise on invalid parameters."""
+        if not isinstance(data, dict):
+            raise ValueError(
+                f"fault plan must be a JSON object, got {type(data).__name__}"
+            )
+        plan = FaultPlan(seed=int(data.get("seed", 0)))
+        for spec in data.get("rules", ()):
+            _build_rule(plan, spec)
+        topo = data.get("topology")
+        slots_raw = data.get("topology_slots") or {}
+        if topo is not None:
+            from .sim.topology import LatencyTopology
+
+            unknown = set(topo) - set(_TOPOLOGY_FIELDS)
+            if unknown:
+                raise ValueError(f"unknown topology fields {sorted(unknown)}")
+            slots = {
+                Endpoint.from_string(ep): int(slot)
+                for ep, slot in slots_raw.items()
+            }
+            plan.with_topology(
+                LatencyTopology(**{k: int(v) for k, v in topo.items()}),
+                slots or None,
+            )
+        elif slots_raw:
+            raise ValueError("topology_slots without a topology")
+        return plan
+
+
+# LatencyTopology's full constructor surface, in declaration order
+_TOPOLOGY_FIELDS = (
+    "racks", "zones", "regions", "rack_rtt_ms", "zone_rtt_ms",
+    "region_rtt_ms", "inter_region_rtt_ms",
+)
+
+
+def _msg_type(name: str) -> type:
+    from . import types as _types
+
+    cls = getattr(_types, name, None)
+    if not isinstance(cls, type):
+        raise ValueError(f"unknown message type {name!r} in rapid_tpu_torch.types")
+    return cls
+
+
+def _rule_to_json(rule: Rule) -> dict:
+    msg_types = None
+    if rule.match.msg_types is not None:
+        for cls in rule.match.msg_types:
+            if _msg_type(cls.__name__) is not cls:
+                raise ValueError(
+                    f"message type {cls!r} is not addressable by name "
+                    f"in rapid_tpu_torch.types; the plan cannot round-trip"
+                )
+        msg_types = [cls.__name__ for cls in rule.match.msg_types]
+    spec: dict = {
+        "type": type(rule).__name__,
+        "at": rule.at,
+        "windows": [[start, end] for start, end in rule.windows],
+        "src": None if rule.match.src is None else str(rule.match.src),
+        "dst": None if rule.match.dst is None else str(rule.match.dst),
+        "msg_types": msg_types,
+    }
+    if isinstance(rule, FlipFlopRule):
+        spec["period_ms"] = rule.period_ms
+        spec["start_ms"] = rule.start_ms
+    elif isinstance(rule, CellPartitionRule):
+        spec["cell"] = rule.cell
+        spec["cells"] = rule.cells
+    elif isinstance(rule, DropRule):  # includes LossyLinkRule
+        spec["probability"] = rule.probability
+    elif isinstance(rule, DelayRule):
+        spec["base_ms"] = rule.base_ms
+        spec["jitter_ms"] = rule.jitter_ms
+    elif isinstance(rule, DuplicateRule):
+        spec["probability"] = rule.probability
+    elif isinstance(rule, ReorderRule):
+        spec["probability"] = rule.probability
+        spec["max_extra_ms"] = rule.max_extra_ms
+    elif isinstance(rule, SlowNodeRule):
+        spec["response_delay_ms"] = rule.response_delay_ms
+    elif isinstance(rule, ClockSkewRule):
+        spec["offset_ms"] = rule.offset_ms
+        spec["rate"] = rule.rate
+    elif isinstance(rule, WireVersionRule):
+        spec["version"] = rule.version
+    elif isinstance(rule, TornWriteRule):
+        spec["drop_bytes"] = rule.drop_bytes
+        spec["corrupt"] = rule.corrupt
+    elif isinstance(rule, DiskStallRule):
+        spec["stall_ms"] = rule.stall_ms
+    return spec
+
+
+def _build_rule(plan: FaultPlan, spec: dict) -> None:
+    if not isinstance(spec, dict):
+        raise ValueError(
+            f"rule spec must be a JSON object, got {type(spec).__name__}"
+        )
+    kind = spec.get("type")
+    windows = tuple(
+        (int(start), None if end is None else int(end))
+        for start, end in (spec.get("windows") or _ALWAYS)
+    )
+    src = spec.get("src")
+    src = None if src is None else Endpoint.from_string(src)
+    dst = spec.get("dst")
+    dst = None if dst is None else Endpoint.from_string(dst)
+    raw_types = spec.get("msg_types")
+    msg_types = (
+        None if raw_types is None
+        else tuple(_msg_type(name) for name in raw_types)
+    )
+    at = spec.get("at", EGRESS)
+    common = dict(src=src, dst=dst, msg_types=msg_types, windows=windows,
+                  at=at)
+    if kind == "DropRule":
+        plan.drop(float(spec["probability"]), **common)
+    elif kind == "PartitionRule":
+        plan.partition_one_way(src=src, dst=dst, windows=windows, at=at)
+    elif kind == "CellPartitionRule":
+        plan.cell_partition(int(spec["cell"]), int(spec["cells"]),
+                            windows=windows, at=at)
+    elif kind == "FlipFlopRule":
+        plan.flip_flop(int(spec["period_ms"]), src=src, dst=dst,
+                       start_ms=int(spec.get("start_ms", 0)),
+                       windows=windows, at=at)
+    elif kind == "DelayRule":
+        plan.delay(int(spec["base_ms"]), int(spec.get("jitter_ms", 0)),
+                   **common)
+    elif kind == "DuplicateRule":
+        plan.duplicate(float(spec["probability"]), **common)
+    elif kind == "ReorderRule":
+        plan.reorder(float(spec["probability"]),
+                     int(spec.get("max_extra_ms", 100)), **common)
+    elif kind == "LossyLinkRule":
+        plan.lossy_link(float(spec["probability"]), **common)
+    elif kind == "SlowNodeRule":
+        if dst is None:
+            raise ValueError("SlowNodeRule needs a dst node")
+        plan.slow_node(dst, int(spec["response_delay_ms"]), windows=windows)
+    elif kind == "ClockSkewRule":
+        if src is None:
+            raise ValueError("ClockSkewRule needs a src node")
+        plan.clock_skew(src, offset_ms=int(spec.get("offset_ms", 0)),
+                        rate=float(spec.get("rate", 1.0)))
+    elif kind == "WireVersionRule":
+        if src is None:
+            raise ValueError("WireVersionRule needs a src node")
+        plan.wire_version(src, int(spec["version"]), windows=windows)
+    elif kind == "RestartNodeRule":
+        if dst is None:
+            raise ValueError("RestartNodeRule needs a dst node")
+        plan.restart_node(dst, windows=windows)
+    elif kind == "TornWriteRule":
+        if dst is None:
+            raise ValueError("TornWriteRule needs a dst node")
+        plan.torn_write(dst, windows=windows,
+                        drop_bytes=int(spec.get("drop_bytes", 3)),
+                        corrupt=bool(spec.get("corrupt", False)))
+    elif kind == "DiskStallRule":
+        if dst is None:
+            raise ValueError("DiskStallRule needs a dst node")
+        plan.disk_stall(dst, int(spec["stall_ms"]), windows=windows)
+    else:
+        raise ValueError(f"unknown rule type {kind!r}")
+
+
+@dataclass
+class Decision:
+    """What the plane does to one message."""
+
+    drop: bool = False
+    delay_ms: int = 0
+    duplicates: int = 0
+    reordered: bool = False
+    # gray-failure extensions: slow_ms is the destination's response latency
+    # (sender sees a timeout when it exceeds the message deadline, but the
+    # message is still delivered); wire_version re-encodes the message
+    # through the versioned codec round-trip
+    slow_ms: int = 0
+    wire_version: Optional[int] = None
+
+
+class Nemesis:
+    """One armed instance of a plan for one run: epoch, decision streams,
+    counters. Create one per run. ``scheduler`` is anything with
+    ``now_ms()`` (the simulator hands it its virtual clock)."""
+
+    def __init__(self, plan: FaultPlan, scheduler,
+                 metrics: Optional[Metrics] = None) -> None:
+        self.plan = plan
+        self.scheduler = scheduler
+        self.metrics = metrics if metrics is not None else global_metrics()
+        self._epoch: Optional[int] = None
+        # (rule index, src str, dst str) -> decisions drawn so far
+        self._seq: Dict[Tuple[int, str, str], int] = {}
+        self._lock = make_lock("Nemesis._lock")
+
+    # -- clock ---------------------------------------------------------------
+
+    def arm(self, epoch_ms: Optional[int] = None) -> "Nemesis":
+        """Pin plan-time zero (default: now). Windows are relative to this;
+        re-arming after bootstrap starts the schedule from a healthy view."""
+        self._epoch = (
+            epoch_ms if epoch_ms is not None else self.scheduler.now_ms()
+        )
+        return self
+
+    def plan_now_ms(self) -> int:
+        if self._epoch is None:
+            self.arm()
+        return self.scheduler.now_ms() - self._epoch
+
+    # -- decisions -----------------------------------------------------------
+
+    def _draw(self, rule_idx: int, src: str, dst: str) -> float:
+        key = (rule_idx, src, dst)
+        with self._lock:
+            n = self._seq.get(key, 0)
+            self._seq[key] = n + 1
+        return _u01(self.plan.seed, rule_idx, src, dst, n)
+
+    def retry_rng(self, address: Optional[Endpoint]) -> random.Random:
+        """Per-sender seeded rng for backoff jitter draws."""
+        tag = str(address).encode() if address is not None else b"?"
+        return random.Random(self.plan.seed ^ zlib.crc32(tag))
+
+    def decide(self, src: Optional[Endpoint], dst: Optional[Endpoint],
+               msg: RapidMessage, at: str) -> Decision:
+        t = self.plan_now_ms()
+        out = Decision()
+        src_s, dst_s = str(src), str(dst)
+        for idx, rule in enumerate(self.plan.rules):
+            if rule.at != at or not rule.match.matches(src, dst, msg):
+                continue
+            if not rule.active_at(t):
+                continue
+            if isinstance(rule, CellPartitionRule):
+                # cross-boundary cut: drop iff exactly one end is inside
+                # the partitioned cell (intra-cell traffic untouched)
+                if src is not None and dst is not None:
+                    in_src = _hier_cell_of(
+                        src, rule.cells, topology=self.plan.topology,
+                        slots=self.plan.topology_slots or None,
+                    ) == rule.cell
+                    in_dst = _hier_cell_of(
+                        dst, rule.cells, topology=self.plan.topology,
+                        slots=self.plan.topology_slots or None,
+                    ) == rule.cell
+                    if in_src != in_dst:
+                        out.drop = True
+            elif isinstance(rule, (PartitionRule, FlipFlopRule,
+                                   RestartNodeRule)):
+                # a down-window restart victim is, to the message plane, a
+                # one-way cut; its recovery semantics live in the harness
+                out.drop = True
+            elif isinstance(rule, DropRule):
+                if self._draw(idx, src_s, dst_s) < rule.probability:
+                    out.drop = True
+            elif isinstance(rule, DelayRule):
+                jitter = (
+                    int(self._draw(idx, src_s, dst_s) * (rule.jitter_ms + 1))
+                    if rule.jitter_ms > 0 else 0
+                )
+                out.delay_ms += rule.base_ms + jitter
+            elif isinstance(rule, DuplicateRule):
+                if self._draw(idx, src_s, dst_s) < rule.probability:
+                    out.duplicates += 1
+            elif isinstance(rule, ReorderRule):
+                if self._draw(idx, src_s, dst_s) < rule.probability:
+                    held = 1 + int(
+                        self._draw(idx, src_s, dst_s) * rule.max_extra_ms
+                    )
+                    out.delay_ms += min(held, rule.max_extra_ms)
+                    out.reordered = True
+            elif isinstance(rule, SlowNodeRule):
+                out.slow_ms = max(out.slow_ms, rule.response_delay_ms)
+            elif isinstance(rule, DiskStallRule):
+                # the match restricts this to the Put wire: the stalled
+                # fsync surfaces as a late quorum-write answer
+                out.slow_ms = max(out.slow_ms, rule.stall_ms)
+            elif isinstance(rule, WireVersionRule):
+                out.wire_version = rule.version
+            # ClockSkewRule is consulted via scheduler_for, not per message
+        topo = self.plan.topology
+        if topo is not None and at == EGRESS:
+            # WAN latency structure: the topology's one-way delay applies to
+            # every message whose endpoints are placed (egress only, so
+            # wrapping both halves of a node never doubles the RTT)
+            si = self.plan.topology_slots.get(src)
+            di = self.plan.topology_slots.get(dst)
+            if si is not None and di is not None:
+                out.delay_ms += topo.one_way_ms(si, di)
+        return out

@@ -91,6 +91,11 @@ def xxh64_int(value: int, seed: int = 0) -> int:
     return xxh64((value & 0xFFFFFFFF).to_bytes(4, "little"), seed)
 
 
+def xxh64_long(value: int, seed: int = 0) -> int:
+    """LongHashFunction.xx(seed).hashLong: XXH64 of the 8 LE bytes of an int64."""
+    return xxh64((value & _MASK).to_bytes(8, "little"), seed)
+
+
 def endpoint_hash(hostname: bytes, port: int, seed: int) -> int:
     """Ring key for an endpoint under ring seed ``seed``.
 

@@ -1,13 +1,15 @@
 """Configuration knobs the port reads.
 
-The port's copy of ``ProfilingSettings`` and its ``profiling.*`` bounds from
-``rapid_tpu/settings.py`` (the settings the simulator plane takes), and of
+The port's copy of ``ProfilingSettings`` and ``SLOSettings`` and their
+``profiling.*`` and ``slo.*`` bounds from ``rapid_tpu/settings.py`` (the
+settings the simulator plane takes), and of
 ``Settings``, with the fields and methods that the messaging stack
 (``messaging/tcp.py``, ``retries.py``, ``gateway.py``) and the gateway CLI
 read, and the protocol timings a gateway's agents share with it, under
 JAX's names, order and defaults. What no ported module reads is left out:
-the FD policy knobs, the leave timeout, and the sub-settings (adaptive FD,
-profiling, durability, SLO, forensics, hierarchy).
+the FD policy knobs, the leave timeout, and the sub-settings fields of
+``Settings`` (adaptive FD, profiling, durability, SLO, forensics,
+hierarchy).
 """
 
 from __future__ import annotations
@@ -34,6 +36,33 @@ SETTINGS_CATALOG = {
     "profiling.history_capacity": {
         "min": 4, "max": 65536,
         "doc": "history-ring size before the oldest half is downsampled",
+    },
+    "slo.enabled": {
+        "min": 0, "max": 1,
+        "doc": "kill switch: False attaches no SLO plane and reproduces the "
+               "exact pre-SLO serving path",
+    },
+    "slo.bucket_ms": {
+        "min": 1, "max": 3600000,
+        "doc": "SLI aggregation time-bucket width; burn windows are sums of "
+               "whole buckets, so this bounds alert-edge resolution",
+    },
+    "slo.window_scale": {
+        "min": 0.000001, "max": 1000.0,
+        "doc": "multiplier on the declared burn windows (1.0 = wall-scale "
+               "SRE windows; small values shrink 5m/1h/6h/3d onto short "
+               "virtual-time runs without changing the burn arithmetic)",
+    },
+    "slo.max_buckets": {
+        "min": 16, "max": 1048576,
+        "doc": "SLI ring capacity in time buckets; the oldest buckets are "
+               "evicted beyond this, bounding memory for any run length",
+    },
+    "slo.clear_fraction": {
+        "min": 0.1, "max": 1.0,
+        "doc": "alert hysteresis: a firing burn alert clears only when both "
+               "window burn rates drop below clear_fraction x the fire "
+               "threshold (1.0 disables the hysteresis band)",
     },
 }
 
@@ -62,6 +91,37 @@ class ProfilingSettings:
             bounds = SETTINGS_CATALOG[f"profiling.{key}"]
             assert bounds["min"] <= value <= bounds["max"], (
                 f"profiling.{key}={value!r} outside "
+                f"[{bounds['min']}, {bounds['max']}]"
+            )
+
+
+@dataclass(frozen=True)
+class SLOSettings:
+    """Knobs for the SLO plane (``slo/``). Defaults are conservative: the
+    plane is off (``enabled=False`` attaches nothing to the serving path)
+    and, when on, SLIs aggregate into fixed-width time buckets whose
+    windowed sums drive the multi-window burn-rate alerts. ``window_scale``
+    maps the wall-scale SRE windows (5m/1h fast, 6h/3d slow) onto
+    virtual-time runs; the burn arithmetic is scale-invariant. Bounds live
+    in SETTINGS_CATALOG."""
+
+    enabled: bool = False
+    bucket_ms: int = 1000
+    window_scale: float = 1.0
+    max_buckets: int = 4096
+    clear_fraction: float = 0.9
+
+    def __post_init__(self) -> None:
+        for key, value in (
+            ("enabled", int(self.enabled)),
+            ("bucket_ms", self.bucket_ms),
+            ("window_scale", self.window_scale),
+            ("max_buckets", self.max_buckets),
+            ("clear_fraction", self.clear_fraction),
+        ):
+            bounds = SETTINGS_CATALOG[f"slo.{key}"]
+            assert bounds["min"] <= value <= bounds["max"], (
+                f"slo.{key}={value!r} outside "
                 f"[{bounds['min']}, {bounds['max']}]"
             )
 

@@ -16,8 +16,14 @@ hybrid logical clock when ``SimConfig.forensics`` is set) and the profiling
 plane (``enable_profiling``). Method names and signatures follow the JAX
 driver, with a ``device`` argument last.
 
-Not in this port yet (ROADMAP.md, Queue 1): the placement, handoff, serving,
-SLO, durability and hierarchy planes.
+The driver's host planes follow the JAX driver's: placement
+(``enable_placement``, its map built and updated on the device by the
+``placement_topr`` kernel), handoff, serving (``serving_put``/``get``, the
+open-loop driver), SLO, durability (``checkpoint_slot``/``restart_slot``)
+and the hierarchy mirror, hooked into the view change in JAX's order.
+Not in this port yet (ROADMAP.md, Queue 1): the protocol plane's live
+engines those planes mirror (placement subscriber, handoff and serving
+engines, hierarchy plane and routing, the durable store and its log).
 """
 
 from __future__ import annotations
@@ -33,9 +39,19 @@ from typing import List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ..faults import FaultPlan, Nemesis
 from ..forensics.hlc import HlcClock
-from ..hashing import xxh64_batch_auto
+from ..handoff.device import device_transfer_plans
+from ..handoff.plan import chunk_spans, content_fingerprint
+from ..handoff.store import InMemoryPartitionStore
+from ..hashing import endpoint_hash_batch, xxh64_batch_auto
+from ..hierarchy.cells import _CELL_SEED_BASE, cell_count
+from ..hierarchy.parent import _LEADER_SEED, CellState, _fold, compose_fingerprint
 from ..observability import (
+    HANDOFF_BYTES_BUCKETS,
+    HANDOFF_CHUNKS_BUCKETS,
+    PARTITIONS_MOVED_BUCKETS,
+    SERVING_LATENCY_BUCKETS_MS,
     FlightRecorder,
     Metrics,
     StableViewTimer,
@@ -44,9 +60,12 @@ from ..observability import (
     global_metrics,
     global_tracer,
 )
+from ..placement.device import DevicePlacement
+from ..placement.engine import PlacementConfig
 from ..profiling import PhaseProfiler
 from ..runtime import jitwatch
-from ..settings import ProfilingSettings
+from ..serving.kv import decode_kv, encode_kv, partition_of
+from ..settings import ProfilingSettings, SLOSettings
 from ..shard.engine import (
     Mesh,
     make_sharded_run,
@@ -56,6 +75,8 @@ from ..shard.engine import (
     row_field,
     shard_generators,
 )
+from ..slo import SloPlane
+from ..types import Endpoint, HandoffRequest, Put, PutAck
 from .classic import ClassicCoordinator
 from .engine import (
     FAST_RANK,
@@ -110,6 +131,17 @@ def _tensors(tree):
     elif isinstance(tree, dict):
         for x in tree.values():
             yield from _tensors(x)
+
+
+class _VirtualClock:
+    """A simulator's virtual clock behind the ``now_ms()`` seam a Nemesis
+    takes its time from."""
+
+    def __init__(self, sim: "Simulator") -> None:
+        self._sim = sim
+
+    def now_ms(self) -> int:
+        return self._sim.virtual_ms
 
 
 @dataclass
@@ -252,6 +284,38 @@ class Simulator:
         # (which nodes' expovariate timers fire first, FastPaxos.java:200-203),
         # seeded as the JAX driver seeds it so runs replay alike
         self._host_rng = np.random.default_rng(self.seed ^ 0x5EED_C1A5)
+        # the driver's host planes, each opt-in through its enable_* (derived
+        # state, so a restored simulator re-enables them explicitly)
+        self._placement = None
+        self._placement_diffs: List = []
+        # handoff (requires placement)
+        self._handoff_stores = None
+        self._handoff_sizes: Optional[np.ndarray] = None
+        self._handoff_chunk_size = 1 << 16
+        self._handoff_chunk_ms = 1
+        self._handoff_max_chunk_retries = 8
+        self._handoff_nemesis = None
+        self._handoff_transfers: List = []
+        # serving (requires handoff: the KV blobs live inside its stores)
+        self._serving_enabled = False
+        self._serving_request_ms = 1
+        self._serving_nemesis = None
+        self._serving_cache: dict = {}  # (slot, partition) -> decoded KV map
+        self._serving_acked: dict = {}  # key -> (version, value) at ack time
+        self._serving_eps: dict = {}
+        # durability (requires serving): per-slot WAL-record counts
+        self._durability_enabled = False
+        self._durability_replay_ms = 1
+        self._durable_pending: dict = {}  # slot -> records since checkpoint
+        # SLO (None: serving requests run the exact pre-SLO code)
+        self._slo = None
+        # hierarchy mirror
+        self._hier_cell_of: Optional[np.ndarray] = None
+        self._hier_n_cells = 0
+        self._hier_round_ms = 1
+        self._hier_leaders_per_cell = 1
+        self._hier_rows: dict = {}
+        self._hier_rounds = 0
         # membership-invariant element hashes: construction cost, not
         # protocol time (they feed every configuration_id fold)
         self.cluster.node_hashes()
@@ -455,6 +519,724 @@ class Simulator:
     def endpoint_of(self, slot: int) -> Tuple[bytes, int]:
         host = bytes(self.cluster.hostnames[slot, : self.cluster.host_lengths[slot]])
         return host, int(self.cluster.ports[slot])
+
+    # ------------------------------------------------------------------ #
+    # Placement plane (placement/device.py)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def placement(self):
+        """The DevicePlacement (None unless enable_placement ran)."""
+        return self._placement
+
+    @property
+    def placement_diffs(self) -> List:
+        """DeviceDiff per view change since placement was enabled."""
+        return list(self._placement_diffs)
+
+    def enable_placement(
+        self,
+        partitions: int = 8192,
+        replicas: int = 3,
+        seed: int = 0,
+        weights: Optional[np.ndarray] = None,
+    ) -> None:
+        """Attach the placement plane: a deterministic shard map over the
+        live membership, updated incrementally inside every view change.
+
+        The full [P, R] build over the whole slot universe happens HERE,
+        once, on the simulator's device (the home device on a mesh) through
+        the ``placement_topr`` kernel. View changes afterwards touch only
+        the minimal-motion subset. Placement never advances virtual_ms: the
+        map is state *derived from* the membership, not part of the
+        protocol the simulator is timing."""
+        cfg = PlacementConfig(partitions=partitions, replicas=replicas, seed=seed)
+        placement = DevicePlacement(
+            cfg,
+            self.cluster.hostnames,
+            self.cluster.host_lengths,
+            self.cluster.ports,
+            weights,
+            device=self.device,
+        )
+        placement.build(self.active)
+        self._placement = placement
+        self._placement_diffs = []
+        self.metrics.incr("placement.rebuilds")
+        self.metrics.set_gauge("placement.imbalance", placement.imbalance())
+        self.recorder.record(
+            "placement_rebalance",
+            configuration_id=self.configuration_id(),
+            moved=0, version=placement.version,
+        )
+
+    # ------------------------------------------------------------------ #
+    # Handoff plane (handoff/device.py)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def handoff_stores(self):
+        """Per-slot InMemoryPartitionStore dict (None unless enabled)."""
+        return self._handoff_stores
+
+    @property
+    def handoff_transfers(self) -> List:
+        """DeviceTransferPlan lists, one per view change since enabling."""
+        return list(self._handoff_transfers)
+
+    def _virtual_nemesis(self, fault_plan):
+        """A Nemesis armed now on this simulator's virtual clock; a plan of
+        the JAX package crosses in through its JSON form."""
+        if not isinstance(fault_plan, FaultPlan):
+            fault_plan = FaultPlan.from_json(fault_plan.to_json())
+        return Nemesis(fault_plan, _VirtualClock(self), metrics=self.metrics).arm()
+
+    def enable_handoff(
+        self,
+        sizes: Optional[np.ndarray] = None,
+        chunk_size: int = 1 << 16,
+        chunk_ms: int = 1,
+        fault_plan=None,
+        max_chunk_retries: int = 8,
+    ) -> None:
+        """Attach the handoff plane: per-slot partition stores seeded for
+        the current owners, with every subsequent placement diff's moved
+        partitions transferred chunk-by-chunk between stores.
+
+        Transfers are billed on virtual time (``chunk_ms`` per chunk plus
+        any fault-plan delay) strictly AFTER the view installs, so the
+        detection->decision->install stable-view distributions are
+        untouched. ``fault_plan`` (a ``faults.FaultPlan`` of either package)
+        makes chunk pulls suffer deterministic drops/duplicates/delays --
+        dropped chunks retry up to ``max_chunk_retries`` before the session
+        fails over to the next surviving source."""
+        if self._placement is None:
+            raise RuntimeError("enable_placement must run before enable_handoff")
+        partitions = self._placement.config.partitions
+        if sizes is None:
+            sizes = (977 * np.arange(partitions, dtype=np.int64)) % 5000
+        sizes = np.asarray(sizes, dtype=np.int64)
+        if sizes.shape[0] != partitions:
+            raise ValueError("sizes must have one entry per partition")
+        self._handoff_sizes = sizes
+        self._handoff_chunk_size = int(chunk_size)
+        self._handoff_chunk_ms = int(chunk_ms)
+        self._handoff_max_chunk_retries = int(max_chunk_retries)
+        self._handoff_transfers = []
+        self._handoff_nemesis = (
+            self._virtual_nemesis(fault_plan) if fault_plan is not None else None)
+        stores = {
+            slot: InMemoryPartitionStore()
+            for slot in range(self.config.capacity)
+        }
+        assign = self._placement.assign
+        for p in range(partitions):
+            payload = self._handoff_payload(p, int(sizes[p]))
+            fingerprint = content_fingerprint(p, payload)
+            for slot in assign[p]:
+                if slot >= 0:
+                    stores[int(slot)].put(p, payload, fingerprint=fingerprint)
+        self._handoff_stores = stores
+
+    @staticmethod
+    def _handoff_payload(partition: int, size: int) -> bytes:
+        """Deterministic per-partition content (cheap, numpy-generated)."""
+        if size <= 0:
+            return b""
+        pattern = (
+            np.arange(size, dtype=np.int64) * 31 + partition * 977 + 7
+        ) & 0xFF
+        return pattern.astype(np.uint8).tobytes()
+
+    def _run_handoff(self, old_assign: np.ndarray, parent_span) -> None:
+        """Execute every transfer the just-applied placement diff implies,
+        deterministically (store-to-store, fault plan consulted per chunk).
+        Runs after the view is installed; bills virtual time for the chunk
+        pulls."""
+        placement = self._placement
+        plans = device_transfer_plans(
+            old_assign, placement.assign, self.active, placement.keys64,
+            placement.version, placement.config.seed, self._handoff_sizes,
+            self._handoff_chunk_size,
+        )
+        self._handoff_transfers.append(plans)
+        stores = self._handoff_stores
+        nemesis = self._handoff_nemesis
+        billed_ms = 0
+        moved_ok: Set[Tuple[int, int]] = set()
+        endpoints: dict = {}
+
+        def ep(slot: int) -> Endpoint:
+            cached = endpoints.get(slot)
+            if cached is None:
+                host, port = self.endpoint_of(slot)
+                cached = endpoints[slot] = Endpoint(hostname=host, port=port)
+            return cached
+
+        for plan in plans:
+            span = self.tracer.begin(
+                "handoff_session", virtual_ms=self.virtual_ms,
+                partition=plan.partition, session=plan.session_id,
+                sources=len(plan.sources),
+            )
+            span.parent_id = parent_span.span_id
+            span.trace_id = parent_span.trace_id
+            self.metrics.incr("handoff.sessions_started")
+            completed = False
+            not_found = 0
+            reachable = 0
+            for src in plan.sources:
+                if not self.alive[src]:
+                    self.metrics.incr("handoff.failovers")
+                    continue
+                reachable += 1
+                data = stores[src].get(plan.partition)
+                if data is None:
+                    not_found += 1
+                    continue
+                schedule = chunk_spans(len(data), self._handoff_chunk_size)
+                pulled = True
+                n_chunks = 0
+                for offset, length in schedule if schedule else ((0, 0),):
+                    request = HandoffRequest(
+                        sender=ep(plan.recipient),
+                        session_id=plan.session_id,
+                        partition=plan.partition, offset=offset,
+                        length=length,
+                    )
+                    retries = 0
+                    while True:
+                        billed_ms += self._handoff_chunk_ms
+                        if nemesis is not None:
+                            decision = nemesis.decide(
+                                ep(plan.recipient), ep(src), request, "egress"
+                            )
+                            billed_ms += decision.delay_ms
+                            if decision.drop:
+                                retries += 1
+                                self.metrics.incr("handoff.retries")
+                                if retries > self._handoff_max_chunk_retries:
+                                    pulled = False
+                                    break
+                                continue
+                            for _ in range(decision.duplicates):
+                                self.metrics.incr("handoff.chunks_duplicate")
+                        self.metrics.incr("handoff.chunks_sent")
+                        self.metrics.incr("handoff.chunks_received")
+                        self.metrics.incr("handoff.bytes_moved", length)
+                        n_chunks += 1
+                        break
+                    if not pulled:
+                        break
+                if not pulled:
+                    self.metrics.incr("handoff.failovers")
+                    continue
+                fingerprint = content_fingerprint(plan.partition, data)
+                src_fp = stores[src].fingerprint(plan.partition)
+                if src_fp is not None and fingerprint != src_fp:
+                    self.metrics.incr("handoff.fingerprint_mismatches")
+                    continue
+                stores[plan.recipient].put(plan.partition, data, fingerprint=fingerprint)
+                completed = True
+                self.metrics.incr("handoff.sessions_completed")
+                self.metrics.observe(
+                    "handoff.session_bytes", len(data),
+                    buckets=HANDOFF_BYTES_BUCKETS,
+                )
+                self.metrics.observe(
+                    "handoff.session_chunks", max(1, n_chunks),
+                    buckets=HANDOFF_CHUNKS_BUCKETS,
+                )
+                span.attrs["bytes"] = len(data)
+                self.recorder.record(
+                    "handoff_complete", partition=plan.partition,
+                    session=plan.session_id, bytes=len(data), source=int(src),
+                )
+                break
+            if not completed:
+                if reachable > 0 and not_found == reachable:
+                    # every reachable source is authoritative and empty:
+                    # nothing to move (the live engine's vacuous completion)
+                    completed = True
+                    self.metrics.incr("handoff.sessions_completed")
+                    span.attrs["empty"] = True
+                else:
+                    self.metrics.incr("handoff.sessions_failed")
+                    span.attrs["failed"] = True
+                    self.recorder.record(
+                        "handoff_failed", partition=plan.partition,
+                        session=plan.session_id, sources=len(plan.sources),
+                    )
+            if completed:
+                moved_ok.add((plan.partition, plan.recipient))
+            self.tracer.end(span, virtual_ms=self.virtual_ms)
+        # releases: a donor drops its copy once every recipient of that
+        # partition verified (a failed transfer keeps the old replica alive)
+        by_partition: dict = {}
+        for plan in plans:
+            by_partition.setdefault(plan.partition, []).append(plan)
+        for partition, group in by_partition.items():
+            if not all((partition, g.recipient) in moved_ok for g in group):
+                continue
+            new_row = set(int(s) for s in placement.assign[partition] if s >= 0)
+            old_row = [int(s) for s in old_assign[partition] if s >= 0]
+            for slot in old_row:
+                if slot in new_row or not self.alive[slot]:
+                    continue
+                if stores[slot].get(partition) is not None:
+                    stores[slot].delete(partition)
+                    self.metrics.incr("handoff.releases")
+        # billed strictly after the install: the stable-view timer has
+        # already stamped this churn
+        self.virtual_ms += billed_ms
+
+    # ------------------------------------------------------------------ #
+    # Serving plane (the serving engine's mirror)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def serving_enabled(self) -> bool:
+        return self._serving_enabled
+
+    @property
+    def serving_acked(self) -> dict:
+        """Oracle: every acknowledged write, key -> (version, value) as of
+        the ack. Zero-lost-writes checks read each key back and require a
+        version >= the oracle's."""
+        return dict(self._serving_acked)
+
+    def enable_serving(self, request_ms: int = 1, fault_plan=None) -> None:
+        """Attach the serving plane mirror: replicated Get/Put over the
+        handoff stores. KV state persists as deterministic ``encode_kv``
+        blobs INSIDE the handoff stores, so every view change moves serving
+        data through the verified handoff sessions.
+
+        Each client op bills ``request_ms`` of virtual time (one leader
+        round trip); a dead leader costs one extra hop (redirect) and
+        reads fall back to quorum reads until the next view installs.
+        ``fault_plan`` makes replication writes suffer deterministic
+        drops/duplicates/delays; a write only acks with a majority."""
+        if self._handoff_stores is None:
+            raise RuntimeError("enable_handoff must run before enable_serving")
+        self._serving_nemesis = (
+            self._virtual_nemesis(fault_plan) if fault_plan is not None else None)
+        self._serving_request_ms = int(request_ms)
+        # replace the synthetic handoff payloads with empty KV blobs: from
+        # here on the stores hold serving data, and fingerprints still
+        # agree across replicas because encode_kv is deterministic
+        empty = encode_kv({})
+        fingerprints: dict = {}
+        for store in self._handoff_stores.values():
+            for p in store.partitions():
+                fp = fingerprints.get(p)
+                if fp is None:
+                    fp = fingerprints[p] = content_fingerprint(p, empty)
+                store.put(p, empty, fingerprint=fp)
+        self._serving_cache = {}
+        self._serving_acked = {}
+        self._serving_eps = {}
+        self._serving_enabled = True
+
+    def _serving_ep(self, slot: int):
+
+        cached = self._serving_eps.get(slot)
+        if cached is None:
+            host, port = self.endpoint_of(slot)
+            cached = self._serving_eps[slot] = Endpoint(hostname=host, port=port)
+        return cached
+
+    def _serving_kv(self, slot: int, p: int) -> dict:
+
+        kv = self._serving_cache.get((slot, p))
+        if kv is None:
+            kv = decode_kv(self._handoff_stores[slot].get(p))
+            self._serving_cache[(slot, p)] = kv
+        return kv
+
+    def _serving_persist(self, slot: int, p: int, kv: dict) -> None:
+
+        self._handoff_stores[slot].put(p, encode_kv(kv))
+        if self._durability_enabled:
+            # one persisted blob == one WAL append on the live plane; the
+            # count is what a post-crash replay has to re-apply
+            self._durable_pending[slot] = self._durable_pending.get(slot, 0) + 1
+
+    # -- SLO plane ----------------------------------------------------------- #
+
+    def enable_slo(self, settings=None, catalog=None, windows=None):
+        """Attach the SLO plane (slo/): online SLIs over the serving path,
+        multi-window burn-rate alerts, and churn-episode attribution
+        against this simulator's journal. ``settings.enabled`` is the kill
+        switch: when False this is a no-op returning None and every
+        serving request runs the exact pre-SLO path. Returns the SloPlane
+        (or None when disabled)."""
+        if settings is None:
+            settings = SLOSettings(enabled=True)
+        if not settings.enabled:
+            self._slo = None
+            return None
+        self._slo = SloPlane(
+            settings, metrics=self.metrics, recorder=self.recorder,
+            catalog=catalog, windows=windows,
+        )
+        return self._slo
+
+    def slo_plane(self):
+        """The live SLO plane (None unless enable_slo attached one)."""
+        return self._slo
+
+    # -- hierarchy mirror --------------------------------------------------- #
+
+    def enable_hierarchy(
+        self,
+        cells: int = 0,
+        topology=None,
+        parent_round_ms: int = 1,
+        leaders_per_cell: int = 1,
+    ) -> None:
+        """Attach the hierarchy mirror: the simulator's analogue of the
+        engine's two-level composition.
+
+        Slots partition into cells by the same pure functions the engine
+        uses -- topology zones when a LatencyTopology is given (slots ARE
+        topology indices), the seeded rendezvous hash over the slot's
+        endpoint otherwise (``cells.cell_of_endpoint``, here over every slot
+        at once with the batched endpoint hash). Each view change then
+        recomputes ONLY the touched cells' rows (epoch fold, leader order,
+        membership fingerprint over the cell-local slice of the active
+        mask) and, when the composition moved, bills one parent round of
+        ``parent_round_ms`` on the virtual clock. Everything is a pure
+        function of (membership, seed)."""
+        resolved = cell_count(cells, topology)
+        cl = self.cluster
+        if topology is not None:
+            cell_of = np.array(
+                [topology.zone_of(slot) for slot in range(self.config.capacity)],
+                dtype=np.int32)
+        elif resolved <= 1:
+            cell_of = np.zeros(self.config.capacity, dtype=np.int32)
+        else:
+            # rendezvous: each slot joins the cell whose seeded endpoint
+            # hash is highest, the first such cell on a tie
+            scores = np.stack([
+                endpoint_hash_batch(cl.hostnames, cl.host_lengths, cl.ports,
+                                    _CELL_SEED_BASE + cell)
+                for cell in range(resolved)
+            ])
+            cell_of = np.argmax(scores, axis=0).astype(np.int32)
+        self._hier_cell_of = cell_of
+        self._hier_n_cells = resolved
+        self._hier_round_ms = int(parent_round_ms)
+        self._hier_leaders_per_cell = int(leaders_per_cell)
+        self._hier_rows = {}
+        self._hier_rounds = 0
+        for cell in range(resolved):
+            self._hierarchy_recompute_cell(cell)
+        self.metrics.set_gauge("hierarchy.cells", resolved)
+
+    def _hierarchy_recompute_cell(self, cell: int) -> None:
+        """Rebuild one cell's composed-view row from its cell-local slice
+        of the active mask (hierarchy/parent.py CellState discipline):
+        ``parent.cell_leaders`` and ``parent.cell_fingerprint`` over the
+        cell's members, with their endpoint hashes taken in one batch."""
+        slots = np.flatnonzero(self.active & (self._hier_cell_of == cell))
+        if not len(slots):
+            self._hier_rows.pop(cell, None)
+            return
+        cl = self.cluster
+        _, _, host_h, port_h = cl.node_hashes()
+        hosts, lengths, ports = cl.hostnames[slots], cl.host_lengths[slots], cl.ports[slots]
+        # leader order: ascending (leader-seeded endpoint hash, hostname,
+        # port); only members hashing at or below the k-th smallest hash can
+        # lead, so the full key sorts those alone
+        lead_h = endpoint_hash_batch(hosts, lengths, ports, _LEADER_SEED)
+        k = min(max(1, self._hier_leaders_per_cell), len(slots))
+        bound = np.partition(lead_h, k - 1)[k - 1]
+        order = sorted(
+            (int(lead_h[i]), self.endpoint_of(int(slots[i])))
+            for i in np.flatnonzero(lead_h <= bound))
+        leaders = [Endpoint(*endpoint) for _h, endpoint in order[:k]]
+        # the cell's epoch is a config-id-style chained fold over the
+        # cell-local slice's element hashes: it moves exactly when the
+        # cell's membership moves
+        epoch = _fold(int(x) for x in np.sort(host_h[slots] ^ port_h[slots]))
+        self._hier_rows[cell] = CellState(
+            cell=cell,
+            epoch=epoch,
+            size=len(slots),
+            leader=str(leaders[0]),
+            fingerprint=_fold(
+                int(x) for x in np.sort(endpoint_hash_batch(hosts, lengths, ports, 0))),
+        )
+
+    def _hierarchy_view_change(self, record, vc_span) -> None:
+        """Mirror one view change into the composition: recompute touched
+        cells only, bill one parent round when the composition moved."""
+        touched = sorted(
+            {int(self._hier_cell_of[s]) for s in record.added}
+            | {int(self._hier_cell_of[s]) for s in record.removed}
+        )
+        before = self.global_fingerprint()
+        for cell in touched:
+            self._hierarchy_recompute_cell(cell)
+        after = self.global_fingerprint()
+        if after == before:
+            return
+        # one leader-to-leader parent round carries the moved cells' digests
+        # to every other cell: O(cells) messages, one round of latency
+        self._hier_rounds += 1
+        self.virtual_ms += self._hier_round_ms
+        self.metrics.incr("hierarchy.parent_rounds")
+        self.metrics.set_gauge("hierarchy.live_cells", len(self._hier_rows))
+        self.recorder.record(
+            "parent_round",
+            virtual_ms=self.virtual_ms,
+            round=self._hier_rounds,
+            cells=len(self._hier_rows),
+            touched=len(touched),
+            global_fingerprint=after,
+            trace_id=vc_span.trace_id,
+        )
+
+    @property
+    def hierarchy_enabled(self) -> bool:
+        return self._hier_cell_of is not None
+
+    @property
+    def parent_rounds(self) -> int:
+        """Parent rounds billed since enable_hierarchy."""
+        return self._hier_rounds
+
+    def hierarchy_rows(self):
+        """The composed global view: CellState rows sorted by cell."""
+        return tuple(self._hier_rows[cell] for cell in sorted(self._hier_rows))
+
+    def global_fingerprint(self) -> int:
+        """Composed global fingerprint (hierarchy/parent.py fold) of the
+        mirror's current rows."""
+        return compose_fingerprint(self.hierarchy_rows())
+
+    def cell_of_slot(self, slot: int) -> int:
+        """Cell of device slot ``slot`` (enable_hierarchy must have run)."""
+        return int(self._hier_cell_of[slot])
+
+    def serving_drive_open_loop(self, arrivals):
+        """Drive the serving mirror with an open-loop arrival stream
+        (slo/sli.py OpenLoopGenerator): each arrival is scheduled on the
+        virtual clock independently of completions. When the server is
+        idle the clock advances to the arrival; when it is behind, the
+        request queues and its measured latency (completion minus
+        *scheduled arrival*) includes the queueing delay. Feeds the SLO
+        plane when one is attached. Returns
+        ``[(arrival, status, latency_ms), ...]``."""
+        if not self._serving_enabled:
+            raise RuntimeError("serving is not enabled on this simulator")
+        results = []
+        for a in arrivals:
+            at = int(a.at_ms)
+            if self.virtual_ms < at:
+                self.virtual_ms = at  # idle server: wait for the client
+            if self._slo is not None:
+                self._slo.record_offered(at)
+            if a.op == "put":
+                ack = self.serving_put(a.key, a.value)
+            else:
+                ack = self.serving_get(a.key)
+            latency_ms = float(self.virtual_ms - at)
+            ok = ack.status in (PutAck.STATUS_OK, PutAck.STATUS_NOT_FOUND) \
+                if a.op == "get" else ack.status == PutAck.STATUS_OK
+            if self._slo is not None:
+                self._slo.record(self.virtual_ms, ok, latency_ms)
+            results.append((a, int(ack.status), latency_ms))
+        return results
+
+    # -- durability mirror -------------------------------------------------- #
+
+    def enable_durability(self, replay_record_ms: int = 1) -> None:
+        """Attach the durability mirror: every serving persist counts as one
+        WAL append, and :meth:`restart_slot` bills the log-over-snapshot
+        replay on the virtual clock (``replay_record_ms`` per un-checkpointed
+        record) -- the simulator's analogue of a durable store's recovery."""
+        if not self._serving_enabled:
+            raise RuntimeError("enable_serving must run before enable_durability")
+        self._durability_replay_ms = int(replay_record_ms)
+        self._durable_pending = {}
+        self._durability_enabled = True
+
+    def checkpoint_slot(self, slot: int) -> None:
+        """Snapshot the slot's store: replay debt drops to zero, as a
+        durable store's checkpoint truncates its log."""
+        if not self._durability_enabled:
+            raise RuntimeError("durability is not enabled on this simulator")
+        self._durable_pending[slot] = 0
+        self.metrics.incr("durability.snapshots")
+        self.recorder.record("durability_checkpoint", node=f"slot{int(slot)}")
+
+    def durable_pending(self, slot: int) -> int:
+        """Records a restart of ``slot`` would replay (un-checkpointed)."""
+        return self._durable_pending.get(int(slot), 0)
+
+    def restart_slot(self, slot: int, down_ms: int = 0) -> int:
+        """Crash-and-recover ``slot`` with its store intact: the node is dead
+        for ``down_ms`` of virtual time, then replays its WAL debt at
+        ``replay_record_ms`` per record before answering again. Returns the
+        replayed-record count. The identity is retained -- a restart is not
+        a leave, so no identifier churn and no view change is implied (the
+        FD may still evict if ``down_ms`` outlasts detection)."""
+        if not self._durability_enabled:
+            raise RuntimeError("durability is not enabled on this simulator")
+        slot = int(slot)
+        self.crash(np.asarray([slot]))
+        replayed = self._durable_pending.get(slot, 0)
+        self.virtual_ms += int(down_ms) + replayed * self._durability_replay_ms
+        if replayed:
+            self.metrics.incr("durability.replayed_records", replayed)
+        self.recorder.record(
+            "durability_recovered", node=f"slot{slot}", replayed=replayed,
+        )
+        self.revive(np.asarray([slot]))
+        return replayed
+
+    def _serving_reconcile(self, old_assign) -> None:
+        """Anti-entropy at the view-change boundary, BEFORE handoff runs:
+        merge each partition's KV map (max version per key) across its live
+        old-row replicas and persist the merged blob back to each of them,
+        so handoff ships complete blobs to the new owners whichever source
+        replica it copies from (an acked write reached a majority of the
+        old row, so a live replica still holds it)."""
+        stores = self._handoff_stores
+        for p in range(old_assign.shape[0]):
+            live = [
+                int(s) for s in old_assign[p] if s >= 0 and self.alive[int(s)]
+            ]
+            if len(live) < 2:
+                continue
+            first = stores[live[0]].get(p)
+            if all(stores[s].get(p) == first for s in live[1:]):
+                # identical blobs decode to identical maps: the merge is
+                # each of them, and nothing is written
+                continue
+            merged: dict = {}
+            for s in live:
+                for key, (version, value) in self._serving_kv(s, p).items():
+                    cur = merged.get(key)
+                    if cur is None or version > cur[0]:
+                        merged[key] = (version, value)
+            for s in live:
+                if self._serving_kv(s, p) != merged:
+                    self.metrics.incr("serving.reconciled_replicas")
+                    self._serving_cache[(s, p)] = dict(merged)
+                    self._serving_persist(s, p, merged)
+
+    def _serving_row(self, key: bytes):
+
+        p = partition_of(key, self._placement.config.partitions)
+        row = [int(s) for s in self._placement.assign[p] if s >= 0]
+        live = [s for s in row if self.alive[s]]
+        return p, row, live
+
+    def serving_put(self, key: bytes, value: bytes):
+        """One closed-loop client write: route to the first live replica in
+        placement order, replicate to the row, ack on majority. Returns a
+        PutAck (STATUS_OK or STATUS_RETRY)."""
+        if not self._serving_enabled:
+            raise RuntimeError("serving is not enabled on this simulator")
+        self.metrics.incr("serving.puts")
+        t0 = self.virtual_ms
+        self.virtual_ms += self._serving_request_ms
+        p, row, live = self._serving_row(key)
+        majority = len(row) // 2 + 1
+        status = PutAck.STATUS_RETRY
+        version = 0
+        if live:
+            leader = live[0]
+            if row[0] != leader:
+                # the map still names a dead leader: one redirect hop
+                self.metrics.incr("serving.not_leader_redirects")
+                self.virtual_ms += self._serving_request_ms
+            kv = self._serving_kv(leader, p)
+            version = kv.get(key, (0, b""))[0] + 1
+            msg = Put(
+                sender=self._serving_ep(leader), key=key, value=value,
+                request_id=0, replicate=1, version=version,
+            )
+            acks = 0
+            for slot in row:
+                if not self.alive[slot]:
+                    continue
+                if slot != leader and self._serving_nemesis is not None:
+                    decision = self._serving_nemesis.decide(
+                        self._serving_ep(slot), self._serving_ep(leader),
+                        msg, "egress",
+                    )
+                    # slow_ms covers disk_stall rules: the replica answers,
+                    # but only after the stalled fsync returns
+                    self.virtual_ms += decision.delay_ms + decision.slow_ms
+                    if decision.drop:
+                        continue
+                skv = kv if slot == leader else self._serving_kv(slot, p)
+                if version > skv.get(key, (0, b""))[0]:
+                    skv[key] = (version, value)
+                    self._serving_persist(slot, p, skv)
+                acks += 1
+                if slot != leader:
+                    self.metrics.incr("serving.replication_writes")
+                    self.metrics.incr("serving.put_acks")
+            if acks >= majority:
+                status = PutAck.STATUS_OK
+                self._serving_acked[key] = (version, value)
+            else:
+                self.metrics.incr("serving.put_retries")
+        else:
+            self.metrics.incr("serving.put_retries")
+        self.metrics.observe(
+            "serving.request_ms", float(self.virtual_ms - t0),
+            buckets=SERVING_LATENCY_BUCKETS_MS,
+        )
+        return PutAck(
+            sender=self._serving_ep(row[0]) if row else None,
+            status=status, key=key, version=version,
+        )
+
+    def serving_get(self, key: bytes):
+        """One closed-loop client read: leader read while the placement
+        leader is alive, quorum read (max version across a live majority)
+        during the churn window. Returns a PutAck."""
+        if not self._serving_enabled:
+            raise RuntimeError("serving is not enabled on this simulator")
+        self.metrics.incr("serving.gets")
+        t0 = self.virtual_ms
+        self.virtual_ms += self._serving_request_ms
+        p, row, live = self._serving_row(key)
+        majority = len(row) // 2 + 1
+        status = PutAck.STATUS_RETRY
+        version = 0
+        value = b""
+        if live and self.alive[row[0]]:
+            self.metrics.incr("serving.leader_reads")
+            version, value = self._serving_kv(row[0], p).get(key, (0, b""))
+            status = PutAck.STATUS_OK if version else PutAck.STATUS_NOT_FOUND
+        elif live:
+            # leader churn: redirect hop + quorum read across live replicas
+            self.metrics.incr("serving.not_leader_redirects")
+            self.metrics.incr("serving.quorum_reads")
+            self.virtual_ms += self._serving_request_ms
+            if len(live) >= majority:
+                for slot in live:
+                    v, blob = self._serving_kv(slot, p).get(key, (0, b""))
+                    if v > version:
+                        version, value = v, blob
+                status = (
+                    PutAck.STATUS_OK if version else PutAck.STATUS_NOT_FOUND
+                )
+        self.metrics.observe(
+            "serving.request_ms", float(self.virtual_ms - t0),
+            buckets=SERVING_LATENCY_BUCKETS_MS,
+        )
+        return PutAck(
+            sender=self._serving_ep(row[0]) if row else None,
+            status=status, key=key, value=value, version=version,
+        )
 
     def one_way_ingress_partition(self, node_ids: np.ndarray) -> None:
         """Asymmetric failure: probes TO these nodes are lost, their own
@@ -1116,6 +1898,13 @@ class Simulator:
         self.metrics.set_gauge("sim.fault.lossy", int((self._drop_prob > 0).sum()))
         self.metrics.set_gauge("sim.membership_size", record.membership_size)
         self.metrics.set_gauge("sim.pending_joiners", len(self._pending_joiners))
+        if self._placement is not None:
+            self._placement_view_change(record, vc_span)
+        if self._hier_cell_of is not None:
+            # composition mirror: touched cells' rows recompute, one
+            # virtual-time parent round when the composed fingerprint moved
+            # (billed after the install, like handoff)
+            self._hierarchy_view_change(record, vc_span)
         vc_span.attrs.update(
             cut=len(record.cut), added=len(record.added), removed=len(record.removed),
             configuration_id=record.configuration_id,
@@ -1127,7 +1916,59 @@ class Simulator:
             removed=len(record.removed), added=len(record.added),
         )
         self._churn_ctx = None  # the next churn episode roots a fresh trace
+        if self._slo is not None:
+            # the install may have jumped the virtual clock: re-evaluate the
+            # burn windows at the new now before the next request lands
+            self._slo.tick(self.virtual_ms)
         return record
+
+    def _placement_view_change(self, record: ViewChangeRecord, vc_span) -> None:
+        """The planes' part of a view change, in the JAX driver's order:
+        the placement map's incremental update (a ``placement_topr`` call
+        for the affected rows and one for the added columns, one fetch;
+        derived state, so no protocol time), then with handoff the serving
+        reconcile, the transfers and the serving cache reset."""
+        p_span = self.tracer.begin(
+            "placement_rebalance", virtual_ms=self.virtual_ms,
+            size=record.membership_size,
+        )
+        p_span.parent_id = vc_span.span_id
+        p_span.trace_id = vc_span.trace_id
+        old_assign = (
+            self._placement.assign.copy() if self._handoff_stores is not None else None
+        )
+        diff = self._placement.apply_view_change(self.active)
+        self._placement_diffs.append(diff)
+        p_span.attrs.update(moved=diff.moved, version=self._placement.version)
+        self.tracer.end(p_span, virtual_ms=self.virtual_ms)
+        self.metrics.incr("placement.rebuilds")
+        self.metrics.observe(
+            "placement.partitions_moved", diff.moved, buckets=PARTITIONS_MOVED_BUCKETS,
+        )
+        self.metrics.set_gauge("placement.imbalance", self._placement.imbalance())
+        self.recorder.record(
+            "placement_rebalance", configuration_id=record.configuration_id,
+            moved=diff.moved, version=self._placement.version,
+        )
+        if old_assign is None:
+            return
+        if self._serving_enabled:
+            # before blobs move: every live old-row replica takes the union
+            # of acked writes, so handoff ships complete content
+            self._serving_reconcile(old_assign)
+        self.recorder.record(
+            "handoff_started", configuration_id=record.configuration_id,
+            version=self._placement.version,
+        )
+        self._run_handoff(old_assign, p_span)
+        if self._serving_enabled:
+            # handoff copied and released blobs between stores: every cached
+            # decode may be stale, and the new leaders come from the fresh rows
+            self._serving_cache = {}
+            self.metrics.incr(
+                "serving.leader_changes",
+                int(np.count_nonzero(old_assign[:, 0] != self._placement.assign[:, 0])),
+            )
 
     # ------------------------------------------------------------------ #
 

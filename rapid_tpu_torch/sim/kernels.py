@@ -16,6 +16,9 @@ their build and their launch counters.
   (up to ``MAX_SHARDS_PER_CALL``), writing each shard's new_down bits into
   its segment of a per-shard bitset (``segment_words``), and the home
   device runs ``fd_gather`` over every destination from all the segments.
+- ``placement_topr`` (``csrc/placement_topr.cu``) is the placement plane's
+  rendezvous top-R; its wrapper and plain version live beside the plane,
+  in ``rapid_tpu_torch/placement/device.py``, and build and count here.
 
 Each source under ``csrc/`` is compiled with ``nvcc`` on first use into its
 own library under ``build/kernels/`` of the checkout (all sources at once, in
@@ -60,6 +63,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "fd_phase_i32": 0, "fd_phase_u8": 0, "fd_phase_fused": 0, "fd_phase_fused_windowed": 0,
     "fd_phase_rows": 0, "fd_phase_rows_windowed": 0, "fd_gather": 0,
+    "placement_topr": 0,
 }
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -69,6 +73,7 @@ _ARGTYPES = {
     "fd_phase_fused": [_P] * 25 + [_LL] + [_I] * 7 + [_P],
     "fd_phase_rows": [_P] * 5 + [ctypes.POINTER(_LL), _I, _P, _LL] + [_I] * 7 + [_P],
     "fd_gather": [_P] * 5 + [_LL, _I, _LL, _LL, ctypes.c_uint, _I, _P],
+    "placement_topr": [_P, _LL, _P, _LL, _I, _P, _P, _P, _LL, _P, _P, _I, _P],
 }
 # shards of one fd_phase_rows call: its C entry point takes them as a table
 # in the kernel's parameters, which holds 16

@@ -58,6 +58,24 @@ def test_public_methods_exist(name):
     assert callable(getattr(JaxSimulator, name))
 
 
+def test_every_public_member_of_the_jax_simulator_exists():
+    """Since the host planes, the port's Simulator has every public method
+    and property of the JAX one."""
+    public = {n for n in dir(JaxSimulator) if not n.startswith("_")}
+    assert sorted(n for n in public if not hasattr(Simulator, n)) == []
+
+
+@pytest.mark.parametrize("name", [
+    "enable_placement", "enable_handoff", "enable_serving", "serving_put", "serving_get",
+    "serving_drive_open_loop", "enable_slo", "slo_plane", "enable_hierarchy",
+    "hierarchy_rows", "global_fingerprint", "cell_of_slot", "enable_durability",
+    "checkpoint_slot", "durable_pending", "restart_slot"])
+def test_plane_methods_take_jax_parameters(name):
+    """The planes' methods take JAX's parameters, in its order, with its
+    defaults (the simulator's own device is the planes' device)."""
+    assert _params(getattr(Simulator, name)) == _params(getattr(JaxSimulator, name))
+
+
 def test_attributes_of_the_planes():
     sim = Simulator(8, seed=1, device="cpu")
     for attr in ("metrics", "tracer", "recorder", "speculate", "hlc"):

@@ -215,3 +215,97 @@ def test_gateway_join_crash_and_leave_on_card_match_cpu(cuda_device, monkeypatch
     assert scan["name"] == "crash, scan" and scan["pump_launches"]["fd_phase_fused"] > 0
     for row in runs[1]["steps"]:
         assert row["counted_syncs"] == sum(row["syncs"].values()), row["name"]
+
+
+@pytest.mark.parametrize("rows,cols,replicas,max_weight,merge", [
+    (1, 1, 1, 1, False), (7, 300, 3, 1, False), (64, 5000, 3, 8, False),
+    (33, 2000, 16, 64, False), (5, 2, 5, 3, False), (257, 4000, 3, 1, True),
+    (40, 900, 8, 4, True)])
+def test_placement_topr_on_card_matches_plain(cuda_device, rows, cols, replicas, max_weight,
+                                              merge):
+    """The placement kernel against its plain version, bit for bit, at the
+    card's shapes of interest in miniature: one row, fewer columns than
+    places, weights to 64, the cap of 16 replicas, rows not a multiple of a
+    block's, and the added-column merge with a prior."""
+    from rapid_tpu_torch.placement import device as pdev
+    from rapid_tpu_torch.sim import kernels
+
+    rng = np.random.default_rng(rows * 31 + cols)
+    part = torch.from_numpy(rng.integers(0, 2**32, rows, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+    inst = torch.from_numpy(rng.integers(0, 2**32, (max_weight, cols), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+    if cols > 2:
+        inst[:, -1] = inst[:, 0]  # a tie between two columns
+        inst[0, 1] = part[0]  # a zero score
+    weights = torch.from_numpy(rng.integers(0, max_weight + 1, cols).astype(np.int32))
+    active = torch.from_numpy(rng.random(cols) < 0.9)
+    kw = {}
+    if merge:
+        kw = {"cols": torch.from_numpy(np.sort(rng.choice(cols, cols // 7, replace=False))
+                                       .astype(np.int32)),
+              "prior": pdev.placement_topr_plain(part, inst, weights, active, replicas)}
+    mask = None if merge else active
+    want = pdev.placement_topr_plain(part, inst, weights, mask, replicas, **kw)
+    before = kernels.LAUNCHES["placement_topr"]
+    got = pdev.placement_topr(part.to(cuda_device), inst.to(cuda_device),
+                              weights.to(cuda_device),
+                              None if merge else active.to(cuda_device), replicas,
+                              **{k: v.to(cuda_device) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["placement_topr"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sim_placement_at_scale_on_card(cuda_device):
+    """tests/test_placement.py's ``test_sim_placement_at_scale`` (marked slow
+    there, a host build of tens of seconds), on the card: 100k members, an
+    8192 x 3 map built by the kernel and updated inside the view change
+    over exactly the minimal-motion rows, equal to a fresh build."""
+    from rapid_tpu_torch.placement.device import DevicePlacement
+
+    sim = Simulator(100_000, seed=1, device=cuda_device)
+    sim.enable_placement(partitions=8192, replicas=3)
+    before_assign = sim.placement.assign.copy()
+    victims = np.arange(40, 52)
+    sim.crash(victims)
+    assert sim.run_until_decision(max_rounds=64) is not None
+    (diff,) = sim.placement_diffs
+    expected = np.flatnonzero(np.isin(before_assign, victims).any(axis=1))
+    assert np.array_equal(np.sort(diff.partitions_moved), expected)
+    assert diff.moved <= 8192
+    assert not np.isin(sim.placement.assign, victims).any()
+    fresh = DevicePlacement(sim.placement.config, sim.cluster.hostnames,
+                            sim.cluster.host_lengths, sim.cluster.ports, device=cuda_device)
+    fresh.build(sim.active)
+    assert np.array_equal(fresh.assign, sim.placement.assign)
+    assert fresh.version == sim.placement.version
+
+
+def test_planes_golden_runs_on_card(cuda_device):
+    """The three runs of tests/golden/torch_planes.json on the card, exactly."""
+    import chip_smoke
+
+    misses = chip_smoke.planes_golden_check(cuda_device)
+    assert not any(misses.values()), misses
+
+
+def test_placement_topr_skips_columns_out_of_range_on_card(cuda_device):
+    """An explicit column outside [0, C) is never read on the card (the
+    wrapper cannot check a card tensor's values without a sync): the merge
+    equals the plain version's over the columns in range."""
+    from rapid_tpu_torch.placement import device as pdev
+
+    rng = np.random.default_rng(11)
+    part = torch.from_numpy(rng.integers(0, 2**32, 9, dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32))
+    inst = torch.from_numpy(rng.integers(0, 2**32, (1, 50), dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32))
+    weights = torch.ones(50, dtype=torch.int32)
+    prior = pdev.placement_topr_plain(part, inst, weights, torch.rand(50) < 0.5, 3)
+    cols = torch.tensor([3, 17, 49], dtype=torch.int32)
+    want = pdev.placement_topr_plain(part, inst, weights, None, 3, cols=cols, prior=prior)
+    wild = torch.tensor([-1, 3, 50, 17, 1 << 30, 49], dtype=torch.int32)
+    got = pdev.placement_topr(*(t.to(cuda_device) for t in (part, inst, weights)), None, 3,
+                              cols=wild.to(cuda_device), prior=prior.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
