@@ -98,16 +98,21 @@ into build/kernels/. Phases, each of which must pass:
    every configuration id equal on the gateway, in the member's own view and
    on a plain simulator driven alike, and every sync of the protocol thread
    accounted for by a ``jitwatch`` label (``gateway_sequence``);
-14. the driver's host planes, last: the placement kernel ``placement_topr``
-   against its plain version, bit for bit, at [8192, 100_000] (R 3, one
-   virtual instance, 1% inactive), at [1024, 100_000] with weights 1-8 and
-   in an added-column merge of 1000 columns into 8192 prior rows, timed
-   cold and hot beside its bound and the plain version (``topr_phase``);
-   ``Simulator(100_000)`` with placement (8192 x 3), handoff, serving, the
-   SLO plane, durability and an 8-cell hierarchy, driven with the bench's
-   serving traffic through a crash of 1% and a slot restart, every plane's
-   invariant held and the decision's syncs equal to its labelled ones
-   (``planes_path``); and the bench's serving dimension, the sweep's
+14. the driver's host planes, last: ``Simulator(100_000)`` with placement
+   (8192 x 3), handoff, serving, the SLO plane, durability and an 8-cell
+   hierarchy, driven with the bench's serving traffic through a crash of
+   1% and a slot restart, every plane's invariant held and the decision's
+   syncs equal to its labelled ones (``planes_path``); the placement kernel
+   ``placement_topr`` against its plain version, bit for bit, at
+   [8192, 100_000] (R 3, one virtual instance, 1% inactive), at
+   [1024, 100_000] with weights 1-8, in an added-column merge of 1000
+   columns into 8192 prior rows and at the planes path's own view change
+   (its ~233 affected rows), timed cold and hot beside its bound, the plain
+   version and, where a git archive of the parent commit is unpacked under
+   build/parent, that commit's kernel in turns; every instantiation's
+   registers and spills from ``nvcc -Xptxas -v``, built beside the kernels
+   and none spilling (``topr_phase``); and the bench's serving dimension,
+   the sweep's
    10 000-member placement point and hierarchy-zone-churn, each equal to
    what the JAX package gave (``tests/golden/torch_planes.json``,
    ``planes_golden_check``).
@@ -2183,7 +2188,83 @@ TOPR_CASES = (
     ("weighted [1024, 100000], R 3, weights 1-8", 1024, 100_000, 3, (1, 8), 0.01),
 )
 TOPR_MERGE = ("merge of 1000 added columns into 8192 prior rows, R 3", 8192, 100_000, 3, 1000)
+TOPR_VIEW_CHANGE = "the planes path's view change, its affected rows x 100000, R 3"
 TOPR_COLD_BYTES = 2 * 50 * 2**20  # cold runs rotate input sets past 2x the L2
+# the parent commit's placement_topr, from a git archive of that commit unpacked
+# under build/parent (never committed): timed beside the kernel in turns
+# where it is there
+TOPR_PARENT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent",
+                               "rapid_tpu_torch", "csrc", "placement_topr.cu")
+
+
+def start_topr_builds():
+    """Start, beside the kernel build: ``placement_topr.cu``'s device code
+    with ``-Xptxas -v`` (registers and spills of every instantiation) and,
+    where ``TOPR_PARENT_SRC`` exists, the parent commit's kernel as a library
+    of its own. Returns ``{name: (process, output path)}``;
+    ``finish_topr_builds`` waits for them."""
+    from rapid_tpu_torch.sim import kernels
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "topr")
+    os.makedirs(out_dir, exist_ok=True)
+    src = str(kernels._CSRC / "placement_topr.cu")
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    jobs = {"ptxas": ([kernels._nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+                       os.path.join(out_dir, "placement_topr.cubin"), src], None)}
+    if os.path.exists(TOPR_PARENT_SRC):
+        lib = os.path.join(out_dir, "placement_topr_parent.so")
+        jobs["parent"] = ([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, TOPR_PARENT_SRC], lib)
+    return {name: (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True), out)
+            for name, (cmd, out) in jobs.items()}
+
+
+def finish_topr_builds(builds, card):
+    """Wait for ``start_topr_builds``' jobs: print every instantiation's
+    registers, stack and spills (none may spill), and load the parent
+    commit's kernel when it was built. Returns ``(ptxas rows, its entry point
+    or None)``."""
+    import ctypes
+    import re
+
+    rows = []
+    parent = None
+    for name, (proc, out) in builds.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"nvcc ({name}) failed:\n{log}"
+        if name == "parent":
+            fn = ctypes.CDLL(out).placement_topr
+            p, q, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            fn.argtypes = [p, q, p, q, i, p, p, p, q, p, p, i, p]  # the plan-less entry
+            fn.restype = ctypes.c_int
+            parent = fn
+            continue
+        current = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '\S*topr_kernelILi(\d+)E", line)
+            if m:
+                current = {"R": int(m.group(1))}
+                rows.append(current)
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                current["registers"] = int(m.group(1))
+    rows.sort(key=lambda r: r["R"])
+    assert len(rows) == 16, f"ptxas reported {len(rows)} instantiations, want 16"
+    text = "; ".join(f"R{r['R']}: {r.get('registers')} regs, "
+                     f"{r.get('stack')} B stack, {r.get('spill_stores')}/{r.get('spill_loads')} "
+                     f"B spilled" for r in rows)
+    print(f"placement_topr -Xptxas -v (sm_90a; registers, stack, spill stores/loads; "
+          f"shared memory is dynamic, the plan's): {text} ({card})", flush=True)
+    assert all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in rows), rows
+    return rows, parent
 
 
 def _kv_digest(sim):
@@ -2417,54 +2498,106 @@ def _events_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def topr_phase(device, card):
+def _topr_parent(fn, part, inst, w, active, r, cols=None, prior=None):
+    """The parent commit's ``placement_topr`` through its own C entry
+    (``fn``), as that commit's wrapper called it."""
+    out = torch.empty((part.shape[0], 2 * r), dtype=torch.int32, device=part.device)
+    err = fn(part.data_ptr(), part.shape[0], inst.data_ptr(), inst.shape[1], inst.shape[0],
+             w.data_ptr(), active.data_ptr() if cols is None else None,
+             None if cols is None else cols.data_ptr(), 0 if cols is None else cols.shape[0],
+             None if prior is None else prior.data_ptr(), out.data_ptr(), r,
+             torch.cuda.current_stream(part.device).cuda_stream)
+    assert err == 0, f"the parent commit's placement_topr: CUDA error {err}"
+    return out
+
+
+def topr_phase(device, card, view_change, parent=None):
     """``placement_topr`` against its plain version on the card, bit for
-    bit, at the full-width shapes (``TOPR_CASES``, ``TOPR_MERGE``): cold
-    (input sets rotated past 2x the L2) and hot device time, its bound, the
-    plain version's time. No single PyTorch call computes this function."""
+    bit, at the full-width shapes (``TOPR_CASES``, ``TOPR_MERGE``) and at the
+    planes path's own view change (``view_change``: its affected rows, the
+    map's keys and the new active set): cold (input sets rotated past 2x the
+    L2) and hot device time, its bound, the plain version's time, and the
+    launch plan. With ``parent`` (the parent commit's entry,
+    ``finish_topr_builds``), that kernel is held to the plain version too and
+    timed beside the kernel in turns (kernel, parent, parent, kernel), cold
+    and hot. No single PyTorch call computes this function."""
+    import dataclasses
+
     from rapid_tpu_torch.placement import device as pdev
 
     out = {}
     rng = np.random.default_rng(SEED + 9900)
-    cases = [(name, rows, cols, r, w, inactive, None)
+    cases = [(name, rows, cols, r, w, inactive, None, None)
              for name, rows, cols, r, w, inactive in TOPR_CASES]
     name, rows, cols, r, added = TOPR_MERGE
-    cases.append((name, rows, cols, r, (1, 1), 0.01, added))
-    for name, rows, cols, r, weights, inactive, added in cases:
-        part, inst, w, active = _topr_inputs(rng, rows, cols, weights, inactive, device)
+    cases.append((name, rows, cols, r, (1, 1), 0.01, added, None))
+    cases.append((TOPR_VIEW_CHANGE, int(view_change["part"].shape[0]),
+                  int(view_change["weights"].shape[0]), view_change["replicas"], (1, 1),
+                  1 - float(view_change["active"].float().mean()), None, view_change))
+    versions = {"kernel": lambda p, i, ww, a, r, **k: pdev.placement_topr(
+        p, i, ww, None if k else a, r, **k)}
+    if parent is not None:
+        versions["parent"] = lambda p, i, ww, a, r, **k: _topr_parent(parent, p, i, ww, a, r, **k)
+    for name, rows, cols, r, weights, inactive, added, given in cases:
+        if given is None:
+            part, inst, w, active = _topr_inputs(rng, rows, cols, weights, inactive, device)
+        else:
+            part, inst, w, active = (given[k] for k in ("part", "inst", "weights", "active"))
         kw = {}
         if added is not None:
             prior = pdev.placement_topr(part, inst, w, active, r)
             merge_cols = torch.from_numpy(np.sort(rng.choice(cols, added, replace=False))
                                           .astype(np.int32)).to(device)
             kw = {"cols": merge_cols, "prior": prior}
-        got = pdev.placement_topr(part, inst, w, None if kw else active, r, **kw)
         want = pdev.placement_topr_plain(part, inst, w, None if kw else active, r, **kw)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        assert err == 0 and torch.equal(got, want), f"placement_topr disagrees: {name}"
-        call = (lambda p=part, i=inst, ww=w, a=active, k=kw:
-                pdev.placement_topr(p, i, ww, None if k else a, r, **k))
+        errs = {}
+        for version, fn in versions.items():
+            got = fn(part, inst, w, active, r, **kw)
+            torch.cuda.synchronize()
+            errs[version] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            assert errs[version] == 0 and torch.equal(got, want), (
+                f"placement_topr ({version}) disagrees: {name}")
         per_set = 4 * (part.numel() + inst.numel() + w.numel()) + active.numel()
         n_sets = max(2, TOPR_COLD_BYTES // per_set + 1)
-        sets = []
-        for _ in range(n_sets):
-            p2, i2, w2, a2 = _topr_inputs(rng, rows, cols, weights, inactive, device)
-            sets.append(lambda p=p2, i=i2, ww=w2, a=a2, k=kw:
-                        pdev.placement_topr(p, i, ww, None if k else a, r, **k))
-        cold_ms = _time_ms(sets, reps=len(sets), iters=5)
-        hot_ms = _time_ms(call, reps=8, iters=5)
+        sets = [_topr_inputs(rng, rows, cols, weights, inactive, device) for _ in range(n_sets)]
+        times = {version: {"cold": [], "hot": []} for version in versions}
+        order = ["kernel", "parent", "parent", "kernel"] if parent is not None else ["kernel"]
+        for version in order:
+            fn = versions[version]
+            times[version]["cold"].append(_time_ms(
+                [lambda s=s_, fn=fn: fn(*s, r, **kw) for s_ in sets], reps=len(sets), iters=5))
+            times[version]["hot"].append(_time_ms(
+                lambda fn=fn: fn(part, inst, w, active, r, **kw), reps=8, iters=5))
         plain_ms = _events_ms(lambda: pdev.placement_topr_plain(
             part, inst, w, None if kw else active, r, **kw), 2)
         bound_ms, bound_by = _topr_bound(
             rows, w, active, r, kw.get("cols"), rows if kw else 0)
-        out[name] = {"shape": [rows, cols], "replicas": r, "max_abs_err": err,
-                     "ms": cold_ms, "hot_ms": hot_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"placement_topr, {name}: bit-identical to plain (tolerance 0), cold "
-              f"{cold_ms * 1e3:.1f} us ({n_sets} input sets), hot {hot_ms * 1e3:.1f} us, bound "
-              f"{bound_ms * 1e3:.1f} us ({bound_by}, {100 * bound_ms / cold_ms:.0f}% of it), "
-              f"plain {plain_ms:.2f} ms; library: none ({card})", flush=True)
+        plan = pdev.topr_plan(rows, kw["cols"].numel() if kw else cols, r, inst.shape[0],
+                              bool(kw))
+        mean = {v: {k: statistics.fmean(t) for k, t in ts.items()} for v, ts in times.items()}
+        out[name] = {"shape": [rows, cols], "replicas": r, "max_abs_err": max(errs.values()),
+                     "ms": mean["kernel"]["cold"], "hot_ms": mean["kernel"]["hot"],
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "plan": dict(dataclasses.asdict(plan), grid=plan.grid), "turns": times}
+        line = (f"placement_topr, {name}: bit-identical to plain (tolerance 0), cold "
+                f"{mean['kernel']['cold'] * 1e3:.1f} us ({n_sets} input sets), hot "
+                f"{mean['kernel']['hot'] * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({bound_by}, "
+                f"{100 * bound_ms / mean['kernel']['cold']:.0f}% of it cold)")
+        if parent is not None:
+            out[name]["parent_ms"] = mean["parent"]["cold"]
+            out[name]["parent_hot_ms"] = mean["parent"]["hot"]
+            parent_ms = mean["parent"]
+            line += (f"; the parent commit's kernel in turns, also bit-identical: cold "
+                     f"{parent_ms['cold'] * 1e3:.1f} us, hot {parent_ms['hot'] * 1e3:.1f} us "
+                     f"({100 * bound_ms / parent_ms['cold']:.0f}%); turns kernel/parent cold "
+                     f"{[round(t * 1e3, 1) for t in times['kernel']['cold']]} / "
+                     f"{[round(t * 1e3, 1) for t in times['parent']['cold']]} us")
+        else:
+            line += "; the parent commit's kernel: not timed (no archive under build/parent)"
+        print(f"{line}; plain {plain_ms:.2f} ms; plan {rows} rows: columns split over "
+              f"{plan.col_split} warps, {plan.slices} slices, {plan.tile_cols}-column tiles, "
+              f"grid {plan.grid}, "
+              f"{plan.smem_bytes} B shared; library: none ({card})", flush=True)
     return out
 
 
@@ -2476,7 +2609,10 @@ def planes_path(device, card, n=N_NODES, seed=SEED):
     view; then ``restart_slot`` of a live slot. Holds every plane's
     invariant, the configuration id against a plain simulator's, and the
     decision's syncs (the debug mode's count equal to the labelled ones).
-    Launch counts are reset just before the path and read just after."""
+    Launch counts are reset just before the path and read just after.
+    Returns the result and the view change's ``placement_topr`` inputs (its
+    affected rows' keys, the map's instance keys and weights, the new active
+    set) for ``topr_phase``."""
     from rapid_tpu_torch.placement.device import DevicePlacement
     from rapid_tpu_torch.runtime import jitwatch
     from rapid_tpu_torch.settings import SLOSettings
@@ -2566,6 +2702,14 @@ def planes_path(device, card, n=N_NODES, seed=SEED):
     plain.ready()
     walls["view change, planes off"] = (time.perf_counter() - t0) * 1e3
     assert plain_rec.configuration_id == rec.configuration_id, "configuration id != plain"
+    # the view change's placement_topr call, for topr_phase: its rows, the
+    # map's keys and the new active set
+    placement = sim.placement
+    view_change = {
+        "part": placement._part_dev.index_select(0, torch.from_numpy(expected).to(device)),
+        "inst": placement._inst_dev, "weights": placement._weights_dev,
+        "active": torch.from_numpy(placement.active).to(device), "replicas": placement.replicas,
+    }
 
     summary = plane.summary(sim.virtual_ms)
     result = {
@@ -2595,7 +2739,7 @@ def planes_path(device, card, n=N_NODES, seed=SEED):
           f"syncs {syncs}; launches {launches}; host RSS {result['host_rss_mib']:.0f} MiB, "
           f"{result['host_rss_growth_mib']:.0f} MiB of it since before the simulator ({card})",
           flush=True)
-    return result
+    return result, view_change
 
 
 def planes_host_memory(device, card, n=N_NODES, seed=SEED):
@@ -2666,6 +2810,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
+    topr_builds = start_topr_builds()
     libs = kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})", flush=True)
@@ -2767,8 +2912,10 @@ def main() -> int:
 
     # --- the driver's host planes, after every timed window above --------
     t0 = time.perf_counter()
-    topr = topr_phase(device, card)
-    planes_result = planes_path(device, card)
+    planes_result, view_change = planes_path(device, card)
+    _, parent_topr = finish_topr_builds(topr_builds, card)
+    topr = topr_phase(device, card, view_change, parent_topr)
+    del view_change
     planes_result["host_memory"] = planes_host_memory(device, card)
     golden_misses = planes_golden_check(device)
     assert not any(golden_misses.values()), f"planes: runs differ from {PLANES_GOLDEN}: " + "; ".join(

@@ -9,6 +9,8 @@ slots), whose top-R runs on the device:
   ``csrc/placement_topr.cu`` on a CUDA tensor and in its plain PyTorch
   version ``placement_topr_plain`` on a CPU one. Nothing of ``[P, C]`` is
   materialised by the kernel; the plain version works in row chunks.
+  ``topr_plan`` sizes the kernel's launch (rows a lane, column slices a
+  cluster, the tile of columns a stage, shared memory) to the card.
 - ``topr_full``: the full ``[P, R]`` build through it (the JAX package's
   chunked numpy path, whose results it gives bit for bit).
 - ``DevicePlacement.apply_view_change``: the incremental path driven from
@@ -50,11 +52,29 @@ _REV = _U64(0xFFFFFFFF)
 
 # the largest replica count placement_topr takes (csrc/placement_topr.cu, kMaxR)
 MAX_REPLICAS = 16
+# the launch plan's limits, as csrc/placement_topr.cu has them: warps (and
+# threads, a row each) a block, ring stages, slices a cluster (above 8
+# non-portable), a block's shared memory, the tile of columns
+TOPR_WARPS = 8
+TOPR_THREADS = 32 * TOPR_WARPS
+TOPR_STAGES = 3
+TOPR_MAX_SLICES = 16
+TOPR_MAX_SMEM = 232_448
+TOPR_MIN_TILE = 32
+TOPR_MAX_TILE = 512
+# the card's SMs (an H100 SXM), and the grids topr_plan aims at: four blocks
+# an SM, one for the merge (topr_variants.py's timings on an H100, PERF.md)
+TOPR_SMS = 132
+TOPR_GRID = 512
+TOPR_GRID_MERGE = 128
+# a stage ring of at most this many bytes leaves room for two blocks an SM
+_TOPR_RING_BUDGET = 96 * 1024
 
 __all__ = [
     "DeviceDiff",
     "DevicePlacement",
     "MAX_REPLICAS",
+    "ToprPlan",
     "build_jit",
     "instance_keys32",
     "node_keys64",
@@ -63,6 +83,7 @@ __all__ = [
     "placement_topr_plain",
     "split_topr",
     "topr_full",
+    "topr_plan",
 ]
 
 
@@ -191,6 +212,109 @@ def placement_topr_plain(
     return out
 
 
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _topr_stage_bytes(tile_cols: int, n_inst: int) -> int:
+    """One ring stage: keys [V, T] u32, effective weights and columns [T]
+    i32, a flag a group of 16 columns, the mask's covering words [T + 8] u8
+    (kernel: ``stage_bytes``)."""
+    t = tile_cols
+    return _round16(4 * t * n_inst + 8 * t + 4 * (t // 16) + t + 8)
+
+
+def _topr_smem(tile_cols: int, n_inst: int, replicas: int) -> int:
+    """The kernel's shared memory: the ring and, with several instance rows,
+    the weight sort's scratch stage (keys, weights, columns, two histograms),
+    or the block's lists laid over them after the last tile; then a floor a
+    row (kernel: ``smem_need``)."""
+    t = tile_cols
+    sort = _round16(4 * t * n_inst + 8 * t + 8 * (n_inst + 2)) if n_inst > 1 else 0
+    work = TOPR_STAGES * _topr_stage_bytes(t, n_inst) + sort
+    return _round16(max(work, 8 * replicas * TOPR_THREADS)) + 4 * TOPR_THREADS
+
+
+@dataclass(frozen=True)
+class ToprPlan:
+    """A ``placement_topr`` launch. A block's ``TOPR_WARPS`` warps hold
+    ``tile_rows`` rows, a row a lane, ``col_split`` warps sharing a row's
+    columns; each row tile is scored by one cluster of ``slices`` blocks that
+    split the columns' ``col_tiles`` tiles of ``tile_cols`` between them;
+    ``smem_bytes`` of shared memory a block."""
+
+    col_split: int
+    row_tiles: int
+    slices: int
+    tile_cols: int
+    col_tiles: int
+    smem_bytes: int
+
+    @property
+    def tile_rows(self) -> int:
+        return TOPR_THREADS // self.col_split
+
+    @property
+    def grid(self) -> int:
+        return self.row_tiles * self.slices
+
+    def slice_tiles(self, rank: int) -> Tuple[int, int]:
+        """The column tiles ``[begin, end)`` of the block of cluster rank
+        ``rank`` (the kernel's partition)."""
+        return (self.col_tiles * rank // self.slices,
+                self.col_tiles * (rank + 1) // self.slices)
+
+    def part_positions(self, part: int, n_cols: int, n_inst: int, begin: int,
+                       end: int) -> np.ndarray:
+        """The tile positions of tiles ``[begin, end)`` that warp ``part`` of a
+        row scores: the kernel deals each tile's groups of positions (16 at
+        one instance row, else 4) to the split's warps in turn. A position
+        holds its column (one instance row) or, with several, the tile's
+        columns sorted by weight, a permutation of them; the explicit-cols
+        path's positions index ``cols``."""
+        group = 16 if n_inst <= 1 else 4
+        j = np.arange(begin * self.tile_cols, min(end * self.tile_cols, n_cols))
+        return j[((j % self.tile_cols) // group) % self.col_split == part]
+
+
+def topr_plan(rows: int, n_cols: int, replicas: int, n_inst: int,
+              merge: bool = False) -> ToprPlan:
+    """The launch of ``placement_topr`` over ``rows`` rows and ``n_cols``
+    columns (all slots, or the explicit list) at ``replicas`` and ``n_inst``
+    instance rows; ``merge`` when a prior is merged in.
+
+    The tile of columns a ring stage holds is the widest power of two up to
+    512 whose ring stays within 96 KB, narrowed while the columns make fewer
+    than 8 tiles, so they still split into slices. Then the first column
+    split W (1, 2, 4, 8) and slice count S (1, 2, 4, 8, 16) whose grid
+    reaches ``TOPR_GRID`` blocks, else the largest grid (W 8, every slice).
+    A wider split and more slices both cut a lane's run of columns, and so
+    raise each part's admissions (the warp stops for any lane's), so the
+    fewest that fill the card win; ``topr_variants.py --plans`` on an H100
+    (PERF.md) puts that at four blocks an SM, and at one for the merge,
+    whose prior seeds every threshold and whose explicit columns are
+    gathered tile by tile. It takes the fastest plan timed there for the
+    full build, the merge and the view change's rows, not for the weighted
+    map (PERF.md, open questions)."""
+    if not 1 <= replicas <= MAX_REPLICAS:
+        raise ValueError(f"replicas {replicas} outside [1, {MAX_REPLICAS}]")
+    tile_cols = TOPR_MAX_TILE
+    while (tile_cols > TOPR_MIN_TILE
+           and TOPR_STAGES * _topr_stage_bytes(tile_cols, n_inst) > _TOPR_RING_BUDGET):
+        tile_cols //= 2
+    while tile_cols > TOPR_MIN_TILE and -(-n_cols // tile_cols) < 8:
+        tile_cols //= 2
+    col_tiles = -(-n_cols // tile_cols)
+    smem = _topr_smem(tile_cols, n_inst, replicas)
+    if smem > TOPR_MAX_SMEM:
+        raise ValueError(f"placement_topr: {n_inst} instances need {smem} B of shared memory")
+    target = TOPR_GRID_MERGE if merge else TOPR_GRID
+    plans = [ToprPlan(split, -(-rows // (TOPR_THREADS // split)), s, tile_cols, col_tiles, smem)
+             for split in (1, 2, 4, 8) for s in (1, 2, 4, 8, 16)
+             if s <= max(1, min(TOPR_MAX_SLICES, col_tiles))]
+    return next((p for p in plans if p.grid >= target), plans[-1])
+
+
 def placement_topr(
     part32: torch.Tensor, inst32: torch.Tensor, weights: torch.Tensor,
     active: Optional[torch.Tensor], replicas: int, cols: Optional[torch.Tensor] = None,
@@ -208,8 +332,19 @@ def placement_topr(
     the card cannot be checked without a sync, so the kernel skips any
     other) the candidates are exactly those columns, and ``prior`` (int32 [B, 2R], a previous
     result for the same rows) is merged in. On CUDA tensors it launches ``placement_topr``
-    (``csrc/placement_topr.cu``) and counts the launch in
-    ``kernels.LAUNCHES``; on CPU tensors it runs the plain version."""
+    (``csrc/placement_topr.cu``, launched as ``topr_plan`` sizes it) and
+    counts the launch in ``kernels.LAUNCHES``; on CPU tensors it runs the
+    plain version."""
+    return _placement_topr(part32, inst32, weights, active, replicas, cols, prior)
+
+
+def _placement_topr(
+    part32: torch.Tensor, inst32: torch.Tensor, weights: torch.Tensor,
+    active: Optional[torch.Tensor], replicas: int, cols: Optional[torch.Tensor] = None,
+    prior: Optional[torch.Tensor] = None, plan: Optional[ToprPlan] = None,
+) -> torch.Tensor:
+    """``placement_topr``, launched on a card with ``plan`` instead of
+    ``topr_plan``'s (the card tests force each regime of the plan)."""
     name = "placement_topr"
     if not 1 <= replicas <= MAX_REPLICAS:
         raise ValueError(
@@ -246,16 +381,20 @@ def placement_topr(
     out = torch.empty((n_rows, 2 * replicas), dtype=torch.int32, device=part32.device)
     if n_rows == 0:
         return out
+    n_cols = n_slots if cols is None else cols.shape[0]
+    if plan is None:
+        plan = topr_plan(n_rows, n_cols, replicas, inst32.shape[0], prior is not None)
     stream = torch.cuda.current_stream(part32.device).cuda_stream
     with kernels._traced(name):
         err = kernels._function(name)(
             part32.data_ptr(), n_rows, inst32.data_ptr(), n_slots, inst32.shape[0],
             weights.data_ptr(), kernels._ptr(active, cols is None),
             kernels._ptr(cols, cols is not None), 0 if cols is None else cols.shape[0],
-            kernels._ptr(prior, prior is not None), out.data_ptr(), replicas, stream,
+            kernels._ptr(prior, prior is not None), out.data_ptr(), replicas,
+            plan.col_split, plan.slices, plan.tile_cols, plan.smem_bytes, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err} ({plan})")
     kernels.LAUNCHES[name] += 1
     return out
 

@@ -73,7 +73,7 @@ _ARGTYPES = {
     "fd_phase_fused": [_P] * 25 + [_LL] + [_I] * 7 + [_P],
     "fd_phase_rows": [_P] * 5 + [ctypes.POINTER(_LL), _I, _P, _LL] + [_I] * 7 + [_P],
     "fd_gather": [_P] * 5 + [_LL, _I, _LL, _LL, ctypes.c_uint, _I, _P],
-    "placement_topr": [_P, _LL, _P, _LL, _I, _P, _P, _P, _LL, _P, _P, _I, _P],
+    "placement_topr": [_P, _LL, _P, _LL, _I, _P, _P, _P, _LL, _P, _P] + [_I] * 5 + [_P],
 }
 # shards of one fd_phase_rows call: its C entry point takes them as a table
 # in the kernel's parameters, which holds 16

@@ -309,3 +309,127 @@ def test_placement_topr_skips_columns_out_of_range_on_card(cuda_device):
     got = pdev.placement_topr(*(t.to(cuda_device) for t in (part, inst, weights)), None, 3,
                               cols=wild.to(cuda_device), prior=prior.to(cuda_device))
     assert torch.equal(got.cpu(), want)
+
+
+def _topr_case(rng, rows, cols, replicas, n_inst, weights, active_share):
+    part = torch.from_numpy(rng.integers(0, 2**32, rows, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+    inst = torch.from_numpy(rng.integers(0, 2**32, (n_inst, cols), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+    w = torch.from_numpy(rng.integers(weights[0], weights[1] + 1, cols).astype(np.int32))
+    active = torch.from_numpy(rng.random(cols) < active_share)
+    return part, inst, w, active
+
+
+def _forced_plan(rows, n_cols, replicas, n_inst, col_split=None, slices=None, tile_cols=None):
+    """``topr_plan``'s plan with some of its choices overridden."""
+    from rapid_tpu_torch.placement import device as pdev
+
+    plan = pdev.topr_plan(rows, n_cols, replicas, n_inst)
+    w = col_split or plan.col_split
+    t = tile_cols or plan.tile_cols
+    return pdev.ToprPlan(w, -(-rows // (pdev.TOPR_THREADS // w)), slices or plan.slices, t,
+                         -(-n_cols // t), pdev._topr_smem(t, n_inst, replicas))
+
+
+# (rows, columns, replicas, instance rows, weights from..to, active share,
+#  merge, forced plan: column split, slices, tile columns)
+TOPR_REGIMES = {
+    "one row": (1, 5000, 3, 1, (1, 1), 0.9, False, {}),
+    "one row, one cluster of 16": (1, 20_000, 3, 1, (1, 1), 0.9, False, {"slices": 16}),
+    "rows not a multiple of the tile": (300, 3000, 3, 1, (1, 1), 0.9, False,
+                                        {"col_split": 1}),
+    "fewer columns than slices": (70, 3, 3, 1, (1, 1), 1.0, False, {"slices": 8}),
+    "one column": (40, 1, 2, 1, (1, 1), 1.0, False, {}),
+    "all columns inactive": (50, 700, 3, 1, (1, 1), 0.0, False, {}),
+    "R 1": (300, 4000, 1, 1, (1, 1), 0.9, False, {}),
+    "R 1, weighted": (300, 4000, 1, 3, (1, 3), 0.9, False, {}),
+    "R 16": (90, 4000, 16, 2, (0, 2), 0.9, False, {}),
+    "R 9, no column split": (200, 3000, 9, 1, (1, 1), 0.9, False, {"col_split": 1}),
+    "weights to 64": (64, 2000, 3, 64, (0, 64), 0.9, False, {}),
+    "weights above the instance rows": (64, 2000, 3, 4, (2, 40), 0.9, False, {}),
+    "equal weights, weighted path": (64, 3000, 3, 5, (5, 5), 0.95, False, {}),
+    "no cluster": (256, 6000, 3, 1, (1, 1), 0.9, False, {"slices": 1}),
+    "a cluster of 5, narrow tiles": (256, 6000, 3, 1, (1, 1), 0.9, False,
+                                     {"slices": 5, "tile_cols": 32}),
+    "a cluster of 16, weighted": (256, 6000, 4, 8, (1, 8), 0.9, False, {"slices": 16}),
+    "columns split over 2 warps": (300, 5000, 3, 1, (1, 1), 0.9, False, {"col_split": 2}),
+    "columns split over 8 warps, weighted": (70, 5000, 3, 6, (1, 6), 0.9, False,
+                                             {"col_split": 8, "slices": 3}),
+    "merge": (257, 4000, 3, 1, (1, 1), 0.9, True, {}),
+    "merge, a cluster of 8": (100, 4000, 8, 4, (1, 4), 0.9, True, {"slices": 8}),
+    "merge, no cluster": (100, 4000, 3, 1, (1, 1), 0.9, True, {"slices": 1}),
+    "merge, columns split over 4 warps": (100, 4000, 3, 1, (1, 1), 0.9, True,
+                                          {"col_split": 4, "slices": 2}),
+}
+
+
+@pytest.mark.parametrize("name", list(TOPR_REGIMES))
+def test_placement_topr_plan_regimes_on_card(cuda_device, name):
+    """The kernel against its plain version, bit for bit, in each regime of
+    its launch plan: one row, a partial row tile, fewer columns than slices,
+    one column, no candidate (assign -1), R 1 and 16, weights to 64, above
+    the instance rows and all equal, each column split, the merge, and
+    cluster sizes from 1 (none) to 16."""
+    from rapid_tpu_torch.placement import device as pdev
+    from rapid_tpu_torch.sim import kernels
+
+    rows, cols, replicas, n_inst, weights, share, merge, forced = TOPR_REGIMES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    part, inst, w, active = _topr_case(rng, rows, cols, replicas, n_inst, weights, share)
+    kw = {}
+    if merge:
+        kw = {"cols": torch.from_numpy(np.sort(rng.choice(cols, cols // 5, replace=False))
+                                       .astype(np.int32)),
+              "prior": pdev.placement_topr_plain(part, inst, w, active, replicas)}
+    mask = None if merge else active
+    want = pdev.placement_topr_plain(part, inst, w, mask, replicas, **kw)
+    n_cols = kw["cols"].shape[0] if merge else cols
+    plan = _forced_plan(rows, n_cols, replicas, n_inst, **forced)
+    before = kernels.LAUNCHES["placement_topr"]
+    got = pdev._placement_topr(*(t.to(cuda_device) for t in (part, inst, w)),
+                               None if mask is None else mask.to(cuda_device), replicas,
+                               **{k: v.to(cuda_device) for k, v in kw.items()}, plan=plan)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["placement_topr"] == before + 1
+    assert torch.equal(got.cpu(), want), plan
+    if share == 0.0:
+        assert (want[:, :replicas] == -1).all()
+
+
+def test_placement_topr_merge_skips_wild_columns_in_every_slice_on_card(cuda_device):
+    """Explicit columns outside [0, C), spread over a cluster's slices and
+    tiles, are never read; the prior enters once a row."""
+    from rapid_tpu_torch.placement import device as pdev
+
+    rng = np.random.default_rng(23)
+    part, inst, w, active = _topr_case(rng, 70, 600, 4, 2, (1, 2), 0.5)
+    prior = pdev.placement_topr_plain(part, inst, w, active, 4)
+    good = np.sort(rng.choice(600, 90, replace=False)).astype(np.int32)
+    wild = np.concatenate([good, [-1, 600, 1 << 30, -(1 << 31)] * 10]).astype(np.int32)
+    rng.shuffle(wild)
+    want = pdev.placement_topr_plain(part, inst, w, None, 4, cols=torch.from_numpy(good),
+                                     prior=prior)
+    plan = _forced_plan(70, wild.size, 4, 2, slices=4, tile_cols=32)
+    got = pdev._placement_topr(*(t.to(cuda_device) for t in (part, inst, w)), None, 4,
+                               cols=torch.from_numpy(wild).to(cuda_device),
+                               prior=prior.to(cuda_device), plan=plan)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("change", [{"slices": 17}, {"smem_bytes": 1024},
+                                    {"tile_cols": 48}, {"tile_cols": 1024},
+                                    {"col_split": 3}])
+def test_placement_topr_refused_plan_raises_on_card(cuda_device, change):
+    """A plan the kernel cannot take is refused by the C entry, and the
+    wrapper raises instead of returning the uninitialised output."""
+    import dataclasses
+
+    from rapid_tpu_torch.placement import device as pdev
+
+    rng = np.random.default_rng(5)
+    part, inst, w, active = _topr_case(rng, 64, 1000, 3, 1, (1, 1), 0.9)
+    plan = dataclasses.replace(pdev.topr_plan(64, 1000, 3, 1), **change)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pdev._placement_topr(*(t.to(cuda_device) for t in (part, inst, w, active)), 3,
+                             plan=plan)
