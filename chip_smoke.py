@@ -115,7 +115,24 @@ into build/kernels/. Phases, each of which must pass:
    the sweep's
    10 000-member placement point and hierarchy-zone-churn, each equal to
    what the JAX package gave (``tests/golden/torch_planes.json``,
-   ``planes_golden_check``).
+   ``planes_golden_check``);
+15. the mesh over several processes (after the single-controller meshes of
+   9): ``python -m rapid_tpu_torch.cli.multihost_sim`` in 2 child processes
+   of 2 shards each on this card (gloo over localhost), the 100k crash and
+   ingress loss 1.0, and in 4 processes of 1 shard the crash, every child
+   under a wall timeout; every rank's record (cut, protocol time,
+   configuration id) equal to an in-process single-controller mesh of the
+   same shape and seed, 16 ``fd_phase_rows`` and 16 ``fd_gather`` launches,
+   16 all-gathers and 16 ``shard.exchange`` syncs in each rank
+   (``multihost_phase``);
+16. the port's own fault plane (``rapid_tpu_torch/faults.py``): the bench's
+   gray-detection dimension through ``replay_on_simulator``, equal to
+   ``tests/golden/torch_gray.json``, which the JAX package wrote; then a
+   plan at 100k (1% victims, half ``slow_node``, half a drop rule at
+   probability 1.0, the gray streak on) replayed to a cut equal to the
+   victims through ``fd_phase_fused``, the replay's host parts
+   (``endpoint_slots``, ``apply_plan_at``) timed apart
+   (``fault_replay_phase``).
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -127,6 +144,7 @@ import itertools
 import json
 import os
 import queue
+import re
 import socket
 import statistics
 import subprocess
@@ -203,6 +221,13 @@ MESHES = (("4 shards", {"n_devices": 4}, 4), ("8 shards", {"n_devices": 8}, 8),
 SHARDED_RUNS = 3  # decisions timed on each mesh, the first warming it
 SHARD_SEED = SEED + 8000
 SPEC_PAIRS = 3  # speculate on/off pairs of decisions timed per branch
+MULTIHOST_SEED = SEED + 7000
+# (label, processes, shards a process, ingress loss or 0 for a crash)
+MULTIHOST_RUNS = (("(2, 2) crash", 2, 2, 0.0), ("(2, 2) ingress loss 1.0", 2, 2, 1.0),
+                  ("(4, 1) crash", 4, 1, 0.0))
+MULTIHOST_TIMEOUT_S = 300.0  # each child's wall limit
+REPLAY_SEED = SEED + 6000
+REPLAY_HORIZON_MS = 16_000
 PLANES_SEED = SEED + 9000
 # the gateway phase: tests/test_gateway.py's GatewayHarness settings, the
 # member's identity of the bridge phase, a bound on every wait
@@ -1153,6 +1178,178 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
     print(f"sharded decision, windowed, 4 shards: cut ok, virtual {rec.virtual_time_ms} ms, "
           f"wall {ms:.3f} ms (first on this config), launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return out
+
+
+_MULTIHOST_RECORD = re.compile(r"cut (\d+) nodes in (\d+) ms protocol time .*; config (-?\d+)")
+
+
+def _multihost_children(processes, per_process, loss, seed, device="cuda", n=N_NODES):
+    """``python -m rapid_tpu_torch.cli.multihost_sim`` in ``processes``
+    child processes on this machine (gloo on localhost, each process's
+    shards on ``device``), one warm-up decision each, every child under
+    ``MULTIHOST_TIMEOUT_S`` and killed in ``finally``. The kernels are built
+    before (the children load that build). Returns each rank's record (cut
+    size, protocol ms, configuration id) and its stats line."""
+    import tempfile
+
+    port = _free_ports(1)[0]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for rank in range(processes):
+                cmd = [sys.executable, "-m", "rapid_tpu_torch.cli.multihost_sim",
+                       "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(processes),
+                       "--process-id", str(rank), "--devices-per-host", str(per_process),
+                       "--n", str(n), "--seed", str(seed), "--device", device]
+                if loss:
+                    cmd += ["--ingress-loss", str(loss)]
+                log = open(os.path.join(tmp, f"{rank}.log"), "w")
+                procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                               cwd=root, env=dict(os.environ,
+                                                                  PYTHONUNBUFFERED="1")), log))
+            deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+            rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p, _ in procs]
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        texts = [open(os.path.join(tmp, f"{rank}.log")).read() for rank in range(processes)]
+    ranks = []
+    for rank, (rc, text) in enumerate(zip(rcs, texts)):
+        assert rc == 0, f"multihost rank {rank} exited {rc}:\n{text[-4000:]}"
+        assert f"mesh {{'dcn': {processes}, 'ici': {per_process}}}" in text, text[-2000:]
+        m = _MULTIHOST_RECORD.search(text)
+        assert m, f"multihost rank {rank}: no record line:\n{text[-2000:]}"
+        stats = json.loads(text.split("stats ", 1)[1].splitlines()[0])
+        ranks.append({"record": [int(g) for g in m.groups()], **stats})
+    return ranks
+
+
+def multihost_phase(Simulator, shard, kernels, card):
+    """The multi-process mesh on this one card (MULTIHOST_RUNS): the crash
+    and ingress loss 1.0 over 2 processes of 2 shards and the crash over 4
+    of 1, at 100k members, every rank's record equal to an in-process
+    single-controller mesh of the same shape on this card with the same
+    seed; each rank's decision wall, launches, collectives, bytes and syncs
+    by label beside the in-process wall."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for label, processes, per_process, loss in MULTIHOST_RUNS:
+        t0 = time.perf_counter()
+        ranks = _multihost_children(processes, per_process, loss, MULTIHOST_SEED)
+        phase_s = time.perf_counter() - t0
+        mesh = shard.make_mesh(shape=(processes, per_process),
+                               devices=[dev] * (processes * per_process))
+        victims = np.random.default_rng(MULTIHOST_SEED).choice(
+            N_NODES, max(1, int(N_NODES * 0.01)), replace=False)
+        walls, records = [], set()
+        for _ in range(2):  # the first warms this mesh and fault in the process
+            sim = Simulator(N_NODES, seed=MULTIHOST_SEED, mesh=mesh).ready()
+            (sim.ingress_loss(victims, loss) if loss else sim.crash(victims))
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            rec = sim.run_until_decision(max_rounds=64 if loss else 16, batch=16)
+            sim.ready()
+            walls.append((time.perf_counter() - t1) * 1000.0)
+            launches = dict(kernels.LAUNCHES)
+            assert rec is not None and set(rec.cut.tolist()) == set(victims.tolist())
+            records.add((len(rec.cut), rec.virtual_time_ms, rec.configuration_id))
+        assert len(records) == 1, records
+        want = list(records.pop())
+        for r in ranks:
+            assert r["record"] == want, (label, r["process"], r["record"], want)
+            assert r["launches"]["fd_phase_rows"] == r["launches"]["fd_gather"] == 16, r
+            assert r["collectives"] == r["syncs"]["shard.exchange"] == 16, r
+            assert r["syncs"]["sim.decision_words"] == 1, r
+        out[label] = {"ranks": ranks, "inprocess_walls_ms": walls,
+                      "inprocess_launches": launches, "record": want, "phase_s": phase_s}
+        print(f"multihost {label}: {processes} processes of {per_process} shards on {dev} "
+              f"(gloo), {N_NODES} members, {len(victims)} "
+              f"{'behind ingress loss ' + str(loss) if loss else 'crashed'}; every rank's "
+              f"record (cut {want[0]}, virtual {want[1]} ms, configuration id {want[2]}) == "
+              f"the in-process ({processes}, {per_process}) mesh's; in-process walls "
+              f"{[round(w, 3) for w in walls]} ms (the first warms it; {card}); "
+              f"{phase_s:.1f} s with the children's start-up",
+              flush=True)
+        for r in ranks:
+            print(f"multihost {label}, rank {r['process']} (shards {r['shards']}): decision "
+                  f"wall {r['wall_ms']:.3f} ms (after one warm-up decision), launches "
+                  f"fd_phase_rows {r['launches']['fd_phase_rows']}, fd_gather "
+                  f"{r['launches']['fd_gather']}, collectives {r['collectives']} of "
+                  f"{r['bytes_a_collective']} B each, syncs {r['syncs']}", flush=True)
+    return out
+
+
+def fault_replay_phase(kernels, jitwatch, device, card):
+    """The port's own fault plane on the card: the bench's gray-detection
+    dimension held to tests/golden/torch_gray.json, then a plan at 100k
+    members (1% victims, half ``slow_node``, half a drop rule at probability
+    1.0, the adaptive gray streak on) replayed through
+    ``faults.replay_on_simulator``: the cut must be the victims, through
+    ``fd_phase_fused``; the replay's host parts timed apart, beside
+    ``endpoint_slots``, which the replay no longer builds."""
+    from rapid_tpu_torch import faults
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.sim.engine import SimConfig
+
+    t0 = time.perf_counter()
+    gray, misses = gray_golden_check(device)
+    gray_s = time.perf_counter() - t0
+    assert not misses, f"gray dimension differs from {GRAY_GOLDEN}: {misses[:5]}"
+    print(f"fault replay, gray dimension: the bench's slow-node and flapping runs, static "
+          f"against adaptive, equal tests/golden/torch_gray.json exactly (speedups "
+          f"{ {k: v['speedup'] for k, v in gray.items()} }), {gray_s:.2f} s ({card})",
+          flush=True)
+
+    config = SimConfig(capacity=N_NODES, fd_gray_confirm=GRAY_CONFIRM)
+    sim = Simulator(N_NODES, config=config, seed=REPLAY_SEED, device=device).ready()
+    victims = sorted(np.random.default_rng(REPLAY_SEED).choice(
+        N_NODES, N_NODES // 100, replace=False).tolist())
+    t0 = time.perf_counter()
+    slots = faults.endpoint_slots(sim)
+    slots_ms = (time.perf_counter() - t0) * 1000.0
+    by_slot = {s: ep for ep, s in slots.items()}
+    plan = faults.FaultPlan(seed=REPLAY_SEED)
+    half = len(victims) // 2
+    for v in victims[:half]:
+        plan.slow_node(by_slot[v], GRAY_DELAY_MS)
+    for v in victims[half:]:
+        plan.drop(1.0, dst=by_slot[v])
+    t0 = time.perf_counter()
+    faults.apply_plan_at(sim, plan, 0)  # the replay's own slot lookups
+    apply_ms = (time.perf_counter() - t0) * 1000.0
+    t0 = time.perf_counter()
+    faults.apply_plan_at(sim, plan, 0, slots)
+    apply_dict_ms = (time.perf_counter() - t0) * 1000.0
+    sim.clear_link_faults()
+    jitwatch.reset()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    records = faults.replay_on_simulator(sim, plan, duration_ms=REPLAY_HORIZON_MS)
+    sim.ready()
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    launches = dict(kernels.LAUNCHES)
+    syncs = jitwatch.sync_counts()
+    assert records and sorted(int(c) for c in records[0].cut) == victims, [
+        len(r.cut) for r in records]
+    assert launches["fd_phase_fused"] > 0, launches
+    out = {"gray": gray, "gray_s": gray_s, "victims": len(victims),
+           "records": [_record_digest(r) | {"cut": len(r.cut)} for r in records],
+           "wall_ms": wall_ms, "endpoint_slots_ms": slots_ms, "apply_plan_at_ms": apply_ms,
+           "apply_plan_at_given_slots_ms": apply_dict_ms,
+           "launches": launches, "syncs": syncs}
+    print(f"fault replay, {N_NODES} members: {half} slow_node + {len(victims) - half} drop "
+          f"1.0 victims, fd_gray_confirm {GRAY_CONFIRM}, {REPLAY_HORIZON_MS} ms horizon: cut "
+          f"== the victims at virtual {records[0].virtual_time_ms} ms, {len(records)} "
+          f"record(s); replay wall {wall_ms:.3f} ms; host parts timed apart before it: "
+          f"apply_plan_at {apply_ms:.3f} ms with the replay's own slot lookups (which the "
+          f"replay repeats), {apply_dict_ms:.3f} ms given endpoint_slots, which took "
+          f"{slots_ms:.3f} ms to build (the replay does not); launches "
+          f"{ {k: v for k, v in launches.items() if v} }, syncs {syncs} ({card})", flush=True)
     return out
 
 
@@ -2453,6 +2650,71 @@ def planes_golden_check(device):
     return {name: _golden_misses(got[name], want[name]) for name in want}
 
 
+# the bench's gray-detection dimension (bench.py GRAY_*, run_gray_detection_dimension)
+GRAY_N_NODES = 64
+GRAY_DELAY_MS = 5_000
+GRAY_CONFIRM = 3
+GRAY_WARMUP = 3
+GRAY_WINDOWS = {
+    "gray_slow_node": ((3_000, None),),
+    "gray_flapping": ((3_000, 9_000), (15_000, 21_000), (27_000, 33_000)),
+}
+GRAY_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "torch_gray.json")
+
+
+def gray_dimension_run(faults, Simulator, SimConfig, LatencyTopology, seed=SEED, **sim_kw):
+    """The bench's gray-detection dimension as written
+    (``bench.run_gray_detection_dimension``): 64 members on a two-region
+    topology, one slow node (``slow_node`` at 5 s, gray for good or
+    flapping), replayed through ``faults.replay_on_simulator`` with the
+    static counter and with the adaptive streak (``fd_gray_confirm``).
+    Takes either package's fault plane and classes, so
+    ``tests/golden/generate_torch_gray.py`` records the JAX package's run
+    and the port's is held to it. Returns each replay's records and
+    detection time, and each scenario's speedup, as JSON-ready data."""
+    topo = LatencyTopology(racks=4, zones=2, regions=2, rack_rtt_ms=0, zone_rtt_ms=0,
+                           region_rtt_ms=0, inter_region_rtt_ms=200)
+    out = {}
+    for scenario, windows in GRAY_WINDOWS.items():
+        entry = {}
+        for mode, confirm in (("static", 0), ("adaptive", GRAY_CONFIRM)):
+            config = SimConfig(capacity=GRAY_N_NODES, groups=2, max_delivery_delay=2,
+                               fd_gray_confirm=confirm, fd_gray_warmup=GRAY_WARMUP)
+            sim = Simulator(GRAY_N_NODES, config=config, seed=seed, **sim_kw)
+            endpoint_of = {slot: ep for ep, slot in faults.endpoint_slots(sim).items()}
+            victim = GRAY_N_NODES - 1
+            plan = faults.FaultPlan(seed=seed).slow_node(
+                endpoint_of[victim], GRAY_DELAY_MS, windows=windows).with_topology(topo)
+            epoch = sim.virtual_ms
+            records = faults.replay_on_simulator(sim, plan, duration_ms=45_000)
+            assert records and [int(c) for c in records[0].cut] == [victim], (
+                f"{scenario}/{mode}: cut parity")
+            entry[mode] = {"records": [_record_digest(r) for r in records],
+                           "detect_ms": int(records[0].virtual_time_ms - epoch - windows[0][0]),
+                           "virtual_ms": int(sim.virtual_ms)}
+        entry["speedup"] = round(entry["static"]["detect_ms"]
+                                 / max(entry["adaptive"]["detect_ms"], 1), 2)
+        out[scenario] = entry
+    return out
+
+
+def gray_golden_check(device):
+    """The port's gray dimension (its own ``faults``) against
+    ``tests/golden/torch_gray.json``, exactly; returns the run and its
+    misses."""
+    from rapid_tpu_torch import faults
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.sim.engine import SimConfig
+    from rapid_tpu_torch.sim.topology import LatencyTopology
+
+    with open(GRAY_GOLDEN) as f:
+        want = json.load(f)["run"]
+    got = json.loads(json.dumps(gray_dimension_run(faults, Simulator, SimConfig,
+                                                   LatencyTopology, device=device)))
+    return got, _golden_misses(got, want)
+
+
 def _topr_inputs(rng, rows, cols, weights, inactive, device):
     part = torch.from_numpy(rng.integers(0, 2**32, rows, dtype=np.uint64)
                             .astype(np.uint32).view(np.int32)).to(device)
@@ -2910,6 +3172,14 @@ def main() -> int:
     split = _split_phase(kernels, fd_bench, engine, device)
     sharded = _sharded_decisions(Simulator, engine, shard, kernels, rng, device)
 
+    # --- the mesh over several processes, and the port's own fault plane --
+    t0 = time.perf_counter()
+    multihost = multihost_phase(Simulator, shard, kernels, card)
+    t1 = time.perf_counter()
+    replay = fault_replay_phase(kernels, jitwatch, device, card)
+    print(f"multihost phase {t1 - t0:.1f} s, fault replay phase "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
     # --- the driver's host planes, after every timed window above --------
     t0 = time.perf_counter()
     planes_result, view_change = planes_path(device, card)
@@ -2948,6 +3218,8 @@ def main() -> int:
             "launches_bridged": bridged_launches.get(name, []),
             # (gateway step, launches) of each decision pump of the gateway phase that ran it
             "launches_gateway": gateway_launches.get(name, []),
+            # the 100k fault replay (drop rule at 1.0 and the gray streak: the scan path)
+            "launches_replay": replay["launches"].get(name, 0),
             "match": True,
             "max_abs_err": max(s["max_abs_err"] for s in sizes.values()),
             "ms": main_shape["ms"],
@@ -2981,6 +3253,10 @@ def main() -> int:
             "launches": split_launches[name],
             "launches_bridged": bridged_launches.get(name, []),
             "launches_gateway": gateway_launches.get(name, []),
+            # (run, rank, launches) of each process of the multi-process decisions
+            "launches_multiprocess": [
+                (label, r["process"], r["launches"].get(name, 0))
+                for label, run in multihost.items() for r in run["ranks"]],
             "match": True,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
@@ -3022,7 +3298,8 @@ def main() -> int:
     print(json.dumps({"headline_wall_ms": head_walls, "scan_wall_ms": scan_walls,
                       "headline_syncs": syncs, "scan_syncs": scan_syncs,
                       "windowed": windowed, "classic_fallback": fallback,
-                      "sharded": sharded, "planes": planes, "card": card,
+                      "sharded": sharded, "driver_planes": planes, "card": card,
+                      "multihost": multihost, "fault_replay": replay,
                       "bridge": dict(bridge, pumps=[dict(p, cut=len(p["cut"]))
                                                     for p in bridge["pumps"]]),
                       "wire": wire, "gateway": gateway, "planes": planes_result},

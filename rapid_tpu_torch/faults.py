@@ -17,26 +17,40 @@
   shared RNG state -- so both packages draw alike for every rule kind.
 
 The simulator's handoff and serving planes consult ``Nemesis.decide`` per
-chunk pull and per replication write. The transport decorators
-(``NemesisClient`` / ``NemesisServer``), ``SkewedScheduler`` with
-``Nemesis.scheduler_for``, and the device-replay functions
-(``apply_plan_at``, ``replay_on_simulator``) are not ported yet
-(ROADMAP.md, Queue 1).
+chunk pull and per replication write.
+
+The simulator half: ``replay_on_simulator`` replays a plan on the port's
+``Simulator`` through every schedule boundary, ``apply_plan_at`` sets its
+fault arrays to a plan's state at one plan time and ``apply_topology``
+compiles a ``LatencyTopology`` onto its delivery groups and delays; rules the
+round model cannot express raise ``UnsupportedDeviceFault``. They call only
+the methods the port's ``Simulator`` shares with JAX's, so a plan replays
+alike on both. A cell partition finds its cells for every slot at once
+(``_slot_cells``), and a replay looks its rules' endpoints up in the
+simulator's identities (``_SlotIndex``) instead of building
+``endpoint_slots``' ``Endpoint`` for every slot. The transport decorators (``NemesisClient`` /
+``NemesisServer``) and ``SkewedScheduler`` with ``Nemesis.scheduler_for``
+are not ported yet (ROADMAP.md, Queue 1 item 13b).
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import random
 import struct
 import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
+from .hashing import endpoint_hash_batch
+from .hierarchy.cells import _CELL_SEED_BASE
 from .hierarchy.cells import cell_of as _hier_cell_of
 from .observability import Metrics, global_metrics
 from .runtime.lockdep import make_lock
-from .types import Endpoint, RapidMessage
+from .types import Endpoint, ProbeMessage, RapidMessage
 
 EGRESS = "egress"
 INGRESS = "ingress"
@@ -241,7 +255,7 @@ class DiskStallRule(Rule):
 
 
 # Device-plane behavior of every Rule subclass, as the JAX package's
-# catalog states it (its apply_plan_at is not ported yet):
+# catalog states it:
 #   compiled  -- mapped onto the Simulator's fault arrays by apply_plan_at
 #   absorbed  -- invisible to the round model within a documented bound
 RULE_CATALOG = {
@@ -831,3 +845,260 @@ class Nemesis:
             if si is not None and di is not None:
                 out.delay_ms += topo.one_way_ms(si, di)
         return out
+
+
+# --------------------------------------------------------------------------
+# Device-plane compilation
+# --------------------------------------------------------------------------
+
+
+class UnsupportedDeviceFault(ValueError):
+    """The rule has no device-plane analogue (see replay_on_simulator)."""
+
+
+def _device_rules(plan: FaultPlan, round_ms: int) -> List[Tuple[int, Rule]]:
+    """The device-compilable subset, validated.
+
+    The device plane models the FD probe fabric: one-way ingress cuts
+    (``one_way_ingress_partition``), lossy ingress (``ingress_loss``) and
+    their schedules. Delays shorter than one round, duplicates and
+    reorderings are absorbed by the round abstraction (a probe exchange is
+    idempotent and completes within its round), so those compile to no-ops;
+    anything the round model cannot absorb raises, loudly, instead of
+    silently diverging from the protocol plane.
+    """
+    out: List[Tuple[int, Rule]] = []
+    for idx, rule in enumerate(plan.rules):
+        if isinstance(rule, (DuplicateRule, ReorderRule, WireVersionRule)):
+            # idempotent / intra-round / byte-level: invisible to the round
+            # model (the device plane never serializes wire frames)
+            continue
+        if isinstance(rule, (TornWriteRule, DiskStallRule)):
+            # storage-level faults: the device plane models the probe
+            # fabric, not stable storage
+            continue
+        if isinstance(rule, ClockSkewRule):
+            if not 0.5 <= rule.rate <= 2.0:
+                raise UnsupportedDeviceFault(
+                    f"clock-skew rule {idx}: rate {rule.rate} outside "
+                    "[0.5, 2.0] -- drift that extreme can flip round "
+                    "outcomes, which the global-clock round model cannot "
+                    "express"
+                )
+            continue  # bounded drift shifts timings, never round outcomes
+        if isinstance(rule, DelayRule):
+            if rule.base_ms + rule.jitter_ms >= round_ms:
+                raise UnsupportedDeviceFault(
+                    f"delay rule {idx} exceeds one device round ({round_ms} "
+                    "ms); use Simulator.delay_broadcasts for round-scale "
+                    "latency"
+                )
+            continue  # sub-round latency is absorbed by the round model
+        if isinstance(rule, SlowNodeRule) and rule.response_delay_ms < round_ms:
+            continue  # answers within the round: the probe still succeeds
+        if rule.match.src is not None:
+            raise UnsupportedDeviceFault(
+                f"rule {idx}: per-source link faults have no device "
+                "analogue (the probe mask is per destination)"
+            )
+        if rule.match.msg_types is not None and not any(
+            issubclass(ProbeMessage, t) for t in rule.match.msg_types
+        ):
+            raise UnsupportedDeviceFault(
+                f"rule {idx}: only probe-affecting faults compile to the "
+                "device probe mask (dissemination loss is "
+                "Simulator.drop_broadcasts)"
+            )
+        out.append((idx, rule))
+    return out
+
+
+def _boundaries(rules: List[Tuple[int, Rule]], horizon_ms: int,
+                round_ms: int) -> List[int]:
+    """Plan times (relative, within the horizon) where the active fault set
+    can change: window edges plus flip-flop phase edges."""
+    edges = {0, horizon_ms}
+    for _, rule in rules:
+        for start, end in rule.windows:
+            if start < horizon_ms:
+                edges.add(max(0, start))
+            if end is not None and end < horizon_ms:
+                edges.add(end)
+        if isinstance(rule, FlipFlopRule):
+            half = max(1, rule.period_ms // 2)
+            t = rule.start_ms
+            while t < horizon_ms:
+                if t >= 0:
+                    edges.add(t)
+                t += half
+    return sorted(edges)
+
+
+def endpoint_slots(sim) -> Dict[Endpoint, int]:
+    """Endpoint -> slot for every seated identity of a Simulator."""
+    cluster = sim.cluster
+    return {
+        Endpoint(
+            bytes(cluster.hostnames[i, : cluster.host_lengths[i]]),
+            int(cluster.ports[i]),
+        ): i
+        for i in range(sim.config.capacity)
+    }
+
+
+class _SlotIndex:
+    """``endpoint_slots(sim)[endpoint]`` without building an ``Endpoint``
+    for every slot (at 100k slots those take most of a replay): the slots
+    seated on the endpoint's port, searched in a sorted copy of the ports,
+    then matched by hostname. Like the dict, a snapshot of the identities
+    when made; of equal endpoints the highest slot wins; a missing one
+    raises ``KeyError``."""
+
+    def __init__(self, sim) -> None:
+        cl, capacity = sim.cluster, sim.config.capacity
+        self._hosts = cl.hostnames[:capacity].copy()
+        self._lengths = cl.host_lengths[:capacity].copy()
+        ports = cl.ports[:capacity]
+        self._order = np.argsort(ports, kind="stable")
+        self._ports = ports[self._order]
+
+    def __getitem__(self, endpoint: Endpoint) -> int:
+        lo = np.searchsorted(self._ports, endpoint.port, side="left")
+        hi = np.searchsorted(self._ports, endpoint.port, side="right")
+        host = np.frombuffer(endpoint.hostname, dtype=np.uint8)
+        if lo < hi and len(host) <= self._hosts.shape[1]:
+            cand = self._order[lo:hi]
+            same = (self._lengths[cand] == len(host)) & (
+                self._hosts[cand, : len(host)] == host).all(axis=1)
+            if same.any():
+                return int(cand[same].max())
+        raise KeyError(endpoint)
+
+
+def _slot_cell(sim, plan: FaultPlan, slot: int, cells: int) -> int:
+    """Hierarchy cell of a device slot: topology zone when the plan carries
+    one (slots ARE topology indices), rendezvous over the slot's seated
+    endpoint otherwise -- the same precedence hierarchy/cells.py applies."""
+    if plan.topology is not None:
+        return plan.topology.zone_of(slot)
+    host, port = sim.endpoint_of(slot)
+    return _hier_cell_of(Endpoint(hostname=host, port=port), cells)
+
+
+def _slot_cells(sim, plan: FaultPlan, cells: int) -> np.ndarray:
+    """``_slot_cell`` of every slot at once (int64 [C]): the zones, or the
+    rendezvous argmax over one batched endpoint hash a cell, the first
+    highest cell on a tie as ``cells.cell_of_endpoint`` takes it."""
+    capacity = sim.config.capacity
+    if plan.topology is not None:
+        return np.array([plan.topology.zone_of(s) for s in range(capacity)], dtype=np.int64)
+    if cells <= 1:
+        return np.zeros(capacity, dtype=np.int64)
+    cl = sim.cluster
+    scores = np.stack([endpoint_hash_batch(cl.hostnames, cl.host_lengths, cl.ports,
+                                           _CELL_SEED_BASE + cell)
+                       for cell in range(cells)])
+    return np.argmax(scores, axis=0).astype(np.int64)
+
+
+def apply_plan_at(sim, plan: FaultPlan, t_ms: int,
+                  slots: Optional[Dict[Endpoint, int]] = None) -> None:
+    """Set the simulator's fault arrays to the plan's state at plan-time
+    ``t_ms``: partitions/flip-flops -> probe-drop targets, probabilistic
+    drops -> per-destination ingress loss. ``slots``: ``endpoint_slots``
+    (or any mapping from endpoint to slot), looked up in the simulator's
+    identities when not given."""
+    slots = slots if slots is not None else _SlotIndex(sim)
+    round_ms = sim.config.fd_interval_ms // sim.config.rounds_per_interval
+    sim.clear_link_faults()
+    if plan.topology is not None:
+        _apply_topology_delays(sim, plan.topology)
+    cut: List[int] = []
+    for idx, rule in _device_rules(plan, round_ms):
+        if not rule.active_at(t_ms):
+            continue
+        if isinstance(rule, CellPartitionRule):
+            # cell -> slot expansion: to the probe fabric outside the
+            # boundary, every member of the isolated cell is probe-dead
+            # (one-way ingress cut); the cell's internal traffic is not
+            # modeled per link on the device, so the compilation captures
+            # the externally visible outcome (the cell ages out of the
+            # composed view)
+            in_cell = _slot_cells(sim, plan, rule.cells) == rule.cell
+            cut.extend(np.flatnonzero(sim.active & in_cell).tolist())
+            continue
+        if rule.match.dst is not None:
+            targets = [slots[rule.match.dst]]
+        else:
+            targets = np.flatnonzero(sim.active).tolist()
+        if isinstance(rule, (PartitionRule, FlipFlopRule, SlowNodeRule,
+                             RestartNodeRule)):
+            # a node answering slower than the probe deadline is, to every
+            # observer, a node whose probes all fail: partition-equivalent
+            # (a restart victim's down window reads the same way)
+            cut.extend(targets)
+        elif isinstance(rule, DropRule):  # incl. LossyLinkRule
+            sim.ingress_loss(np.asarray(targets), rule.probability)
+    if cut:
+        sim.one_way_ingress_partition(np.asarray(sorted(set(cut))))
+
+
+def apply_topology(sim, topology) -> None:
+    """Compile a ``sim.topology.LatencyTopology`` onto a Simulator: zones
+    become delivery groups, and inter-zone one-way latency >= one round
+    becomes ``delay_broadcasts`` rounds (sub-round latency is absorbed by
+    the round model, the same rule DelayRule compilation follows).
+    Requires ``sim.config.groups >= zones`` and ``max_delivery_delay`` large
+    enough for the widest tier."""
+    groups = topology.group_assignment(sim.config.capacity)
+    n_zones = int(groups.max()) + 1
+    if sim.config.groups < n_zones:
+        raise UnsupportedDeviceFault(
+            f"topology has {n_zones} zones but sim.config.groups="
+            f"{sim.config.groups}"
+        )
+    sim.set_delivery_groups(groups)
+    _apply_topology_delays(sim, topology)
+
+
+def _apply_topology_delays(sim, topology) -> None:
+    """Re-arm the inter-zone broadcast delays (clear_link_faults wipes the
+    delay arrays, so apply_plan_at re-applies these each schedule segment)."""
+    round_ms = sim.config.fd_interval_ms // sim.config.rounds_per_interval
+    groups = topology.group_assignment(sim.config.capacity)
+    n_zones = int(groups.max()) + 1
+    slots = np.arange(sim.config.capacity)
+    for receiver in range(n_zones):
+        for sender in range(n_zones):
+            if receiver == sender:
+                continue
+            rounds = topology.delay_rounds(sender, receiver, round_ms)
+            if rounds > 0:
+                sim.delay_broadcasts(receiver, slots[groups == sender], rounds)
+
+
+def replay_on_simulator(sim, plan: FaultPlan, duration_ms: int,
+                        decision_batch: int = 8) -> list:
+    """Replay ``plan`` on the device plane for ``duration_ms`` of protocol
+    time (plan-time zero = the simulator's current ``virtual_ms``), driving
+    the fault arrays through every schedule boundary. Returns the
+    ViewChangeRecords decided within the horizon."""
+    slots = _SlotIndex(sim)
+    round_ms = sim.config.fd_interval_ms // sim.config.rounds_per_interval
+    rules = _device_rules(plan, round_ms)
+    if plan.topology is not None:
+        apply_topology(sim, plan.topology)
+    epoch = sim.virtual_ms
+    prior_changes = len(sim.view_changes)
+    times = _boundaries(rules, duration_ms, round_ms)
+    for seg_start, seg_end in zip(times, times[1:]):
+        apply_plan_at(sim, plan, seg_start, slots)
+        target = epoch + seg_end
+        while sim.virtual_ms < target:
+            remaining = math.ceil((target - sim.virtual_ms) / round_ms)
+            rec = sim.run_until_decision(
+                max_rounds=remaining, batch=min(decision_batch, remaining)
+            )
+            if rec is None:
+                break  # budget burned with no decision; next segment
+    return sim.view_changes[prior_changes:]

@@ -55,6 +55,7 @@ from ..runtime.lockdep import make_lock
 from ..runtime.futures import Promise
 from ..runtime.scheduler import RealScheduler
 from ..settings import Settings
+from ..shard.engine import require_single_process
 from ..sim.engine import resolve_device
 from ..types import (
     Endpoint,
@@ -532,6 +533,7 @@ class SwarmGateway:
                 "see ROADMAP.md Queue 1 item 8c. The Python server carries the "
                 "same wire."
             )
+        require_single_process(mesh, "the gateway")
         if mesh is None:
             device = resolve_device(device)
             if device.type == "cuda" and not torch.cuda.is_available():

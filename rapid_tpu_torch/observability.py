@@ -408,6 +408,13 @@ class Metrics:
              dict(child._const_labels)),
         )
 
+    def detach(self, child: "Metrics") -> None:
+        with self._lock:
+            self._children = [
+                r for r in self._children
+                if r() is not None and r() is not child
+            ]
+
     def _drain_absorbed(self) -> None:
         """Fold any dead children's queued samples into this registry.
         Called from every read/collect path (never from GC) so absorbed
@@ -473,6 +480,11 @@ class Metrics:
             return sum(
                 v for (n, _), v in self._counters.items() if n == name
             )
+
+    def get_gauge(self, name: str, **labels: object) -> Optional[float]:
+        self._drain_absorbed()
+        with self._lock:
+            return self._gauges.get((name, _label_key(labels)))
 
     def histogram(self, name: str, **labels: object) -> Optional[Dict[str, object]]:
         """Merged snapshot of ``name`` over this registry AND its attached
@@ -694,10 +706,54 @@ class MetricsHistory:
         with self._lock:
             return list(self._snaps)
 
+    def series(self, name: str) -> List[Tuple[float, float]]:
+        """(ts_s, value) timeseries of one rendered series name, searched
+        across counters, then gauges, then histogram counts. Snapshots in
+        which the series did not yet exist are skipped."""
+        out: List[Tuple[float, float]] = []
+        for snap in self.entries():
+            for table, pick in (("counters", None), ("gauges", None),
+                                ("histograms", 0)):
+                value = snap[table].get(name)  # type: ignore[union-attr]
+                if value is not None:
+                    out.append((
+                        snap["ts_s"],  # type: ignore[arg-type]
+                        float(value[pick] if pick is not None else value),
+                    ))
+                    break
+        return out
+
     def reset(self) -> None:
         with self._lock:
             self._snaps.clear()
             self._last_ts = None
+
+    # -- wire ---------------------------------------------------------------
+
+    def to_wire(self, n: Optional[int] = None) -> Tuple[str, ...]:
+        """The ring's tail as sorted-key JSON lines: the form
+        ``ClusterStatusResponse.history`` carries on both transports."""
+        entries = self.entries()
+        if n is not None:
+            entries = entries[-n:]
+        return tuple(
+            json.dumps(snap, sort_keys=True, default=str)
+            for snap in entries
+        )
+
+    @staticmethod
+    def from_wire(lines: Tuple[str, ...]) -> List[Dict[str, object]]:
+        """Parse ``to_wire`` output back into snapshot dicts (malformed
+        lines are skipped -- a truncated scrape never breaks assembly)."""
+        out: List[Dict[str, object]] = []
+        for line in lines:
+            try:
+                snap = json.loads(line)
+            except (ValueError, TypeError):
+                continue
+            if isinstance(snap, dict) and "ts_s" in snap:
+                out.append(snap)
+        return out
 
 
 # --------------------------------------------------------------------------- #
@@ -767,6 +823,20 @@ def stamp_trace_context(msg: object, ctx: Optional[TraceContext]) -> object:
 def trace_context_of(msg: object) -> Optional[TraceContext]:
     ctx = getattr(msg, _TRACE_CTX_ATTR, None)
     return ctx if isinstance(ctx, TraceContext) else None
+
+
+def current_trace_context(origin: str = "") -> Optional[TraceContext]:
+    """TraceContext for the ambient span (None outside any span): what a
+    send site stamps on an outgoing message unless it has an explicit
+    context of its own."""
+    cur = _CURRENT_SPAN.get()
+    if cur is None:
+        return None
+    return TraceContext(
+        trace_id=cur.trace_id or cur.span_id,
+        parent_span_id=cur.span_id,
+        origin=origin or cur.track,
+    )
 
 
 @dataclass
@@ -913,6 +983,44 @@ class Tracer:
         s.virtual_end_ms = virtual_ms
         self._append(s)
         return s
+
+    # -- cross-node propagation ---------------------------------------------
+
+    def inject(self) -> Optional[TraceContext]:
+        """The context an outgoing message should carry: the ambient span's
+        coordinates with this tracer's track as the origin (None outside
+        any span -- unsolicited sends stay traceless)."""
+        return current_trace_context(origin=self.track)
+
+    @staticmethod
+    def extract(msg: object) -> Optional[TraceContext]:
+        """The context an incoming message carried (None if it had none or
+        the peer predates trace propagation)."""
+        return trace_context_of(msg)
+
+    @contextlib.contextmanager
+    def remote_span(self, name: str, ctx: Optional[TraceContext] = None,
+                    virtual_ms: Optional[int] = None,
+                    **attrs: object) -> Iterator[Span]:
+        """Like ``span`` but parented under a *remote* span: the receiving
+        half of a cross-node edge. With ``ctx=None`` this degrades to a
+        plain ``span`` (untraced peers cost nothing). The remote parent id
+        may not resolve locally -- ``span_tree`` re-roots such spans, so a
+        duplicated or reordered message can at worst repeat an edge, never
+        corrupt parenting or accumulate state."""
+        if ctx is not None and ctx.origin:
+            attrs.setdefault("origin", ctx.origin)
+        s = self._new_span(name, virtual_ms, dict(attrs))
+        if ctx is not None:
+            s.parent_id = ctx.parent_span_id
+            s.trace_id = ctx.trace_id or s.trace_id
+        token = _CURRENT_SPAN.set(s)
+        try:
+            yield s
+        finally:
+            _CURRENT_SPAN.reset(token)
+            s.wall_end_s = time.perf_counter()
+            self._append(s)
 
     # -- reading ------------------------------------------------------------
 
@@ -1078,6 +1186,16 @@ class FlightRecorder:
     def dropped(self) -> int:
         with self._lock:
             return self._dropped
+
+    def hlc_now(self):
+        """The attached HLC clock's current stamp, or None when the
+        forensics plane is off."""
+        if self._hlc is None:
+            return None
+        try:
+            return self._hlc.peek()
+        except Exception:  # noqa: BLE001 -- forensics never loses the event
+            return None
 
     def record(self, kind: str, virtual_ms: Optional[int] = None,
                **detail: object) -> Dict[str, object]:

@@ -10,10 +10,14 @@ from .engine import (
     MAX_WEIGHT,
     PlacementConfig,
     PlacementDiff,
+    PlacementEngine,
     PlacementMap,
+    PlacementSubscriber,
     build_map,
     diff_maps,
+    rendezvous_route,
     weight_of,
+    weight_seed,
 )
 
 __all__ = [
@@ -21,8 +25,12 @@ __all__ = [
     "MAX_WEIGHT",
     "PlacementConfig",
     "PlacementDiff",
+    "PlacementEngine",
     "PlacementMap",
+    "PlacementSubscriber",
     "build_map",
     "diff_maps",
+    "rendezvous_route",
     "weight_of",
+    "weight_seed",
 ]

@@ -444,12 +444,13 @@ def build_jit(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """The whole map in one ``placement_topr`` call, or, with a mesh (a
     ``shard.engine.Mesh``), one call a device over its block of rows; every
-    row is independent, so no exchange is needed. P must divide by the
-    mesh's device count, as in the JAX package. Equals the JAX package's
+    row is independent, so no exchange is needed (on a mesh of several
+    processes each builds the whole map on its own devices). P must divide
+    by the mesh's device count, as in the JAX package. Equals the JAX package's
     ``build_jit`` except where that one cannot tell an active candidate
     whose best score is exactly 0 (p ~= 2**-32 a pair) from a masked one:
     here, as in ``topr_full``, the active candidate counts."""
-    devices = (list(mesh.device_list) if mesh is not None
+    devices = (list(mesh.local_devices) if mesh is not None
                else [resolve_device(device)])
     n_parts = int(part32.shape[0])
     if n_parts % len(devices):

@@ -12,11 +12,12 @@ candidate index asc)``.
 
 This module holds the object model (``PlacementConfig``, ``PlacementMap``,
 ``PlacementDiff``, ``build_map``, ``diff_maps``) with the JAX package's
-arithmetic; ``placement/device.py`` is the vectorized mirror over the slot
-universe, whose top-R runs in the CUDA kernel ``placement_topr``. The live
-engine's ``PlacementEngine``, ``PlacementSubscriber``, ``weight_seed`` and
-``rendezvous_route`` serve the protocol plane and are not ported yet
-(ROADMAP.md, Queue 1).
+arithmetic, the live engine over it (``PlacementEngine``, and
+``PlacementSubscriber``, which drives one from ``ClusterEvents.VIEW_CHANGE``
+alone) and the key-routing helpers ``weight_seed`` and ``rendezvous_route``
+(``serving/router.py``'s ``RendezvousRouter`` routes with them);
+``placement/device.py`` is the vectorized mirror over the slot universe,
+whose top-R runs in the CUDA kernel ``placement_topr``.
 """
 
 from __future__ import annotations
@@ -24,15 +25,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
+from ..events import NodeStatusChange
 from ..hashing import endpoint_hash, to_signed, xxh64, xxh64_long
-from ..types import Endpoint
+from ..types import EdgeStatus, Endpoint
 
 __all__ = [
     "DEFAULT_WEIGHT_KEY",
     "MAX_WEIGHT",
     "PlacementConfig",
     "PlacementDiff",
+    "PlacementEngine",
     "PlacementMap",
+    "PlacementSubscriber",
     "build_map",
     "diff_maps",
     "fold32",
@@ -40,7 +44,9 @@ __all__ = [
     "mix32",
     "node_key64",
     "partition_key32",
+    "rendezvous_route",
     "weight_of",
+    "weight_seed",
 ]
 
 # Instance stride: 2**64 / phi, the additive constant that equidistributes
@@ -290,3 +296,88 @@ def diff_maps(old: PlacementMap, new: PlacementMap) -> PlacementDiff:
         handoffs=tuple(handoffs),
         load_delta=load_delta,
     )
+
+
+class PlacementEngine:
+    """Stateful wrapper: rebuilds the map per configuration and diffs it
+    against the previous one. Hosts no protocol state of its own -- feed it
+    the view and it answers; two engines fed the same views are
+    indistinguishable."""
+
+    def __init__(self, config: PlacementConfig) -> None:
+        self.config = config
+        self.map: Optional[PlacementMap] = None  # guarded-by: protocol-executor
+        self.last_diff: Optional[PlacementDiff] = None  # guarded-by: protocol-executor
+
+    def update(
+        self,
+        configuration_id: int,
+        members: Iterable[Endpoint],
+        weights: Mapping[Endpoint, int],
+    ) -> Tuple[PlacementMap, Optional[PlacementDiff]]:
+        new_map = build_map(members, weights, self.config, configuration_id)
+        diff = diff_maps(self.map, new_map) if self.map is not None else None
+        self.map, self.last_diff = new_map, diff
+        return new_map, diff
+
+
+class PlacementSubscriber:
+    """Drives a PlacementEngine purely from ClusterEvents.VIEW_CHANGE.
+
+    The initial VIEW_CHANGE fired at service construction carries the full
+    ring with metadata (MembershipService.java:162-165 parity), so the
+    subscriber bootstraps its member/weight table from events alone --
+    register it as a VIEW_CHANGE subscription and it never touches the
+    view."""
+
+    def __init__(self, config: PlacementConfig) -> None:
+        self._engine = PlacementEngine(config)
+        self._weights: Dict[Endpoint, int] = {}
+        self.view_changes = 0
+
+    @property
+    def config(self) -> PlacementConfig:
+        return self._engine.config
+
+    @property
+    def map(self) -> Optional[PlacementMap]:
+        return self._engine.map
+
+    @property
+    def last_diff(self) -> Optional[PlacementDiff]:
+        return self._engine.last_diff
+
+    def __call__(self, configuration_id: int,
+                 changes: List[NodeStatusChange]) -> None:
+        cfg = self._engine.config
+        for change in changes:
+            if change.status == EdgeStatus.UP:
+                self._weights[change.endpoint] = weight_of(
+                    change.metadata, cfg.weight_key, cfg.default_weight
+                )
+            else:
+                self._weights.pop(change.endpoint, None)
+        self.view_changes += 1
+        self._engine.update(configuration_id, self._weights, self._weights)
+
+
+# --------------------------------------------------------------------------
+# Key-routing helpers (the examples/load_balancer.py rendezvous scheme)
+# --------------------------------------------------------------------------
+
+def weight_seed(backend: Endpoint) -> int:
+    """Per-backend rendezvous seed: hash of the printable identity, masked
+    positive so it is a valid xxh64 seed everywhere."""
+    return xxh64(backend.hostname + b"#%d" % backend.port, 0) & 0x7FFFFFFF
+
+
+def rendezvous_route(
+    key: bytes,
+    backends: Sequence[Endpoint],
+    seeds: Mapping[Endpoint, int],
+) -> Endpoint:
+    """Classic per-key rendezvous over explicit backends: the backend whose
+    seeded hash of the key is highest. ``seeds`` comes from weight_seed()."""
+    if not backends:
+        raise ValueError("no backends")
+    return max(backends, key=lambda b: xxh64(key, seeds[b]))

@@ -19,6 +19,10 @@ seams and the same switch: ``RAPID_JITWATCH=1`` turns the bookkeeping on
   one device->host copy a protocol batch is allowed), :func:`drain` (a
   synchronize outside the measured region) and :func:`host_transfer` (a
   labelled block of other deliberate transfers).
+- A collective whose wait blocks the host (a multi-process mesh's gloo
+  all-gather, ``shard.engine``) goes through :func:`host_transfer` under its
+  own label (``shard.exchange``, ``shard.row_field``), so a timed window
+  counts it and does not flag it.
 - Unlike JAX's transfer guard, torch's sync debug mode is process-global:
   a thread that syncs while another thread's window is armed raises too,
   and one that syncs while another thread is inside a seam goes unseen.

@@ -46,6 +46,22 @@ Random ingress loss: each shard draws its ``[C / n, K]`` block from its own
 ``torch.Generator`` on its device (``shard_generators``). JAX folds the shard
 index into its key, so a lossy sharded run differs from a single-device run
 in both packages; such runs compare by outcome.
+
+Several processes (``make_multihost_mesh(coordinator_address=...)``): every
+process runs the same program over the same global mesh, as JAX's SPMD
+processes do, and holds the rows of its own row of the mesh, a contiguous run
+of shards (``Mesh.local_shards``); its first device is its home. Each round
+every process runs its ``fd_phase_rows`` calls, then one all-gather over the
+``torch.distributed`` group fills every home's bitset with every process's
+segments (``C * K / 8`` bytes in all), and every process gathers, tallies and
+decides on its own replicated state, which stays identical everywhere: the
+counterpart of JAX's one ``pmax`` a round, with no second collective. Every
+process evaluates every round of a budget, so all make the same collectives.
+Shards keep their global index wherever a seed or a row offset needs one, so
+a multi-process run equals the single-process run on a mesh of the same
+shape bit for bit, random loss included. The group is gloo's: NCCL refuses
+two ranks on one card, and gloo stages CUDA tensors through the host, so each
+round waits once on the host (``jitwatch`` label ``shard.exchange``).
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..runtime import jitwatch
 from ..sim import kernels
 from ..sim.engine import (
     RoundInputs,
@@ -69,7 +86,8 @@ from ..sim.engine import (
 )
 
 NODES_AXIS = "nodes"
-_ROADMAP = "see ROADMAP.md, Queue 1 item 7"
+# how long a process waits for the others at start-up and in a collective
+PROCESS_GROUP_TIMEOUT_S = 120.0
 
 ROW, REP = "row", "rep"
 # SimState fields row-sharded by observer; every other field is replicated
@@ -92,14 +110,27 @@ class Mesh:
     ``jax.sharding.Mesh``: ``devices`` is a numpy object array of
     ``torch.device`` in the mesh's shape, and a device may appear more than
     once. Shard ``s`` (the row-major index over every axis) holds observer
-    rows ``[s * C / n, (s + 1) * C / n)`` on ``device_list[s]``."""
+    rows ``[s * C / n, (s + 1) * C / n)`` on ``device_list[s]``.
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]) -> None:
+    Over several processes (``process_count > 1``, ``make_multihost_mesh``)
+    the grid is global and process ``process_index`` holds the shards
+    ``local_shards``, a contiguous run in mesh order; the exchange runs on
+    the default ``torch.distributed`` group. ``collectives`` and
+    ``collective_bytes`` count the collectives this process made on the mesh
+    and the bytes each gathered."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 process_index: int = 0, process_count: int = 1) -> None:
         assert devices.ndim == len(axis_names), (
             f"{devices.ndim} axes need {devices.ndim} names, got {tuple(axis_names)}"
         )
+        assert devices.size % process_count == 0 and 0 <= process_index < process_count
         self.devices = np.vectorize(_device, otypes=[object])(devices)
         self.axis_names = tuple(axis_names)
+        self.process_index = process_index
+        self.process_count = process_count
+        self.collectives = 0
+        self.collective_bytes = 0
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -114,12 +145,26 @@ class Mesh:
         return tuple(self.devices.reshape(-1))
 
     @property
+    def local_shards(self) -> range:
+        """The shards this process holds: every shard in one process."""
+        per = self.size // self.process_count
+        return range(self.process_index * per, (self.process_index + 1) * per)
+
+    @property
+    def local_devices(self) -> Tuple[torch.device, ...]:
+        """The devices of ``local_shards``, in mesh order."""
+        return self.device_list[self.local_shards.start:self.local_shards.stop]
+
+    @property
     def home(self) -> torch.device:
-        """The device that holds the replicated state and runs the tally."""
-        return self.device_list[0]
+        """The device that holds this process's replicated state and runs
+        the tally: its first shard's."""
+        return self.device_list[self.local_shards.start]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.device_list]})"
+        procs = (f", process {self.process_index} of {self.process_count}"
+                 if self.process_count > 1 else "")
+        return f"Mesh({self.shape}, devices={[str(d) for d in self.device_list]}{procs})"
 
 
 def make_mesh(
@@ -173,40 +218,84 @@ def make_multihost_mesh(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     hosts: Optional[Sequence[Sequence]] = None,
+    devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """The ``("dcn", "ici")`` mesh whose rows are hosts and whose columns are
-    each host's devices, in the degenerate single-process case: ``hosts``
-    lists each host's devices (one process has no process index to group
-    devices by), by default one host with every visible CUDA device.
-    ``chips_per_host`` truncates every host to a common width; uneven host
-    rows are rejected. A ``coordinator_address`` (one process per host, over
-    ``torch.distributed``) is not ported yet and raises."""
-    if coordinator_address is not None:
-        raise NotImplementedError(
-            f"multi-process meshes over torch.distributed are not ported yet ({_ROADMAP})"
-        )
-    if hosts is None:
-        hosts = [make_mesh().device_list]
-    rows = []
-    for proc, host_devices in enumerate(hosts):
-        host_devices = list(host_devices)
+    """The ``("dcn", "ici")`` mesh whose rows are hosts (processes) and whose
+    columns are each host's devices; ``chips_per_host`` truncates every row
+    to a common width, and uneven rows raise ``ValueError`` naming each
+    process's width.
+
+    With ``coordinator_address`` (``host:port`` of process 0), one process a
+    host: initializes ``torch.distributed`` with the gloo backend at
+    ``tcp://<coordinator_address>``, ``world_size=num_processes`` and
+    ``rank=process_id`` (``PROCESS_GROUP_TIMEOUT_S`` for start-up and every
+    collective; a group already initialized is taken as it is), and this
+    process's row
+    is ``devices`` (repeats allowed: ``["cuda:0"] * 2``, ``["cpu"] * 2``), by
+    default every visible CUDA device. The rows' widths and device names are
+    exchanged, so uneven rows raise in every process. The mesh holds the
+    global grid; this process's shards are its row (``Mesh.local_shards``).
+
+    Without it, the degenerate single-process case: ``hosts`` lists each
+    host's devices (one process has no process index to group devices by),
+    by default one host with every visible CUDA device."""
+    if coordinator_address is None:
+        if hosts is None:
+            hosts = [make_mesh().device_list]
+        return _host_grid([list(h) for h in hosts], chips_per_host)
+    import datetime
+
+    import torch.distributed as dist
+
+    if num_processes is None or process_id is None:
+        raise ValueError("a coordinator_address needs num_processes and process_id")
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator_address}", world_size=num_processes,
+            rank=process_id, timeout=datetime.timedelta(seconds=PROCESS_GROUP_TIMEOUT_S))
+    if (dist.get_world_size(), dist.get_rank()) != (num_processes, process_id):
+        raise ValueError(
+            f"torch.distributed is process {dist.get_rank()} of {dist.get_world_size()}, "
+            f"not {process_id} of {num_processes}")
+    mine = list(devices) if devices is not None else list(make_mesh().device_list)
+    rows: List = [None] * num_processes
+    dist.all_gather_object(rows, [str(_device(d)) for d in mine])
+    rows[process_id] = mine  # this process's own devices, as given
+    grid = _host_grid(rows, chips_per_host)
+    return Mesh(grid.devices, grid.axis_names, process_index=process_id,
+                process_count=num_processes)
+
+
+def _host_grid(rows: List[List], chips_per_host: Optional[int]) -> Mesh:
+    """The ("dcn", "ici") mesh of ``rows`` (each host's devices), each cut to
+    ``chips_per_host``; uneven rows raise JAX's ``ValueError``."""
+    out = []
+    for proc, host_devices in enumerate(rows):
         per_host = chips_per_host if chips_per_host is not None else len(host_devices)
         assert per_host <= len(host_devices), (
             f"chips_per_host={per_host} exceeds process {proc}'s "
             f"{len(host_devices)} devices"
         )
-        rows.append(host_devices[:per_host])
-    if len({len(r) for r in rows}) != 1:
+        out.append(host_devices[:per_host])
+    if len({len(r) for r in out}) != 1:
         raise ValueError(
             "uneven devices per process: "
-            + ", ".join(f"process {p}: {len(r)}" for p, r in enumerate(rows))
+            + ", ".join(f"process {p}: {len(r)}" for p, r in enumerate(out))
             + " -- a ('dcn', 'ici') mesh needs identical host rows; pass "
             "chips_per_host to truncate every host to a common width"
         )
-    grid = np.empty((len(rows), len(rows[0])), dtype=object)
-    for i, row in enumerate(rows):
+    grid = np.empty((len(out), len(out[0])), dtype=object)
+    for i, row in enumerate(out):
         grid[i, :] = row
     return Mesh(grid, ("dcn", "ici"))
+
+
+def require_single_process(mesh: Optional[Mesh], what: str) -> None:
+    """Raise for a mesh of several processes: ``what`` runs in one."""
+    if mesh is not None and mesh.process_count > 1:
+        raise ValueError(
+            f"{what} runs in one process; a mesh of {mesh.process_count} processes "
+            "(make_multihost_mesh with a coordinator_address) serves the Simulator only")
 
 
 def state_shardings(mesh: Mesh) -> SimState:
@@ -229,9 +318,13 @@ class ShardedState(SimState):
     (``ROW_STATE_FIELDS``, ``[C / n, K]`` on that shard's device); the
     row-sharded fields of the ``SimState`` itself are None. Code that only
     reads or replaces replicated fields (the tally, the classic round, the
-    driver's vote and group writes) takes it as it takes a ``SimState``."""
+    driver's vote and group writes) takes it as it takes a ``SimState``.
+    On a multi-process mesh ``rows`` holds this process's shards only
+    (``Mesh.local_shards``, in order); ``mesh`` is the mesh it was placed
+    on."""
 
     rows: Tuple[Dict[str, torch.Tensor], ...] = ()
+    mesh: Optional["Mesh"] = None
 
 
 @dataclass(frozen=True)
@@ -239,7 +332,7 @@ class ShardedInputs(RoundInputs):
     """``RoundInputs`` placed on a mesh: ``probe_drop`` is None and
     ``probe_drop_rows`` holds each shard's block; the rest is on home."""
 
-    probe_drop_rows: Tuple[torch.Tensor, ...] = ()
+    probe_drop_rows: Tuple[torch.Tensor, ...] = ()  # this process's shards
 
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -253,11 +346,13 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 def _blocks(t: torch.Tensor, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
-    """Row blocks of ``t``, each a fresh contiguous tensor on its shard's
-    device (a slice would share storage and lose the kernel's alignment)."""
+    """Row blocks of ``t`` of this process's shards, each a fresh contiguous
+    tensor on its shard's device (a slice would share storage and lose the
+    kernel's alignment)."""
     rows = t.shape[0] // mesh.size
-    return tuple(t[s * rows:(s + 1) * rows].to(d, non_blocking=True, copy=True)
-                 for s, d in enumerate(mesh.device_list))
+    return tuple(t[s * rows:(s + 1) * rows].to(mesh.device_list[s], non_blocking=True,
+                                                 copy=True)
+                 for s in mesh.local_shards)
 
 
 def _check_capacity(capacity: int, mesh: Mesh) -> None:
@@ -269,18 +364,22 @@ def _check_capacity(capacity: int, mesh: Mesh) -> None:
 
 def place_state(state: SimState, mesh: Mesh) -> ShardedState:
     """``state`` on ``mesh``: replicated fields on home, one block of ``C /
-    n`` rows of each row-sharded field on each shard's device."""
+    n`` rows of each row-sharded field on each of this process's shards'
+    devices (``state`` is the whole state, identical in every process)."""
     _check_capacity(state.active.shape[0], mesh)
     columns = {f: _blocks(getattr(state, f), mesh) for f in ROW_STATE_FIELDS}
     return ShardedState(
         **{f: None if f in ROW_STATE_FIELDS else _to(getattr(state, f), mesh.home)
            for f in _FIELDS},
-        rows=tuple({f: columns[f][s] for f in ROW_STATE_FIELDS} for s in range(mesh.size)),
+        rows=tuple({f: columns[f][i] for f in ROW_STATE_FIELDS}
+                   for i in range(len(mesh.local_shards))),
+        mesh=mesh,
     )
 
 
 def place_inputs(inputs: RoundInputs, mesh: Mesh) -> ShardedInputs:
-    """``inputs`` on ``mesh``: ``probe_drop`` in row blocks, the rest on home."""
+    """``inputs`` on ``mesh``: ``probe_drop`` in row blocks of this process's
+    shards, the rest on home."""
     _check_capacity(inputs.alive.shape[0], mesh)
     return ShardedInputs(
         **{f.name: None if f.name == "probe_drop" else _to(getattr(inputs, f.name), mesh.home)
@@ -289,14 +388,38 @@ def place_inputs(inputs: RoundInputs, mesh: Mesh) -> ShardedInputs:
     )
 
 
+def _gather_ranks(mesh: Mesh, out: torch.Tensor, local: torch.Tensor, label: str) -> None:
+    """``out`` (``process_count`` equal blocks, on home) takes every
+    process's ``local`` in process order: one all-gather over the mesh's
+    group, which every process must make. Gloo stages a CUDA tensor through
+    the host and the host waits for it, so the wait is an audited sync."""
+    import torch.distributed as dist
+
+    with jitwatch.host_transfer(label):
+        dist.all_gather(list(out.view(mesh.process_count, *local.shape).unbind(0)), local)
+    mesh.collectives += 1
+    mesh.collective_bytes += out.numel() * out.element_size()
+
+
 def row_field(state: ShardedState, name: str) -> torch.Tensor:
-    """The row-sharded field ``name`` of every shard, concatenated on home."""
+    """The row-sharded field ``name`` of every shard, concatenated on home.
+    On a multi-process mesh it is a collective (label ``shard.row_field``):
+    every process must call it, for the same field, as JAX's processes must
+    all join a fetch of a sharded array (a fetch of the shards another
+    process holds fails there)."""
     home = state.active.device
-    return torch.cat([_to(block[name], home) for block in state.rows])
+    local = torch.cat([_to(block[name], home) for block in state.rows])
+    mesh = state.mesh
+    if mesh is None or mesh.process_count == 1:
+        return local
+    out = local.new_empty((mesh.process_count * local.shape[0],) + tuple(local.shape[1:]))
+    _gather_ranks(mesh, out, local, "shard.row_field")
+    return out
 
 
 def gather_state(state: ShardedState) -> SimState:
-    """The whole ``SimState`` on the home device."""
+    """The whole ``SimState`` on the home device: on a multi-process mesh a
+    collective of every process, one ``row_field`` a row-sharded field."""
     return SimState(**{f: row_field(state, f) if f in ROW_STATE_FIELDS else getattr(state, f)
                        for f in _FIELDS})
 
@@ -310,20 +433,21 @@ def shard_seed(seed: int, shard: int) -> int:
 
 
 def shard_generators(mesh: Mesh, seed: int) -> List[torch.Generator]:
-    """One ``torch.Generator`` a shard, on its device, seeded by
-    ``shard_seed``."""
-    return [torch.Generator(device=d).manual_seed(shard_seed(seed, s))
-            for s, d in enumerate(mesh.device_list)]
+    """One ``torch.Generator`` for each of this process's shards, on its
+    device, seeded by ``shard_seed`` with the shard's global index."""
+    return [torch.Generator(device=mesh.device_list[s]).manual_seed(shard_seed(seed, s))
+            for s in mesh.local_shards]
 
 
 def device_groups(mesh: Mesh) -> List[Tuple[torch.device, List[int]]]:
-    """The mesh's shards grouped by device, in the mesh order of each
-    device's first shard, and within a device in mesh order, cut into runs of
-    at most ``kernels.MAX_SHARDS_PER_CALL``: one ``fd_phase_rows`` call a
-    group a round. On one card every mesh of up to 16 shards is one group."""
+    """This process's shards (global indices) grouped by device, in the mesh
+    order of each device's first shard, and within a device in mesh order,
+    cut into runs of at most ``kernels.MAX_SHARDS_PER_CALL``: one
+    ``fd_phase_rows`` call a group a round. On one card every mesh of up to
+    16 shards is one group."""
     by_device: Dict[torch.device, List[int]] = {}
-    for s, d in enumerate(mesh.device_list):
-        by_device.setdefault(_device(d), []).append(s)
+    for s in mesh.local_shards:
+        by_device.setdefault(_device(mesh.device_list[s]), []).append(s)
     step = kernels.MAX_SHARDS_PER_CALL
     return [(d, shards[i:i + step]) for d, shards in by_device.items()
             for i in range(0, len(shards), step)]
@@ -371,9 +495,12 @@ def _run(
     """``rounds`` sharded rounds, each masked once the state has decided
     (or, with ``stop_when_announced``, once a group has announced): the FD
     kernel reads the halt flag and leaves the planes as they were, and the
-    replicated state takes ``_select``."""
-    if random_loss and (generators is None or len(generators) != mesh.size):
-        raise ValueError("random_loss needs one torch.Generator a shard")
+    replicated state takes ``_select``. On a multi-process mesh each round
+    makes one all-gather of this process's run of segments."""
+    local = mesh.local_shards
+    if random_loss and (generators is None or len(generators) != len(local)):
+        raise ValueError("random_loss needs one torch.Generator for each of this "
+                         "process's shards")
     rows, k, g = config.capacity // mesh.size, config.k, config.groups
     words = kernels.segment_words(rows, k)
     policy = fd_kernel_policy(config)
@@ -393,23 +520,27 @@ def _run(
              for i, s in enumerate(shards)],
             buffer,
         ))
+    # this process's run of segments in home's bitset, which the all-gather
+    # fills around it
+    mine_bits = bits[local.start * words:local.stop * words]
     alive = inputs.alive & state.active
     obs = state.observers.long()
-    blocks = list(state.rows)
+    blocks = list(state.rows)  # this process's shards, indexed s - local.start
     home = SimState(**{f: getattr(state, f) for f in _FIELDS})
     for _ in range(rounds):
         halt = home.decided
         if stop_when_announced:
             halt = halt | home.announced[:g].any()
         for call in calls:
-            dev, mine = call.device, [blocks[s] for s in call.shards]
+            dev, mine = call.device, [blocks[s - local.start] for s in call.shards]
 
             def column(name):
                 return [block[name] for block in mine]
-            draws = ([torch.rand((rows, k), generator=generators[s], device=dev)
+            draws = ([torch.rand((rows, k), generator=generators[s - local.start], device=dev)
                       for s in call.shards] if random_loss else None)
             outs = kernels.fd_phase_rows(
-                *call.nodes, column("subjects"), [inputs.probe_drop_rows[s] for s in call.shards],
+                *call.nodes, column("subjects"),
+                [inputs.probe_drop_rows[s - local.start] for s in call.shards],
                 draws, column("fd_fail"), column("alerted"), column("fd_streak"),
                 column("fd_ok"), _to(home.round, dev), call.segments,
                 row0=[s * rows for s in call.shards], fd_hist=column("fd_hist"),
@@ -419,14 +550,17 @@ def _run(
             if call.buffer is not None:
                 _exchange(bits, call.buffer, call.shards, words)
             for s, block, out in zip(call.shards, mine, outs):
-                blocks[s] = {**block, **dict(zip(_FD_OUTPUTS, out))}
+                blocks[s - local.start] = {**block, **dict(zip(_FD_OUTPUTS, out))}
+        if mesh.process_count > 1:
+            _gather_ranks(mesh, bits, mine_bits, "shard.exchange")
         down_arrivals = kernels.fd_gather(home.active, home.observers, inputs.down_reports,
                                           bits, rows)
         tallied = route_and_tally(config, home, down_arrivals, inputs, home.active, alive,
                                   observers_idx=obs)
         home = _select(halt, home, dataclasses.replace(
             tallied, alive=inputs.alive, round=home.round + 1))
-    return ShardedState(**{f: getattr(home, f) for f in _FIELDS}, rows=tuple(blocks))
+    return ShardedState(**{f: getattr(home, f) for f in _FIELDS}, rows=tuple(blocks),
+                        mesh=mesh)
 
 
 Runner = Callable[..., ShardedState]

@@ -71,6 +71,7 @@ import torch
 from .. import types as _types
 from ..hashing import address_comparator_key
 from ..runtime.futures import Promise as _Promise
+from ..shard.engine import require_single_process
 from . import classic
 from .driver import Simulator, ViewChangeRecord
 from .engine import SimConfig
@@ -184,6 +185,7 @@ class TpuSimMessaging:  # guarded-by: sim-loop
         (``Protocol``); by default the port's own. ``device``: as for
         ``Simulator``: CUDA unless the caller names another, and raises
         without a card."""
+        require_single_process(mesh, "the bridge")
         if capacity is None:
             capacity = config.capacity if config is not None else n_virtual + 16
         if mesh is not None:
@@ -274,6 +276,7 @@ class TpuSimMessaging:  # guarded-by: sim-loop
         SimConfig fields the snapshot does not persist reset to defaults;
         pass ``config_overrides`` to re-apply them. extern_proposals defaults
         to 4 (the bridge needs extern rows for real members' votes)."""
+        require_single_process(mesh, "the bridge")
         overrides = {"extern_proposals": 4}
         overrides.update(config_overrides or {})
         sim = Simulator.from_configuration(

@@ -21,9 +21,10 @@ The driver's host planes follow the JAX driver's: placement
 ``placement_topr`` kernel), handoff, serving (``serving_put``/``get``, the
 open-loop driver), SLO, durability (``checkpoint_slot``/``restart_slot``)
 and the hierarchy mirror, hooked into the view change in JAX's order.
-Not in this port yet (ROADMAP.md, Queue 1): the protocol plane's live
-engines those planes mirror (placement subscriber, handoff and serving
-engines, hierarchy plane and routing, the durable store and its log).
+Not in this port yet (ROADMAP.md, Queue 1 item 12): the protocol plane's
+live engines those planes mirror (handoff and serving engines, hierarchy
+plane and routing, the durable store and its log); the placement engine
+and its subscriber are in ``placement/engine.py``.
 """
 
 from __future__ import annotations
@@ -180,7 +181,12 @@ class Simulator:
         which is then the simulator's ``device``; capacity must divide over
         it. The fault, join, leave and view-change API is the same in both
         modes; a mesh dispatch runs the rounds one by one (the closed form
-        is single-device).
+        is single-device). On a mesh of several processes
+        (``make_multihost_mesh(coordinator_address=...)``) every process
+        constructs its simulator alike and makes the same calls in the same
+        order, as JAX's SPMD processes do: each holds its own shards' rows,
+        and every dispatch, and a partition's first fetch of the subjects
+        (``shard.engine.row_field``), is a collective of them all.
 
         ``speculate``: overlap the predicted view change (configuration-id
         fold, fresh state) with the decision fetch
@@ -2028,7 +2034,7 @@ class Simulator:
     def ready(self) -> "Simulator":
         """Block until construction/rebuild work has drained from the device
         queue -- separates setup cost from measured protocol time."""
-        devices = self.mesh.device_list if self.mesh is not None else (self.device,)
+        devices = self.mesh.local_devices if self.mesh is not None else (self.device,)
         jitwatch.drain("sim.ready", *devices)
         return self
 

@@ -376,3 +376,144 @@ def test_classic_coordinator_races_counted_alike():
         counts.append((rec.via_classic_round, sim.metrics.get("classic_coordinator_races"),
                        sim.metrics.snapshot()))
     assert counts[0] == counts[1]
+
+
+# -- the names the port lacked until the API drift was closed -----------------
+
+
+def _public(obj):
+    return {n for n in dir(obj) if not n.startswith("_")}
+
+
+def _defined_here(module):
+    """The public names ``module`` defines itself (its imports left out)."""
+    import inspect
+
+    return {n for n in _public(module)
+            if not inspect.ismodule(getattr(module, n))
+            and getattr(getattr(module, n), "__module__", module.__name__) == module.__name__}
+
+
+def test_every_public_name_of_the_jax_module_exists_in_the_port():
+    """The drift guard: every public name ``rapid_tpu.observability``
+    defines, and every public member of its registries, tracer and
+    recorder, exists in the port's copy."""
+    assert sorted(_defined_here(jax_obs) - _public(port_obs)) == []
+    for cls in ("Metrics", "NullMetrics", "MetricsHistory", "Tracer", "FlightRecorder",
+                "Span", "TraceContext", "Histogram", "StableViewTimer"):
+        missing = _public(getattr(jax_obs, cls)) - _public(getattr(port_obs, cls))
+        assert sorted(missing) == [], cls
+
+
+@both
+def test_detach_and_get_gauge(obs):
+    parent, child = obs.Metrics(), obs.Metrics()
+    parent.attach(child)
+    child.incr("hits", 2)
+    child.set_gauge("depth", 4.5, lane="a")
+    assert child.get_gauge("depth", lane="a") == 4.5
+    assert child.get_gauge("depth") is None and child.get_gauge("missing") is None
+    assert sum(v for kind, n, _, v in parent.collect() if n == "hits") == 2
+    parent.detach(child)
+    parent.detach(obs.Metrics())  # detaching a stranger is a no-op
+    assert [n for _, n, _, _ in parent.collect()] == []
+    assert child.get("hits") == 2
+
+
+def _history_steps(obs):
+    m = obs.Metrics()
+    h = obs.MetricsHistory(m, interval_s=1.0, capacity=8)
+    m.incr("rounds", 3)
+    h.maybe_snapshot(10.0)
+    m.incr("rounds", 2)
+    m.set_gauge("depth", 7.0)
+    h.maybe_snapshot(10.5)
+    h.maybe_snapshot(11.0)
+    m.observe("profile.step_ms", 2.5, plane="sim")
+    h.snapshot(12.0)
+    for t in range(13, 30):
+        m.incr("rounds")
+        h.snapshot(float(t))
+    return h
+
+
+def test_history_series_and_wire_match_jax():
+    jax_h, port_h = _history_steps(jax_obs), _history_steps(port_obs)
+    for name in ("rounds", "depth", "profile.step_ms{plane=sim}", "missing"):
+        assert port_h.series(name) == jax_h.series(name), name
+    assert port_h.series("rounds")[0] == (10.0, 3.0)
+    lines = port_h.to_wire(5)
+    assert len(lines) == 5
+    assert [{k: v for k, v in s.items() if k != "seq"} for s in lines_to(port_obs, lines)] == [
+        {k: v for k, v in s.items() if k != "seq"} for s in lines_to(jax_obs, jax_h.to_wire(5))]
+    assert port_obs.MetricsHistory.from_wire(("not json", '{"x": 1}', lines[0])) == [
+        json.loads(lines[0])]
+
+
+def lines_to(obs, lines):
+    return obs.MetricsHistory.from_wire(lines)
+
+
+@both
+def test_current_trace_context_and_inject(obs):
+    tracer = obs.Tracer(track="10.0.0.1:7000")
+    assert obs.current_trace_context() is None and tracer.inject() is None
+    with tracer.span("outer") as outer:
+        ctx = tracer.inject()
+        assert ctx == obs.TraceContext(trace_id=outer.trace_id or outer.span_id,
+                                       parent_span_id=outer.span_id, origin="10.0.0.1:7000")
+        assert obs.current_trace_context("peer").origin == "peer"
+        assert obs.current_trace_context().origin == "10.0.0.1:7000"
+    assert obs.current_trace_context() is None
+
+
+@both
+def test_extract_and_remote_span(obs):
+    sender, receiver = obs.Tracer(track="a"), obs.Tracer(track="b")
+
+    class Msg:
+        pass
+
+    msg = Msg()
+    with sender.span("send") as sent:
+        obs.stamp_trace_context(msg, sender.inject())
+    ctx = receiver.extract(msg)
+    assert ctx is not None and ctx.parent_span_id == sent.span_id
+    assert receiver.extract(Msg()) is None
+    with receiver.remote_span("recv", ctx, virtual_ms=5, step=1) as got:
+        assert obs.current_trace_context().parent_span_id == got.span_id
+    assert got.parent_id == sent.span_id and got.trace_id == ctx.trace_id
+    assert got.attrs == {"origin": "a", "step": 1} and got.virtual_start_ms == 5
+    # without a context it is a plain span, parented under the ambient one
+    with receiver.span("outer") as outer:
+        with receiver.remote_span("local") as local:
+            pass
+    assert local.parent_id == outer.span_id and "origin" not in local.attrs
+    assert {s.name for s in receiver.collect_spans()} == {"recv", "outer", "local"}
+
+
+@pytest.mark.parametrize("forensics", [False, True])
+def test_flight_recorder_hlc_now_matches_jax(forensics):
+    """``hlc_now`` is None with the forensics plane off, else the clock's
+    unadvanced stamp, on both simulators alike after the same churn."""
+    sims = [JaxSimulator(64, config=JaxConfig(capacity=64, forensics=forensics), seed=4),
+            Simulator(64, config=SimConfig(capacity=64, forensics=forensics), seed=4,
+                      device="cpu")]
+    stamps = []
+    for sim in sims:
+        sim.crash(np.array([5, 9]))
+        sim.run_until_decision(max_rounds=32)
+        first, again = sim.recorder.hlc_now(), sim.recorder.hlc_now()
+        assert first == again  # a peek does not advance the clock
+        stamps.append(None if first is None else first.to_wire())
+    assert stamps[0] == stamps[1]
+    assert (stamps[1] is None) == (not forensics)
+
+
+@both
+def test_hlc_now_survives_a_failing_clock(obs):
+    class Broken:
+        def peek(self):
+            raise RuntimeError("clock gone")
+
+    assert obs.FlightRecorder(hlc=Broken()).hlc_now() is None

@@ -373,9 +373,33 @@ def test_multihost_mesh_entry_degenerate_single_process():
 
 
 def test_multihost_mesh_with_coordinator_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_multihost_mesh(coordinator_address="localhost:1234", num_processes=2,
-                            process_id=0)
+    """(Named for when a coordinator raised.) A coordinator without a world
+    size or rank is refused before anything starts; a world of one process
+    over gloo gives the one-host mesh, which decides as the single device
+    does. The multi-process runs are tests/test_torch_multihost.py's."""
+    import socket
+
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="num_processes and process_id"):
+        make_multihost_mesh(coordinator_address="localhost:1234", num_processes=2)
+    assert not dist.is_initialized()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        m = make_multihost_mesh(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                                process_id=0, devices=["cpu"] * 2)
+        assert dist.get_backend() == "gloo" and m.shape == {"dcn": 1, "ici": 2}
+        assert (m.process_index, m.process_count, m.local_shards) == (0, 1, range(2))
+        sim = Simulator(36, capacity=36, seed=31, mesh=m)
+        sim.crash(np.array([4, 17]))
+        rec = sim.run_until_decision(max_rounds=32, batch=8)
+    finally:
+        dist.destroy_process_group()
+    ref = Simulator(36, capacity=36, seed=31, device="cpu")
+    ref.crash(np.array([4, 17]))
+    assert _summary(ref.run_until_decision(max_rounds=32, batch=8)) == _summary(rec)
 
 
 # --------------------------------------------------------------------- #
