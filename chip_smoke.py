@@ -132,7 +132,23 @@ into build/kernels/. Phases, each of which must pass:
    probability 1.0, the gray streak on) replayed to a cut equal to the
    victims through ``fd_phase_fused``, the replay's host parts
    (``endpoint_slots``, ``apply_plan_at``) timed apart
-   (``fault_replay_phase``).
+   (``fault_replay_phase``);
+17. real port members (after the gateway phase): ``member_sequence``, the
+   port's own ``Cluster`` (``ClusterBuilder`` on the port's in-process
+   transport, default ``Settings``, ``SwarmBroadcaster``) on
+   ``TpuSimMessaging`` at 100k on the port's ``InProcessNetwork``, through
+   ``bridge_sequence``'s script (join, the 1% crash in the closed form, the
+   1% crash under ingress loss 1.0 through ``fd_phase_fused``, leave), then
+   8 members joining in one pump and all voting in the crash; every
+   member's configuration id and member list equal to the swarm's, each id
+   to a plain simulator's; each pump's wall split into dispatch, the
+   members' own host work (their join's view and service build apart) and
+   the bridge's host work and delivery, beside the scripted member's pump;
+   and ``agent_sequence``, ``python -m rapid_tpu_torch.cli.agent`` in a
+   child process joining the port's ``SwarmGateway`` at 100k over TCP,
+   through both crashes and a leave on SIGINT, its configuration id read
+   through its status RPC after each step and equal to the gateway's and a
+   plain simulator's, each step's wall beside the scripted member's.
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -140,11 +156,14 @@ or outside a checkout, it exits non-zero and prints no result.
 """
 
 import collections
+import gc
 import itertools
 import json
 import os
 import queue
+import random
 import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -1964,6 +1983,121 @@ class _CodecClock:
             module.encode, module.decode = self._codec.encode, self._codec.decode
 
 
+class _GatewayProbe:
+    """A ``SwarmGateway`` instrumented for a phase: the simulator's dispatches
+    and the bridge's phase-B vote window timed, each pump that did device
+    work recorded (its wall, its split, its syncs by ``jitwatch`` label and
+    its kernel launches), the votes the swarm registered, and every protocol
+    task's syncs by label and, on a card, under torch's sync debug mode
+    "warn" (both counts cover the same tasks, whichever step a task
+    straddles). ``reset`` starts a step; ``take`` reads it."""
+
+    def __init__(self, gateway, on_card):
+        from rapid_tpu_torch.runtime import jitwatch
+        from rapid_tpu_torch.sim import kernels
+
+        sim, bridge = gateway.bridge.sim, gateway.bridge
+        self.lock = threading.Lock()
+        self.pumps, self.registered, self.window_marks = [], [], []
+        self.task_syncs, self.task_labels = 0, {}
+        timers = {"dispatch": 0.0, "window": 0.0}
+        run, register, pump = sim.run_until_decision, sim.register_extern_vote, bridge.pump
+        window = gateway.network.scheduler.run_for
+        run_task = gateway._run_task  # noqa: SLF001
+
+        def timed(fn, key):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    timers[key] += time.perf_counter() - t0
+            return call
+
+        def marked_window(ms):
+            start = time.time()
+            try:
+                return window(ms)
+            finally:
+                self.window_marks.append((start, time.time()))
+
+        def counted_register(slot, cut):
+            ok = register(slot, cut)
+            with self.lock:
+                self.registered.append((slot, ok))
+            return ok
+
+        def recorded_pump(*args, **kw):
+            timers["dispatch"] = timers["window"] = 0.0
+            syncs, launches = jitwatch.sync_counts(), dict(kernels.LAUNCHES)
+            t0, start = time.perf_counter(), time.time()
+            rec = pump(*args, **kw)
+            wall = time.perf_counter() - t0
+            if rec is not None or timers["dispatch"] > 0:
+                with self.lock:
+                    self.pumps.append({
+                        "start": start, "wall_ms": wall * 1e3, "rec": rec,
+                        "dispatch_ms": timers["dispatch"] * 1e3,
+                        "vote_window_ms": timers["window"] * 1e3,
+                        "syncs": _diff(jitwatch.sync_counts(), syncs),
+                        "launches": {k: v - launches.get(k, 0) for k, v in kernels.LAUNCHES.items()
+                                     if v - launches.get(k, 0)}})
+            return rec
+
+        def counted_task(fn, label):
+            before = jitwatch.sync_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if on_card:
+                    previous = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return run_task(fn, label)
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode(previous)
+                    with self.lock:
+                        self.task_syncs += sum("synchronizing CUDA operation" in str(w.message)
+                                               for w in caught)
+                        for key, n in _diff(jitwatch.sync_counts(), before).items():
+                            self.task_labels[key] = self.task_labels.get(key, 0) + n
+
+        sim.run_until_decision = timed(run, "dispatch")
+        sim.register_extern_vote = counted_register
+        bridge.pump = recorded_pump
+        gateway.network.scheduler.run_for = timed(marked_window, "window")
+        gateway._run_task = counted_task  # noqa: SLF001
+
+    def reset(self):
+        with self.lock:
+            del self.pumps[:]
+            del self.registered[:]
+            self.task_syncs = 0
+            self.task_labels.clear()
+
+    def decided(self):
+        with self.lock:
+            return [p for p in self.pumps if p["rec"] is not None]
+
+    def wait_decision(self, name):
+        """The one pump of this step that decided, waited for."""
+        deadline = time.time() + GATEWAY_WAIT_S
+        while time.time() < deadline:
+            decided = self.decided()
+            if decided:
+                break
+            time.sleep(0.01)
+        assert len(decided) == 1, (name, len(decided))
+        return decided[0]
+
+    def take(self):
+        """(the step's pumps with work, registered votes, syncs by label,
+        debug-mode count)."""
+        with self.lock:
+            return (list(self.pumps), list(self.registered), dict(self.task_labels),
+                    self.task_syncs)
+
+
 def gateway_sequence(n, device, seed=SEED):
     """The gateway phase: the port's ``SwarmGateway`` on 127.0.0.1 hosting
     ``n`` virtual members (seed ``seed``, ``GATEWAY_SETTINGS``), warmed,
@@ -1980,7 +2114,6 @@ def gateway_sequence(n, device, seed=SEED):
     id must be equal on three sides: the gateway's, the member's own view,
     and a plain ``Simulator`` driven alike."""
     from rapid_tpu_torch.messaging.gateway import SwarmGateway
-    from rapid_tpu_torch.runtime import jitwatch
     from rapid_tpu_torch.settings import Settings
     from rapid_tpu_torch.sim import kernels
     from rapid_tpu_torch.sim.bridge import default_protocol
@@ -1997,80 +2130,7 @@ def gateway_sequence(n, device, seed=SEED):
                            seed=seed, settings=Settings(**GATEWAY_SETTINGS),
                            pump_interval_ms=GATEWAY_PUMP_MS, device=device)
     bridge, sim = gateway.bridge, gateway.bridge.sim
-    lock = threading.Lock()
-    pumps, registered, task_syncs, task_labels = [], [], [0], {}
-    timers = {"dispatch": 0.0, "window": 0.0}
-    run, register, pump = sim.run_until_decision, sim.register_extern_vote, bridge.pump
-    window = gateway.network.scheduler.run_for
-    run_task = gateway._run_task  # noqa: SLF001
-
-    def timed(fn, key):
-        def call(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                timers[key] += time.perf_counter() - t0
-        return call
-
-    window_marks = []
-
-    def marked_window(ms):
-        start = time.time()
-        try:
-            return window(ms)
-        finally:
-            window_marks.append((start, time.time()))
-
-    def counted_register(slot, cut):
-        ok = register(slot, cut)
-        with lock:
-            registered.append((slot, ok))
-        return ok
-
-    def recorded_pump(*args, **kw):
-        timers["dispatch"] = timers["window"] = 0.0
-        syncs, launches = jitwatch.sync_counts(), dict(kernels.LAUNCHES)
-        t0, start = time.perf_counter(), time.time()
-        rec = pump(*args, **kw)
-        wall = time.perf_counter() - t0
-        if rec is not None or timers["dispatch"] > 0:
-            with lock:
-                pumps.append({"start": start, "wall_ms": wall * 1e3, "rec": rec,
-                              "dispatch_ms": timers["dispatch"] * 1e3,
-                              "vote_window_ms": timers["window"] * 1e3,
-                              "syncs": _diff(jitwatch.sync_counts(), syncs),
-                              "launches": {k: v - launches.get(k, 0)
-                                           for k, v in kernels.LAUNCHES.items()
-                                           if v - launches.get(k, 0)}})
-        return rec
-
-    def counted_task(fn, label):
-        """Every protocol task's syncs by ``jitwatch`` label and, on a card,
-        under torch's sync debug mode "warn": both counts cover the same
-        tasks, whichever step a task straddles."""
-        before = jitwatch.sync_counts()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if on_card:
-                previous = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                return run_task(fn, label)
-            finally:
-                if on_card:
-                    torch.cuda.set_sync_debug_mode(previous)
-                with lock:
-                    task_syncs[0] += sum("synchronizing CUDA operation" in str(w.message)
-                                         for w in caught)
-                    for key, n in _diff(jitwatch.sync_counts(), before).items():
-                        task_labels[key] = task_labels.get(key, 0) + n
-
-    sim.run_until_decision = timed(run, "dispatch")
-    sim.register_extern_vote = counted_register
-    bridge.pump = recorded_pump
-    gateway.network.scheduler.run_for = timed(marked_window, "window")
-    gateway._run_task = counted_task  # noqa: SLF001
+    probe = _GatewayProbe(gateway, on_card)
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2090,31 +2150,16 @@ def gateway_sequence(n, device, seed=SEED):
 
             def step(name, act, event, cut_slots):
                 n_before = sim.membership_size
-                with lock:
-                    del pumps[:]
-                    del registered[:]
-                    task_syncs[0] = 0
-                    task_labels.clear()
+                probe.reset()
                 clock.reset()
                 kernels.reset_launches()
                 start = time.time()
                 act()
                 seen = child.wait(event)
-                deadline = time.time() + GATEWAY_WAIT_S
-                while time.time() < deadline:
-                    with lock:
-                        decided = [p for p in pumps if p["rec"] is not None]
-                    if decided:
-                        break
-                    time.sleep(0.01)
-                assert len(decided) == 1, (name, len(decided))
-                decision = decided[0]
+                decision = probe.wait_decision(name)
                 rec = decision["rec"]
                 time.sleep(3 * GATEWAY_PUMP_MS / 1e3)  # the next pumps see nothing to do
-                with lock:
-                    work = list(pumps)
-                    votes = list(registered)
-                    syncs, counted = dict(task_labels), task_syncs[0]
+                work, votes, syncs, counted = probe.take()
                 assert sorted(rec.cut.tolist()) == sorted(int(s) for s in cut_slots), name
                 row = {"name": name, "members_before": n_before, "cut": len(rec.cut),
                        "configuration_id": rec.configuration_id,
@@ -2160,7 +2205,7 @@ def gateway_sequence(n, device, seed=SEED):
                 quorum = n_before - (n_before - 1) // 4
                 quorum_of[name] = quorum
                 assert row["registered"] == [(slot, True)], (
-                    name, row["registered"], "vote window (start, end) s:", window_marks,
+                    name, row["registered"], "vote window (start, end) s:", probe.window_marks,
                     "member events (name, t):", [(e["event"], e["t"]) for e in child.seen[-4:]])
                 assert seen["alerts"] == len(cut) and seen["quorum"] == quorum, (name, seen)
                 assert seen["vote_senders"] >= quorum, (name, seen)
@@ -2259,6 +2304,537 @@ def _print_gateway(result, card):
           + ("" if result["warm_peak_bytes"] is None else
              f", peak {result['warm_peak_bytes'] / 2**20:.1f} MiB of device memory above the "
              "swarm's own state") + f" ({card})", flush=True)
+
+
+PORT_MEMBERS = 8  # real port members of member_sequence's second bridge
+MEMBER_RNG_SEED = 7_000  # member i's builder rng is random.Random(MEMBER_RNG_SEED + i)
+AGENT_JOIN_TIMEOUT_S = 300.0
+
+
+class SwarmBroadcaster:
+    """A real member's broadcaster on the bridge's in-process network, as
+    ``GatewaySwarmBroadcaster`` is behind a gateway: one copy to the swarm
+    through ``TpuSimMessaging.handle_broadcast`` (the bridge ingests alert
+    batches and votes once a sender, so the copies to each virtual member
+    of unicast-to-all are redundant; ``ScriptedMember`` broadcasts the same
+    way) and the reference's best-effort unicast to every real member, the
+    sender included."""
+
+    def __init__(self, client, network, bridge):
+        self._client, self._network, self._bridge = client, network, bridge
+        self._real, self._any_swarm = [], False
+
+    def set_membership(self, recipients):
+        self._real = [r for r in recipients if self._network.is_listening(r)]
+        self._any_swarm = len(self._real) < len(recipients)
+
+    def broadcast(self, msg):
+        promises = [self._client.send_message_best_effort(r, msg) for r in self._real]
+        if self._any_swarm:
+            out = self._bridge.protocol.Promise()
+
+            def deliver():
+                reply = self._bridge.handle_broadcast(msg)
+                reply.add_callback(lambda p: out.try_set_result(p.peek())
+                                   if p.exception() is None else
+                                   out.try_set_exception(p.exception()))
+
+            self._network.scheduler.schedule(0, deliver)
+            promises.append(out)
+        return promises
+
+
+class _MemberClock:
+    """Host time of the port's real members in this process: every protocol
+    task of theirs (message handlers, the alert batcher, view changes: each
+    runs through ``SharedResources.protocol_executor`` on the shared virtual
+    scheduler) and their join's view and service build
+    (``cluster.MembershipView`` and ``cluster.MembershipService``, timed
+    apart as ``build_ms``). Nested calls count once. The names are restored
+    on exit."""
+
+    def __init__(self):
+        from rapid_tpu_torch import cluster
+        from rapid_tpu_torch.runtime import resources
+
+        self._cluster, self._executor = cluster, resources._SchedulerExecutor  # noqa: SLF001
+        self._saved = (cluster.MembershipView, cluster.MembershipService,
+                       self._executor.execute)
+        self._depth = 0
+        self.reset()
+
+    def reset(self):
+        self.ms = self.build_ms = 0.0
+
+    def _timed(self, fn, build):
+        def call(*args, **kw):
+            if self._depth:
+                return fn(*args, **kw)
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                self._depth -= 1
+                self.ms += ms
+                if build:
+                    self.build_ms += ms
+        return call
+
+    def __enter__(self):
+        view, service, execute = self._saved
+        self._cluster.MembershipView = self._timed(view, True)
+        self._cluster.MembershipService = self._timed(service, True)
+        clock = self
+
+        def timed_execute(executor, fn):
+            execute(executor, clock._timed(fn, False))
+
+        self._executor.execute = timed_execute
+        return self
+
+    def __exit__(self, *exc):
+        (self._cluster.MembershipView, self._cluster.MembershipService,
+         self._executor.execute) = self._saved
+
+
+def member_sequence(n, device, seed=SEED, scripted=None):
+    """The real-member phase: the port's own ``Cluster`` (``ClusterBuilder`` on
+    ``InProcessClient`` / ``InProcessServer``, default ``Settings``) against
+    ``TpuSimMessaging(InProcessNetwork(VirtualScheduler()), n)`` on the
+    port's default protocol. One member joins, votes in a crash of 1% of
+    the virtual members (the closed form) and in one of 1% more under
+    ingress loss 1.0 (the scan), and leaves: ``bridge_sequence``'s script
+    with the same seed and victims. Then a second bridge: ``PORT_MEMBERS``
+    members join in one pump and all vote in the first crash. After each
+    decision every member's configuration id and member list equal the
+    swarm's, and the ids those of a plain ``Simulator`` driven through the
+    same identities, joins, crashes and leave. Each pump's wall (the pump
+    and the virtual 200 ms after it that deliver the decision) is split into
+    the simulator's dispatches, the members' own host work (``_MemberClock``:
+    their protocol tasks; the join's view and service build apart), and the
+    rest: the bridge's host work and the scheduler's delivery, with syncs by
+    label and kernel launches. ``scripted``: ``bridge_sequence``'s result
+    of the same run, whose pump walls are printed beside these."""
+    from rapid_tpu_torch import ClusterBuilder, Settings
+    from rapid_tpu_torch.messaging.inprocess import (InProcessClient, InProcessNetwork,
+                                                     InProcessServer)
+    from rapid_tpu_torch.runtime import jitwatch
+    from rapid_tpu_torch.runtime.scheduler import VirtualScheduler
+    from rapid_tpu_torch.sim import kernels
+    from rapid_tpu_torch.sim.bridge import TpuSimMessaging
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.sim.engine import SimConfig
+    from rapid_tpu_torch.types import Endpoint, NodeId
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 10_000)  # bridge_sequence's victims
+    victims = [np.sort(v) for v in np.split(rng.choice(n, 2 * (n // 100), replace=False), 2)]
+    pumps = []
+    clock = _MemberClock()
+
+    def new_bridge():
+        sched = VirtualScheduler()
+        net = InProcessNetwork(sched)
+        bridge = TpuSimMessaging(net, n, seed=seed, device=device)
+        sim = bridge.sim
+        timers = {"dispatch": 0.0}
+        votes = []
+        run, register = sim.run_until_decision, sim.register_extern_vote
+
+        def timed(fn, key):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    timers[key] += time.perf_counter() - t0
+            return call
+
+        def counted_register(slot, cut):
+            ok = register(slot, cut)
+            votes.append((slot, ok))
+            return ok
+
+        sim.run_until_decision = timed(run, "dispatch")
+        sim.register_extern_vote = counted_register
+        return sched, net, bridge, timers, votes
+
+    def member(net, sched, bridge, ep, i):
+        settings = Settings()
+        return (ClusterBuilder(ep)
+                .set_messaging_client_and_server(InProcessClient(ep, net, settings),
+                                                 InProcessServer(ep, net))
+                .use_scheduler(sched).use_settings(settings)
+                .use_rng(random.Random(MEMBER_RNG_SEED + i))
+                .set_broadcaster_factory(
+                    lambda client, rng: SwarmBroadcaster(client, net, bridge)))
+
+    def pump(name, sched, bridge, timers, votes, clusters, real):
+        """One pump and the virtual 200 ms that deliver its decision, with
+        ``real`` real members in the swarm; the view of each of ``clusters``
+        checked against the swarm's."""
+        sim = bridge.sim
+        n_before = sim.membership_size
+        kernels.reset_launches()
+        before = jitwatch.sync_counts()
+        timers["dispatch"] = 0.0
+        del votes[:]
+        clock.reset()
+        t0 = time.perf_counter()
+        with clock:
+            rec = bridge.pump()
+            sched.run_for(200)  # the decision's packets to the members
+        wall = time.perf_counter() - t0
+        assert rec is not None, f"member pump, {name}: no decision"
+        members = {bridge.endpoint(int(s)) for s in sim.members()}
+        for c in clusters:
+            assert c.get_current_configuration_id() == sim.configuration_id() \
+                == rec.configuration_id, (name, str(c.listen_address))
+            assert set(c.get_memberlist()) == members, (name, str(c.listen_address))
+        row = {"name": name, "members_before": n_before, "cut": rec.cut.tolist(),
+               "configuration_id": rec.configuration_id, "virtual_time_ms": rec.virtual_time_ms,
+               "wall_ms": wall * 1e3, "dispatch_ms": timers["dispatch"] * 1e3,
+               "member_ms": clock.ms, "member_build_ms": clock.build_ms,
+               "host_ms": wall * 1e3 - timers["dispatch"] * 1e3 - clock.ms,
+               "syncs": _diff(jitwatch.sync_counts(), before),
+               "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+               "votes_registered": list(votes), "real_members": real}
+        pumps.append(row)
+        return rec, row
+
+    # --- one member: join, the two crashes, leave -------------------------
+    sched, net, bridge, timers, votes = new_bridge()
+    sim = bridge.sim
+    ep = Endpoint.from_parts("10.77.0.2", 7000)
+    promise = member(net, sched, bridge, ep, 0).join_async(bridge.endpoint(0))
+    sched.run_for(50)  # phase 1 and 2: the joins park at their observers
+    rec, row = pump("join", sched, bridge, timers, votes, [], 1)
+    assert sched.run_until(promise.done, timeout_ms=10_000) and promise.exception() is None
+    cluster = promise.peek()
+    slot = bridge._slot_of[ep]  # noqa: SLF001
+    assert rec.added.tolist() == [slot] and cluster.get_membership_size() == n + 1
+    assert cluster.get_current_configuration_id() == sim.configuration_id() \
+        == rec.configuration_id
+    for name, fault, cut in (
+            ("crash, closed form", lambda: sim.crash(victims[0]), victims[0]),
+            ("crash, scan", lambda: (sim.crash(victims[1]), sim.ingress_loss(victims[1], 1.0)),
+             victims[1])):
+        fault()
+        rec, row = pump(name, sched, bridge, timers, votes, [cluster], 1)
+        assert rec.cut.tolist() == cut.tolist(), name
+        assert row["votes_registered"] == [(slot, True)], (name, row["votes_registered"])
+        if on_card and name == "crash, scan":
+            assert row["launches"].get("fd_phase_fused", 0) > 0, row["launches"]
+    before = rec.virtual_time_ms
+    done = cluster.leave_gracefully_async()
+    sched.run_for(50)
+    rec, row = pump("leave", sched, bridge, timers, votes, [], 1)
+    assert rec.cut.tolist() == [slot] and sched.run_until(done.done, timeout_ms=30_000)
+    row["decided_in_ms"] = rec.virtual_time_ms - before
+    identity = cluster._membership_service._view.get_configuration()  # noqa: SLF001
+    node_id = NodeId.random(random.Random(MEMBER_RNG_SEED))
+    assert node_id in identity.node_ids
+    del cluster, identity, promise, bridge, net, sched
+    gc.collect()
+
+    # --- PORT_MEMBERS members: one join pump, all vote in the crash --------
+    sched, net, bridge, timers, votes = new_bridge()
+    sim = bridge.sim
+    eps = [Endpoint.from_parts(f"10.77.1.{i + 1}", 7000) for i in range(PORT_MEMBERS)]
+    promises = [member(net, sched, bridge, e, 1 + i).join_async(bridge.endpoint(0))
+                for i, e in enumerate(eps)]
+    sched.run_for(50)
+    rec, row = pump(f"{PORT_MEMBERS} members join", sched, bridge, timers, votes, [],
+                    PORT_MEMBERS)
+    assert sched.run_until(lambda: all(p.done() for p in promises), timeout_ms=10_000)
+    clusters = [p.peek() for p in promises]
+    slots = [bridge._slot_of[e] for e in eps]  # noqa: SLF001
+    assert sorted(rec.added.tolist()) == sorted(slots)
+    assert all(c.get_current_configuration_id() == sim.configuration_id() for c in clusters)
+    sim.crash(victims[0])
+    rec, row = pump(f"{PORT_MEMBERS} members, crash", sched, bridge, timers, votes, clusters,
+                    PORT_MEMBERS)
+    assert rec.cut.tolist() == victims[0].tolist()
+    assert sorted(row["votes_registered"]) == sorted((s, True) for s in slots), \
+        row["votes_registered"]
+    for c in clusters:
+        c.shutdown()
+    del clusters, promises, bridge, net, sched
+    gc.collect()  # the members' views, in reference cycles: freed outside any timed pump
+
+    # --- the cross-check: plain simulators driven alike, with no bridge ---
+    def plain_run(identities, steps):
+        plain = Simulator(n, capacity=n + 16, config=SimConfig(capacity=n + 16,
+                                                              extern_proposals=4),
+                          seed=seed, device=device)
+        for s, (e, nid) in identities.items():
+            plain.assign_identity(s, e.hostname, e.port, nid.high, nid.low)
+        ids = []
+        for step in steps:
+            step(plain)
+            prec = plain.run_until_decision(max_rounds=32, batch=8)
+            assert prec is not None
+            ids.append(prec.configuration_id)
+        return ids
+
+    one = plain_run({slot: (ep, node_id)}, (
+        lambda p: p.request_joins(np.array([slot])), lambda p: p.crash(victims[0]),
+        lambda p: (p.crash(victims[1]), p.ingress_loss(victims[1], 1.0)),
+        lambda p: p.leave(np.array([slot]))))
+    many = plain_run({s: (e, NodeId.random(random.Random(MEMBER_RNG_SEED + 1 + i)))
+                      for i, (s, e) in enumerate(zip(slots, eps))},
+                     (lambda p: p.request_joins(np.array(slots)), lambda p: p.crash(victims[0])))
+    for row, want in zip(pumps, one + many):
+        row["plain_configuration_id"] = want
+        assert row["configuration_id"] == want, (row["name"], row["configuration_id"], want)
+    scripted_walls = {p["name"]: p["wall_ms"] for p in (scripted or {}).get("pumps", [])}
+    scripted_walls[f"{PORT_MEMBERS} members join"] = scripted_walls.get("join")
+    scripted_walls[f"{PORT_MEMBERS} members, crash"] = scripted_walls.get("crash, closed form")
+    for row in pumps:
+        beside = scripted_walls.get(row["name"])
+        print(f"member pump, {row['name']}: {row['members_before']} members, "
+              f"{row['real_members']} real, cut {len(row['cut'])}, "
+              f"configuration id {row['configuration_id']} (== every member's == the plain "
+              f"simulator's), virtual {row['virtual_time_ms']} ms; wall {row['wall_ms']:.3f} ms "
+              f"= dispatch {row['dispatch_ms']:.3f} + the members' host {row['member_ms']:.3f} "
+              f"(view and service build {row['member_build_ms']:.3f}) + bridge host and "
+              f"delivery {row['host_ms']:.3f}; votes registered "
+              f"{len(row['votes_registered'])}; syncs by label {row['syncs']}; kernel launches "
+              f"{row['launches']}"
+              + ("" if beside is None else f"; the scripted member's pump {beside:.3f} ms")
+              + (f"; decided in {row['decided_in_ms']} ms virtual" if "decided_in_ms" in row
+                 else ""), flush=True)
+    return {"pumps": pumps}
+
+
+class _AgentChild:
+    """``python -m rapid_tpu_torch.cli.agent`` in its own OS process: its log
+    lines (standard error) read by a thread, each with the time it arrived;
+    every wait bounded; killed if it outlives ``close``."""
+
+    def __init__(self, args):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.started = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "rapid_tpu_torch.cli.agent", *args], cwd=here,
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        self.lines = []  # (arrival time, line)
+        self._cond = threading.Condition()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._cond:
+                self.lines.append((time.time(), line.rstrip()))
+                self._cond.notify_all()
+
+    def wait(self, text, after=0, timeout=GATEWAY_WAIT_S):
+        """The first line from index ``after`` on that holds ``text``:
+        (its index, its arrival time, the line)."""
+        deadline = time.time() + timeout
+        with self._cond:
+            while True:
+                for i in range(after, len(self.lines)):
+                    if text in self.lines[i][1]:
+                        return i, self.lines[i][0], self.lines[i][1]
+                left = deadline - time.time()
+                if left <= 0 or self.proc.poll() is not None and after >= len(self.lines):
+                    raise AssertionError(f"agent: no '{text}' line in {timeout} s; exit "
+                                         f"{self.proc.poll()}; last lines "
+                                         f"{[line for _, line in self.lines[-20:]]}")
+                self._cond.wait(min(left, 0.5))
+
+    def close(self):
+        try:
+            if self.proc.poll() is None:
+                self.proc.send_signal(signal.SIGINT)
+                self.proc.wait(timeout=30)
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def agent_sequence(n, device, seed=SEED, scripted=None):
+    """The agent phase: the port's ``SwarmGateway`` on 127.0.0.1 hosting ``n``
+    virtual members (``GATEWAY_SETTINGS``, as ``gateway_sequence``), and
+    ``python -m rapid_tpu_torch.cli.agent`` in a child process: a real port
+    ``Cluster`` on the port's TCP transport, routed through the gateway
+    (``--gateway-address``), joining at the swarm's seed. It joins, goes
+    through a crash of 1% of the virtual members (the closed form) and one
+    of 1% more under ingress loss 1.0 (the scan), both run on the gateway's
+    protocol thread, and leaves on SIGINT (and exits 0). After the join and
+    each crash the agent's configuration id, read through its status RPC
+    (``cli.agent.query_status``), equals the gateway's; the leave's decision
+    cuts the agent's slot; every decision's id equals that of a plain
+    ``Simulator`` driven through the same identity (the one the agent
+    seated), joins, crashes and leave. Each step: the wall from the fault
+    (from the agent's start, for the join; to its exit, for the leave) to
+    the agent's log line of the view change, the decision pump's wall split
+    as ``gateway_sequence`` splits it, the agent's vote (whether the swarm
+    registered it in the phase-B window), syncs by label and kernel
+    launches. ``scripted``: ``gateway_sequence``'s result of the same run,
+    whose step walls are printed beside these."""
+    from rapid_tpu_torch.cli.agent import query_status
+    from rapid_tpu_torch.messaging.gateway import SwarmGateway
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.sim import kernels
+    from rapid_tpu_torch.sim.driver import Simulator
+    from rapid_tpu_torch.sim.engine import SimConfig
+    from rapid_tpu_torch.types import ClusterStatusResponse, Endpoint
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 20_000)  # gateway_sequence's victims
+    victims = [np.sort(v) for v in np.split(rng.choice(n, 2 * (n // 100), replace=False), 2)]
+    gw_port, agent_port = _free_ports(2)
+    agent_addr = f"127.0.0.1:{agent_port}"
+    agent_ep = Endpoint.from_string(agent_addr)
+    gateway = SwarmGateway(Endpoint.from_parts("127.0.0.1", gw_port), n_virtual=n, seed=seed,
+                           settings=Settings(**GATEWAY_SETTINGS),
+                           pump_interval_ms=GATEWAY_PUMP_MS, device=device)
+    bridge, sim = gateway.bridge, gateway.bridge.sim
+    probe = _GatewayProbe(gateway, on_card)
+    slot = n  # the first spare slot seats the joiner
+    steps, child, seen_line = [], None, [0]
+
+    def status_id():
+        reply = query_status(agent_addr, GATEWAY_WAIT_S)
+        assert isinstance(reply, ClusterStatusResponse), reply
+        assert reply.membership_size == sim.membership_size, reply.membership_size
+        return reply.configuration_id
+
+    def step(name, act, cut_slots, until):
+        """``act()`` starts the step and returns when; ``until()`` returns
+        when the agent showed its end."""
+        n_before = sim.membership_size
+        probe.reset()
+        kernels.reset_launches()
+        start = act()
+        decision = probe.wait_decision(name)
+        rec = decision["rec"]
+        assert sorted(rec.cut.tolist()) == sorted(int(s) for s in cut_slots), name
+        seen = until()
+        time.sleep(3 * GATEWAY_PUMP_MS / 1e3)  # the next pumps see nothing to do
+        work, votes, syncs, counted = probe.take()
+        row = {"name": name, "members_before": n_before, "cut": len(rec.cut),
+               "configuration_id": rec.configuration_id, "virtual_time_ms": rec.virtual_time_ms,
+               "agent_wall_ms": (seen - start) * 1e3, "pumps_with_work": len(work),
+               "pump_wall_ms": decision["wall_ms"], "dispatch_ms": decision["dispatch_ms"],
+               "vote_window_ms": decision["vote_window_ms"],
+               "host_ms": decision["wall_ms"] - decision["dispatch_ms"]
+               - decision["vote_window_ms"],
+               "pump_syncs": decision["syncs"], "pump_launches": decision["launches"],
+               "syncs": syncs, "counted_syncs": counted if on_card else None,
+               "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+               "vote_registered": (slot, True) in votes}
+        steps.append(row)
+        return row
+
+    def logged(text):
+        def until():
+            index, seen, _ = child.wait(text, seen_line[0], timeout=AGENT_JOIN_TIMEOUT_S)
+            seen_line[0] = index + 1
+            return seen
+        return until
+
+    def spawn():
+        nonlocal child
+        child = _AgentChild([
+            "--listen-address", agent_addr, "--seed-address", str(gateway.seed_endpoint()),
+            "--gateway-address", f"127.0.0.1:{gw_port}", "--fd-interval-ms",
+            str(GATEWAY_SETTINGS["failure_detector_interval_ms"]), "--join-timeout",
+            str(AGENT_JOIN_TIMEOUT_S)])
+        return child.started
+
+    def on_protocol_thread(fault):
+        def act():
+            t = time.time()
+            _on_protocol_thread(gateway, fault)
+            return t
+        return act
+
+    def sigint():
+        t = time.time()
+        child.proc.send_signal(signal.SIGINT)
+        return t
+
+    def exited():
+        rc = child.proc.wait(timeout=GATEWAY_WAIT_S)
+        assert rc == 0, (rc, [line for _, line in child.lines[-20:]])
+        return time.time()
+
+    try:
+        gateway.start()
+        t0 = time.perf_counter()
+        gateway.warm()
+        warm_s = time.perf_counter() - t0
+        row = step("join", spawn, [slot], logged("agent started at"))
+        assert bridge._slot_of[agent_ep] == slot  # noqa: SLF001
+        identity = (int(sim.cluster.id_high[slot]), int(sim.cluster.id_low[slot]))
+        row["agent_configuration_id"] = status_id()
+        for name, fault, cut in (
+                ("crash, closed form", lambda v=victims[0]: sim.crash(v), victims[0]),
+                ("crash, scan", lambda v=victims[1]: (sim.crash(v), sim.ingress_loss(v, 1.0)),
+                 victims[1])):
+            row = step(name, on_protocol_thread(fault), cut, logged("VIEW_CHANGE config="))
+            row["agent_configuration_id"] = status_id()
+            if on_card and name == "crash, scan":
+                assert row["pump_launches"].get("fd_phase_fused", 0) > 0, row["pump_launches"]
+        step("leave", sigint, [slot], exited)
+        assert agent_ep not in bridge._real  # noqa: SLF001
+    finally:
+        if child is not None:
+            child.close()
+        gateway.shutdown()
+        for thread in gateway._threads:  # noqa: SLF001 -- a pump in flight ends first
+            thread.join(timeout=GATEWAY_WAIT_S)
+    for row in steps[:3]:
+        assert row["agent_configuration_id"] == row["configuration_id"], row["name"]
+    if on_card:
+        for row in steps:
+            assert row["counted_syncs"] == sum(row["syncs"].values()), (
+                row["name"], row["counted_syncs"], row["syncs"])
+
+    # the cross-check: a plain simulator driven alike, with no gateway
+    plain = Simulator(n, capacity=n + 16, config=SimConfig(capacity=n + 16, extern_proposals=4),
+                      seed=seed, device=device)
+    plain.assign_identity(slot, agent_ep.hostname, agent_ep.port, *identity)
+    for row, act in zip(steps, (lambda: plain.request_joins(np.array([slot])),
+                                lambda: plain.crash(victims[0]),
+                                lambda: (plain.crash(victims[1]),
+                                         plain.ingress_loss(victims[1], 1.0)),
+                                lambda: plain.leave(np.array([slot])))):
+        act()
+        prec = plain.run_until_decision(max_rounds=32, batch=8)
+        assert prec is not None
+        row["plain_configuration_id"] = prec.configuration_id
+        assert row["configuration_id"] == prec.configuration_id, (row["name"], prec)
+    scripted_walls = {r["name"]: r["member_wall_ms"] for r in (scripted or {}).get("steps", [])}
+    for row in steps:
+        beside = scripted_walls.get(row["name"])
+        print(f"agent, {row['name']}: {row['members_before']} members, cut {row['cut']}, "
+              f"configuration id {row['configuration_id']} (== the plain simulator's"
+              + (", == the agent's status RPC" if "agent_configuration_id" in row else
+                 "; the agent exited 0") + f"), virtual {row['virtual_time_ms']} ms; wall as "
+              f"the agent sees it {row['agent_wall_ms']:.3f} ms"
+              + ("" if beside is None else f" (the scripted member's {beside:.3f} ms)")
+              + f"; decision pump {row['pump_wall_ms']:.3f} ms = dispatch "
+              f"{row['dispatch_ms']:.3f} + vote window {row['vote_window_ms']:.3f} + bridge "
+              f"host {row['host_ms']:.3f}; the agent's vote registered in the window: "
+              f"{row['vote_registered']}; the decision pump's syncs by label "
+              f"{row['pump_syncs']} and launches {row['pump_launches']}; the step's "
+              f"{row['pumps_with_work']} pumps with device work and every other protocol task: "
+              f"syncs {row['syncs']}"
+              + ("" if row["counted_syncs"] is None else
+                 f" (debug mode counted {row['counted_syncs']})")
+              + f", launches {row['launches']}", flush=True)
+    print(f"agent phase: gateway warm() {warm_s:.3f} s", flush=True)
+    return {"warm_s": warm_s, "steps": steps}
 
 
 def wire_phase(card, reps=5):
@@ -3100,6 +3676,20 @@ def main() -> int:
         for name, count in row["pump_launches"].items():
             gateway_launches.setdefault(name, []).append((row["name"], count))
 
+    # --- real port members: in process on the bridge, and an agent over TCP
+    t0 = time.perf_counter()
+    members = member_sequence(N_NODES, card_device, scripted=bridge)
+    t1 = time.perf_counter()
+    agent = agent_sequence(N_NODES, card_device, scripted=gateway)
+    print(f"member phase {t1 - t0:.1f} s, agent phase {time.perf_counter() - t1:.1f} s, "
+          f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    member_launches, agent_launches = {}, {}
+    for rows, key, into in ((members["pumps"], "launches", member_launches),
+                            (agent["steps"], "pump_launches", agent_launches)):
+        for row in rows:
+            for name, count in row[key].items():
+                into.setdefault(name, []).append((row["name"], count))
+
     kernel_results = _kernel_phase(kernels, device)
     kernel_results["fd_phase_fused"] = _fused_phase(kernels, fd_bench, device)
     kernel_results["fd_phase_fused_windowed"] = _windowed_phase(kernels, fd_bench, engine, device)
@@ -3218,6 +3808,10 @@ def main() -> int:
             "launches_bridged": bridged_launches.get(name, []),
             # (gateway step, launches) of each decision pump of the gateway phase that ran it
             "launches_gateway": gateway_launches.get(name, []),
+            # (pump, launches) of the real port members' bridged pumps, and
+            # (step, launches) of the port agent's decision pumps
+            "launches_member": member_launches.get(name, []),
+            "launches_agent": agent_launches.get(name, []),
             # the 100k fault replay (drop rule at 1.0 and the gray streak: the scan path)
             "launches_replay": replay["launches"].get(name, 0),
             "match": True,
@@ -3253,6 +3847,8 @@ def main() -> int:
             "launches": split_launches[name],
             "launches_bridged": bridged_launches.get(name, []),
             "launches_gateway": gateway_launches.get(name, []),
+            "launches_member": member_launches.get(name, []),
+            "launches_agent": agent_launches.get(name, []),
             # (run, rank, launches) of each process of the multi-process decisions
             "launches_multiprocess": [
                 (label, r["process"], r["launches"].get(name, 0))
@@ -3302,7 +3898,9 @@ def main() -> int:
                       "multihost": multihost, "fault_replay": replay,
                       "bridge": dict(bridge, pumps=[dict(p, cut=len(p["cut"]))
                                                     for p in bridge["pumps"]]),
-                      "wire": wire, "gateway": gateway, "planes": planes_result},
+                      "wire": wire, "gateway": gateway, "planes": planes_result,
+                      "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
+                      "agent": agent},
                      default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

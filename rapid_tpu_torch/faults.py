@@ -15,6 +15,11 @@
   clock) and derives every probabilistic decision from ``(plan seed, rule,
   link, per-link sequence number)`` through a keyed hash -- never from
   shared RNG state -- so both packages draw alike for every rule kind.
+- The transport half: :class:`NemesisClient` / :class:`NemesisServer`
+  (minted by ``Nemesis.client`` / ``Nemesis.server``) wrap any protocol-plane
+  transport's ``IMessagingClient`` / ``IMessagingServer`` and apply the
+  plan at egress and ingress, and :class:`SkewedScheduler` (from
+  ``Nemesis.scheduler_for``) is a ``ClockSkewRule``'d node's drifted clock.
 
 The simulator's handoff and serving planes consult ``Nemesis.decide`` per
 chunk pull and per replication write.
@@ -28,9 +33,7 @@ the methods the port's ``Simulator`` shares with JAX's, so a plan replays
 alike on both. A cell partition finds its cells for every slot at once
 (``_slot_cells``), and a replay looks its rules' endpoints up in the
 simulator's identities (``_SlotIndex``) instead of building
-``endpoint_slots``' ``Endpoint`` for every slot. The transport decorators (``NemesisClient`` /
-``NemesisServer``) and ``SkewedScheduler`` with ``Nemesis.scheduler_for``
-are not ported yet (ROADMAP.md, Queue 1 item 13b).
+``endpoint_slots``' ``Endpoint`` for every slot.
 """
 
 from __future__ import annotations
@@ -48,8 +51,13 @@ import numpy as np
 from .hashing import endpoint_hash_batch
 from .hierarchy.cells import _CELL_SEED_BASE
 from .hierarchy.cells import cell_of as _hier_cell_of
+from .messaging.base import IMessagingClient, IMessagingServer
+from .messaging.retries import call_with_retries
 from .observability import Metrics, global_metrics
+from .runtime.futures import Promise
 from .runtime.lockdep import make_lock
+from .runtime.scheduler import Scheduler
+from .settings import Settings
 from .types import Endpoint, ProbeMessage, RapidMessage
 
 EGRESS = "egress"
@@ -734,10 +742,49 @@ class Decision:
     wire_version: Optional[int] = None
 
 
+class SkewedScheduler(Scheduler):
+    """A node's drifted view of the shared clock (ClockSkewRule).
+
+    ``now_ms`` reads ``rate * true + offset_ms``; a delay the node asks for
+    in its own time costs ``delay / rate`` of true time (a fast clock fires
+    its timers early). Purely arithmetic over the wrapped scheduler, so
+    virtual-time determinism is untouched -- the skewed node's events still
+    land at exact integer virtual times."""
+
+    def __init__(self, inner: Scheduler, offset_ms: int = 0,
+                 rate: float = 1.0) -> None:
+        assert rate > 0.0, rate
+        self.inner = inner
+        self.offset_ms = int(offset_ms)
+        self.rate = float(rate)
+
+    def now_ms(self) -> int:
+        return int(self.inner.now_ms() * self.rate) + self.offset_ms
+
+    def _true_delay(self, delay_ms: int) -> int:
+        return max(0, int(round(delay_ms / self.rate)))
+
+    def schedule(self, delay_ms, fn):
+        return self.inner.schedule(self._true_delay(delay_ms), fn)
+
+    def schedule_at_fixed_rate(self, initial_delay_ms, period_ms, fn):
+        return self.inner.schedule_at_fixed_rate(
+            self._true_delay(initial_delay_ms),
+            max(1, self._true_delay(period_ms)), fn,
+        )
+
+    def execute(self, fn) -> None:
+        self.inner.execute(fn)
+
+    def shutdown(self) -> None:
+        pass  # the true scheduler is shared; its owner shuts it down
+
+
 class Nemesis:
     """One armed instance of a plan for one run: epoch, decision streams,
-    counters. Create one per run. ``scheduler`` is anything with
-    ``now_ms()`` (the simulator hands it its virtual clock)."""
+    counters. Create one per cluster run; mint decorators from it.
+    ``scheduler`` is the run's ``Scheduler`` (or, for a replay on the
+    simulator, anything with ``now_ms()``: its virtual clock)."""
 
     def __init__(self, plan: FaultPlan, scheduler,
                  metrics: Optional[Metrics] = None) -> None:
@@ -748,6 +795,10 @@ class Nemesis:
         # (rule index, src str, dst str) -> decisions drawn so far
         self._seq: Dict[Tuple[int, str, str], int] = {}
         self._lock = make_lock("Nemesis._lock")
+        # one skewed clock per ClockSkewRule'd node, cached so every consumer
+        # of a node's clock (client deadlines, FD intervals, retry backoff)
+        # shares the same drifted view
+        self._skewed: Dict[Endpoint, Scheduler] = {}
 
     # -- clock ---------------------------------------------------------------
 
@@ -764,6 +815,16 @@ class Nemesis:
             self.arm()
         return self.scheduler.now_ms() - self._epoch
 
+    # -- decorators ----------------------------------------------------------
+
+    def client(self, inner: IMessagingClient, address: Optional[Endpoint] = None,
+               settings: Optional[Settings] = None) -> "NemesisClient":
+        return NemesisClient(inner, self, address=address, settings=settings)
+
+    def server(self, inner: IMessagingServer,
+               address: Endpoint) -> "NemesisServer":
+        return NemesisServer(inner, self, address)
+
     # -- decisions -----------------------------------------------------------
 
     def _draw(self, rule_idx: int, src: str, dst: str) -> float:
@@ -777,6 +838,27 @@ class Nemesis:
         """Per-sender seeded rng for backoff jitter draws."""
         tag = str(address).encode() if address is not None else b"?"
         return random.Random(self.plan.seed ^ zlib.crc32(tag))
+
+    def scheduler_for(self, address: Optional[Endpoint]) -> Scheduler:
+        """The clock ``address`` lives by: the shared scheduler, or its
+        drifted wrapper when a ClockSkewRule names the node. Harnesses build
+        each node's timers against this seam, so one skewed node perturbs
+        its own FD deadlines and retry backoff while the rest of the cluster
+        keeps true time."""
+        if address is None:
+            return self.scheduler
+        cached = self._skewed.get(address)
+        if cached is not None:
+            return cached
+        for rule in self.plan.rules:
+            if isinstance(rule, ClockSkewRule) and rule.match.src == address:
+                skewed = SkewedScheduler(
+                    self.scheduler, offset_ms=rule.offset_ms, rate=rule.rate
+                )
+                self._skewed[address] = skewed
+                return skewed
+        self._skewed[address] = self.scheduler
+        return self.scheduler
 
     def decide(self, src: Optional[Endpoint], dst: Optional[Endpoint],
                msg: RapidMessage, at: str) -> Decision:
@@ -845,6 +927,192 @@ class Nemesis:
             if si is not None and di is not None:
                 out.delay_ms += topo.one_way_ms(si, di)
         return out
+
+
+def _pipe(src: Promise, dst: Promise) -> None:
+    if dst.done():
+        return
+    exc = src.exception()
+    if exc is not None:
+        dst.try_set_exception(exc)
+    else:
+        dst.try_set_result(src._result)  # noqa: SLF001 -- promise-internal copy
+
+
+class NemesisClient(IMessagingClient):
+    """Egress fault application + uniformly hardened send_message.
+
+    ``send_message`` re-homes the retry loop at this layer: every attempt
+    traverses the fault plane once, attempts are spaced by the settings
+    backoff policy, and the whole exchange is bounded by the per-message-type
+    deadline (``Settings.deadline_for``) on the scheduler's clock --
+    identical semantics over every wrapped transport.
+    """
+
+    def __init__(self, inner: IMessagingClient, nemesis: Nemesis,
+                 address: Optional[Endpoint] = None,
+                 settings: Optional[Settings] = None) -> None:
+        self.inner = inner
+        self.address = (
+            address if address is not None else getattr(inner, "address", None)
+        )
+        self._nem = nemesis
+        inherited = getattr(inner, "_settings", None)
+        self._settings = (
+            settings if settings is not None
+            else inherited if inherited is not None else Settings()
+        )
+        # the clock this node lives by: drifted when a ClockSkewRule names
+        # it, so its timeouts/backoff/deadlines all skew together
+        self._sched = nemesis.scheduler_for(self.address)
+
+    def send_message(self, remote: Endpoint, msg: RapidMessage) -> Promise:
+        return call_with_retries(
+            lambda: self._attempt(remote, msg),
+            self._settings.message_retries,
+            scheduler=self._sched,
+            policy=self._settings.retry_policy(),
+            deadline_ms=self._settings.deadline_for(msg),
+            rng=self._nem.retry_rng(self.address),
+            metrics=self._nem.metrics,
+        )
+
+    def send_message_best_effort(self, remote: Endpoint,
+                                 msg: RapidMessage) -> Promise:
+        return self._attempt(remote, msg)
+
+    def _attempt(self, remote: Endpoint, msg: RapidMessage) -> Promise:
+        d = self._nem.decide(self.address, remote, msg, EGRESS)
+        metrics = self._nem.metrics
+        # labeled by fault application point and message type; unlabeled
+        # reads (metrics.get("nemesis_dropped")) sum across the label sets
+        kind = type(msg).__name__
+        if d.wire_version is not None:
+            from .messaging.codec import wire_roundtrip
+
+            metrics.incr("nemesis_wire_versioned", at="egress", msg=kind)
+            msg = wire_roundtrip(msg, d.wire_version)
+        if d.drop:
+            metrics.incr("nemesis_dropped", at="egress", msg=kind)
+            # dropped on the wire: the sender only ever sees its per-message
+            # deadline expire, exactly like the in-process fabric's filters
+            out: Promise = Promise()
+            timeout = self._settings.timeout_for(msg)
+            self._sched.schedule(
+                timeout,
+                lambda: out.try_set_exception(TimeoutError(
+                    f"nemesis dropped {type(msg).__name__} to {remote}"
+                )),
+            )
+            return out
+        for _ in range(d.duplicates):
+            metrics.incr("nemesis_duplicated", at="egress", msg=kind)
+            self.inner.send_message_best_effort(remote, msg)
+        if d.slow_ms > 0:
+            # gray node: the message IS delivered (and answered) slow_ms
+            # late; the sender's own deadline decides whether that answer
+            # still counts. Past the timeout this is indistinguishable from
+            # a drop at the sender -- which is the whole failure mode.
+            metrics.incr("nemesis_slowed", at="egress", msg=kind)
+            out = Promise()
+            total = d.slow_ms + d.delay_ms
+            self._nem.scheduler.schedule(
+                total,
+                lambda: self.inner.send_message_best_effort(
+                    remote, msg
+                ).add_callback(lambda p: _pipe(p, out)),
+            )
+            timeout = self._settings.timeout_for(msg)
+            if total >= timeout:
+                self._sched.schedule(
+                    timeout,
+                    lambda: out.try_set_exception(TimeoutError(
+                        f"{remote} answered {total} ms late "
+                        f"(> {timeout} ms timeout)"
+                    )),
+                )
+            return out
+        if d.delay_ms > 0:
+            metrics.incr(
+                "nemesis_reordered" if d.reordered else "nemesis_delayed",
+                at="egress", msg=kind,
+            )
+            out = Promise()
+            self._nem.scheduler.schedule(
+                d.delay_ms,
+                lambda: self.inner.send_message_best_effort(
+                    remote, msg
+                ).add_callback(lambda p: _pipe(p, out)),
+            )
+            return out
+        metrics.incr("nemesis_passed", at="egress", msg=kind)
+        return self.inner.send_message_best_effort(remote, msg)
+
+    def shutdown(self) -> None:
+        self.inner.shutdown()
+
+
+class _NemesisServiceFilter:
+    """Ingress fault application, inserted between the real server and its
+    MembershipService: ``handle_message`` is the one dispatch seam every
+    transport shares, so wrapping the service faults them all identically."""
+
+    def __init__(self, service, nemesis: Nemesis, address: Endpoint) -> None:
+        self._service = service
+        self._nem = nemesis
+        self._address = address
+
+    def handle_message(self, msg: RapidMessage) -> Promise:
+        src = getattr(msg, "sender", None)
+        d = self._nem.decide(src, self._address, msg, INGRESS)
+        metrics = self._nem.metrics
+        kind = type(msg).__name__
+        if d.drop:
+            metrics.incr("nemesis_dropped", at="ingress", msg=kind)
+            return Promise()  # never completes -> the sender times out
+        for _ in range(d.duplicates):
+            metrics.incr("nemesis_duplicated", at="ingress", msg=kind)
+            self._service.handle_message(msg)
+        if d.delay_ms > 0:
+            metrics.incr(
+                "nemesis_reordered" if d.reordered else "nemesis_delayed",
+                at="ingress", msg=kind,
+            )
+            out: Promise = Promise()
+            self._nem.scheduler.schedule(
+                d.delay_ms,
+                lambda: self._service.handle_message(msg).add_callback(
+                    lambda p: _pipe(p, out)
+                ),
+            )
+            return out
+        metrics.incr("nemesis_passed", at="ingress", msg=kind)
+        return self._service.handle_message(msg)
+
+    def __getattr__(self, name):
+        return getattr(self._service, name)
+
+
+class NemesisServer(IMessagingServer):
+    """Server-side decorator: passes lifecycle through and interposes the
+    ingress fault filter in front of the MembershipService."""
+
+    def __init__(self, inner: IMessagingServer, nemesis: Nemesis,
+                 address: Endpoint) -> None:
+        self.inner = inner
+        self.address = address
+        self._nem = nemesis
+
+    def start(self) -> None:
+        self.inner.start()
+
+    def shutdown(self) -> None:
+        self.inner.shutdown()
+
+    def set_membership_service(self, service) -> None:
+        self.inner.set_membership_service(
+            _NemesisServiceFilter(service, self._nem, self.address)
+        )
 
 
 # --------------------------------------------------------------------------

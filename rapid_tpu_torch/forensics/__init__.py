@@ -1,1 +1,2 @@
-"""The forensics plane's clock (``hlc.py``), as the simulator uses it."""
+"""The forensics plane: the hybrid logical clock and the outbound stamping
+client (``hlc.py``) and incident evidence bundles (``bundle.py``)."""

@@ -1,8 +1,10 @@
 """Hybrid logical clocks (Kulkarni et al., "Logical Physical Clocks").
 
 The port's copy of the clock of ``rapid_tpu/forensics/hlc.py`` (``HlcStamp``,
-``HlcClock``, and the message sidecar ``stamp_hlc``/``hlc_of`` that the wire
-codec reads and writes under the frame's reserved ``__hlc`` key). The
+``HlcClock``, the message sidecar ``stamp_hlc``/``hlc_of`` that the wire
+codec reads and writes under the frame's reserved ``__hlc`` key, and the
+``HlcStampingClient`` that ``ClusterBuilder`` wraps a member's messaging
+client in when the forensics plane is on). The
 simulator stamps its flight recorder with an ``HlcClock`` on its virtual
 clock when ``SimConfig.forensics`` is set, so a simulated journal merges
 causally with real members' journals.
@@ -138,3 +140,29 @@ def stamp_hlc(msg: object, stamp: HlcStamp) -> None:
 
 def hlc_of(msg: object) -> Optional[HlcStamp]:
     return getattr(msg, _HLC_ATTR, None)
+
+
+class HlcStampingClient:
+    """IMessagingClient decorator: stamps ``clock.now()`` on every outbound
+    message. Installed by ClusterBuilder when ``settings.forensics.enabled``
+    -- one seam covers unicast, gossip, batching, and the join pipeline,
+    because every path funnels through the node's messaging client."""
+
+    def __init__(self, inner, clock: HlcClock) -> None:
+        self._inner = inner
+        self._clock = clock
+
+    def send_message(self, remote, msg):
+        stamp_hlc(msg, self._clock.now())
+        return self._inner.send_message(remote, msg)
+
+    def send_message_best_effort(self, remote, msg):
+        stamp_hlc(msg, self._clock.now())
+        return self._inner.send_message_best_effort(remote, msg)
+
+    def shutdown(self) -> None:
+        self._inner.shutdown()
+
+    def __getattr__(self, name):
+        # transports expose extras (settings, stats); delegate transparently
+        return getattr(self._inner, name)

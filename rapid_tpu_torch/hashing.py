@@ -16,6 +16,8 @@ All arithmetic is modulo 2**64. Java compares the hashes as *signed* longs
 
 from __future__ import annotations
 
+from typing import Iterable, Sequence, Tuple
+
 import numpy as np
 
 _MASK = (1 << 64) - 1
@@ -116,6 +118,27 @@ def address_comparator_key(endpoint) -> int:
     ``port``), the order proposals are canonicalized in before consensus
     (MembershipService.java:340-342)."""
     return to_signed(endpoint_hash(endpoint.hostname, endpoint.port, 0))
+
+
+def configuration_id(
+    identifiers: Iterable[Tuple[int, int]], endpoints: Iterable[Tuple[bytes, int]]
+) -> int:
+    """Chained configuration identity hash.
+
+    MembershipView.Configuration.getConfigurationId (MembershipView.java:535-547):
+    ``h = 1``, then ``h = h*37 + xx(0).hashLong(id.high/low)`` over identifiers in
+    NodeId order, then ``h = h*37 + xx(0).hashBytes(hostname)`` and
+    ``h = h*37 + xx(0).hashInt(port)`` over the ring-0 endpoint order.
+    Returns a Java signed long.
+    """
+    h = 1
+    for high, low in identifiers:
+        h = (h * 37 + xxh64_long(high)) & _MASK
+        h = (h * 37 + xxh64_long(low)) & _MASK
+    for hostname, port in endpoints:
+        h = (h * 37 + xxh64(hostname)) & _MASK
+        h = (h * 37 + xxh64_int(port)) & _MASK
+    return to_signed(h)
 
 
 # ---------------------------------------------------------------------------
@@ -266,3 +289,15 @@ def xxh64_batch_auto(
     data = np.ascontiguousarray(data, dtype=np.uint8)
     lengths = np.ascontiguousarray(lengths, dtype=np.int64)
     return xxh64_batch(data, lengths, seed)
+
+
+def pack_hostnames(hostnames: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack variable-length hostname byte strings into a padded uint8 matrix."""
+    max_len = max((len(h) for h in hostnames), default=1)
+    max_len = max(max_len, 1)
+    data = np.zeros((len(hostnames), max_len), dtype=np.uint8)
+    lengths = np.zeros(len(hostnames), dtype=np.int64)
+    for i, h in enumerate(hostnames):
+        data[i, : len(h)] = np.frombuffer(h, dtype=np.uint8)
+        lengths[i] = len(h)
+    return data, lengths

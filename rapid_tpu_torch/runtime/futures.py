@@ -3,15 +3,17 @@
 The port's own copy of ``rapid_tpu/runtime/futures.py``'s ``Promise`` (the
 reference's Guava SettableFuture surface, MembershipService.java:171-193):
 set_result/set_exception once, callbacks fired on completion, and a blocking
-``result(timeout)`` for real-time mode. Its lock is a plain
-``threading.Lock``: the lock-order checker it is instrumented with there
-belongs to the protocol plane.
+``result(timeout)`` for real-time mode, and ``successful_as_list``
+(Futures.successfulAsList). Locks come from the port's lock-order checker
+(``runtime/lockdep.py``) under JAX's class names.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Any, Callable, Generic, List, Optional, TypeVar
+
+from .lockdep import make_lock
 
 T = TypeVar("T")
 
@@ -25,7 +27,7 @@ class Promise(Generic[T]):
 
     def __init__(self) -> None:
         self._event = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = make_lock("Promise._lock")
         self._result: Optional[T] = None
         self._exception: Optional[BaseException] = None
         self._done = False
@@ -106,3 +108,30 @@ class Promise(Generic[T]):
         p: Promise[T] = Promise()
         p.set_exception(exc)
         return p
+
+
+def successful_as_list(promises: List[Promise[T]]) -> Promise[List[Optional[T]]]:
+    """Complete with the list of results, None for failures
+    (Futures.successfulAsList, Cluster.java:436)."""
+    out: Promise[List[Optional[T]]] = Promise()
+    if not promises:
+        out.set_result([])
+        return out
+    remaining = [len(promises)]
+    results: List[Optional[T]] = [None] * len(promises)
+    lock = make_lock("futures.successful_as_list.lock")
+
+    def make_cb(i: int) -> Callable[[Promise[T]], None]:
+        def cb(p: Promise[T]) -> None:
+            results[i] = None if p.exception() is not None else p._result
+            with lock:
+                remaining[0] -= 1
+                fire = remaining[0] == 0
+            if fire:
+                out.set_result(results)
+
+        return cb
+
+    for i, p in enumerate(promises):
+        p.add_callback(make_cb(i))
+    return out

@@ -1,7 +1,8 @@
 """Runtime lock-order checking (lockdep) for the port's protocol plane.
 
 The port's own copy of ``rapid_tpu/runtime/lockdep.py``, for the locks of
-``rapid_tpu_torch.messaging`` and ``runtime.scheduler``. Linux lockdep's core
+the port's protocol plane (``cluster``, ``messaging``, ``runtime``, the
+fault plane), under JAX's class names. Linux lockdep's core
 idea: locks are grouped into *classes* by creation site
 (``"Reactor._lock"``, ``"codec._enc_memo_lock"``, ...), every acquisition
 records *held-class -> acquired-class* edges into one process-global order

@@ -255,8 +255,9 @@ class FastRoundVoteBatch:
 
 # The extension messages below complete the codec's tag table
 # (messaging/codec.py): the port decodes and encodes them byte for byte as
-# rapid_tpu does, but the bridge and gateway handle none of them. Their
-# docstrings name the JAX package's modules that send and answer them.
+# rapid_tpu does. A port member answers the handoff, serving and hierarchy
+# messages as a member without those planes (service.py); their docstrings
+# name the JAX package's modules that send and answer them.
 
 
 @dataclass(frozen=True)
@@ -614,3 +615,11 @@ RapidMessage = Union[
     ClusterStatusRequest, ClusterStatusResponse, CellDigestMessage,
     GlobalViewMessage, HandoffRequest, HandoffChunk, HandoffAck, Get, Put, PutAck,
 ]
+
+CONSENSUS_MESSAGE_TYPES = (
+    FastRoundPhase2bMessage,
+    Phase1aMessage,
+    Phase1bMessage,
+    Phase2aMessage,
+    Phase2bMessage,
+)

@@ -8,13 +8,18 @@ the JAX bridge and on the port's bridge (``device="cpu"``, handed
 scenario's own checks hold on both, and the outcomes must be equal exactly:
 every ``ViewChangeRecord`` (cut, added, removed, configuration id, virtual
 time, members, ``via_classic_round``), the swarm's configuration id and size,
-and each real member's configuration id and member list. Then: the port's
+and each real member's configuration id and member list. A third side,
+``port_cluster``, runs every scenario with the port's own ``Cluster`` members
+on the port's ``InProcessNetwork`` and ``VirtualScheduler`` over the port's
+bridge on its default protocol (no ``rapid_tpu`` class in the run), and
+must equal the JAX bridge with JAX members. Then: the port's
 copies of the protocol classes and of ``address_comparator_key``, the port's
 bridge on its default protocol driven by ``chip_smoke.py``'s scripted member,
 snapshots across the two bridges, and a bridge on a port mesh."""
 
 import dataclasses
 import enum
+import importlib
 import logging
 import pickle
 import random
@@ -23,10 +28,10 @@ import numpy as np
 import pytest
 
 import chip_smoke
+import rapid_tpu
 import rapid_tpu.types as rtypes
-from rapid_tpu import ClusterBuilder, Endpoint, Settings
-from rapid_tpu.events import ClusterEvents
-from rapid_tpu.messaging.inprocess import InProcessClient, InProcessNetwork, InProcessServer
+import rapid_tpu_torch
+from rapid_tpu.messaging.inprocess import InProcessNetwork
 from rapid_tpu.runtime.futures import Promise
 from rapid_tpu.runtime.scheduler import VirtualScheduler
 from rapid_tpu.service import address_comparator_key as jax_comparator_key
@@ -53,31 +58,41 @@ def _mesh_swarm(network, **kw):
     return PortBridge(network, protocol=RAPID, mesh=make_mesh(devices=["cpu"] * 4), **kw)
 
 
-SIDES = {"jax": (_jax_swarm, "rapid_tpu.sim.driver"),
-         "port": (_port_swarm, "rapid_tpu_torch.sim.driver"),
-         "mesh": (_mesh_swarm, "rapid_tpu_torch.sim.driver")}
+def _port_cluster_swarm(network, **kw):
+    return PortBridge(network, device="cpu", **kw)
+
+
+# side -> (swarm, the swarm driver's logger, the members' package)
+SIDES = {"jax": (_jax_swarm, "rapid_tpu.sim.driver", rapid_tpu),
+         "port": (_port_swarm, "rapid_tpu_torch.sim.driver", rapid_tpu),
+         "mesh": (_mesh_swarm, "rapid_tpu_torch.sim.driver", rapid_tpu),
+         "port_cluster": (_port_cluster_swarm, "rapid_tpu_torch.sim.driver", rapid_tpu_torch)}
 
 
 class BridgeHarness:
-    """``tests/test_bridge.py``'s harness with the swarm's package chosen by
-    ``side``; keeps every real member it builds."""
+    """``tests/test_bridge.py``'s harness with the swarm's package, and the
+    members' (``P``, its types ``T``), chosen by ``side``; keeps every real
+    member it builds."""
 
     def __init__(self, side: str, n_virtual: int = 24, capacity: int = 32, seed: int = 5):
-        make_swarm, self.driver_logger = SIDES[side]
-        self.scheduler = VirtualScheduler()
-        self.network = InProcessNetwork(self.scheduler)
+        make_swarm, self.driver_logger, self.P = SIDES[side]
+        name = self.P.__name__
+        self.T = importlib.import_module(f"{name}.types")
+        self.inprocess = importlib.import_module(f"{name}.messaging.inprocess")
+        self.scheduler = importlib.import_module(f"{name}.runtime.scheduler").VirtualScheduler()
+        self.network = self.inprocess.InProcessNetwork(self.scheduler)
         self.swarm = make_swarm(self.network, n_virtual=n_virtual, capacity=capacity, seed=seed)
-        self.settings = Settings()
+        self.settings = self.P.Settings()
         self.rng = random.Random(seed)
         self.clusters = []
 
     def builder(self, ep, rng_seed=None, settings=None):
         settings = settings or self.settings
-        server = InProcessServer(ep, self.network)
+        server = self.inprocess.InProcessServer(ep, self.network)
         builder = (
-            ClusterBuilder(ep)
+            self.P.ClusterBuilder(ep)
             .set_messaging_client_and_server(
-                InProcessClient(ep, self.network, settings), server
+                self.inprocess.InProcessClient(ep, self.network, settings), server
             )
             .use_scheduler(self.scheduler)
             .use_settings(settings)
@@ -86,7 +101,7 @@ class BridgeHarness:
         return builder, server
 
     def join_real_node(self, name: str, port: int = 9000, metadata=None):
-        builder, _ = self.builder(Endpoint.from_parts(name, port))
+        builder, _ = self.builder(self.T.Endpoint.from_parts(name, port))
         if metadata:
             builder.set_metadata(metadata)
         promise = builder.join_async(self.swarm.endpoint(0))
@@ -120,7 +135,7 @@ def real_node_observes_simulated_crash_cut(side, caplog):
     cluster, _ = h.join_real_node("real-1")
     events = []
     cluster.register_subscription(
-        ClusterEvents.VIEW_CHANGE, lambda cid, changes: events.append(changes)
+        h.P.ClusterEvents.VIEW_CHANGE, lambda cid, changes: events.append(changes)
     )
     victims = np.array([3, 11, 17])
     h.swarm.sim.crash(victims)
@@ -192,10 +207,10 @@ def uuid_reuse_rejected_across_bridge(side, caplog):
     high, low = (int(x) for x in h.swarm.sim.sorted_identifiers()[0])
     resp = h.swarm._handle_pre_join(
         h.swarm.endpoint(0),
-        rtypes.PreJoinMessage(sender=Endpoint.from_parts("real-2", 9002),
-                              node_id=rtypes.NodeId(high, low)),
+        h.T.PreJoinMessage(sender=h.T.Endpoint.from_parts("real-2", 9002),
+                              node_id=h.T.NodeId(high, low)),
     )
-    assert resp.status_code == rtypes.JoinStatusCode.UUID_ALREADY_IN_RING
+    assert resp.status_code == h.T.JoinStatusCode.UUID_ALREADY_IN_RING
     h.responses = [resp]
     return h
 
@@ -233,12 +248,12 @@ def real_node_down_alert_injected_into_swarm(side, caplog):
     cluster, _ = h.join_real_node("real-1")
     target = cluster._membership_service._view.get_subjects_of(cluster.listen_address)[0]
     slot = h.swarm._slot_of[target]
-    h.swarm._absorb_alerts(rtypes.BatchedAlertMessage(
+    h.swarm._absorb_alerts(h.T.BatchedAlertMessage(
         sender=cluster.listen_address,
-        messages=(rtypes.AlertMessage(
+        messages=(h.T.AlertMessage(
             edge_src=cluster.listen_address,
             edge_dst=target,
-            edge_status=rtypes.EdgeStatus.DOWN,
+            edge_status=h.T.EdgeStatus.DOWN,
             configuration_id=h.swarm.sim.configuration_id(),
             ring_numbers=(0,),
         ),),
@@ -250,15 +265,15 @@ def real_node_down_alert_injected_into_swarm(side, caplog):
 
 def prejoin_retry_while_join_pending_is_safe(side, caplog):
     h = BridgeHarness(side, n_virtual=16, seed=15)
-    ep = Endpoint.from_parts("real-retry", 9100)
-    nid = rtypes.NodeId.random(random.Random(99))
+    ep = h.T.Endpoint.from_parts("real-retry", 9100)
+    nid = h.T.NodeId.random(random.Random(99))
     seed_ep = h.swarm.endpoint(0)
-    first = h.swarm._handle_pre_join(seed_ep, rtypes.PreJoinMessage(ep, nid))
-    assert first.status_code == rtypes.JoinStatusCode.SAFE_TO_JOIN
-    h.swarm._handle_join(first.endpoints[0], rtypes.JoinMessage(ep, nid, (0,), first.configuration_id))
+    first = h.swarm._handle_pre_join(seed_ep, h.T.PreJoinMessage(ep, nid))
+    assert first.status_code == h.T.JoinStatusCode.SAFE_TO_JOIN
+    h.swarm._handle_join(first.endpoints[0], h.T.JoinMessage(ep, nid, (0,), first.configuration_id))
     assert h.swarm._slot_of[ep] in h.swarm.sim.pending_joiners
-    retry = h.swarm._handle_pre_join(seed_ep, rtypes.PreJoinMessage(ep, nid))
-    assert retry.status_code == rtypes.JoinStatusCode.SAFE_TO_JOIN
+    retry = h.swarm._handle_pre_join(seed_ep, h.T.PreJoinMessage(ep, nid))
+    assert retry.status_code == h.T.JoinStatusCode.SAFE_TO_JOIN
     assert retry.endpoints == first.endpoints
     h.responses = [first, retry]
     return h
@@ -267,8 +282,8 @@ def prejoin_retry_while_join_pending_is_safe(side, caplog):
 def joiner_death_before_admission_reclaims_slot(side, caplog):
     h = BridgeHarness(side, n_virtual=16, capacity=20, seed=16)
     free_before = len(h.swarm._free_slots)
-    builder, server = h.builder(Endpoint.from_parts("doomed", 9200), rng_seed=3,
-                                settings=Settings())
+    builder, server = h.builder(h.T.Endpoint.from_parts("doomed", 9200), rng_seed=3,
+                                settings=h.P.Settings())
     builder.join_async(h.swarm.endpoint(0))
     h.scheduler.run_for(50)
     assert len(h.swarm._free_slots) == free_before - 1
@@ -300,7 +315,7 @@ def quorum_blocked_when_real_members_vote_is_dropped(side, caplog):
     cluster, _ = h.join_real_node("real-1")
     h.network.add_filter(
         lambda s, d, m: not (
-            s == cluster.listen_address and isinstance(m, rtypes.FastRoundPhase2bMessage)
+            s == cluster.listen_address and isinstance(m, h.T.FastRoundPhase2bMessage)
         )
     )
     h.swarm.sim.crash(np.array([1, 2, 3]))
@@ -316,16 +331,16 @@ def _partial_evidence(h, cluster, victims):
     real member's detector crosses H on exactly that subset."""
     src = h.swarm.endpoint(5)
     evidence = tuple(
-        rtypes.AlertMessage(
+        h.T.AlertMessage(
             edge_src=src,
             edge_dst=h.swarm.endpoint(int(v)),
-            edge_status=rtypes.EdgeStatus.DOWN,
+            edge_status=h.T.EdgeStatus.DOWN,
             configuration_id=cluster.get_current_configuration_id(),
             ring_numbers=tuple(range(10)),
         )
         for v in victims
     )
-    h.network.deliver(src, cluster.listen_address, rtypes.BatchedAlertMessage(src, evidence), 1000)
+    h.network.deliver(src, cluster.listen_address, h.T.BatchedAlertMessage(src, evidence), 1000)
 
 
 def real_members_conflicting_vote_forces_classic_fallback(side, caplog):
@@ -402,7 +417,7 @@ def _decide(h, victim):
 def lagging_member_walked_forward_through_packet_history(side, caplog):
     h = BridgeHarness(side, n_virtual=24, capacity=32, seed=6)
     cluster, _ = h.join_real_node("10.9.9.1", 9100)
-    member_ep = Endpoint.from_parts("10.9.9.1", 9100)
+    member_ep = h.T.Endpoint.from_parts("10.9.9.1", 9100)
     assert cluster.get_membership_size() == 25
     lift = h.network.add_filter(lambda s, d, m: d != member_ep)
     _decide(h, 2)
@@ -427,7 +442,7 @@ def lagging_member_walked_forward_through_packet_history(side, caplog):
 def member_beyond_packet_history_is_cut_for_rejoin(side, caplog):
     h = BridgeHarness(side, n_virtual=24, capacity=32, seed=7)
     h.join_real_node("10.9.9.2", 9200)
-    member_ep = Endpoint.from_parts("10.9.9.2", 9200)
+    member_ep = h.T.Endpoint.from_parts("10.9.9.2", 9200)
     slot = h.swarm._slot_of[member_ep]
     lift = h.network.add_filter(lambda s, d, m: d != member_ep)
     for victim in range(2, 11):
@@ -493,10 +508,23 @@ def _outcome(h):
              sorted(str(ep) for ep in c.get_memberlist()))
             for c in h.clusters
         ],
-        "extra": {key: (np.asarray(v).tolist() if isinstance(v, np.ndarray) else v)
+        "extra": {key: (np.asarray(v).tolist() if isinstance(v, np.ndarray) else _plain(v))
                   for key, v in vars(h).items()
                   if key in ("responses", "injected", "free", "overflow_slots")},
     }
+
+
+def _plain(value):
+    """Protocol messages as (class name, fields), recursively, so either
+    package's instances compare."""
+    if dataclasses.is_dataclass(value):
+        return (type(value).__name__,) + tuple(
+            _plain(getattr(value, f.name)) for f in dataclasses.fields(value))
+    if isinstance(value, enum.Enum):
+        return value.name
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    return value
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=[s.__name__ for s in SCENARIOS])
@@ -505,6 +533,16 @@ def test_bridge_twin(scenario, caplog):
     each, and the two outcomes are equal."""
     jax_out = _outcome(scenario("jax", caplog))
     port_out = _outcome(scenario("port", caplog))
+    assert port_out == jax_out
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=[s.__name__ for s in SCENARIOS])
+def test_bridge_twin_port_cluster(scenario, caplog):
+    """A scenario of tests/test_bridge.py with the port's own members on the
+    port's bridge, network and scheduler: equal to the JAX bridge with JAX
+    members."""
+    jax_out = _outcome(scenario("jax", caplog))
+    port_out = _outcome(scenario("port_cluster", caplog))
     assert port_out == jax_out
 
 
@@ -664,6 +702,25 @@ def test_scripted_member_on_default_protocol():
         "join", "crash, closed form", "crash, scan", "leave", "mesh join", "mesh crash"]
     assert all(p["configuration_id"] == p["plain_configuration_id"] for p in out["pumps"])
     assert out["protocol"] == "rapid_tpu_torch.types"
+
+
+def test_real_port_members_on_default_protocol():
+    """``chip_smoke.py``'s real-member phase at 1000 members on the CPU: the
+    port's own ``Cluster`` on the port's bridge, network and scheduler, through
+    the scripted member's join, crashes and leave, then 8 members joining in
+    one pump and voting in the crash; every member's view equal to the
+    swarm's and each configuration id to a plain simulator's."""
+    out = chip_smoke.member_sequence(1000, "cpu")
+    names = [p["name"] for p in out["pumps"]]
+    assert names == ["join", "crash, closed form", "crash, scan", "leave",
+                     f"{chip_smoke.PORT_MEMBERS} members join",
+                     f"{chip_smoke.PORT_MEMBERS} members, crash"]
+    assert all(p["configuration_id"] == p["plain_configuration_id"] for p in out["pumps"])
+    pumps = {p["name"]: p for p in out["pumps"]}
+    assert pumps["join"]["member_build_ms"] > 0 and pumps["crash, scan"]["member_ms"] > 0
+    assert len(pumps[f"{chip_smoke.PORT_MEMBERS} members, crash"]["votes_registered"]) \
+        == chip_smoke.PORT_MEMBERS
+    assert pumps["leave"]["decided_in_ms"] == 2 * 1000 + 100
 
 
 def _bridge_pair(tmp_path):
