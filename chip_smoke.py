@@ -148,7 +148,20 @@ into build/kernels/. Phases, each of which must pass:
    child process joining the port's ``SwarmGateway`` at 100k over TCP,
    through both crashes and a leave on SIGINT, its configuration id read
    through its status RPC after each step and equal to the gateway's and a
-   plain simulator's, each step's wall beside the scripted member's.
+   plain simulator's, each step's wall beside the scripted member's;
+18. the protocol plane's live engines, after the agent (``live_planes_phase``,
+   host Python, no kernel): 64 port members (``ClusterBuilder`` on the
+   port's ``InProcessNetwork`` and ``VirtualScheduler``), placement 256 x 3,
+   each on its own ``DurablePartitionStore`` with handoff and serving, the
+   bench's serving traffic (``OpenLoopGenerator``) steady, through the crash
+   of the member leading the hottest key's partition and after the view;
+   the victim restarts from its WAL and rejoins; every acked write reads
+   back, every handoff session completes, the replicas, configuration ids
+   and placement versions agree; then 64 members in 8 hierarchy cells
+   through a crash of one cell's leader (every leader's global fingerprint
+   equal to a recompute), and the bench's recovery points on the port's
+   store (replayed counts exact, content equal); all of it equal to
+   ``tests/golden/torch_live_planes.json``, which the JAX package wrote.
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -3624,6 +3637,551 @@ def _rss_mib():
     return float("nan")
 
 
+# --- the protocol plane's live engines: a real member's durable store, handoff,
+# serving and hierarchy planes, at the size the bench gives its serving
+# deployment (bench.py SERVING_*, HIER_CELLS, RECOVERY_*) ---------------------
+LIVE_PLACEMENT = {"partitions": SERVING_PARTITIONS, "replicas": 3, "seed": 5}
+LIVE_SEED = 5
+LIVE_BASE_PORT = 9_000
+HIER_CELLS = 8
+# the tier-1 twin of the phase (tests/test_torch_live_planes.py): the same
+# script at 8 members, 2 cells and a fifth of the traffic
+LIVE_REDUCED = {"n_nodes": 8, "cells": 2,
+                "ops": (("steady", 60), ("view_change_window", 30), ("post_view", 30))}
+RECOVERY_LOG_RECORDS = (256, 1024)
+RECOVERY_SNAPSHOT_EVERY = (0, 256)  # 0: no snapshot, the whole log replays
+RECOVERY_PARTITIONS = 32
+RECOVERY_VALUE_BYTES = 512
+LIVE_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "torch_live_planes.json")
+LIVE_MODULES = ("cluster", "durability", "events", "handoff.store", "hierarchy.cells",
+                "hierarchy.parent", "messaging.inprocess", "monitoring.static_fd",
+                "runtime.scheduler", "serving.kv", "settings", "slo", "types")
+
+
+def live_modules(package):
+    """The modules of ``package`` the live-planes phase drives, as
+    attributes (dots become underscores): the card runs the port's
+    (``"rapid_tpu_torch"``), ``tests/golden/generate_torch_live_planes.py``
+    the JAX package's."""
+    import importlib
+    import types as pytypes
+
+    ns = pytypes.SimpleNamespace(name=package)
+    for module in LIVE_MODULES:
+        setattr(ns, module.replace(".", "_"), importlib.import_module(f"{package}.{module}"))
+    return ns
+
+
+class LiveHarness:
+    """Members of package ``P`` on one ``InProcessNetwork`` and one
+    ``VirtualScheduler``, built as ``tests/harness.py`` builds them (static
+    failure detector over a blacklist, one rng a member drawn from the
+    harness's seed), recording every member's installed configuration ids."""
+
+    def __init__(self, P, seed, settings):
+        self.P = P
+        self.scheduler = P.runtime_scheduler.VirtualScheduler()
+        self.network = P.messaging_inprocess.InProcessNetwork(self.scheduler)
+        self.rng = random.Random(seed)
+        self.settings = settings
+        self.blacklist = set()
+        self.instances = {}
+        self.config_ids = []  # every distinct configuration id, first install order
+
+    def addr(self, i):
+        return self.P.types.Endpoint.from_parts("127.0.0.1", LIVE_BASE_PORT + i)
+
+    def _view_change(self, configuration_id, _changes):
+        if configuration_id not in self.config_ids:
+            self.config_ids.append(configuration_id)
+
+    def builder(self, i, placement=None, serving=False, durability=None):
+        P, addr = self.P, self.addr(i)
+        builder = (P.cluster.ClusterBuilder(addr)
+                   .set_messaging_client_and_server(
+                       P.messaging_inprocess.InProcessClient(addr, self.network, self.settings),
+                       P.messaging_inprocess.InProcessServer(addr, self.network))
+                   .use_scheduler(self.scheduler).use_settings(self.settings)
+                   .use_rng(random.Random(self.rng.getrandbits(64)))
+                   .set_edge_failure_detector_factory(
+                       P.monitoring_static_fd.StaticFailureDetectorFactory(self.blacklist))
+                   .add_subscription(P.events.ClusterEvents.VIEW_CHANGE, self._view_change))
+        if placement:
+            builder.use_placement(**placement)
+        if serving:
+            builder.use_serving()
+        if durability is not None:
+            builder.use_durability(durability)
+        return builder
+
+    def start(self, i, **kw):
+        cluster = self.builder(i, **kw).start()
+        self.instances[cluster.listen_address] = cluster
+        return cluster
+
+    def join_all(self, joins, timeout_ms=1_200_000):
+        """``joins``: (member, seed member, builder keywords); all race at once."""
+        promises = [self.builder(i, **kw).join_async(self.addr(seed)) for i, seed, kw in joins]
+        assert self.scheduler.run_until(lambda: all(p.done() for p in promises),
+                                        timeout_ms=timeout_ms), "joins timed out (virtual)"
+        for p in promises:
+            assert p.exception() is None, f"join failed: {p.exception()}"
+            self.instances[p.peek().listen_address] = p.peek()
+
+    def fail(self, endpoints):
+        for ep in endpoints:
+            self.blacklist.add(ep)
+            cluster = self.instances.pop(ep, None)
+            if cluster is not None:
+                cluster.shutdown()
+
+    def agree(self, members, timeout_ms=1_200_000):
+        """Every member in ``members`` holds the same member list, of their
+        number; returns their one configuration id."""
+        def converged():
+            lists = [self.instances[ep].get_memberlist() for ep in members]
+            return all(len(m) == len(members) and m == lists[0] for m in lists)
+
+        assert self.scheduler.run_until(converged, timeout_ms=timeout_ms, poll_ms=100), (
+            f"no agreement on {len(members)} members")
+        ids = {self.instances[ep].get_current_configuration_id() for ep in members}
+        assert len(ids) == 1, f"diverging configuration ids {ids}"
+        return ids.pop()
+
+    def live(self):
+        return sorted(self.instances, key=str)
+
+    def shutdown(self):
+        for cluster in list(self.instances.values()):
+            cluster.shutdown()
+        self.instances.clear()
+
+
+def _quantiles(latencies):
+    """p50 and p99 (nearest rank) of ``latencies``."""
+    ordered = sorted(latencies)
+    return {f"p{q}_ms": ordered[min(len(ordered) - 1, q * len(ordered) // 100)]
+            for q in (50, 99)}
+
+
+def live_open_loop(h, gen, n_ops, acked, timeout_ms=600_000):
+    """One open-loop window on live members: ``n_ops`` arrivals of ``gen``
+    (rebased to the scheduler's clock), each sent at its arrival time
+    through the live member ``client % members`` routes it to, whatever is
+    still in flight. Acked puts raise ``acked[key]`` to their version.
+    Returns the statuses, latencies (virtual ms, arrival to answer) and the
+    window's virtual span."""
+    OK = h.P.types.PutAck.STATUS_OK
+    gen.rebase(h.scheduler.now_ms())
+    t0 = h.scheduler.now_ms()
+    arrivals = gen.arrivals(n_ops)
+    results = [None] * n_ops
+
+    def send(i, a):
+        routers = h.live()
+        cluster = h.instances[routers[a.client % len(routers)]]
+        promise = (cluster.serving_put(a.key, a.value) if a.op == "put"
+                   else cluster.serving_get(a.key))
+
+        def answered(p):
+            ack = p.peek() if p.exception() is None else None
+            status = -1 if ack is None else int(ack.status)
+            results[i] = (status, h.scheduler.now_ms() - a.at_ms)
+            if a.op == "put" and status == OK:
+                acked[a.key] = max(acked.get(a.key, 0), int(ack.version))
+
+        promise.add_callback(answered)
+
+    for i, a in enumerate(arrivals):
+        h.scheduler.schedule(max(0, a.at_ms - t0), lambda i=i, a=a: send(i, a))
+    assert h.scheduler.run_until(lambda: all(r is not None for r in results),
+                                 timeout_ms=timeout_ms), "open-loop window never drained"
+    latencies = [float(lat) for _s, lat in results]
+    return dict({"ops": n_ops, "statuses": [s for s, _ in results],
+                 "ok": sum(s == OK for s, _ in results),
+                 "virtual_ms": int(h.scheduler.now_ms() - t0)}, **_quantiles(latencies))
+
+
+def _until_ok(h, call, attempts=300):
+    """A client's retry loop: send again until the answer is OK (virtual time
+    runs on each attempt, so detection and handoff land)."""
+    OK = h.P.types.PutAck.STATUS_OK
+    for _ in range(attempts):
+        promise = call()
+        assert h.scheduler.run_until(promise.done, timeout_ms=600_000)
+        if promise.exception() is None and promise.peek().status == OK:
+            return promise.peek()
+    raise AssertionError("a serving op never answered OK")
+
+
+def _drain_handoff(h):
+    assert h.scheduler.run_until(
+        lambda: all(c.get_handoff_status()[0] == 0 for c in h.instances.values()),
+        timeout_ms=1_200_000), "handoff sessions never drained"
+
+
+def live_serving_run(P, root, n_nodes=SERVING_N_NODES, ops=SERVING_OPS, seed=LIVE_SEED):
+    """Part (a): ``n_nodes`` members of package ``P`` (``ClusterBuilder`` on
+    ``InProcessNetwork`` and ``VirtualScheduler``), placement 256 x 3, each
+    on its own ``DurablePartitionStore`` under ``root`` with serving on,
+    bootstrapped by joins through the seed, one at a time. The bench's serving
+    traffic (``OpenLoopGenerator``: 64 keys, zipf 1.1, 20% puts, 600/s) in
+    three windows: steady, the churn window after the member leading the
+    hottest key's partition crashes (power loss: its store crashed too), and
+    after the view; then the victim restarts at its old address, recovers
+    from its WAL and rejoins. Checks: every acked write reads back at or
+    above its version from a survivor, every handoff session completes,
+    every partition's replicas hold equal fingerprints, every member has the
+    same configuration id and placement version, and the restarted member's
+    status reports the ``replayed_records`` its store does. Returns the
+    run's outcome (JSON-ready) and its host walls apart."""
+    D = P.durability
+    settings = P.settings.Settings(durability=P.settings.DurabilitySettings(
+        enabled=True, fsync_policy=D.FSYNC_NEVER))
+    h = LiveHarness(P, seed, settings)
+    dirs = {i: os.path.join(root, f"member{i}") for i in range(n_nodes)}
+
+    def kw(i):
+        return {"placement": LIVE_PLACEMENT, "serving": True, "durability": dirs[i]}
+
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        h.start(0, **kw(0))
+        for i in range(1, n_nodes):
+            # one at a time: a row whose every replica joined in one view
+            # change has no copy to sync from, and its leader answers RETRY
+            # until another view moves it (the JAX engine alike)
+            h.join_all([(i, 0, kw(i))])
+        h.agree(h.live())
+        _drain_handoff(h)
+        walls["bootstrap_ms"] = (time.perf_counter() - t0) * 1e3
+        bootstrap_virtual = h.scheduler.now_ms()
+
+        keys = [b"bench-key-%04d" % i for i in range(SERVING_KEYS)]
+        acked = {}
+        router = h.instances[h.addr(0)]
+        for i, key in enumerate(keys):
+            acked[key] = int(_until_ok(h, lambda k=key, i=i: router.serving_put(
+                k, b"seed-%d" % i)).version)
+        gen = P.slo.OpenLoopGenerator(SERVING_RATE_PER_S, keys,
+                                      put_fraction=SERVING_PUT_FRACTION, seed=seed,
+                                      zipf_s=SERVING_ZIPF_S, clients=SERVING_CLIENTS)
+        windows = {}
+        t0 = time.perf_counter()
+        windows["steady"] = live_open_loop(h, gen, ops[0][1], acked)
+        walls["steady_ms"] = (time.perf_counter() - t0) * 1e3
+
+        pmap = router.get_placement_map()
+        hot = P.serving_kv.partition_of(keys[0], len(pmap.assignments))
+        victim = pmap.assignments[hot][0]
+        victim_i = int(victim.port) - LIVE_BASE_PORT
+        old_identity = h.instances[victim].get_partition_store().node_id
+        h.instances[victim].get_partition_store().crash()
+        t0 = time.perf_counter()
+        crash_virtual = h.scheduler.now_ms()
+        h.fail([victim])
+        windows["view_change_window"] = live_open_loop(h, gen, ops[1][1], acked)
+        config_after_crash = h.agree(h.live())
+        walls["crash_to_agreement_ms"] = (time.perf_counter() - t0) * 1e3
+        crash_to_agreement_virtual = h.scheduler.now_ms() - crash_virtual
+        t0 = time.perf_counter()
+        windows["post_view"] = live_open_loop(h, gen, ops[2][1], acked)
+        walls["post_view_ms"] = (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        h.blacklist.discard(victim)
+        seed_i = int(h.live()[0].port) - LIVE_BASE_PORT
+        h.join_all([(victim_i, seed_i, kw(victim_i))])
+        final_config = h.agree(h.live())
+        _drain_handoff(h)
+        walls["restart_ms"] = (time.perf_counter() - t0) * 1e3
+
+        revived = h.instances[victim]
+        store = revived.get_partition_store()
+        replayed = int(store.durability_stats()["replayed_records"])
+        assert revived.get_cluster_status().durability_replayed == replayed > 0, (
+            "the restarted member's status and store disagree on replayed records")
+
+        survivors = [ep for ep in h.live() if ep != victim]
+
+        def lost_writes():
+            lost = []
+            for j, key in enumerate(sorted(acked)):
+                reader = h.instances[survivors[j % len(survivors)]]
+                back = _until_ok(h, lambda k=key, r=reader: r.serving_get(k))
+                if back.version < acked[key]:
+                    lost.append(key.decode())
+            return lost
+
+        lost = lost_writes()
+        assert not lost, f"acked writes read back below their version: {lost}"
+
+        sessions = {}
+        for name in ("handoff.sessions_started", "handoff.sessions_completed",
+                     "handoff.sessions_failed"):
+            sessions[name] = sum(int(c._membership_service.metrics.get(name))  # noqa: SLF001
+                                 for c in h.instances.values())
+        in_flight = sum(c.get_handoff_status()[0] for c in h.instances.values())
+        assert in_flight == 0 and sessions["handoff.sessions_failed"] == 0 and (
+            sessions["handoff.sessions_started"] == sessions["handoff.sessions_completed"]), (
+            f"handoff sessions incomplete: {sessions}, {in_flight} in flight")
+
+        maps = {ep: c.get_placement_map() for ep, c in h.instances.items()}
+        versions = {m.version for m in maps.values()}
+        ids = {c.get_current_configuration_id() for c in h.instances.values()}
+        assert len(versions) == 1 and len(ids) == 1, (versions, ids)
+        rows = maps[victim].assignments
+
+        def replica_prints():
+            """Each partition's fingerprint on its replicas (None where none
+            holds it yet), or False where they differ; a replica that
+            holds nothing stands beside an empty key space only."""
+            out = []
+            for p, row in enumerate(rows):
+                stores = [h.instances[ep].get_partition_store() for ep in row]
+                holders = [s for s in stores if s.get(p) is not None]
+                prints = {s.fingerprint(p) for s in holders}
+                same = len(prints) <= 1 and (len(holders) == len(stores) or not any(
+                    P.serving_kv.decode_kv(s.get(p)) for s in holders))
+                out.append((prints.pop() if prints else None) if same else False)
+            return out
+
+        # the restarted member rejoins with what its log held: keys written
+        # while it was down stay stale on it until a write refreshes them
+        # (the engine re-replicates no merged state across a row), so every
+        # key is written once more, as tests/test_durability.py's recovery
+        # case does, and the replicas must then agree
+        stale_before_refresh = [p for p, fp in enumerate(replica_prints()) if fp is False]
+        for i, key in enumerate(keys):
+            acked[key] = max(acked[key], int(_until_ok(h, lambda k=key, i=i: h.instances[
+                survivors[i % len(survivors)]].serving_put(k, b"refresh-%d" % i)).version))
+        h.scheduler.run_for(2_000)
+        fingerprints = replica_prints()
+        differ = [p for p, fp in enumerate(fingerprints) if fp is False]
+        assert not differ, f"partitions whose replicas disagree: {differ}"
+        lost = lost_writes()
+        assert not lost, f"refreshed writes read back below their version: {lost}"
+        serving = [list(h.instances[ep].get_serving_status()) for ep in h.live()]
+        return {
+            "n_nodes": n_nodes, "victim": str(victim),
+            "config_ids": [int(c) for c in h.config_ids],
+            "config_after_crash": int(config_after_crash), "final_config": int(final_config),
+            "placement_version": int(versions.pop()), "fingerprints": fingerprints,
+            "acked": {k.decode(): v for k, v in sorted(acked.items())},
+            "windows": windows, "sessions": sessions, "serving": serving,
+            "replayed_records": replayed, "stale_before_refresh": stale_before_refresh,
+            "identity": [[int(i.high), int(i.low)] for i in (old_identity, store.node_id)],
+            "virtual_ms": {"bootstrap": int(bootstrap_virtual),
+                           "crash_to_agreement": int(crash_to_agreement_virtual),
+                           "end": int(h.scheduler.now_ms())},
+        }, walls
+    finally:
+        h.shutdown()
+
+
+def live_hierarchy_run(P, n_nodes=SERVING_N_NODES, cells=HIER_CELLS, seed=LIVE_SEED):
+    """Part (b): ``n_nodes`` members of package ``P`` in ``cells`` cells
+    (``HierarchySettings(enabled=True)``), each cell bootstrapped as its own
+    Rapid cluster by parallel joins and handed every cell's seed; then the
+    leaders of the largest cell crash. Every surviving leader must hold the
+    same global fingerprint, equal to a composition recomputed from scratch
+    from each cell's live membership, and every member the same composed
+    view. Returns the outcome and host walls."""
+    settings = P.settings.Settings(hierarchy=P.settings.HierarchySettings(
+        enabled=True, cells=cells))
+    parent = P.hierarchy_parent
+    h = LiveHarness(P, seed, settings)
+    walls = {}
+    try:
+        by_cell = collections.defaultdict(list)
+        for i in range(n_nodes):
+            by_cell[P.hierarchy_cells.cell_of_endpoint(h.addr(i), cells)].append(i)
+        by_cell = dict(sorted(by_cell.items()))
+        t0 = time.perf_counter()
+        for idxs in by_cell.values():
+            h.start(idxs[0])
+        h.join_all([(i, idxs[0], {}) for idxs in by_cell.values() for i in idxs[1:]])
+        for cluster in h.instances.values():
+            cluster.hierarchy.seed_parent([h.addr(idxs[0]) for idxs in by_cell.values()])
+
+        def members_of(c):
+            return [h.addr(i) for i in by_cell[c] if h.addr(i) in h.instances]
+
+        def composed():
+            rows = []
+            for c in by_cell:
+                members = members_of(c)
+                if not members:
+                    continue
+                epoch = h.instances[members[0]].get_current_configuration_id()
+                rows.append(parent.CellState(
+                    cell=c, epoch=epoch, size=len(members),
+                    leader=str(parent.cell_leaders(members, 1)[0]),
+                    fingerprint=parent.cell_fingerprint(members)))
+            want = parent.compose_fingerprint(rows)
+            return all(c.hierarchy.global_view.fingerprint() == want
+                       for c in h.instances.values()), want
+
+        def settled():
+            for c in by_cell:
+                members = members_of(c)
+                if members and not all(len(h.instances[ep].get_memberlist()) == len(members)
+                                       for ep in members):
+                    return False
+            return composed()[0]
+
+        assert h.scheduler.run_until(settled, timeout_ms=1_200_000, poll_ms=100), (
+            "hierarchy: composed views never agreed after the bootstrap")
+        walls["bootstrap_ms"] = (time.perf_counter() - t0) * 1e3
+        booted = composed()[1]
+        big = max(by_cell, key=lambda c: len(by_cell[c]))
+        leaders = list(parent.cell_leaders(members_of(big), settings.hierarchy.leaders_per_cell))
+        t0 = time.perf_counter()
+        crash_virtual = h.scheduler.now_ms()
+        h.fail(leaders)
+        assert h.scheduler.run_until(settled, timeout_ms=2_400_000, poll_ms=100), (
+            "hierarchy: no agreement after the leaders' crash")
+        walls["crash_to_agreement_ms"] = (time.perf_counter() - t0) * 1e3
+        ok, fingerprint = composed()
+        assert ok
+        leading = [c for c in h.instances.values() if c.hierarchy.is_leader]
+        assert len(leading) == len(by_cell) and len(
+            {c.hierarchy.global_view.fingerprint() for c in leading}) == 1
+        new_leader = str(parent.cell_leaders(members_of(big), 1)[0])
+        assert leading[0].hierarchy.global_view.cells[big].leader == new_leader
+        return {
+            "n_nodes": n_nodes, "cells": {c: len(v) for c, v in by_cell.items()},
+            "crashed": [str(ep) for ep in leaders], "new_leader": new_leader,
+            "booted_fingerprint": int(booted), "global_fingerprint": int(fingerprint),
+            "member_count": int(leading[0].hierarchy.global_view.member_count()),
+            "cell_epochs": {c: int(r.epoch) for c, r in sorted(
+                leading[0].hierarchy.global_view.cells.items())},
+            "crash_to_agreement_virtual_ms": int(h.scheduler.now_ms() - crash_virtual),
+        }, walls
+    finally:
+        h.shutdown()
+
+
+def live_recovery_run(P, root, seed=SEED):
+    """Part (c): ``bench.run_recovery_dimension``'s points on package ``P``'s
+    ``DurablePartitionStore``: 256 and 1024 records of 512 B over 32
+    partitions, snapshots never and every 256, crashed and reopened. The
+    replayed count must be exact and the recovered content byte-equal to
+    what was written. Returns each point (recovery ms apart, a host
+    wall)."""
+    D = P.durability
+    points, walls = [], []
+    for every in RECOVERY_SNAPSHOT_EVERY:
+        for records in RECOVERY_LOG_RECORDS:
+            rng = np.random.default_rng(seed * 7919 + records * 31 + every)
+            directory = os.path.join(root, f"recovery-{every}-{records}")
+            store = D.DurablePartitionStore(directory, fsync_policy=D.FSYNC_NEVER,
+                                            snapshot_every_records=every)
+            shadow = {}
+            for i in range(records):
+                p = int(rng.integers(RECOVERY_PARTITIONS))
+                value = b"%08d-" % i + bytes(
+                    rng.integers(0, 256, RECOVERY_VALUE_BYTES, dtype=np.uint8))
+                store.put(p, value)
+                shadow[p] = value
+            store.crash()
+            t0 = time.perf_counter()
+            reopened = D.DurablePartitionStore(directory, fsync_policy=D.FSYNC_NEVER,
+                                               snapshot_every_records=every)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            stats = reopened.durability_stats()
+            expected = records % every if every else records
+            assert stats["replayed_records"] == expected, (records, every, stats)
+            assert {p: reopened.get(p) for p in reopened.partitions()} == shadow, (
+                "recovery: recovered content differs from what was written")
+            points.append({"log_records": records, "snapshot_every": every,
+                           "replayed_records": int(stats["replayed_records"]),
+                           "segments": int(stats["segments"]),
+                           "digest": [list(x) for x in reopened.digest()]})
+            reopened.close()
+    return points, walls
+
+
+def live_planes_sequence(P, root, n_nodes=SERVING_N_NODES, cells=HIER_CELLS, ops=SERVING_OPS):
+    """The three live-plane runs on package ``P`` under directory ``root``:
+    serving over durable stores through a crash and a WAL restart, the
+    hierarchy through a leaders' crash, and the recovery points. Returns
+    ``(outcome, walls)``: the outcome is what ``tests/golden/
+    torch_live_planes.json`` holds (the JAX package's), the walls are this
+    host's."""
+    serving, serving_walls = live_serving_run(P, os.path.join(root, "serving"), n_nodes, ops)
+    hierarchy, hierarchy_walls = live_hierarchy_run(P, n_nodes, cells)
+    recovery, recovery_walls = live_recovery_run(P, os.path.join(root, "recovery"))
+    return ({"serving": serving, "hierarchy": hierarchy, "recovery": recovery},
+            {"serving": serving_walls, "hierarchy": hierarchy_walls,
+             "recovery_ms": recovery_walls})
+
+
+def live_golden_check(outcome, section):
+    """``outcome`` against ``section`` of ``tests/golden/torch_live_planes.json``
+    (``"full"`` or ``"reduced"``), exactly; returns the misses."""
+    with open(LIVE_GOLDEN) as f:
+        want = json.load(f)[section]
+    return _golden_misses(json.loads(json.dumps(outcome)), want)
+
+
+def live_planes_phase(card):
+    """The live planes on the port at the bench's serving size, held to the
+    golden file; prints the walls. Launches no kernel."""
+    import tempfile
+
+    from rapid_tpu_torch.sim import kernels
+
+    P = live_modules("rapid_tpu_torch")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-live-") as root:
+        outcome, walls = live_planes_sequence(P, root)
+    phase_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    misses = live_golden_check(outcome, "full")
+    assert not misses, "live planes differ from tests/golden/torch_live_planes.json: " + "; ".join(
+        misses[:8])
+    s, sw = outcome["serving"], walls["serving"]
+    print(f"live planes, serving: {s['n_nodes']} port members, placement "
+          f"{LIVE_PLACEMENT['partitions']} x {LIVE_PLACEMENT['replicas']}, each on its own "
+          f"DurablePartitionStore; bootstrap (sequential joins, handoff drained) "
+          f"{sw['bootstrap_ms']:.1f} ms host, {s['virtual_ms']['bootstrap']} ms virtual; "
+          f"crash of {s['victim']} (leads the hottest key's partition) to agreement "
+          f"{sw['crash_to_agreement_ms']:.1f} ms host (churn window included), "
+          f"{s['virtual_ms']['crash_to_agreement']} ms virtual; WAL restart and rejoin "
+          f"{sw['restart_ms']:.1f} ms host, replayed {s['replayed_records']} records ({card})",
+          flush=True)
+    for name, w in s["windows"].items():
+        print(f"live planes, serving window {name}: {w['ops']} ops, {w['ok']} ok, p50 "
+              f"{w['p50_ms']} ms p99 {w['p99_ms']} ms virtual over {w['virtual_ms']} ms "
+              f"virtual", flush=True)
+    print(f"live planes, serving checks: {len(s['acked'])} acked keys read back at or above "
+          f"their versions from survivors; handoff sessions {s['sessions']} all complete; "
+          f"{len(s['fingerprints'])} partitions' replicas equal; one configuration id and "
+          f"placement version {s['placement_version']} on every member", flush=True)
+    hr, hw = outcome["hierarchy"], walls["hierarchy"]
+    print(f"live planes, hierarchy: {hr['n_nodes']} members in {len(hr['cells'])} cells "
+          f"{hr['cells']}; bootstrap {hw['bootstrap_ms']:.1f} ms host; crash of "
+          f"{hr['crashed']} to agreement {hw['crash_to_agreement_ms']:.1f} ms host, "
+          f"{hr['crash_to_agreement_virtual_ms']} ms virtual; every leader's global "
+          f"fingerprint {hr['global_fingerprint']} == the recompute ({card})", flush=True)
+    for point, ms in zip(outcome["recovery"], walls["recovery_ms"]):
+        print(f"live planes, recovery: {point['log_records']} records, snapshot every "
+              f"{point['snapshot_every']}: replayed {point['replayed_records']} (exact), "
+              f"content equal, {ms:.3f} ms ({card})", flush=True)
+    print(f"live planes, golden: every id, fingerprint, acked version, session and serving "
+          f"count, global fingerprint and replayed count equals "
+          f"tests/golden/torch_live_planes.json; kernels launched {launches or 'none'}; "
+          f"phase {phase_s:.1f} s", flush=True)
+    assert not launches, f"the live planes launched kernels: {launches}"
+    return {"outcome_summary": {"config_ids": s["config_ids"],
+                                "global_fingerprint": hr["global_fingerprint"]},
+            "walls": walls, "phase_s": phase_s, "launches": launches}
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3683,6 +4241,9 @@ def main() -> int:
     agent = agent_sequence(N_NODES, card_device, scripted=gateway)
     print(f"member phase {t1 - t0:.1f} s, agent phase {time.perf_counter() - t1:.1f} s, "
           f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    # --- the protocol plane's live engines (host Python; no kernel) --------
+    live = live_planes_phase(card)
+    print(f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
     member_launches, agent_launches = {}, {}
     for rows, key, into in ((members["pumps"], "launches", member_launches),
                             (agent["steps"], "pump_launches", agent_launches)):
@@ -3812,6 +4373,8 @@ def main() -> int:
             # (step, launches) of the port agent's decision pumps
             "launches_member": member_launches.get(name, []),
             "launches_agent": agent_launches.get(name, []),
+            # the live planes' phase (serving, hierarchy, recovery): no kernel
+            "launches_live_planes": live["launches"].get(name, 0),
             # the 100k fault replay (drop rule at 1.0 and the gray streak: the scan path)
             "launches_replay": replay["launches"].get(name, 0),
             "match": True,
@@ -3849,6 +4412,8 @@ def main() -> int:
             "launches_gateway": gateway_launches.get(name, []),
             "launches_member": member_launches.get(name, []),
             "launches_agent": agent_launches.get(name, []),
+            # the live planes' phase (serving, hierarchy, recovery): no kernel
+            "launches_live_planes": live["launches"].get(name, 0),
             # (run, rank, launches) of each process of the multi-process decisions
             "launches_multiprocess": [
                 (label, r["process"], r["launches"].get(name, 0))
@@ -3876,6 +4441,7 @@ def main() -> int:
         "on_main_path": True,
         "path": "planes, full width (enable_placement and the crash's view change)",
         "launches": planes_result["launches"]["placement_topr"],
+        "launches_live_planes": live["launches"].get("placement_topr", 0),
         "match": True,
         "max_abs_err": max(t["max_abs_err"] for t in topr.values()),
         "ms": main_case["ms"],
@@ -3900,7 +4466,7 @@ def main() -> int:
                                                     for p in bridge["pumps"]]),
                       "wire": wire, "gateway": gateway, "planes": planes_result,
                       "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
-                      "agent": agent},
+                      "agent": agent, "live_planes": live},
                      default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

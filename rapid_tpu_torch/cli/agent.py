@@ -13,9 +13,10 @@ membership once per second; SIGINT leaves gracefully.
 
 A member of a swarm hosted by ``python -m rapid_tpu_torch.cli.gateway``
 joins with ``--gateway-address <gateway host:port> --seed-address <a swarm
-endpoint>`` (the gateway prints its seed endpoint). The native-TCP and gRPC
-transports and the serving demo are refused: they are not ported yet
-(ROADMAP.md Queue 1 items 8c, 8d and 12).
+endpoint>`` (the gateway prints its seed endpoint). ``--serving`` turns on
+the serving demo (placement, handoff and serving on an in-memory store; each
+tick writes and reads back a demo key). The native-TCP and gRPC transports
+are refused: they are not ported yet (ROADMAP.md Queue 1 items 8c and 8d).
 """
 
 import argparse
@@ -183,7 +184,10 @@ def main() -> None:
     )
     parser.add_argument(
         "--serving", action="store_true",
-        help="demo mode of the serving plane: not ported, refused",
+        help="demo mode: enable the serving plane (replicated Get/Put KV "
+        "over placement + handoff) on this agent; every status tick writes "
+        "a per-agent demo key through the quorum path, reads it back, and "
+        "logs the serving counters",
     )
     parser.add_argument(
         "--serving-partitions", type=int, default=64,
@@ -225,11 +229,6 @@ def main() -> None:
             f"--transport {args.transport} is not ported to rapid_tpu_torch "
             "(ROADMAP.md Queue 1 items 8c and 8d); use tcp"
         )
-    if args.serving:
-        parser.error(
-            "--serving needs the serving plane, which is not ported to "
-            "rapid_tpu_torch (ROADMAP.md Queue 1 item 12)"
-        )
     client = server = TcpClientServer(listen, settings)
     if args.gateway_address:
         if args.broadcaster == "gossip":
@@ -268,6 +267,11 @@ def main() -> None:
         # crash/exit evidence: atexit journal dump + faulthandler traceback
         # file beside it, in addition to the explicit dump on shutdown below
         builder.use_forensics_dump(args.journal_out)
+    if args.serving:
+        from rapid_tpu_torch.handoff.store import InMemoryPartitionStore
+
+        builder.use_placement(partitions=args.serving_partitions)
+        builder.use_serving(InMemoryPartitionStore())
     if args.broadcaster == "gossip":
         if args.gossip_fanout < 1:
             parser.error("--gossip-fanout must be >= 1")
@@ -294,6 +298,8 @@ def main() -> None:
         cluster = builder.start()
     log.info("agent started at %s", listen)
 
+    demo_key = b"agent-demo:" + args.listen_address.encode()
+
     try:
         while True:
             time.sleep(1)
@@ -304,6 +310,21 @@ def main() -> None:
                 cluster.get_current_configuration_id(),
                 [str(m) for m in members] if len(members) <= 32 else "...",
             )
+            if args.serving:
+                # the demo loop: one quorum write + one routed read per
+                # tick, so a multi-agent deployment visibly replicates
+                try:
+                    value = b"tick-%d" % int(time.time())
+                    cluster.serving_put(demo_key, value).result(5.0)
+                    back = cluster.serving_get(demo_key).result(5.0)
+                    gets, puts, put_acks = cluster.get_serving_status()
+                    log.info(
+                        "serving key=%s value=%s gets=%d puts=%d acks=%d",
+                        demo_key.decode(), back.value.decode(),
+                        gets, puts, put_acks,
+                    )
+                except Exception as exc:  # noqa: BLE001 -- demo, keep ticking
+                    log.warning("serving demo op failed: %s", exc)
             if args.metrics_out:
                 _write_prometheus_atomic(args.metrics_out)
     except KeyboardInterrupt:

@@ -1,10 +1,8 @@
 """The public API: build, start, or join a cluster node.
 
-The port's own copy of ``rapid_tpu/cluster.py``, with the flat protocol
-plane and every plane the port has (placement, SLO, profiling history,
-forensics). The handoff, serving, durability and hierarchy planes, whose
-live engines come with ROADMAP.md Queue 1 item 12, are refused: a member
-asked for one raises ``NotImplementedError`` before it starts.
+The port's own copy of ``rapid_tpu/cluster.py``, with every plane the JAX
+member has: placement, handoff, durability, serving, hierarchy, SLO,
+profiling history and forensics.
 
 Reference: Cluster.java. ``Cluster.Builder(addr).start()`` bootstraps a seed;
 ``.join(seed)`` runs the two-phase join protocol with up to RETRIES attempts
@@ -40,7 +38,7 @@ from .runtime.futures import Promise, successful_as_list
 from .runtime.lockdep import make_lock
 from .runtime.resources import SharedResources
 from .runtime.scheduler import Scheduler
-from .service import MembershipService, SubscriptionCallback, refuse_waiting_plane
+from .service import MembershipService, SubscriptionCallback
 from .settings import Settings
 from .types import (
     Endpoint,
@@ -122,8 +120,9 @@ class Cluster:
 
     @property
     def hierarchy(self):
-        """The hierarchy plane: None on a port member (a member whose
-        ``settings.hierarchy`` is on refuses to start)."""
+        """The hierarchy plane (hierarchy/plane.py), or None when
+        ``settings.hierarchy`` is off. Harnesses use it to seed parent
+        bootstrap hints and to read the composed global view."""
         return self._membership_service.hierarchy
 
     def capture_bundle(self, path: Optional[str] = None, *,
@@ -181,34 +180,36 @@ class Cluster:
         return self._membership_service.placement_diff()
 
     def get_handoff_status(self) -> Tuple[int, int, int]:
-        """(in-flight, completed, failed) handoff session counts: all zero,
-        since no port member runs the handoff plane."""
+        """(in-flight, completed, failed) handoff session counts, all zero
+        when the node was built without ``use_handoff``."""
         self._check_running()
-        return (0, 0, 0)
+        engine = self._membership_service.handoff_engine()
+        return engine.status() if engine is not None else (0, 0, 0)
 
     def get_partition_store(self):
-        """The PartitionStore this node moves bytes through: None, since no
-        port member runs the handoff plane."""
+        """The PartitionStore this node moves bytes through (None without
+        ``use_handoff``)."""
         self._check_running()
-        return None
+        engine = self._membership_service.handoff_engine()
+        return engine.store if engine is not None else None
 
     def serving_put(self, key: bytes, value: bytes) -> Promise:
-        """Write ``key`` through the serving plane (raises: no port member
-        runs it)."""
+        """Write ``key`` through the serving plane (use_serving); resolves
+        with the final PutAck after routing redirects and quorum ack."""
         self._check_running()
         return self._membership_service.serving_put(key, value)
 
     def serving_get(self, key: bytes) -> Promise:
-        """Read ``key`` through the serving plane (raises: no port member
-        runs it)."""
+        """Read ``key`` through the serving plane; resolves with a PutAck."""
         self._check_running()
         return self._membership_service.serving_get(key)
 
     def get_serving_status(self) -> Tuple[int, int, int]:
-        """(gets, puts, replication acks) served by this member: all zero,
-        since no port member runs the serving plane."""
+        """(gets, puts, replication acks) served by this member, all zero
+        when the node was built without ``use_serving``."""
         self._check_running()
-        return (0, 0, 0)
+        engine = self._membership_service.serving_engine()
+        return engine.status() if engine is not None else (0, 0, 0)
 
     def leave_gracefully_async(self) -> Promise:
         """Inform observers of the intent to leave, then shut down
@@ -235,6 +236,18 @@ class Cluster:
             self._has_shutdown = True
         self._server.shutdown()
         self._membership_service.shutdown()
+        # Graceful-stop durability barrier: flush the WAL and write a
+        # snapshot + marker so the next boot recovers with zero replayed
+        # records. Without this, a clean shutdown left the tail in the log
+        # and every restart paid a full replay -- and under FSYNC_NEVER the
+        # page cache could still hold acked writes when the process exited
+        # (pinned in tests/test_advice_regressions.py). Duck-typed so the
+        # in-memory store (no checkpoint()) is untouched.
+        engine = self._membership_service.handoff_engine()
+        if engine is not None:
+            checkpoint = getattr(engine.store, "checkpoint", None)
+            if checkpoint is not None:
+                checkpoint()
         self._resources.shutdown()
 
     def _check_running(self) -> None:
@@ -347,41 +360,57 @@ class ClusterBuilder:
         return self
 
     def use_handoff(self, store: PartitionStore) -> "ClusterBuilder":
-        """Ask for the handoff plane (handoff/). Its live engine is not
-        ported: ``start`` and ``join_async`` refuse a builder that asked
-        (``NotImplementedError``, ROADMAP.md Queue 1 item 12)."""
+        """Enable the handoff plane: every placement diff's moved partitions
+        are pulled into ``store`` by this node when it becomes a new replica,
+        and released from it once a verified new owner acks (handoff/).
+        Requires ``use_placement`` with identical parameters cluster-wide."""
         self._handoff_store = store
         return self
 
     def use_serving(
         self, store: Optional[PartitionStore] = None
     ) -> "ClusterBuilder":
-        """Ask for the serving plane (serving/), configuring the handoff
-        plane with ``store`` when it is not configured yet. Refused at
-        ``start`` / ``join_async`` like ``use_handoff``."""
+        """Enable the serving plane: a replicated Get/Put KV store routed by
+        the placement map, with quorum-ack writes and leader reads
+        (serving/). The serving engine persists into the handoff plane's
+        PartitionStore so view-change state transfer moves serving data
+        through verified handoff sessions; ``store`` configures the handoff
+        plane when it is not configured yet. Requires ``use_placement`` and
+        ``use_handoff`` (directly or via ``store``)."""
         if store is not None and self._handoff_store is None:
             self.use_handoff(store)
         self._serving = True
         return self
 
     def use_durability(self, directory: str) -> "ClusterBuilder":
-        """Ask for the durability plane (a write-ahead-logged store rooted
-        at ``directory``). Refused at ``start`` / ``join_async`` like
-        ``use_handoff``, whatever ``settings.durability`` says."""
+        """Enable the durability plane: mount a write-ahead-logged
+        DurablePartitionStore rooted at ``directory`` under the handoff
+        seam (durability/). Construction is recovery -- a restarted node
+        reopens with the state it acknowledged, reuses its persisted
+        NodeId to rejoin, and catches up via verified handoff pulls.
+        Gated on ``settings.durability.enabled`` (the kill switch): when
+        off, the directory is ignored and the node runs the exact
+        pre-durability in-memory path."""
         self._durability_dir = directory
         return self
 
-    def _refuse_waiting_planes(self) -> None:
-        """Refuse, before any resource is built, a member asked for a plane
-        the port does not have yet."""
-        if self._serving:
-            refuse_waiting_plane("serving")
-        if self._handoff_store is not None:
-            refuse_waiting_plane("handoff")
-        if self._durability_dir is not None:
-            refuse_waiting_plane("durability")
-        if self._settings.hierarchy.enabled:
-            refuse_waiting_plane("hierarchy")
+    def _durable_store(self):
+        """Build (and recover) the durable store when the plane is on;
+        mounts it as the handoff store so every downstream plane
+        (placement sizes, handoff pulls, serving persistence) rides it."""
+        if self._durability_dir is None or not self._settings.durability.enabled:
+            return None
+        from .durability.store import DurablePartitionStore
+
+        knobs = self._settings.durability
+        store = DurablePartitionStore(
+            self._durability_dir,
+            segment_bytes=knobs.segment_bytes,
+            fsync_policy=knobs.fsync_policy,
+            snapshot_every_records=knobs.snapshot_every_records,
+        )
+        self._handoff_store = store
+        return store
 
     def use_forensics_dump(self, journal_path: str) -> "ClusterBuilder":
         """Register crash/exit evidence hooks (forensics plane): an atexit
@@ -394,6 +423,7 @@ class ClusterBuilder:
 
     def _forensics(
         self, resources: SharedResources, client: IMessagingClient,
+        durable,
     ) -> Tuple[Optional[HlcClock], IMessagingClient,
                Optional[FlightRecorder]]:
         """Forensics-plane assembly, shared by ``start`` and ``join_async``.
@@ -401,15 +431,22 @@ class ClusterBuilder:
         When ``settings.forensics.enabled``: mint this node's hybrid
         logical clock (physical axis = the node's scheduler clock, so
         virtual-time runs are deterministic and a nemesis clock-skew
-        scheduler skews the HLC with the node; incarnation 1: a port member
-        has no durable boot count), wrap the messaging
+        scheduler skews the HLC with the node; incarnation = the durable
+        store's persisted boot count when one exists), wrap the messaging
         client so every outbound message carries a fresh stamp, and build
         the HLC-stamping flight recorder at the configured capacity. When
         off: (None, client, None) -- the exact pre-forensics path, byte
         for byte on the wire."""
         if not self._settings.forensics.enabled:
             return None, client, None
-        hlc = HlcClock(clock=resources.scheduler.now_ms, incarnation=1)
+        incarnation = 1
+        if durable is not None:
+            bump = getattr(durable, "bump_incarnation", None)
+            if bump is not None:
+                incarnation = max(1, int(bump()))
+        hlc = HlcClock(
+            clock=resources.scheduler.now_ms, incarnation=incarnation
+        )
         recorder = FlightRecorder(
             node=str(self._listen_address),
             clock=resources.scheduler.now_ms,
@@ -483,12 +520,18 @@ class ClusterBuilder:
 
     def start(self) -> Cluster:
         """Bootstrap a seed node (Cluster.java:255-280)."""
-        self._refuse_waiting_planes()
         resources, client, server, rng = self._prepare()
+        durable = self._durable_store()
         # forensics plane (kill-switched): HLC-stamping client wrapper plus
         # the HLC-stamping recorder; (None, client, None) when off
-        hlc, client, forensics_recorder = self._forensics(resources, client)
-        node_id = NodeId.random(rng)
+        hlc, client, forensics_recorder = self._forensics(
+            resources, client, durable
+        )
+        # restart-aware identity: a seed that persisted its NodeId boots
+        # with the same identity it had before the restart
+        node_id = durable.node_id if durable is not None else None
+        if node_id is None:
+            node_id = NodeId.random(rng)
         view = MembershipView(K, node_ids=[node_id], endpoints=[self._listen_address])
         cut_detector = MultiNodeCutDetector(K, H, L)
         metadata_map = (
@@ -517,8 +560,13 @@ class ClusterBuilder:
                 )
             ),
             placement=self._placement,
+            handoff_store=self._handoff_store,
+            serving=self._serving,
             hlc=hlc,
         )
+        if durable is not None:
+            durable.set_identity(node_id)
+            durable.set_config_id(view.get_current_configuration_id())
         server.set_membership_service(service)
         server.start()
         return Cluster(server, service, resources, self._listen_address)
@@ -530,17 +578,31 @@ class ClusterBuilder:
     def join_async(self, seed_address: Endpoint) -> Promise:
         """Two-phase join state machine (Cluster.java:303-401). Resolves with a
         Cluster or fails with JoinException after RETRIES attempts."""
-        self._refuse_waiting_planes()
         resources, client, server, rng = self._prepare()
         # The server starts before the join so observers can probe us; probes
         # are answered BOOTSTRAPPING until the service is wired
         # (Cluster.java:312, GrpcServer.java:83-95).
         server.start()
         result: Promise = Promise()
+        durable = self._durable_store()
         # forensics plane (kill-switched): stamp the join traffic too, so
         # a seed's causal timeline includes the joiner's first messages
-        hlc, client, forensics_recorder = self._forensics(resources, client)
-        state = {"node_id": NodeId.random(rng), "attempt": 0}
+        hlc, client, forensics_recorder = self._forensics(
+            resources, client, durable
+        )
+        # Restart-aware rejoin: reuse the persisted NodeId. A returning
+        # host still present in the ring then gets HOSTNAME_ALREADY_IN_RING
+        # in phase 1 and SAFE_TO_JOIN from observers that recognize the
+        # (host, identity) pair -- the fast identity-preserving path; a
+        # fresh random id on a still-present hostname would loop on
+        # CONFIG_CHANGED until eviction. The identifier history is
+        # append-only, so after eviction the old id is burned and the
+        # UUID_ALREADY_IN_RING redraw below takes over.
+        persisted = durable.node_id if durable is not None else None
+        state = {
+            "node_id": persisted if persisted is not None else NodeId.random(rng),
+            "attempt": 0,
+        }
         join_metrics = self._metrics if self._metrics is not None else JOIN_METRICS
         # the flight recorder outlives individual join attempts: created here
         # so retry exhaustion is journaled even when no service ever exists,
@@ -665,8 +727,13 @@ class ClusterBuilder:
                 tracer=self._tracer,
                 recorder=recorder,
                 placement=self._placement,
+                handoff_store=self._handoff_store,
+                serving=self._serving,
                 hlc=hlc,
             )
+            if durable is not None:
+                durable.set_identity(state["node_id"])
+                durable.set_config_id(response.configuration_id)
             server.set_membership_service(service)
             result.set_result(
                 Cluster(server, service, resources, self._listen_address)

@@ -11,9 +11,9 @@ fails fast with the exact two chains -- at the moment the inversion is
 *possible*, not the rare run where two threads actually interleave into the
 deadlock.
 
-The seam is :func:`make_lock` / :func:`make_condition` (the JAX package's
-``make_rlock`` is left out: no lock of the port is reentrant).
-With ``RAPID_LOCKDEP`` unset (or ``0``) they return plain ``threading``
+The seam is :func:`make_lock` / :func:`make_rlock` /
+:func:`make_condition` (the handoff and serving engines' locks are
+reentrant). With ``RAPID_LOCKDEP`` unset (or ``0``) they return plain ``threading``
 primitives -- zero overhead, nothing imported beyond the stdlib. With
 ``RAPID_LOCKDEP=1`` they return instrumented wrappers that
 
@@ -98,16 +98,24 @@ def _fail(msg: str) -> None:
 
 
 class _InstrumentedLock:
-    """threading.Lock lookalike recording acquisition order."""
+    """threading.Lock/RLock lookalike recording acquisition order."""
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, reentrant: bool) -> None:
         self.name = name
-        self._inner = threading.Lock()
+        self._reentrant = reentrant
+        self._inner = threading.RLock() if reentrant else threading.Lock()
 
     # -- ordering ----------------------------------------------------------
 
     def _note_acquire(self) -> None:
         stack = _stack()
+        for held in stack:
+            if held is self:
+                # re-entry of an RLock adds no new ordering information;
+                # non-reentrant re-entry is caught in acquire() BEFORE the
+                # inner lock blocks
+                stack.append(self)
+                return
         with _graph_lock:
             for held in stack:
                 if held.name == self.name:
@@ -131,7 +139,7 @@ class _InstrumentedLock:
     # -- threading.Lock surface --------------------------------------------
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        if any(h is self for h in _stack()):
+        if not self._reentrant and any(h is self for h in _stack()):
             # must fail BEFORE self._inner.acquire: the inner Lock would
             # deadlock this thread instead of reporting
             _fail(
@@ -148,6 +156,12 @@ class _InstrumentedLock:
         self._inner.release()
 
     def locked(self) -> bool:
+        if self._reentrant:
+            # RLock has no locked(); approximate via non-blocking acquire
+            if self._inner.acquire(blocking=False):
+                self._inner.release()
+                return False
+            return True
         return self._inner.locked()
 
     def __enter__(self) -> bool:
@@ -157,14 +171,21 @@ class _InstrumentedLock:
         self.release()
 
     def __repr__(self) -> str:
-        return f"<lockdep Lock {self.name!r}>"
+        return f"<lockdep {'RLock' if self._reentrant else 'Lock'} {self.name!r}>"
 
 
 def make_lock(name: str) -> "threading.Lock | _InstrumentedLock":
     """A non-reentrant lock, instrumented when RAPID_LOCKDEP=1."""
     if enabled():
-        return _InstrumentedLock(name)
+        return _InstrumentedLock(name, reentrant=False)
     return threading.Lock()
+
+
+def make_rlock(name: str) -> "threading.RLock | _InstrumentedLock":
+    """A reentrant lock, instrumented when RAPID_LOCKDEP=1."""
+    if enabled():
+        return _InstrumentedLock(name, reentrant=True)
+    return threading.RLock()
 
 
 def make_condition(name: str, lock: Optional[threading.Lock] = None):

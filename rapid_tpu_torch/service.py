@@ -1,10 +1,8 @@
 """The membership protocol engine.
 
-The port's own copy of ``rapid_tpu/service.py``, with the flat protocol
-plane and every plane the port has (placement, SLO, profiling history,
-forensics). The handoff, serving, durability and hierarchy planes, whose
-live engines come with ROADMAP.md Queue 1 item 12, are refused: a member
-asked for one raises ``NotImplementedError`` before it starts.
+The port's own copy of ``rapid_tpu/service.py``, with every plane the JAX
+member has: placement, handoff, durability, serving, hierarchy, SLO,
+profiling history and forensics.
 
 Reference: MembershipService.java -- the single dispatch point for all protocol
 messages (:171-193), join gatekeeping (:200-286), alert batching (:602-626),
@@ -28,6 +26,7 @@ from .events import ClusterEvents, NodeStatusChange
 from .fast_paxos import FastPaxos
 from .forensics.bundle import build_bundle, capture_local_evidence
 from .forensics.hlc import HlcClock, hlc_of, stamp_hlc
+from .handoff.engine import HandoffEngine
 from .handoff.store import PartitionStore
 from .hashing import address_comparator_key
 from .membership import MembershipView
@@ -60,8 +59,11 @@ from .runtime.futures import Promise, successful_as_list
 from .runtime.lockdep import make_lock
 from .runtime.resources import SharedResources
 from .runtime.scheduler import ScheduledTask
+from .serving.engine import ServingEngine
 from .settings import Settings
 from .slo.burn import SloPlane
+from .hierarchy.plane import HierarchyPlane
+from .hierarchy.routing import CellRouter, ParentChannel
 from .types import (
     AlertMessage,
     BatchedAlertMessage,
@@ -96,18 +98,6 @@ from .types import (
 LOG = logging.getLogger(__name__)
 
 SubscriptionCallback = Callable[[int, List[NodeStatusChange]], None]
-
-
-def refuse_waiting_plane(plane: str) -> None:
-    """Raise for a plane whose live engine the port does not have yet: the
-    handoff, serving, durability and hierarchy planes of a member come with
-    ROADMAP.md Queue 1 item 12. A member asked for one refuses to start
-    rather than run without it."""
-    raise NotImplementedError(
-        f"the {plane} plane of a protocol-plane member is not ported to "
-        "rapid_tpu_torch yet (ROADMAP.md Queue 1 item 12); build the member "
-        "without it"
-    )
 
 
 def _chain_promise(inner: Promise, outer: Promise) -> None:
@@ -162,17 +152,27 @@ class MembershipService:
                 scheduler=resources.scheduler, my_addr=my_addr,
             )
         )
-        # Hierarchy plane (settings.hierarchy is the kill switch): its
-        # engine is not ported, so a member asked for it refuses to start
-        # rather than run the flat protocol under a hierarchical config
+        # Hierarchy plane: cell-filtered broadcasts plus the two-level
+        # composition engine (settings.hierarchy is the kill switch; None
+        # keeps the exact flat path -- no wrapper on the broadcaster, no
+        # new message types on the wire). The router confines every
+        # protocol broadcast -- alerts, votes -- to this member's cell; the
+        # parent channel is the leader's batched leader-to-leader fabric.
+        self._hierarchy: Optional[HierarchyPlane] = None
         if settings.hierarchy.enabled:
-            refuse_waiting_plane("hierarchy")
-        # Handoff and serving planes: not ported either (refused the same
-        # way; ClusterBuilder refuses them before any resource is built)
-        if handoff_store is not None:
-            refuse_waiting_plane("handoff")
-        if serving:
-            refuse_waiting_plane("serving")
+            self._broadcaster = CellRouter(
+                self._broadcaster, my_addr, settings.hierarchy.cells
+            )
+            self._hierarchy = HierarchyPlane(
+                my_addr,
+                channel=ParentChannel(
+                    client, my_addr, scheduler=resources.scheduler,
+                    flush_ms=settings.hierarchy.parent_flush_ms,
+                ),
+                cells=settings.hierarchy.cells,
+                leaders_per_cell=settings.hierarchy.leaders_per_cell,
+                eviction_rounds=settings.hierarchy.eviction_rounds,
+            )
         self._subscriptions: Dict[ClusterEvents, List[SubscriptionCallback]] = {
             event: [] for event in ClusterEvents
         }
@@ -271,6 +271,16 @@ class MembershipService:
         self._alert_batcher_job = self._scheduler.schedule_at_fixed_rate(
             0, settings.batching_window_ms, self._alert_batcher_tick
         )
+        # parent heartbeat: leaders advance their parent round and
+        # re-announce every period so a whole lost cell ages out of the
+        # composed view even when the survivors see no churn of their own
+        self._hierarchy_job: Optional[ScheduledTask] = None
+        if self._hierarchy is not None and settings.hierarchy.parent_round_ms > 0:
+            self._hierarchy_job = self._scheduler.schedule_at_fixed_rate(
+                settings.hierarchy.parent_round_ms,
+                settings.hierarchy.parent_round_ms,
+                self._hierarchy_tick,
+            )
         self._broadcaster.set_membership(self._view.get_ring(0))
         self._fast_paxos = self._new_fast_paxos()
         self._create_failure_detectors()
@@ -279,6 +289,42 @@ class MembershipService:
         # view install from (config id, sorted view, metadata weights, seed)
         # -- pure function of state every member agrees on, so no messages.
         self._placement = PlacementEngine(placement) if placement else None
+
+        # Handoff plane: moves the partition bytes the placement diffs
+        # imply. Requires placement (sessions launch off its diffs); the
+        # engine shares this node's telemetry so sessions join churn traces.
+        self._handoff: Optional[HandoffEngine] = None
+        if handoff_store is not None:
+            if self._placement is None:
+                raise ValueError("handoff requires placement to be configured")
+            self._handoff = HandoffEngine(
+                handoff_store, my_addr, client, self._scheduler,
+                metrics=self.metrics, tracer=self.tracer,
+                recorder=self.recorder,
+            )
+            # durability plane: a durable store recovered before this node
+            # had telemetry -- attach the registries now so recovery's
+            # replay/truncation counters and the "durability_recovered"
+            # journal line land on this node's observability plane
+            bind = getattr(handoff_store, "bind_telemetry", None)
+            if bind is not None:
+                bind(self.metrics, self.recorder)
+
+        # Serving plane: a replicated Get/Put KV store routed by the
+        # placement map, persisting into the handoff plane's store so
+        # view-change state transfer moves serving data through verified
+        # handoff sessions (serving/engine.py).
+        self._serving: Optional[ServingEngine] = None
+        if serving:
+            if self._placement is None or self._handoff is None:
+                raise ValueError(
+                    "serving requires placement and handoff to be configured"
+                )
+            self._serving = ServingEngine(
+                handoff_store, my_addr, client, self._scheduler,
+                metrics=self.metrics, tracer=self.tracer,
+                recorder=self.recorder,
+            )
 
         # Initial VIEW_CHANGE callbacks: start/join completed
         # (MembershipService.java:162-165)
@@ -289,6 +335,12 @@ class MembershipService:
         ]
         self._fire(ClusterEvents.VIEW_CHANGE, configuration_id, initial)
         self._update_placement(configuration_id)
+        if self._hierarchy is not None:
+            # the start/join view counts as an install: compute leadership
+            # and (if leading) announce this cell's row to the parent
+            self._hierarchy.on_view_installed(
+                self._view.get_ring(0), configuration_id
+            )
 
     # ------------------------------------------------------------------ #
     # Message dispatch (MembershipService.java:171-193)
@@ -343,11 +395,30 @@ class MembershipService:
         raise TypeError(f"unidentified request type {type(msg).__name__}")
 
     def _handle_hierarchy(self, msg: RapidMessage) -> Promise:
-        """Hierarchy-plane traffic (a peer leader's cell digest, or a
-        leader's composed global view). A member without the plane -- every
-        port member -- acks and drops it, so a hierarchical peer's stray
-        frame cannot poison dispatch."""
-        return Promise.completed(Response())
+        """Hierarchy-plane traffic (a peer leader's cell digest, or our own
+        leader's composed global view): hop onto the protocol executor --
+        the plane reads the view and may announce through the broadcaster
+        seam -- and ack the frame. A member without the plane acks and
+        drops (a hierarchical peer's stray frame cannot poison dispatch)."""
+        future: Promise = Promise()
+        if self._hierarchy is None:
+            return Promise.completed(Response())
+
+        def task() -> None:
+            self._hierarchy.handle_message(msg)
+            future.try_set_result(Response())
+
+        self._resources.protocol_executor.execute(task)
+        return future
+
+    def _hierarchy_tick(self) -> None:
+        """Parent heartbeat edge. Fires on the scheduler's timer thread in
+        real deployments; the plane is guarded by the protocol executor,
+        so the tick body hops there (same discipline as the alert
+        batcher)."""
+        if self._hierarchy is None or self._shut_down:
+            return
+        self._resources.protocol_executor.execute(self._hierarchy.tick)
 
     def _handle_message_batch(self, batch: MessageBatch) -> Promise:
         """Unpack a transport batch envelope (a broadcaster's flush window,
@@ -375,29 +446,82 @@ class MembershipService:
         return Promise.completed(Response())
 
     def _handle_serving(self, msg: RapidMessage) -> Promise:
-        """Serving-plane Get/Put. A member without the serving plane --
-        every port member -- tells the client to retry elsewhere rather
-        than hang its request."""
-        key = getattr(msg, "key", b"")
-        return Promise.completed(PutAck(
-            sender=self._my_addr, status=PutAck.STATUS_RETRY, key=key,
-            request_id=getattr(msg, "request_id", 0),
-        ))
+        """Serving-plane Get/Put: hop onto the protocol executor (leader
+        checks read placement state the view-change path mutates) and chain
+        the engine's -- possibly asynchronous, e.g. a quorum read or a
+        replication fan-out -- answer onto the transport's promise."""
+        if self._serving is None:
+            # a member without the serving plane tells the client to retry
+            # elsewhere rather than hanging its request
+            key = getattr(msg, "key", b"")
+            return Promise.completed(PutAck(
+                sender=self._my_addr, status=PutAck.STATUS_RETRY, key=key,
+                request_id=getattr(msg, "request_id", 0),
+            ))
+        future: Promise = Promise()
+        if self._slo is not None:
+            # offered load counts at arrival; the good/latency sample lands
+            # when the (possibly asynchronous) answer completes, measured on
+            # the same scheduler clock so queueing delay is included
+            start_ms = self._scheduler.now_ms()
+            self._slo.record_offered(start_ms)
+            is_get = isinstance(msg, Get)
+
+            def observe(p: Promise) -> None:
+                now_ms = self._scheduler.now_ms()
+                ack = None if p.exception() is not None else p.result()
+                status = getattr(ack, "status", None)
+                if is_get:
+                    ok = status in (PutAck.STATUS_OK, PutAck.STATUS_NOT_FOUND)
+                else:
+                    ok = status == PutAck.STATUS_OK
+                self._slo.record(now_ms, ok, float(now_ms - start_ms))
+
+            future.add_callback(observe)
+
+        def task() -> None:
+            if isinstance(msg, Get):
+                inner = self._serving.handle_get(msg)
+            else:
+                inner = self._serving.handle_put(msg)
+            inner.add_callback(lambda p: _chain_promise(p, future))
+
+        self._resources.protocol_executor.execute(task)
+        return future
 
     def _handle_handoff_request(self, msg: HandoffRequest) -> Promise:
-        """A pulling new owner's chunk request. A member without the handoff
-        plane answers an empty Response, so the puller fails over to its
-        next source rather than hang."""
-        return Promise.completed(Response())
+        """Serve one chunk of a partition to a pulling new owner. The slice
+        itself is stateless (handoff/engine.py), but it runs on the protocol
+        executor so reads are serialized against releases from acks."""
+        if self._handoff is None:
+            # no handoff plane here: an empty Response makes the recipient
+            # fail over to its next source rather than hang
+            return Promise.completed(Response())
+        future: Promise = Promise()
+
+        def task() -> None:
+            future.set_result(self._handoff.handle_request(msg))
+
+        self._resources.protocol_executor.execute(task)
+        return future
 
     def _handle_handoff_ack(self, msg: HandoffAck) -> Promise:
-        """A new owner's verified-copy ack: with no handoff plane there is
-        no copy to release; acked on the protocol executor, as the plane
-        would."""
+        """A new owner verified its copy; release ours unless the current
+        map still assigns this member a replica of the partition."""
         future: Promise = Promise()
-        self._resources.protocol_executor.execute(
-            lambda: future.set_result(Response())
-        )
+
+        def task() -> None:
+            if self._handoff is not None:
+                pmap = self.placement_map()
+                still_replica = (
+                    pmap is not None
+                    and 0 <= msg.partition < len(pmap.assignments)
+                    and self._my_addr in pmap.assignments[msg.partition]
+                )
+                self._handoff.handle_ack(msg, still_replica)
+            future.set_result(Response())
+
+        self._resources.protocol_executor.execute(task)
         return future
 
     def _handle_cluster_status(self, msg: ClusterStatusRequest) -> Promise:
@@ -429,9 +553,49 @@ class MembershipService:
         if transport_digest is not None:
             digest.extend(sorted(transport_digest().items()))
         pmap = self.placement_map()
-        # the handoff, durability, serving and hierarchy digests stay at
-        # their zero/empty defaults: no port member runs those planes.
-        # Failure-detector plane: per-edge RTT/suspicion digest (worst
+        handoff_in_flight = handoff_completed = handoff_failed = 0
+        handoff_partitions: Tuple[int, ...] = ()
+        handoff_fingerprints: Tuple[int, ...] = ()
+        if self._handoff is not None:
+            handoff_in_flight, handoff_completed, handoff_failed = (
+                self._handoff.status()
+            )
+            store_digest = getattr(self._handoff.store, "digest", None)
+            if store_digest is not None:
+                handoff_partitions, handoff_fingerprints = store_digest()
+            else:
+                handoff_partitions = self._handoff.store.partitions()
+                handoff_fingerprints = tuple(
+                    fp if fp is not None else 0
+                    for fp in map(
+                        self._handoff.store.fingerprint, handoff_partitions
+                    )
+                )
+        # durability plane digest (all zero on an in-memory store): the
+        # restart-health numbers statusz renders next to the fingerprint
+        # cross-check
+        durability_segments = durability_snapshot_version = 0
+        durability_replayed = 0
+        if self._handoff is not None:
+            durability_stats = getattr(
+                self._handoff.store, "durability_stats", None
+            )
+            if durability_stats is not None:
+                stats = durability_stats()
+                durability_segments = int(stats["segments"])
+                durability_snapshot_version = int(stats["snapshot_version"])
+                durability_replayed = int(stats["replayed_records"])
+        serving_gets = serving_puts = serving_put_acks = 0
+        serving_partitions: Tuple[int, ...] = ()
+        serving_leaders: Tuple[str, ...] = ()
+        if self._serving is not None:
+            serving_gets, serving_puts, serving_put_acks = (
+                self._serving.status()
+            )
+            serving_partitions, serving_leaders = (
+                self._serving.leader_digest()
+            )
+        # failure-detector plane: per-edge RTT/suspicion digest (worst
         # first) and, when the adaptive factory is active, the derived
         # per-tier parameters. Integer micro/milli units: the wire schema
         # has no float scalar.
@@ -489,6 +653,12 @@ class MembershipService:
             hlc_physical_ms = hlc_stamp.physical_ms
             hlc_logical = hlc_stamp.logical
             hlc_incarnation = hlc_stamp.incarnation
+        # hierarchy plane digest: the member's cell coordinates plus the
+        # composed global view as parallel per-cell rows (all empty/zero
+        # pre-hierarchy -- old peers and goldens see their exact old shape)
+        hierarchy_fields: Dict[str, object] = {}
+        if self._hierarchy is not None:
+            hierarchy_fields = self._hierarchy.status_fields()
         return ClusterStatusResponse(
             sender=self._my_addr,
             configuration_id=self._view.get_current_configuration_id(),
@@ -509,6 +679,16 @@ class MembershipService:
             placement_owned=(
                 len(pmap.owned(self._my_addr)) if pmap is not None else 0
             ),
+            handoff_in_flight=handoff_in_flight,
+            handoff_completed=handoff_completed,
+            handoff_failed=handoff_failed,
+            handoff_partitions=handoff_partitions,
+            handoff_fingerprints=handoff_fingerprints,
+            serving_gets=serving_gets,
+            serving_puts=serving_puts,
+            serving_put_acks=serving_put_acks,
+            serving_partitions=serving_partitions,
+            serving_leaders=serving_leaders,
             fd_subjects=fd_subjects,
             fd_rtt_micros=fd_rtt_micros,
             fd_suspicion_milli=fd_suspicion_milli,
@@ -517,6 +697,9 @@ class MembershipService:
             fd_tier_threshold=fd_tier_threshold,
             fd_tier_flush_ms=fd_tier_flush_ms,
             history=history,
+            durability_segments=durability_segments,
+            durability_snapshot_version=durability_snapshot_version,
+            durability_replayed=durability_replayed,
             slo_names=slo_names,
             slo_burn_milli=slo_burn_milli,
             slo_firing=slo_firing,
@@ -526,17 +709,35 @@ class MembershipService:
             hlc_physical_ms=hlc_physical_ms,
             hlc_logical=hlc_logical,
             hlc_incarnation=hlc_incarnation,
+            **hierarchy_fields,
         )
 
     @property
-    def hierarchy(self) -> None:
-        """The hierarchy plane: always None on a port member (the plane is
-        refused at construction until it is ported)."""
-        return None
+    def hierarchy(self) -> Optional[HierarchyPlane]:
+        """The hierarchy plane, or None when ``settings.hierarchy`` is off
+        (harnesses use it to seed parent bootstrap hints and to read the
+        composed global view directly)."""
+        return self._hierarchy
 
     # ------------------------------------------------------------------ #
     # Forensics plane (forensics/, tools/forensics.py)
     # ------------------------------------------------------------------ #
+
+    def _durability_dict(self) -> Optional[Dict[str, int]]:
+        if self._handoff is None:
+            return None
+        stats_fn = getattr(self._handoff.store, "durability_stats", None)
+        if stats_fn is None:
+            return None
+        try:
+            stats = stats_fn()
+            return {
+                "segments": int(stats["segments"]),
+                "snapshot_version": int(stats["snapshot_version"]),
+                "replayed": int(stats["replayed_records"]),
+            }
+        except Exception:  # noqa: BLE001 -- evidence capture degrades
+            return None
 
     def _local_record(self) -> Dict[str, object]:
         """This node's member record, assembled straight from the plane
@@ -552,7 +753,7 @@ class MembershipService:
             hlc=self._hlc,
             configuration_id=self._view.get_current_configuration_id(),
             membership_size=self._view.membership_size,
-            durability=None,  # no durable store on a port member
+            durability=self._durability_dict(),
             history=self._history,
             journal_tail=self._settings.forensics.bundle_journal_tail,
             history_tail=self._settings.forensics.bundle_history_tail,
@@ -687,21 +888,27 @@ class MembershipService:
         """The rebalance plan produced by the latest view change."""
         return self._placement.last_diff if self._placement is not None else None
 
-    def handoff_engine(self) -> None:
-        """The live handoff engine: None on a port member (refused)."""
-        return None
+    def handoff_engine(self) -> Optional[HandoffEngine]:
+        """The live handoff engine (None unless use_handoff configured)."""
+        return self._handoff
 
-    def serving_engine(self) -> None:
-        """The live serving engine: None on a port member (refused)."""
-        return None
+    def serving_engine(self) -> Optional[ServingEngine]:
+        """The live serving engine (None unless use_serving configured)."""
+        return self._serving
 
     def serving_put(self, key: bytes, value: bytes) -> Promise:
-        """Write through the serving plane, which no port member runs."""
-        raise RuntimeError("serving is not enabled on this member")
+        """Write through the serving plane (routing, replication and
+        retries happen inside the engine); completes with the final
+        PutAck."""
+        if self._serving is None:
+            raise RuntimeError("serving is not enabled on this member")
+        return self._serving.client_put(key, value)
 
     def serving_get(self, key: bytes) -> Promise:
-        """Read through the serving plane, which no port member runs."""
-        raise RuntimeError("serving is not enabled on this member")
+        """Read through the serving plane; completes with a PutAck."""
+        if self._serving is None:
+            raise RuntimeError("serving is not enabled on this member")
+        return self._serving.client_get(key)
 
     def _update_placement(self, configuration_id: int) -> None:
         """Recompute the shard map for the just-installed configuration.
@@ -732,6 +939,31 @@ class MembershipService:
             span.attrs["version"] = pmap.version
             if diff is not None:
                 span.attrs["moved"] = diff.moved
+            if self._handoff is not None:
+                # launched inside the rebalance span, so every
+                # handoff_session span joins this churn's trace. The first
+                # map has no predecessor diff (a joiner builds its service
+                # at the post-join view), so it bootstraps instead: pull
+                # whatever the map assigns us that the store lacks.
+                if old_map is None:
+                    launched = self._handoff.bootstrap_sessions(pmap)
+                elif diff is not None and diff.handoffs:
+                    launched = self._handoff.start_sessions(old_map, pmap)
+                else:
+                    launched = 0
+                if launched:
+                    span.attrs["handoff_sessions"] = launched
+                    self.recorder.record(
+                        "handoff_started",
+                        configuration_id=configuration_id,
+                        sessions=launched, version=pmap.version,
+                    )
+            if self._serving is not None:
+                # after the handoff sessions launch, so the cache
+                # invalidation in update_map sees the same acquisition set
+                # the sessions will fill; promote-time snapshot syncs join
+                # this churn's trace
+                self._serving.update_map(pmap)
         self.metrics.incr("placement.rebuilds")
         self.metrics.set_gauge("placement.imbalance", pmap.imbalance())
         self.metrics.set_gauge(
@@ -1093,6 +1325,12 @@ class MembershipService:
             "view_install", configuration_id=configuration_id,
             size=self._view.membership_size,
         )
+        # restart-aware rejoin seam: persist the installed configuration id
+        # so a returning node knows which configuration it last belonged to
+        if self._handoff is not None:
+            persist_config = getattr(self._handoff.store, "set_config_id", None)
+            if persist_config is not None:
+                persist_config(configuration_id)
         self._fire(ClusterEvents.VIEW_CHANGE, configuration_id, status_changes)
         self._update_placement(configuration_id)
         self._stable_view.view_installed()
@@ -1102,6 +1340,14 @@ class MembershipService:
         self._churn_ctx = None  # this churn's trace is complete
         self._fast_paxos = self._new_fast_paxos()
         self._broadcaster.set_membership(self._view.get_ring(0))
+        if self._hierarchy is not None:
+            # ordinary view install doubles as the hierarchy edge: leaders
+            # recompute deterministically from the new view (a leader
+            # eviction silently promotes the next member in leader order)
+            # and announce the cell's new row/epoch to the parent
+            self._hierarchy.on_view_installed(
+                self._view.get_ring(0), configuration_id
+            )
 
         if self._view.is_host_present(self._my_addr):
             self._create_failure_detectors()
@@ -1313,6 +1559,8 @@ class MembershipService:
             return
         self._shut_down = True
         self._alert_batcher_job.cancel()
+        if self._hierarchy_job is not None:
+            self._hierarchy_job.cancel()
         # _failure_detector_jobs is only ever touched on the protocol
         # executor (_create_failure_detectors runs there); keep shutdown's
         # cancel on the same context instead of racing it from the caller's

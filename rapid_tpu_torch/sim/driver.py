@@ -21,10 +21,10 @@ The driver's host planes follow the JAX driver's: placement
 ``placement_topr`` kernel), handoff, serving (``serving_put``/``get``, the
 open-loop driver), SLO, durability (``checkpoint_slot``/``restart_slot``)
 and the hierarchy mirror, hooked into the view change in JAX's order.
-Not in this port yet (ROADMAP.md, Queue 1 item 12): the protocol plane's
-live engines those planes mirror (handoff and serving engines, hierarchy
-plane and routing, the durable store and its log); the placement engine
-and its subscriber are in ``placement/engine.py``.
+The protocol plane's live engines those planes mirror are the port's own
+too: ``handoff/engine.py``, ``serving/engine.py``, ``hierarchy/plane.py``
+and ``routing.py``, ``durability/``; the placement engine and its
+subscriber are in ``placement/engine.py``.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ a crash under ingress loss 1.0 (both run on the gateway's protocol thread)
 and leaves on SIGINT. After each step but the leave its configuration id,
 read through its status RPC, equals the gateway's; every decision's id
 equals a plain simulator's driven alike. Then the agent alone: a seed and a
-joiner over loopback, ``--status`` against them, and the transports and
-planes the port refuses."""
+joiner over loopback, ``--status`` against them, the serving demo
+(``--serving``) on two agents, and the transports the port refuses."""
 
 import os
 import re
@@ -96,10 +96,38 @@ def test_two_agents_converge_and_answer_status():
 @pytest.mark.parametrize("args,refusal", [
     (["--transport", "grpc"], "--transport grpc is not ported"),
     (["--transport", "native-tcp"], "--transport native-tcp is not ported"),
-    (["--serving"], "--serving needs the serving plane"),
 ])
 def test_agent_refuses_what_is_not_ported(args, refusal):
     out = subprocess.run([sys.executable, "-m", "rapid_tpu_torch.cli.agent", "--listen-address",
                           "127.0.0.1:1", *args], cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert out.returncode == 2 and refusal in out.stderr, out.stderr
+
+
+def test_serving_demo_agents_write_and_read_back():
+    """``--serving`` on a seed and a joiner (placement, handoff and serving on
+    an in-memory store): each agent's tick writes its demo key through the
+    quorum path, reads it back and logs the put/get line with the serving
+    counters, as the JAX agent's demo does."""
+    base = free_port_base(2)
+    seed, joiner = f"127.0.0.1:{base}", f"127.0.0.1:{base + 1}"
+    common = ("--fd-interval-ms", "100", "--serving", "--serving-partitions", "8")
+    procs = [_agent("--listen-address", seed, *common)]
+    try:
+        seed_lines = []
+        _wait_for(procs[0], r"agent started at", seed_lines)
+        procs.append(_agent("--listen-address", joiner, "--seed-address", seed, *common))
+        for proc, addr, lines in ((procs[1], joiner, []), (procs[0], seed, seed_lines)):
+            line = _wait_for(proc, rf"serving key=agent-demo:{addr} value=tick-\d+ ", lines,
+                             timeout=90)
+            # every put is applied by both members (one row of two replicas)
+            puts = int(re.search(r"gets=\d+ puts=(\d+) acks=\d+", line).group(1))
+            assert puts >= 1, line
+        procs[1].send_signal(signal.SIGINT)
+        assert procs[1].wait(timeout=60) == 0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()

@@ -13,8 +13,10 @@ both, and the outcomes are equal exactly: every node's sequence of
 ``VIEW_CHANGE`` events (virtual ms, configuration id, member list, the
 changes with their metadata), every ``VIEW_CHANGE_PROPOSAL`` and ``KICKED``
 event, the final configuration ids and member lists, the virtual clock, and
-whatever the scenario returns. Then the planes a port member refuses, and
-the public surface.
+whatever the scenario returns. Then a member built without the handoff,
+serving and hierarchy planes, and the public surface (the planes themselves
+are twinned in ``tests/test_torch_{durability,handoff_engine,serving_engine,
+hierarchy_plane}.py``).
 """
 
 import importlib
@@ -27,7 +29,10 @@ PACKAGES = ("rapid_tpu", "rapid_tpu_torch")
 MODULES = ("cluster", "events", "faults", "membership", "cut_detector", "messaging.gossip",
            "messaging.inprocess", "messaging.unicast", "monitoring.pingpong",
            "monitoring.static_fd", "observability", "runtime.futures", "runtime.resources",
-           "runtime.scheduler", "service", "settings", "types")
+           "runtime.scheduler", "service", "settings", "types", "durability", "durability.wal",
+           "handoff.engine", "handoff.plan", "handoff.store", "hierarchy.cells",
+           "hierarchy.parent", "hierarchy.plane", "hierarchy.routing", "placement",
+           "serving.engine", "serving.kv")
 BASE_PORT = 1234
 
 
@@ -94,7 +99,8 @@ class TwinHarness:
 
         return record
 
-    def _builder(self, addr, fd=None, metadata=None, subscriptions=None, placement=None):
+    def _builder(self, addr, fd=None, metadata=None, subscriptions=None, placement=None,
+                 handoff=None, serving=False, durability=None):
         P = self.P
         self._views.pop(addr, None)  # a rejoin starts a new view
         server = P.messaging_inprocess.InProcessServer(addr, self.network)
@@ -123,6 +129,13 @@ class TwinHarness:
             builder.set_metadata(metadata)
         if placement:
             builder.use_placement(**placement)
+        if handoff is not None:
+            # a PartitionStore instance, or a factory called per node
+            builder.use_handoff(handoff() if callable(handoff) else handoff)
+        if serving:
+            builder.use_serving()
+        if durability is not None:
+            builder.use_durability(durability)
         for event in P.events.ClusterEvents:
             builder.add_subscription(event, self._recorder(addr, event))
         for event, cb in subscriptions or []:
@@ -793,57 +806,8 @@ def test_nemesis_twin(scenario, seed, static):
 
 
 # --------------------------------------------------------------------- #
-# Planes a port member refuses (ROADMAP.md Queue 1 item 12)
+# A member built without the handoff, serving and hierarchy planes
 # --------------------------------------------------------------------- #
-
-
-def _port_builder(h, i, **kw):
-    return h._builder(h.addr(i), **kw)
-
-
-REFUSALS = {
-    "handoff": lambda P, b: b.use_handoff(P.root.InMemoryPartitionStore()),
-    "serving": lambda P, b: b.use_placement().use_serving(P.root.InMemoryPartitionStore()),
-    "durability": lambda P, b: b.use_durability("/nonexistent/wal"),
-    "hierarchy": lambda P, b: b.use_settings(P.settings.Settings(
-        hierarchy=P.settings.HierarchySettings(enabled=True))),
-}
-
-
-@pytest.mark.parametrize("plane", sorted(REFUSALS))
-@pytest.mark.parametrize("entry", ["start", "join_async"])
-def test_waiting_plane_is_refused(plane, entry):
-    """``use_handoff``, ``use_serving``, ``use_durability`` and a hierarchy
-    kill switch that is on make ``start`` and ``join_async`` raise
-    ``NotImplementedError`` naming ROADMAP item 12, before any server starts."""
-    P = package("rapid_tpu_torch")
-    h = TwinHarness(P)
-    builder = REFUSALS[plane](P, _port_builder(h, 1))
-    with pytest.raises(NotImplementedError, match=rf"the {plane} plane .*ROADMAP.md Queue 1 item 12"):
-        builder.start() if entry == "start" else builder.join_async(h.addr(0))
-    assert not h.network.is_listening(h.addr(1))
-
-
-def test_service_refuses_waiting_planes():
-    """``MembershipService`` itself refuses a handoff store, serving and the
-    hierarchy plane, so no caller builds a half plane around the builder."""
-    P = package("rapid_tpu_torch")
-    T = P.types
-    scheduler = P.runtime_scheduler.VirtualScheduler()
-    network = P.messaging_inprocess.InProcessNetwork(scheduler)
-    me = T.Endpoint.from_parts("127.0.0.1", 1)
-    cases = [({"handoff_store": P.root.InMemoryPartitionStore()}, P.settings.Settings(), "handoff"),
-             ({"serving": True}, P.settings.Settings(), "serving"),
-             ({}, P.settings.Settings(hierarchy=P.settings.HierarchySettings(enabled=True)),
-              "hierarchy")]
-    for kw, settings, plane in cases:
-        view = P.membership.MembershipView(10, node_ids=[T.NodeId(1, 2)], endpoints=[me])
-        with pytest.raises(NotImplementedError, match=rf"the {plane} plane"):
-            P.service.MembershipService(
-                me, P.cut_detector.MultiNodeCutDetector(10, 9, 4), view,
-                P.runtime_resources.SharedResources(scheduler), settings,
-                P.messaging_inprocess.InProcessClient(me, network),
-                P.monitoring_static_fd.StaticFailureDetectorFactory(set()), **kw)
 
 
 def test_port_member_answers_waiting_plane_messages_as_jax_without_them():
@@ -894,7 +858,11 @@ def _public(module):
                                     ".monitoring.adaptive", ".runtime.resources",
                                     ".messaging.unicast", ".messaging.ports",
                                     ".messaging.gossip", ".messaging.inprocess",
-                                    ".forensics.bundle", ".settings", ".cli.agent"])
+                                    ".forensics.bundle", ".settings", ".cli.agent",
+                                    ".durability", ".durability.wal", ".durability.store",
+                                    ".handoff", ".handoff.engine", ".serving",
+                                    ".serving.engine", ".hierarchy", ".hierarchy.plane",
+                                    ".hierarchy.routing"])
 def test_every_public_name_of_the_jax_module_exists_in_the_port(module):
     """Each public name JAX's module defines (its ``__all__`` where it has one)
     is a name of the port's module: classes and functions are found by name."""
