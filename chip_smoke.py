@@ -161,7 +161,20 @@ into build/kernels/. Phases, each of which must pass:
    through a crash of one cell's leader (every leader's global fingerprint
    equal to a recompute), and the bench's recovery points on the port's
    store (replayed counts exact, content equal); all of it equal to
-   ``tests/golden/torch_live_planes.json``, which the JAX package wrote.
+   ``tests/golden/torch_live_planes.json``, which the JAX package wrote;
+19. the nemesis search and the forensics timeline, after the live planes
+   (``search_phase``, host Python but for the sim harness's simulators on the
+   card): the engine hunt at ``rapid_tpu_torch.cli.hunt``'s defaults (seed 0,
+   200 probes); the flagged bug (``RAPID_BUG_NEWROW_SYNC=1``, seed 12, 120
+   probes) found, shrunk to at most 3 rules and pinned, and the corpus pin
+   green without the flag and violating with it; the sim-harness hunt (seed
+   0, 20 probes, capacity 5); one sim probe at 100 000 members (the gray
+   streak, a restart and an ingress drop at 1.0, so ``fd_phase_fused`` and
+   ``placement_topr`` launch); the timeline over the bug's witness bundle,
+   a skewed-churn cluster bundle of port members and the stuck-handoff
+   fixtures, with the forensics CLI's exit codes; all of it equal to
+   ``tests/golden/torch_search.json``, which the JAX package wrote (sim
+   probes whose plans draw loss below 1.0 by verdicts and configuration id).
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -169,6 +182,7 @@ or outside a checkout, it exits non-zero and prints no result.
 """
 
 import collections
+import contextlib
 import gc
 import itertools
 import json
@@ -3688,6 +3702,15 @@ class LiveHarness:
         self.blacklist = set()
         self.instances = {}
         self.config_ids = []  # every distinct configuration id, first install order
+        self.nemesis = None
+
+    def with_faults(self, plan):
+        """Arm ``plan`` on package ``P``'s ``Nemesis`` (a registry of its
+        own): every member built afterwards has its client, server and
+        scheduler wrapped, as ``tests/harness.py``'s ``with_faults`` does."""
+        self.nemesis = self.P.faults.Nemesis(plan, self.scheduler,
+                                             metrics=self.P.observability.Metrics())
+        return self
 
     def addr(self, i):
         return self.P.types.Endpoint.from_parts("127.0.0.1", LIVE_BASE_PORT + i)
@@ -3698,11 +3721,16 @@ class LiveHarness:
 
     def builder(self, i, placement=None, serving=False, durability=None):
         P, addr = self.P, self.addr(i)
+        client = P.messaging_inprocess.InProcessClient(addr, self.network, self.settings)
+        server = P.messaging_inprocess.InProcessServer(addr, self.network)
+        scheduler = self.scheduler
+        if self.nemesis is not None:
+            client = self.nemesis.client(client, address=addr, settings=self.settings)
+            server = self.nemesis.server(server, addr)
+            scheduler = self.nemesis.scheduler_for(addr)
         builder = (P.cluster.ClusterBuilder(addr)
-                   .set_messaging_client_and_server(
-                       P.messaging_inprocess.InProcessClient(addr, self.network, self.settings),
-                       P.messaging_inprocess.InProcessServer(addr, self.network))
-                   .use_scheduler(self.scheduler).use_settings(self.settings)
+                   .set_messaging_client_and_server(client, server)
+                   .use_scheduler(scheduler).use_settings(self.settings)
                    .use_rng(random.Random(self.rng.getrandbits(64)))
                    .set_edge_failure_detector_factory(
                        P.monitoring_static_fd.StaticFailureDetectorFactory(self.blacklist))
@@ -4182,6 +4210,439 @@ def live_planes_phase(card):
             "walls": walls, "phase_s": phase_s, "launches": launches}
 
 
+# --- the nemesis search and the forensics timeline: host code on seeded
+# random.Random, except the sim harness, whose Simulator runs on the card ---
+SEARCH_MODULES = ("faults", "forensics.bundle", "forensics.hlc", "forensics.timeline",
+                  "observability", "search.coverage", "search.hunt", "search.runner",
+                  "sim.driver")
+SEARCH_ENGINE_HUNT = {"seed": 0, "budget": 200}  # tools/hunt.py's defaults
+SEARCH_BUG_HUNT = {"seed": 12, "budget": 120, "shrink_budget": 150}  # the README's demo
+SEARCH_SIM_HUNT = {"seed": 0, "budget": 20}  # the README's --harness sim --budget 20
+SEARCH_WIDE_N = N_NODES  # (d): the bench headline's members, at SIM_DEFAULTS' workload
+SEARCH_WIDE_SEED = SEED
+SEARCH_CORPUS_PIN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenarios",
+                                 "corpus", "hunt-s11-engine-linearizability-0.json")
+SEARCH_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "golden", "torch_search.json")
+# the tier-1 twin of the phase (tests/test_torch_search_golden.py): fewer probes,
+# and (d) at the search's own capacity
+SEARCH_REDUCED = {"engine_budget": 30, "sim_budget": 10, "wide_n": 5}
+BUG_FLAG = "RAPID_BUG_NEWROW_SYNC"
+
+
+def search_modules(package):
+    """``live_modules(package)`` plus the search's and the timeline's modules
+    and the forensics CLI's ``main``: the port's ``rapid_tpu_torch.cli.forensics``,
+    or for ``"rapid_tpu"`` ``tools/forensics.py`` (which the golden generator runs)."""
+    import importlib
+    import importlib.util
+
+    ns = live_modules(package)
+    for module in SEARCH_MODULES:
+        setattr(ns, module.replace(".", "_"), importlib.import_module(f"{package}.{module}"))
+    if package == "rapid_tpu":
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "forensics.py")
+        spec = importlib.util.spec_from_file_location("_forensics_cli", path)
+        cli = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cli)
+    else:
+        cli = importlib.import_module(f"{package}.cli.forensics")
+    ns.forensics_main = cli.main
+    return ns
+
+
+@contextlib.contextmanager
+def _bug_flag(on):
+    """``RAPID_BUG_NEWROW_SYNC`` set to ``on`` inside the block, restored after."""
+    saved = os.environ.pop(BUG_FLAG, None)
+    if on:
+        os.environ[BUG_FLAG] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(BUG_FLAG, None)
+        if saved is not None:
+            os.environ[BUG_FLAG] = saved
+
+
+def _signals(coverage):
+    return sorted(list(s) for s in coverage)
+
+
+def _kinds(result):
+    return sorted({v["invariant"] for v in result.violations})
+
+
+def draws_loss(spec):
+    """Whether the plan of ``spec`` has a device rule that drops below
+    probability 1.0: on the port such a probe draws from a ``torch.Generator``,
+    not threefry, and matches the JAX package by verdicts and configuration id,
+    not by round (ROADMAP Queue 3)."""
+    return spec.get("harness") == "sim" and any(
+        r.get("type") in ("DropRule", "LossyLinkRule") and r.get("probability", 1.0) < 1.0
+        and r.get("msg_types") != ["Put"]
+        for r in spec["plan"].get("rules", []))
+
+
+class _ProbeLog:
+    """Every ``run_probe`` the hunter of package ``P`` makes, with the
+    configuration id the sim harness folds last (its parity check's)."""
+
+    def __init__(self, P):
+        self.hunt, self.sim_class = P.search_hunt, P.sim_driver.Simulator
+        self.probes = []
+
+    def __enter__(self):
+        self.run_probe, self.configuration_id = self.hunt.run_probe, self.sim_class.configuration_id
+        ids = []
+
+        def configuration_id(sim):
+            ids.append(self.configuration_id(sim))
+            return ids[-1]
+
+        def run_probe(spec, **kw):
+            del ids[:]
+            result = self.run_probe(spec, **kw)
+            self.probes.append({"spec": spec, "kinds": _kinds(result), "info": result.info,
+                                "coverage_signals": len(result.coverage),
+                                "configuration_id": ids[-1] if ids else None,
+                                "draws_loss": draws_loss(spec)})
+            return result
+
+        self.hunt.run_probe, self.sim_class.configuration_id = run_probe, configuration_id
+        return self
+
+    def __exit__(self, *exc):
+        self.hunt.run_probe, self.sim_class.configuration_id = self.run_probe, self.configuration_id
+
+
+def wide_probe_spec(P, n):
+    """(d): ``SIM_DEFAULTS``' workload at capacity and members ``n``, the gray
+    streak on (``fd_gray_confirm`` 3), slot 2 restarted over [5000, 9000] ms and
+    an ingress drop at probability 1.0 on slot 7 (slot 3 below 8 members) from
+    2000 ms on: no draw below 1.0, so exact on both packages."""
+    defaults = dict(P.search_hunt.SIM_DEFAULTS, n=n, capacity=n)
+    ends = P.search_hunt.harness_endpoints("sim", defaults)
+    return {"harness": "sim", **defaults, "fd_gray_confirm": 3, "plan": {
+        "seed": SEARCH_WIDE_SEED, "rules": [
+            {"type": "RestartNodeRule", "at": "egress", "windows": [[5000, 9000]],
+             "src": None, "dst": ends[2], "msg_types": None},
+            {"type": "DropRule", "at": "ingress", "windows": [[2000, None]], "src": None,
+             "dst": ends[7 if n > 7 else 3], "msg_types": None, "probability": 1.0}]}}
+
+
+def _cli(P, *argv):
+    """The forensics CLI's exit code on ``argv`` (its output swallowed)."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        return P.forensics_main(list(argv))
+
+
+def _journal_bundle(P, events):
+    """``tests/test_forensics.py``'s ``_bundle_with``: one member's journal of
+    ``events`` stamped by an HLC whose physical clock reads 1000."""
+    rec = P.observability.FlightRecorder(capacity=64, node="10.0.0.1:9001",
+                                         hlc=P.forensics_hlc.HlcClock(clock=lambda: 1000))
+    for kind, detail in events:
+        rec.record(kind, virtual_ms=100, **detail)
+    local = P.forensics_bundle.capture_local_evidence(node="10.0.0.1:9001", recorder=rec)
+    return P.forensics_bundle.build_bundle("explicit", local)
+
+
+def skewed_churn_bundle(P, seed=31):
+    """``tests/test_forensics.py``'s skewed churn on package ``P``: three
+    members with the forensics plane on, the second clock 500 ms ahead and the
+    third 500 ms behind, the first crashed; the survivors' classic fallback
+    agrees on two, and the second captures the cluster's bundle."""
+    S = P.settings
+    h = LiveHarness(P, seed, S.Settings(forensics=S.ForensicsSettings(enabled=True)))
+    h.with_faults(P.faults.FaultPlan(seed=3).clock_skew(h.addr(1), offset_ms=500)
+                  .clock_skew(h.addr(2), offset_ms=-500))
+    try:
+        h.start(0)
+        for i in (1, 2):
+            h.join_all([(i, 0, {})])
+        h.agree(h.live())
+        h.fail([h.addr(0)])
+        h.agree(h.live(), timeout_ms=1_500_000)
+        promise = h.instances[h.addr(1)].capture_bundle_async(trigger="explicit")
+        assert h.scheduler.run_until(promise.done, timeout_ms=120_000)
+        assert promise.exception() is None, promise.exception()
+        bundle = promise.peek()
+    finally:
+        h.shutdown()
+    assert bundle["manifest"]["members"] == 2 and bundle["manifest"]["unreachable"] == []
+    return bundle
+
+
+def _normalized(P, bundle):
+    """What the timeline reads of ``bundle``, without what the host put in it:
+    journal wall times zeroed, span and trace ids (each process numbers its
+    own) renumbered in order of first appearance, and the fingerprint taken
+    over what is left."""
+    ids = {"trace_id": {}, "span_id": {}}
+
+    def renumber(fields):
+        out = dict(fields)
+        for key, seen in ids.items():
+            value = out.get(key)
+            if value:
+                out[key] = seen.setdefault(value, type(value)(len(seen) + 1))
+        return out
+
+    members = []
+    for m in bundle["members"]:
+        journal = []
+        for entry in m.get("journal", []):
+            entry = dict(renumber(entry), wall_s=0.0)
+            if isinstance(entry.get("detail"), dict):
+                entry["detail"] = renumber(entry["detail"])
+            journal.append(entry)
+        members.append({"node": m["node"], "journal": journal,
+                        "journal_dropped": m.get("journal_dropped", 0)})
+    manifest = dict(bundle["manifest"],
+                    fingerprint=P.forensics_bundle.bundle_fingerprint(members))
+    return {"trigger": bundle["trigger"], "captured_by": bundle["captured_by"],
+            "manifest": manifest, "members": members}
+
+
+def _sha(doc):
+    import hashlib
+
+    return hashlib.sha256(json.dumps(doc, sort_keys=True, default=str).encode()).hexdigest()
+
+
+def timeline_digest(P, bundles, paths):
+    """Package ``P``'s timeline over ``bundles`` (normalized): the merged
+    events, the findings, the Chrome trace and the report text (digests of
+    the three long ones), and the forensics CLI's exit codes on the bundle
+    files ``paths`` as written."""
+    T = P.forensics_timeline
+    normal = [_normalized(P, b) for b in bundles]
+    events = T.merge_timeline(normal)
+    findings = T.detect_signatures(events)
+    report = T.report_text(events, findings, normal)
+    return {"events": len(events), "nodes": sorted({e.node for e in events}),
+            "stamped": all(e.hlc is not None for e in events),
+            "kinds": dict(collections.Counter(e.kind for e in events)),
+            "events_sha256": _sha([e.to_journal_entry() for e in events]),
+            "chrome_trace_sha256": _sha(T.timeline_chrome_trace(events)),
+            "report_sha256": _sha(report), "report_lines": report.count("\n") + 1,
+            "findings": json.loads(json.dumps(findings, default=str)),
+            "report_rc": _cli(P, "report", *paths),
+            "verify_rc": [_cli(P, "verify", p) for p in paths]}
+
+
+def search_sequence(P, root, device=None, counter=None, engine_budget=None, sim_budget=None,
+                    wide_n=SEARCH_WIDE_N):
+    """The search phase's runs (a)-(e) on package ``P`` (``search_modules``)
+    under directory ``root``; ``device`` goes to every ``sim`` probe (the
+    port's; None for the JAX package). ``counter``: (reset, read) of the
+    kernel launch counts, reset before each run and read after it. Returns
+    ``(outcome, walls)``: the outcome is what ``tests/golden/torch_search.json``
+    holds (the JAX package's), the walls this host's seconds and the launches."""
+    H, R = P.search_hunt, P.search_runner
+    dev = {} if device is None else {"device": device}
+    reset, read = counter or ((lambda: None), dict)
+    out, walls = {}, {}
+
+    def timed(name, fn):
+        reset()
+        t0 = time.perf_counter()
+        value = fn()
+        walls[name] = {"s": time.perf_counter() - t0,
+                       "launches": {k: v for k, v in read().items() if v}}
+        return value
+
+    # (a) the engine hunt at the CLI's defaults
+    a = SEARCH_ENGINE_HUNT if engine_budget is None else dict(SEARCH_ENGINE_HUNT,
+                                                             budget=engine_budget)
+    with _bug_flag(False):
+        report = timed("engine_hunt", lambda: H.Hunter(harness="engine", **a, **dev).run())
+    out["engine_hunt"] = {"report": report.to_json(), "coverage": _signals(report.coverage),
+                          "transitions": report.transition_count()}
+
+    # (b) the flagged bug: found, shrunk to at most 3 rules, pinned; the
+    # corpus pin green without the flag and violating with it
+    b = SEARCH_BUG_HUNT
+    with _bug_flag(True):
+        report = timed("bug_hunt", lambda: H.Hunter(harness="engine", **b, **dev).run())
+    assert report.pinned, "the flagged bug was not found"
+    pin = report.pinned[0]
+    assert len(pin["spec"]["plan"]["rules"]) <= 3, pin
+    name = f"hunt-s{b['seed']}-engine-{'-'.join(pin['kinds'])}-0"
+    path = os.path.join(root, f"{name}.json")
+    H.pin_to_file(pin, path, name, f"shrunk by tools/hunt.py --seed {b['seed']} "
+                                   f"--budget {b['budget']} --harness engine")
+    with open(path) as f:
+        pin_bytes = f.read()
+    with open(SEARCH_CORPUS_PIN) as f:
+        corpus = {k: v for k, v in json.load(f).items()
+                  if k not in ("name", "description", "expect")}
+    replays = {}
+    for label, on in (("flag_off", False), ("flag_on", True)):
+        with _bug_flag(on):
+            result = R.run_probe(corpus, **dev)
+        replays[label] = {"kinds": _kinds(result), "info": result.info,
+                          "coverage_signals": len(result.coverage)}
+    assert replays["flag_off"]["kinds"] == [] and replays["flag_on"]["kinds"], replays
+    out["bug_hunt"] = {"report": report.to_json(), "pin": pin, "pin_bytes": pin_bytes,
+                       "corpus_replay": replays}
+
+    # (c) the simulator hunt at the search's own size (SIM_DEFAULTS, capacity 5)
+    c = SEARCH_SIM_HUNT if sim_budget is None else dict(SEARCH_SIM_HUNT, budget=sim_budget)
+    with _bug_flag(False), _ProbeLog(P) as log:
+        report = timed("sim_hunt", lambda: H.Hunter(harness="sim", **c, **dev).run())
+    out["sim_hunt"] = {"report": report.to_json(), "coverage": _signals(report.coverage),
+                       "probes": log.probes}
+
+    # (d) one simulator probe at full width
+    spec = wide_probe_spec(P, wide_n)
+    with _bug_flag(False):
+        result = timed("wide_probe", lambda: R.run_probe(spec, **dev))
+    out["wide_probe"] = {"spec": spec, "kinds": _kinds(result),
+                         "violations": list(result.violations), "info": result.info,
+                         "coverage": _signals(result.coverage)}
+
+    # (e) the timeline: (b)'s witness sidecar, taken with the forensics mirror
+    # on, the skewed churn's cluster bundle, and the stuck-handoff fixtures
+    def timeline():
+        with _bug_flag(True):
+            witness = H.Hunter(harness="engine", forensics=True, **b, **dev).run()
+        pin = witness.pinned[0]
+        assert "bundle" in pin, "the forensics hunt pinned no evidence bundle"
+        sidecar = os.path.join(root, "witness.json")
+        H.pin_to_file(pin, sidecar, "witness", "the flagged bug's witness")
+        cases = {"witness": [P.forensics_bundle.load_bundle(sidecar + ".bundle.json")],
+                 "skewed_churn": [skewed_churn_bundle(P)],
+                 "stuck_handoff": [_journal_bundle(P, [
+                     ("handoff_started", {"sessions": 2, "version": 4}),
+                     ("handoff_complete", {"partition": 0})])],
+                 "clean": [_journal_bundle(P, [
+                     ("handoff_started", {"sessions": 1, "version": 4}),
+                     ("handoff_complete", {"partition": 0})])]}
+        digests = {}
+        for label, bundles in cases.items():
+            paths = []
+            for i, bundle in enumerate(bundles):
+                paths.append(os.path.join(root, f"{label}-{i}.json"))
+                P.forensics_bundle.write_bundle(bundle, paths[-1])
+            digests[label] = timeline_digest(P, bundles, paths)
+        tampered = P.forensics_bundle.load_bundle(os.path.join(root, "clean-0.json"))
+        tampered["members"][0]["metrics"] = {"messages.forged": 1}
+        with open(os.path.join(root, "tampered.json"), "w") as f:
+            json.dump(tampered, f)
+        digests["tampered_verify_rc"] = _cli(P, "verify", os.path.join(root, "tampered.json"))
+        return digests
+
+    out["timeline"] = timed("timeline", timeline)
+    return json.loads(json.dumps(out)), walls
+
+
+def search_golden_misses(outcome, want):
+    """``outcome`` against a section ``want`` of ``tests/golden/torch_search.json``:
+    exact, except (c)'s probes whose plans draw loss below 1.0 (``draws_loss``),
+    held by verdicts and configuration id. Once such a probe's coverage differs,
+    the hunt's corpus and every later plan may differ by design, and the rest
+    of (c) is held to what it must be: no violation. Returns the misses and
+    the probes compared by verdicts only."""
+    misses = []
+    for key in ("engine_hunt", "bug_hunt", "wide_probe", "timeline"):
+        misses += _golden_misses(outcome[key], want[key], f"/{key}")
+    got, exp = outcome["sim_hunt"], want["sim_hunt"]
+    diverged, loose = False, []
+    for i, (g, w) in enumerate(zip(got["probes"], exp["probes"])):
+        if diverged:
+            loose.append(i)
+            if g["kinds"]:
+                misses.append(f"/sim_hunt/probes[{i}]: violations {g['kinds']}")
+            continue
+        if g["spec"] != w["spec"]:
+            misses.append(f"/sim_hunt/probes[{i}]: spec differs before any lossy probe diverged")
+        elif w["draws_loss"]:
+            loose.append(i)
+            misses += _golden_misses([g["kinds"], g["configuration_id"]],
+                                     [w["kinds"], w["configuration_id"]],
+                                     f"/sim_hunt/probes[{i}]")
+            diverged = g["coverage_signals"] != w["coverage_signals"] or g["info"] != w["info"]
+        else:
+            misses += _golden_misses(g, w, f"/sim_hunt/probes[{i}]")
+    if len(got["probes"]) != len(exp["probes"]):
+        misses.append(f"/sim_hunt: {len(got['probes'])} probes, want {len(exp['probes'])}")
+    if not diverged:
+        misses += _golden_misses({k: v for k, v in got.items() if k != "probes"},
+                                 {k: v for k, v in exp.items() if k != "probes"}, "/sim_hunt")
+    elif got["report"]["violations"]:
+        misses.append(f"/sim_hunt: violations {got['report']['violations']}")
+    return misses, loose
+
+
+def search_phase(card):
+    """The nemesis search and the forensics timeline on the port, the sim
+    harness's simulators on the card, held to the golden file's ``full``
+    section; prints each run's wall, probes, violations and launches."""
+    import tempfile
+
+    from rapid_tpu_torch.sim import kernels
+
+    P = search_modules("rapid_tpu_torch")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-search-") as root:
+        outcome, walls = search_sequence(
+            P, root, device="cuda",
+            counter=(kernels.reset_launches, lambda: dict(kernels.LAUNCHES)))
+    phase_s = time.perf_counter() - t0
+    with open(SEARCH_GOLDEN) as f:
+        want = json.load(f)["full"]
+    misses, loose = search_golden_misses(outcome, want)
+    for name in ("engine_hunt", "bug_hunt", "sim_hunt"):
+        r, w = outcome[name]["report"], walls[name]
+        print(f"search, {name}: seed {r['seed']}, harness {r['harness']}, {r['probes']} probes, "
+              f"{len(r['violations'])} violating, {len(r['pinned'])} pinned, "
+              f"{r['coverage_signals']} coverage signals, {r['event_transitions']} transitions; "
+              f"{w['s'] * 1e3:.1f} ms host; launches {w['launches'] or 'none'} ({card})",
+              flush=True)
+    b = outcome["bug_hunt"]
+    print(f"search, bug_hunt pin: {b['pin']['kinds']} with "
+          f"{len(b['pin']['spec']['plan']['rules'])} rule(s) after "
+          f"{b['pin']['shrink_probes']} shrink probes, {len(b['pin_bytes'])} bytes pinned; corpus "
+          f"{os.path.basename(SEARCH_CORPUS_PIN)}: flag off {b['corpus_replay']['flag_off']['kinds']}, "
+          f"flag on {b['corpus_replay']['flag_on']['kinds']}", flush=True)
+    probes = outcome["sim_hunt"]["probes"]
+    print(f"search, sim_hunt probes: {len(probes)} on cuda, capacity "
+          f"{probes[0]['spec']['capacity']}; {len(loose)} compared by verdicts and "
+          f"configuration id only (loss below 1.0 draws from a torch.Generator) {loose}; "
+          f"violations {sum(1 for p in probes if p['kinds'])}", flush=True)
+    d, dw = outcome["wide_probe"], walls["wide_probe"]
+    print(f"search, wide_probe: {d['spec']['n']} members, fd_gray_confirm "
+          f"{d['spec']['fd_gray_confirm']}, restart {d['spec']['plan']['rules'][0]['dst']} and "
+          f"ingress drop 1.0 on {d['spec']['plan']['rules'][1]['dst']}: violations "
+          f"{d['kinds'] or 'none'}, view changes {d['info']['view_changes']}, virtual "
+          f"{d['info']['virtual_ms']} ms, acked puts {d['info']['acked_puts']}, history "
+          f"{d['info']['history']}, replayed {d['info']['replayed_records']}, "
+          f"{len(d['coverage'])} coverage signals; {dw['s'] * 1e3:.1f} ms host; launches "
+          f"{dw['launches']} ({card})", flush=True)
+    for label, t in outcome["timeline"].items():
+        if isinstance(t, dict):
+            print(f"search, timeline {label}: {t['events']} events on {len(t['nodes'])} nodes, "
+                  f"findings {[f['signature'] for f in t['findings']] or 'none'}, report rc "
+                  f"{t['report_rc']}, verify rc {t['verify_rc']}", flush=True)
+    print(f"search, timeline: tampered bundle verify rc "
+          f"{outcome['timeline']['tampered_verify_rc']}; {walls['timeline']['s'] * 1e3:.1f} ms host",
+          flush=True)
+    assert not misses, f"search differs from {SEARCH_GOLDEN}: " + "; ".join(misses[:8])
+    launches = walls["wide_probe"]["launches"]
+    assert launches.get("fd_phase_fused", 0) >= 1, launches
+    assert launches.get("placement_topr", 0) >= 1, launches
+    for run in walls.values():
+        assert run["launches"].get("fd_phase_u8", 0) == 0, run
+    print(f"search, golden: (a)-(e) equal tests/golden/torch_search.json's full section; "
+          f"phase {phase_s:.1f} s", flush=True)
+    return {"walls": walls, "phase_s": phase_s, "loose_probes": loose,
+            "wide_info": d["info"]}
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4244,6 +4705,15 @@ def main() -> int:
     # --- the protocol plane's live engines (host Python; no kernel) --------
     live = live_planes_phase(card)
     print(f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    # --- the nemesis search and the forensics timeline (the sim harness's
+    # simulators on the card) ----------------------------------------------
+    search = search_phase(card)
+    print(f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    # (run, launches) of the search's sim-harness runs: (c) the hunt, (d) the 100k probe
+    search_launches = {}
+    for run in ("sim_hunt", "wide_probe"):
+        for name, count in search["walls"][run]["launches"].items():
+            search_launches.setdefault(name, []).append((run, count))
     member_launches, agent_launches = {}, {}
     for rows, key, into in ((members["pumps"], "launches", member_launches),
                             (agent["steps"], "pump_launches", agent_launches)):
@@ -4375,6 +4845,8 @@ def main() -> int:
             "launches_agent": agent_launches.get(name, []),
             # the live planes' phase (serving, hierarchy, recovery): no kernel
             "launches_live_planes": live["launches"].get(name, 0),
+            # (run, launches) of the search (sim harness): the capacity-5 hunt, the 100k probe
+            "launches_search": search_launches.get(name, []),
             # the 100k fault replay (drop rule at 1.0 and the gray streak: the scan path)
             "launches_replay": replay["launches"].get(name, 0),
             "match": True,
@@ -4414,6 +4886,7 @@ def main() -> int:
             "launches_agent": agent_launches.get(name, []),
             # the live planes' phase (serving, hierarchy, recovery): no kernel
             "launches_live_planes": live["launches"].get(name, 0),
+            "launches_search": search_launches.get(name, []),
             # (run, rank, launches) of each process of the multi-process decisions
             "launches_multiprocess": [
                 (label, r["process"], r["launches"].get(name, 0))
@@ -4442,6 +4915,7 @@ def main() -> int:
         "path": "planes, full width (enable_placement and the crash's view change)",
         "launches": planes_result["launches"]["placement_topr"],
         "launches_live_planes": live["launches"].get("placement_topr", 0),
+        "launches_search": search_launches.get("placement_topr", []),
         "match": True,
         "max_abs_err": max(t["max_abs_err"] for t in topr.values()),
         "ms": main_case["ms"],
@@ -4466,7 +4940,7 @@ def main() -> int:
                                                     for p in bridge["pumps"]]),
                       "wire": wire, "gateway": gateway, "planes": planes_result,
                       "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
-                      "agent": agent, "live_planes": live},
+                      "agent": agent, "live_planes": live, "search": search},
                      default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

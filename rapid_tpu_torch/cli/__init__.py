@@ -1,4 +1,7 @@
 """Command-line entry points of the port: the swarm gateway
 (``python -m rapid_tpu_torch.cli.gateway``), the standalone agent
-(``python -m rapid_tpu_torch.cli.agent``) and a multi-process mesh rank
-(``python -m rapid_tpu_torch.cli.multihost_sim``)."""
+(``python -m rapid_tpu_torch.cli.agent``), a multi-process mesh rank
+(``python -m rapid_tpu_torch.cli.multihost_sim``), the nemesis search
+(``python -m rapid_tpu_torch.cli.hunt``, ``tools/hunt.py``'s counterpart)
+and the forensics timeline (``python -m rapid_tpu_torch.cli.forensics``,
+``tools/forensics.py``'s counterpart)."""

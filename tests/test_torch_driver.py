@@ -219,8 +219,9 @@ def test_pow2_chunks():
 
 def test_port_imports_neither_jax_nor_rapid_tpu():
     """In a fresh interpreter, the port (its simulator bridge, protocol
-    classes and socket gateway too) and chip_smoke.py load no module of JAX,
-    of the JAX package, of msgpack or of protobuf."""
+    classes, socket gateway, nemesis search, forensics timeline and their
+    CLIs too) and chip_smoke.py load no module of JAX, of the JAX package,
+    of msgpack or of protobuf."""
     code = (
         "import runpy, sys\n"
         "import rapid_tpu_torch.sim.driver, rapid_tpu_torch.sim.classic\n"
@@ -231,6 +232,12 @@ def test_port_imports_neither_jax_nor_rapid_tpu():
         "import rapid_tpu_torch.sim.bridge, rapid_tpu_torch.types\n"
         "import rapid_tpu_torch.runtime.futures\n"
         "import rapid_tpu_torch.messaging.gateway, rapid_tpu_torch.cli.gateway\n"
+        "import rapid_tpu_torch.search, rapid_tpu_torch.search.checkers\n"
+        "import rapid_tpu_torch.search.coverage, rapid_tpu_torch.search.generator\n"
+        "import rapid_tpu_torch.search.fabric, rapid_tpu_torch.search.runner\n"
+        "import rapid_tpu_torch.search.shrinker, rapid_tpu_torch.search.hunt\n"
+        "import rapid_tpu_torch.forensics.timeline\n"
+        "import rapid_tpu_torch.cli.hunt, rapid_tpu_torch.cli.forensics\n"
         "runpy.run_path('chip_smoke.py')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu', 'msgpack')\n"
