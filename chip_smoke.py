@@ -174,7 +174,29 @@ into build/kernels/. Phases, each of which must pass:
    a skewed-churn cluster bundle of port members and the stuck-handoff
    fixtures, with the forensics CLI's exit codes; all of it equal to
    ``tests/golden/torch_search.json``, which the JAX package wrote (sim
-   probes whose plans draw loss below 1.0 by verdicts and configuration id).
+   probes whose plans draw loss below 1.0 by verdicts and configuration id);
+20. the native host plane (``rapid_tpu_torch/native.py``,
+   ``runtime/native_io.py``, ``messaging/native_tcp.py``, the gateway's
+   ``native_server``, ``profiling/scrape.py``; host C++, no kernel): (a)
+   right after the kernel build, both libraries built with g++ from
+   ``rapid_tpu_torch/csrc/host/`` and loaded, or the run fails; (b) on the
+   bench headline's ``VirtualCluster.synthesize(100_000, 10, 42)``,
+   ``synthesize``, ``ring_hashes``, ``xxh64_batch`` and ``config_fold``
+   equal to the numpy paths, each wall both ways, and at 1 000 000 the
+   native path timed and held to numpy on a seeded sample of 10 000 rows
+   (``native_hashes``); after the agent phase, (c) the member phase's join
+   (native: ``native.CALLS["ring_hashes"]`` must grow) and the same join
+   with the native entry points patched to None here, each build split
+   into ``_bulk_insert``, the identifier insort, the scalar configuration id
+   and the service, one id (``native_member_join``); then the view build of
+   those 100 000 endpoints alone, six times in turns on the two paths
+   (``native_view_builds``); (d) ``gateway_sequence``
+   with ``native_server=True``, every id equal to the Python server's run,
+   and ``agent_sequence`` with the agent on ``--transport native-tcp``
+   (``native_gateway``); (e) 3 port members on ``NativeTcpClientServer``
+   scraped with ``ClusterStatusRequest(include_history=8)`` and folded with
+   ``cluster_timeseries``, one series map a member holding its own counters
+   (``native_scrape``).
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -2125,7 +2147,7 @@ class _GatewayProbe:
                     self.task_syncs)
 
 
-def gateway_sequence(n, device, seed=SEED):
+def gateway_sequence(n, device, seed=SEED, native_server=False, member_port=None):
     """The gateway phase: the port's ``SwarmGateway`` on 127.0.0.1 hosting
     ``n`` virtual members (seed ``seed``, ``GATEWAY_SETTINGS``), warmed,
     and a real member in a child OS process (``--gateway-member``) that
@@ -2139,7 +2161,9 @@ def gateway_sequence(n, device, seed=SEED):
     by ``jitwatch`` label (on a card also counted by torch's sync debug
     mode on the protocol thread) and kernel launches. Every configuration
     id must be equal on three sides: the gateway's, the member's own view,
-    and a plain ``Simulator`` driven alike."""
+    and a plain ``Simulator`` driven alike. ``native_server``: the gateway's
+    front door on the C++ epoll reactor; ``member_port``: the member's port
+    (an earlier run's, so that the two runs' ids compare)."""
     from rapid_tpu_torch.messaging.gateway import SwarmGateway
     from rapid_tpu_torch.settings import Settings
     from rapid_tpu_torch.sim import kernels
@@ -2151,11 +2175,15 @@ def gateway_sequence(n, device, seed=SEED):
     on_card = torch.device(device).type == "cuda"
     rng = np.random.default_rng(seed + 20_000)
     victims = [np.sort(v) for v in np.split(rng.choice(n, 2 * (n // 100), replace=False), 2)]
-    gw_port, member_port = _free_ports(2)
+    if member_port is None:
+        gw_port, member_port = _free_ports(2)
+    else:
+        gw_port = next(p for p in _free_ports(2) if p != member_port)
     member_ep = protocol.Endpoint.from_parts("127.0.0.1", member_port)
     gateway = SwarmGateway(protocol.Endpoint.from_parts("127.0.0.1", gw_port), n_virtual=n,
                            seed=seed, settings=Settings(**GATEWAY_SETTINGS),
-                           pump_interval_ms=GATEWAY_PUMP_MS, device=device)
+                           pump_interval_ms=GATEWAY_PUMP_MS, native_server=native_server,
+                           device=device)
     bridge, sim = gateway.bridge, gateway.bridge.sim
     probe = _GatewayProbe(gateway, on_card)
     if on_card:
@@ -2168,6 +2196,8 @@ def gateway_sequence(n, device, seed=SEED):
     try:
         with clock:
             gateway.start()
+            assert (gateway._reactor is not None) == native_server  # noqa: SLF001
+            assert (gateway._framed is None) == native_server  # noqa: SLF001
             t0 = time.perf_counter()
             gateway.warm()
             warm_s = time.perf_counter() - t0
@@ -2278,7 +2308,8 @@ def gateway_sequence(n, device, seed=SEED):
         row["plain_configuration_id"] = prec.configuration_id
         assert row["configuration_id"] == prec.configuration_id, (row["name"], prec)
     del gateway, bridge, sim
-    return {"warm_s": warm_s, "warm_peak_bytes": warm_bytes, "steps": steps}
+    return {"warm_s": warm_s, "warm_peak_bytes": warm_bytes, "steps": steps,
+            "member_port": member_port, "native_server": native_server}
 
 
 def _on_protocol_thread(gateway, fn, timeout=GATEWAY_WAIT_S):
@@ -2300,10 +2331,10 @@ def _on_protocol_thread(gateway, fn, timeout=GATEWAY_WAIT_S):
         raise error[0]
 
 
-def _print_gateway(result, card):
+def _print_gateway(result, card, label="gateway"):
     for row in result["steps"]:
         c = row["codec"]
-        print(f"gateway, {row['name']} ({card}): {row['members_before']} members, cut "
+        print(f"{label}, {row['name']} ({card}): {row['members_before']} members, cut "
               f"{row['cut']}, configuration id {row['configuration_id']} (== the member's own "
               f"view == the plain simulator's), virtual {row['virtual_time_ms']} ms; wall as "
               f"the member sees it {row['member_wall_ms']:.3f} ms; decision pump "
@@ -2327,7 +2358,7 @@ def _print_gateway(result, card):
               + "".join(f"; {k} {row[k]}" for k in (
                   "vote_registered", "alert_batch", "vote_senders", "quorum") if row.get(k)),
               flush=True)
-    print(f"gateway warm(): {result['warm_s']:.3f} s"
+    print(f"{label} warm(): {result['warm_s']:.3f} s"
           + ("" if result["warm_peak_bytes"] is None else
              f", peak {result['warm_peak_bytes'] / 2**20:.1f} MiB of device memory above the "
              "swarm's own state") + f" ({card})", flush=True)
@@ -2371,27 +2402,59 @@ class SwarmBroadcaster:
         return promises
 
 
+# the join's view and service build by phase (``_MemberClock.split``): the
+# self time of each method, nested calls subtracted from their callers
+BUILD_PHASES = (
+    ("bulk_insert", "membership", "MembershipView", "_bulk_insert"),  # ring hashes, sorts, caches
+    ("identifier_insort", "membership", "MembershipView", "__init__"),  # the view's own loop
+    ("configuration_id", "membership", "MembershipView", "get_configuration"),  # scalar id
+    ("service", "service", "MembershipService", "__init__"),
+)
+
+
 class _MemberClock:
     """Host time of the port's real members in this process: every protocol
     task of theirs (message handlers, the alert batcher, view changes: each
     runs through ``SharedResources.protocol_executor`` on the shared virtual
     scheduler) and their join's view and service build
     (``cluster.MembershipView`` and ``cluster.MembershipService``, timed
-    apart as ``build_ms``). Nested calls count once. The names are restored
-    on exit."""
+    apart as ``build_ms``). Nested calls count once. ``split`` holds the
+    self time of each of ``BUILD_PHASES`` (whoever calls them), so the
+    join's build reads by phase. The names are restored on exit."""
 
     def __init__(self):
+        import importlib
+
         from rapid_tpu_torch import cluster
         from rapid_tpu_torch.runtime import resources
 
         self._cluster, self._executor = cluster, resources._SchedulerExecutor  # noqa: SLF001
         self._saved = (cluster.MembershipView, cluster.MembershipService,
                        self._executor.execute)
+        self._methods = [
+            (label, cls, attr, getattr(cls, attr)) for label, cls, attr in (
+                (label, getattr(importlib.import_module(f"rapid_tpu_torch.{module}"), owner),
+                 attr) for label, module, owner, attr in BUILD_PHASES)]
         self._depth = 0
+        self._stack = []  # [label, start, time of nested phases]
         self.reset()
 
     def reset(self):
         self.ms = self.build_ms = 0.0
+        self.split = {label: 0.0 for label, *_ in BUILD_PHASES}
+
+    def _phase(self, label, fn):
+        def call(*args, **kw):
+            self._stack.append([label, time.perf_counter(), 0.0])
+            try:
+                return fn(*args, **kw)
+            finally:
+                _, t0, nested = self._stack.pop()
+                ms = (time.perf_counter() - t0) * 1e3
+                self.split[label] += ms - nested
+                if self._stack:
+                    self._stack[-1][2] += ms
+        return call
 
     def _timed(self, fn, build):
         def call(*args, **kw):
@@ -2419,14 +2482,18 @@ class _MemberClock:
             execute(executor, clock._timed(fn, False))
 
         self._executor.execute = timed_execute
+        for label, cls, attr, fn in self._methods:
+            setattr(cls, attr, self._phase(label, fn))
         return self
 
     def __exit__(self, *exc):
         (self._cluster.MembershipView, self._cluster.MembershipService,
          self._executor.execute) = self._saved
+        for _, cls, attr, fn in self._methods:
+            setattr(cls, attr, fn)
 
 
-def member_sequence(n, device, seed=SEED, scripted=None):
+def member_sequence(n, device, seed=SEED, scripted=None, join_only=False):
     """The real-member phase: the port's own ``Cluster`` (``ClusterBuilder`` on
     ``InProcessClient`` / ``InProcessServer``, default ``Settings``) against
     ``TpuSimMessaging(InProcessNetwork(VirtualScheduler()), n)`` on the
@@ -2442,9 +2509,12 @@ def member_sequence(n, device, seed=SEED, scripted=None):
     the simulator's dispatches, the members' own host work (``_MemberClock``:
     their protocol tasks; the join's view and service build apart), and the
     rest: the bridge's host work and the scheduler's delivery, with syncs by
-    label and kernel launches. ``scripted``: ``bridge_sequence``'s result
-    of the same run, whose pump walls are printed beside these."""
-    from rapid_tpu_torch import ClusterBuilder, Settings
+    label and kernel launches, the calls that reached the port's native host
+    library (``native.CALLS``) and the join's build by phase
+    (``_MemberClock.split``). ``scripted``: ``bridge_sequence``'s result of
+    the same run, whose pump walls are printed beside these. ``join_only``:
+    the one member's join alone, then its leave unpumped."""
+    from rapid_tpu_torch import ClusterBuilder, Settings, native
     from rapid_tpu_torch.messaging.inprocess import (InProcessClient, InProcessNetwork,
                                                      InProcessServer)
     from rapid_tpu_torch.runtime import jitwatch
@@ -2506,6 +2576,7 @@ def member_sequence(n, device, seed=SEED, scripted=None):
         n_before = sim.membership_size
         kernels.reset_launches()
         before = jitwatch.sync_counts()
+        native_before = dict(native.CALLS)
         timers["dispatch"] = 0.0
         del votes[:]
         clock.reset()
@@ -2527,6 +2598,9 @@ def member_sequence(n, device, seed=SEED, scripted=None):
                "host_ms": wall * 1e3 - timers["dispatch"] * 1e3 - clock.ms,
                "syncs": _diff(jitwatch.sync_counts(), before),
                "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+               "native_calls": {k: v - native_before[k] for k, v in native.CALLS.items()
+                                if v != native_before[k]},
+               "member_build_split": dict(clock.split),
                "votes_registered": list(votes), "real_members": real}
         pumps.append(row)
         return rec, row
@@ -2544,6 +2618,20 @@ def member_sequence(n, device, seed=SEED, scripted=None):
     assert rec.added.tolist() == [slot] and cluster.get_membership_size() == n + 1
     assert cluster.get_current_configuration_id() == sim.configuration_id() \
         == rec.configuration_id
+    if join_only:
+        node_id = NodeId.random(random.Random(MEMBER_RNG_SEED))
+        cluster.shutdown()
+        del cluster, promise, bridge, net, sched
+        gc.collect()
+        plain = Simulator(n, capacity=n + 16, config=SimConfig(capacity=n + 16,
+                                                              extern_proposals=4),
+                          seed=seed, device=device)
+        plain.assign_identity(slot, ep.hostname, ep.port, node_id.high, node_id.low)
+        plain.request_joins(np.array([slot]))
+        prec = plain.run_until_decision(max_rounds=32, batch=8)
+        row["plain_configuration_id"] = prec.configuration_id
+        assert row["configuration_id"] == prec.configuration_id, (row, prec)
+        return {"pumps": pumps}
     for name, fault, cut in (
             ("crash, closed form", lambda: sim.crash(victims[0]), victims[0]),
             ("crash, scan", lambda: (sim.crash(victims[1]), sim.ingress_loss(victims[1], 1.0)),
@@ -2629,11 +2717,17 @@ def member_sequence(n, device, seed=SEED, scripted=None):
               f"(view and service build {row['member_build_ms']:.3f}) + bridge host and "
               f"delivery {row['host_ms']:.3f}; votes registered "
               f"{len(row['votes_registered'])}; syncs by label {row['syncs']}; kernel launches "
-              f"{row['launches']}"
+              f"{row['launches']}; native calls {row['native_calls']}"
+              + (f"; the build by phase {_split_text(row['member_build_split'])}"
+                 if row["member_build_ms"] else "")
               + ("" if beside is None else f"; the scripted member's pump {beside:.3f} ms")
               + (f"; decided in {row['decided_in_ms']} ms virtual" if "decided_in_ms" in row
                  else ""), flush=True)
     return {"pumps": pumps}
+
+
+def _split_text(split):
+    return ", ".join(f"{label} {ms:.3f} ms" for label, ms in split.items())
 
 
 class _AgentChild:
@@ -2687,7 +2781,8 @@ class _AgentChild:
                 self.proc.wait()
 
 
-def agent_sequence(n, device, seed=SEED, scripted=None):
+def agent_sequence(n, device, seed=SEED, scripted=None, transport="tcp", native_server=False,
+                   label="agent", beside="the scripted member's"):
     """The agent phase: the port's ``SwarmGateway`` on 127.0.0.1 hosting ``n``
     virtual members (``GATEWAY_SETTINGS``, as ``gateway_sequence``), and
     ``python -m rapid_tpu_torch.cli.agent`` in a child process: a real port
@@ -2705,8 +2800,11 @@ def agent_sequence(n, device, seed=SEED, scripted=None):
     the agent's log line of the view change, the decision pump's wall split
     as ``gateway_sequence`` splits it, the agent's vote (whether the swarm
     registered it in the phase-B window), syncs by label and kernel
-    launches. ``scripted``: ``gateway_sequence``'s result of the same run,
-    whose step walls are printed beside these."""
+    launches. ``scripted``: ``gateway_sequence``'s (or an earlier agent
+    run's) result of the same run, whose step walls are printed beside these,
+    as ``beside``. ``transport``: the agent's ``--transport``;
+    ``native_server``: the gateway's front door on the C++ epoll reactor;
+    ``label`` starts each printed line."""
     from rapid_tpu_torch.cli.agent import query_status
     from rapid_tpu_torch.messaging.gateway import SwarmGateway
     from rapid_tpu_torch.settings import Settings
@@ -2723,7 +2821,8 @@ def agent_sequence(n, device, seed=SEED, scripted=None):
     agent_ep = Endpoint.from_string(agent_addr)
     gateway = SwarmGateway(Endpoint.from_parts("127.0.0.1", gw_port), n_virtual=n, seed=seed,
                            settings=Settings(**GATEWAY_SETTINGS),
-                           pump_interval_ms=GATEWAY_PUMP_MS, device=device)
+                           pump_interval_ms=GATEWAY_PUMP_MS, native_server=native_server,
+                           device=device)
     bridge, sim = gateway.bridge, gateway.bridge.sim
     probe = _GatewayProbe(gateway, on_card)
     slot = n  # the first spare slot seats the joiner
@@ -2775,7 +2874,7 @@ def agent_sequence(n, device, seed=SEED, scripted=None):
             "--listen-address", agent_addr, "--seed-address", str(gateway.seed_endpoint()),
             "--gateway-address", f"127.0.0.1:{gw_port}", "--fd-interval-ms",
             str(GATEWAY_SETTINGS["failure_detector_interval_ms"]), "--join-timeout",
-            str(AGENT_JOIN_TIMEOUT_S)])
+            str(AGENT_JOIN_TIMEOUT_S), "--transport", transport])
         return child.started
 
     def on_protocol_thread(fault):
@@ -2841,15 +2940,16 @@ def agent_sequence(n, device, seed=SEED, scripted=None):
         assert prec is not None
         row["plain_configuration_id"] = prec.configuration_id
         assert row["configuration_id"] == prec.configuration_id, (row["name"], prec)
-    scripted_walls = {r["name"]: r["member_wall_ms"] for r in (scripted or {}).get("steps", [])}
+    scripted_walls = {r["name"]: r.get("member_wall_ms", r.get("agent_wall_ms"))
+                      for r in (scripted or {}).get("steps", [])}
     for row in steps:
-        beside = scripted_walls.get(row["name"])
-        print(f"agent, {row['name']}: {row['members_before']} members, cut {row['cut']}, "
+        beside_ms = scripted_walls.get(row["name"])
+        print(f"{label}, {row['name']}: {row['members_before']} members, cut {row['cut']}, "
               f"configuration id {row['configuration_id']} (== the plain simulator's"
               + (", == the agent's status RPC" if "agent_configuration_id" in row else
                  "; the agent exited 0") + f"), virtual {row['virtual_time_ms']} ms; wall as "
               f"the agent sees it {row['agent_wall_ms']:.3f} ms"
-              + ("" if beside is None else f" (the scripted member's {beside:.3f} ms)")
+              + ("" if beside_ms is None else f" ({beside} {beside_ms:.3f} ms)")
               + f"; decision pump {row['pump_wall_ms']:.3f} ms = dispatch "
               f"{row['dispatch_ms']:.3f} + vote window {row['vote_window_ms']:.3f} + bridge "
               f"host {row['host_ms']:.3f}; the agent's vote registered in the window: "
@@ -2860,8 +2960,9 @@ def agent_sequence(n, device, seed=SEED, scripted=None):
               + ("" if row["counted_syncs"] is None else
                  f" (debug mode counted {row['counted_syncs']})")
               + f", launches {row['launches']}", flush=True)
-    print(f"agent phase: gateway warm() {warm_s:.3f} s", flush=True)
-    return {"warm_s": warm_s, "steps": steps}
+    print(f"{label} phase: gateway warm() {warm_s:.3f} s", flush=True)
+    return {"warm_s": warm_s, "steps": steps, "transport": transport,
+            "native_server": native_server}
 
 
 def wire_phase(card, reps=5):
@@ -4643,6 +4744,305 @@ def search_phase(card):
             "wide_info": d["info"]}
 
 
+NATIVE_ENTRY_POINTS = ("xxh64_batch", "ring_hashes", "build_adjacency", "config_fold")
+NATIVE_K = 10
+NATIVE_BIG = 1_000_000  # (b)'s native-only size, checked on a sample
+NATIVE_SAMPLE = 10_000
+NATIVE_REPS = 3
+SCRAPE_MEMBERS = 3
+
+
+@contextlib.contextmanager
+def numpy_paths():
+    """Every entry point of the port's native host library answers None, as
+    where the library is unavailable, so each caller takes its numpy path;
+    restored on exit. This script's own switch: the package has none."""
+    from rapid_tpu_torch import native
+
+    saved = {name: getattr(native, name) for name in NATIVE_ENTRY_POINTS}
+    for name in saved:
+        setattr(native, name, lambda *a, **k: None)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
+def native_build(card):
+    """(a) Both host libraries built from ``rapid_tpu_torch/csrc/host/`` with
+    g++ and loaded; no fallback: the run fails when either does not."""
+    from rapid_tpu_torch import native
+    from rapid_tpu_torch.runtime import native_io
+
+    t0 = time.perf_counter()
+    lib = native.load()
+    t1 = time.perf_counter()
+    io = native_io.load()
+    t2 = time.perf_counter()
+    assert lib is not None and io is not None, f"native: a host library is unavailable: " \
+        f"{native.ERRORS}"
+    walls = {stem: native.BUILD_WALLS.get(stem) for stem in ("rapid_native", "rapid_io")}
+    print(f"native, build: g++ rapid_native.cpp "
+          + ("reused" if walls["rapid_native"] is None else f"{walls['rapid_native']:.2f} s")
+          + ", rapid_io.cpp "
+          + ("reused" if walls["rapid_io"] is None else f"{walls['rapid_io']:.2f} s")
+          + f" (build and load {t1 - t0:.2f} s and {t2 - t1:.2f} s) into "
+          f"{native.BUILD_DIR} ({card})", flush=True)
+    return {"gxx_s": walls, "load_s": {"rapid_native": t1 - t0, "rapid_io": t2 - t1}}
+
+
+def _timed_ms(fn, reps):
+    """``fn()``'s result and its walls in ms over ``reps`` calls."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, walls
+
+
+def native_hashes(card, n=N_NODES, big=NATIVE_BIG, sample=NATIVE_SAMPLE, k=NATIVE_K,
+                  seed=SEED, reps=NATIVE_REPS):
+    """(b) The native entry points against the port's numpy paths on the
+    bench headline's synthesized cluster (``VirtualCluster.synthesize(n, k,
+    seed)``): ``synthesize`` itself, ``ring_hashes``, ``xxh64_batch`` on the
+    hostnames and ``config_fold`` over the elements' hashes, each equal, each
+    wall both ways (median of ``reps``). At ``big`` the native path alone is
+    timed and held to the numpy path on a seeded sample of ``sample`` rows
+    (the fold in full)."""
+    from rapid_tpu_torch import hashing, native
+    from rapid_tpu_torch.sim import topology
+
+    def cases(vc, rows=None):
+        data, lengths, ports = vc.hostnames, vc.host_lengths, vc.ports
+        hashes = vc.node_hashes()
+        if rows is not None:
+            data, lengths, ports = data[rows], lengths[rows], ports[rows]
+        return {
+            "ring_hashes": (lambda: native.ring_hashes(vc.hostnames, vc.host_lengths,
+                                                       vc.ports, k),
+                            lambda: np.stack([hashing.endpoint_hash_batch(data, lengths, ports,
+                                                                          r)
+                                              for r in range(k)])),
+            "xxh64_batch": (lambda: native.xxh64_batch(vc.hostnames, vc.host_lengths, 0),
+                            lambda: hashing.xxh64_batch(data, lengths, 0)),
+            "config_fold": (lambda: topology.config_fold(*hashes),
+                            lambda: _numpy_call(topology.config_fold, *hashes)),
+        }
+
+    out = {}
+    got, nat = _timed_ms(lambda: topology.VirtualCluster.synthesize(n, k, seed), reps)
+    want, plain = _timed_ms(lambda: _numpy_call(topology.VirtualCluster.synthesize, n, k, seed),
+                            reps)
+    assert np.array_equal(got.ring_hashes, want.ring_hashes), "native: synthesize differs"
+    out[f"synthesize {n}"] = {"native_ms": nat, "numpy_ms": plain}
+    for name, (fn, ref) in cases(got).items():
+        a, nat = _timed_ms(fn, reps)
+        b, plain = _timed_ms(ref, reps)
+        assert np.array_equal(np.asarray(a), np.asarray(b)), f"native: {name} differs at {n}"
+        out[f"{name} {n}"] = {"native_ms": nat, "numpy_ms": plain}
+    del got, want
+    vc, nat = _timed_ms(lambda: topology.VirtualCluster.synthesize(big, k, seed), 1)
+    out[f"synthesize {big}"] = {"native_ms": nat, "numpy_ms": None}
+    rows = np.sort(np.random.default_rng(seed).choice(big, sample, replace=False))
+    for name, (fn, ref) in cases(vc, rows).items():
+        a, nat = _timed_ms(fn, reps)
+        b = ref()
+        if name != "config_fold":
+            a = np.asarray(a)[..., rows]
+        assert np.array_equal(np.asarray(a), np.asarray(b)), f"native: {name} differs at {big}"
+        out[f"{name} {big}"] = {"native_ms": nat, "numpy_ms": None,
+                                "checked_rows": None if name == "config_fold" else sample}
+    for label, r in out.items():
+        print(f"native, {label}: equal to the numpy path"
+              + ("" if r.get("checked_rows") is None else
+                 f" on a seeded sample of {r['checked_rows']} rows")
+              + f"; native {statistics.median(r['native_ms']):.3f} ms"
+              + ("" if r["numpy_ms"] is None else
+                 f", numpy {statistics.median(r['numpy_ms']):.3f} ms")
+              + f" (median of {len(r['native_ms'])}; {card})", flush=True)
+    assert native.CALLS["ring_hashes"] > 0 and native.CALLS["config_fold"] > 0, native.CALLS
+    return out
+
+
+def _numpy_call(fn, *args):
+    with numpy_paths():
+        return fn(*args)
+
+
+NATIVE_JOIN_TURNS = ("numpy",)  # (c): the member's join again, on the numpy path
+NATIVE_VIEW_TURNS = ("native", "numpy", "numpy", "native", "native", "numpy")
+
+
+def native_view_builds(n, card, turns=NATIVE_VIEW_TURNS, k=NATIVE_K, seed=SEED):
+    """(c) The view build alone, where the join's host time goes: a
+    ``MembershipView`` of the bench headline's ``n`` synthesized endpoints
+    and node ids (``_bulk_insert`` and the identifier insort) and its
+    configuration id, on the native path or under ``numpy_paths``, in
+    ``turns``, each after a ``gc.collect()``; split by phase as
+    ``_MemberClock`` splits a join. Every view has one configuration id;
+    the medians of each path printed."""
+    from rapid_tpu_torch import native
+    from rapid_tpu_torch.membership import MembershipView
+    from rapid_tpu_torch.sim.topology import VirtualCluster
+    from rapid_tpu_torch.types import Endpoint, NodeId
+
+    vc = VirtualCluster.synthesize(n, k, seed)
+    endpoints = [Endpoint(bytes(vc.hostnames[i, :vc.host_lengths[i]]), int(vc.ports[i]))
+                 for i in range(n)]
+    node_ids = [NodeId(int(h), int(lo)) for h, lo in zip(vc.id_high, vc.id_low)]
+    clock, rows, ids = _MemberClock(), [], set()
+    for path in turns:
+        gc.collect()
+        calls = native.CALLS["ring_hashes"]
+        clock.reset()
+        t0 = time.perf_counter()
+        with clock, numpy_paths() if path == "numpy" else contextlib.nullcontext():
+            view = MembershipView(k, node_ids, endpoints)
+            ids.add(view.get_current_configuration_id())
+        rows.append(dict(clock.split, wall=(time.perf_counter() - t0) * 1e3, path=path))
+        assert (native.CALLS["ring_hashes"] > calls) == (path == "native"), path
+        del view
+    assert len(ids) == 1, ids
+    medians = {}
+    for path in sorted(set(turns)):
+        mine = [r for r in rows if r["path"] == path]
+        medians[path] = {key: statistics.median(r[key] for r in mine)
+                         for key in ("bulk_insert", "identifier_insort", "configuration_id",
+                                     "wall")}
+        print(f"native, view build of {n} endpoints on the {path} path, median of {len(mine)} "
+              f"in turns {list(turns)}: "
+              + ", ".join(f"{key} {v:.3f} ms" for key, v in medians[path].items())
+              + f"; each wall {[round(r['wall'], 1) for r in mine]} ms; configuration id "
+              f"{next(iter(ids))} ({card})", flush=True)
+    return {"turns": rows, "medians": medians, "configuration_id": next(iter(ids))}
+
+
+def native_member_join(n, device, card, native_join, turns=NATIVE_JOIN_TURNS):
+    """(c) The member phase's one-member join ran on the native path
+    (``native_join``, ``member_sequence``'s first row: its
+    ``native.CALLS["ring_hashes"]`` must have grown). Then the same join
+    alone (``join_only``) in ``turns``: on the native path, or under
+    ``numpy_paths``. Every join reaches one configuration id; each build
+    printed by phase. ``native_view_builds`` then times the view build
+    alone, in turns."""
+    assert native_join["native_calls"].get("ring_hashes", 0) >= 1, native_join["native_calls"]
+    rows = []
+    for path in turns:
+        with numpy_paths() if path == "numpy" else contextlib.nullcontext():
+            row = member_sequence(n, device, join_only=True)["pumps"][0]
+        assert (row["native_calls"].get("ring_hashes", 0) >= 1) == (path == "native"), \
+            (path, row["native_calls"])
+        assert row["configuration_id"] == native_join["configuration_id"] \
+            == row["plain_configuration_id"], (path, row, native_join)
+        rows.append(dict(row, path=path))
+    for label, r in [("the member phase's join (native)", native_join)] + [
+            (f"member join {i + 1} of {len(rows)} ({r['path']})", r)
+            for i, r in enumerate(rows)]:
+        print(f"native, {label}: {r['members_before']} members, configuration id "
+              f"{r['configuration_id']}; wall {r['wall_ms']:.3f} ms, the member's view and "
+              f"service build {r['member_build_ms']:.3f} ms = "
+              f"{_split_text(r['member_build_split'])}; native calls {r['native_calls']} "
+              f"({card})", flush=True)
+    return {"member_phase": native_join, "joins": rows, "views": native_view_builds(n, card)}
+
+
+def native_gateway(n, device, card, gateway, agent):
+    """(d) The gateway's front door on the C++ epoll reactor: ``gateway_sequence``
+    with ``native_server=True`` and the scripted member at the Python-server
+    run's port (``gateway``), every configuration id equal to that run's;
+    then ``agent_sequence`` with the agent on ``--transport native-tcp``
+    against a native-server gateway, every id equal to the plain
+    simulator's and the agent's status RPC (the agent draws its node id, so
+    its ids are not the earlier agent run's). Walls printed beside the
+    Python-server runs'."""
+    gw = gateway_sequence(n, device, native_server=True, member_port=gateway["member_port"])
+    _print_gateway(gw, card, label="native, gateway")
+    for ours, theirs in zip(gw["steps"], gateway["steps"], strict=True):
+        assert ours["configuration_id"] == theirs["configuration_id"], (ours["name"], ours,
+                                                                       theirs)
+        print(f"native, gateway {ours['name']}: configuration id {ours['configuration_id']} "
+              f"== the Python server's; wall as the member sees it {ours['member_wall_ms']:.3f} "
+              f"ms (Python server {theirs['member_wall_ms']:.3f} ms), decision pump "
+              f"{ours['pump_wall_ms']:.3f} ms ({theirs['pump_wall_ms']:.3f} ms) ({card})",
+              flush=True)
+    scan = {r["name"]: r for r in gw["steps"]}["crash, scan"]
+    on_card = torch.device(device).type == "cuda"
+    assert not on_card or scan["pump_launches"].get("fd_phase_fused", 0) > 0, scan
+    ag = agent_sequence(n, device, scripted=agent, transport="native-tcp", native_server=True,
+                        label="native, agent (native-tcp)", beside="the tcp agent's")
+    return {"gateway": gw, "agent": ag}
+
+
+def native_scrape(card, members=SCRAPE_MEMBERS):
+    """(e) ``members`` port members on ``NativeTcpClientServer`` with
+    profiling on, scraped over real sockets with
+    ``ClusterStatusRequest(include_history=8)`` by a native-transport client
+    and folded with ``profiling.cluster_timeseries``: one series map a
+    member, each holding that member's own counters (series labelled with
+    its endpoint) and at least two history snapshots."""
+    from rapid_tpu_torch import ClusterBuilder, Settings
+    from rapid_tpu_torch.messaging.native_tcp import NativeTcpClientServer
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.profiling import cluster_timeseries
+    from rapid_tpu_torch.settings import ProfilingSettings
+    from rapid_tpu_torch.types import ClusterStatusRequest, Endpoint
+
+    ports = _free_ports(members + 1)
+    settings = Settings(failure_detector_interval_ms=30, batching_window_ms=10,
+                        profiling=ProfilingSettings(enabled=True, history_interval_ms=50))
+    clusters, transports = [], []
+    t0 = time.perf_counter()
+    try:
+        for i in range(members):
+            addr = Endpoint.from_parts("127.0.0.1", ports[i])
+            t = NativeTcpClientServer(addr, settings)
+            transports.append(t)
+            b = (ClusterBuilder(addr).use_settings(settings)
+                 .set_messaging_client_and_server(t, t)
+                 .set_edge_failure_detector_factory(StaticFailureDetectorFactory(set())))
+            clusters.append(b.start() if i == 0 else
+                            b.join(clusters[0].listen_address, timeout=GATEWAY_WAIT_S))
+        scraper = NativeTcpClientServer(Endpoint.from_parts("127.0.0.1", ports[-1]))
+        transports.append(scraper)
+        scraper.start()
+
+        def scrape(history):
+            return [scraper.send_message(c.listen_address, ClusterStatusRequest(
+                sender=scraper.address, include_history=history)).result(GATEWAY_WAIT_S)
+                for c in clusters]
+
+        for _ in range(3):  # status calls tick each member's history ring
+            scrape(0)
+            time.sleep(0.1)
+        t1 = time.perf_counter()
+        replies = scrape(8)
+        scrape_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        for c in clusters:
+            c.shutdown()
+        for t in transports:
+            t.shutdown()
+    assert {r.membership_size for r in replies} == {members}, [r.membership_size for r in replies]
+    cluster = cluster_timeseries(replies)
+    assert set(cluster) == {str(c.listen_address) for c in clusters}, sorted(cluster)
+    rows = {}
+    for reply in replies:
+        node = str(reply.sender)
+        series = cluster[node]
+        own = [name for name in series if f"node={node}" in name]
+        snaps = [pts for name, pts in series.items()
+                 if name.startswith("profile.history_snapshots")]
+        assert own and snaps and len(snaps[0]) >= 2, (node, sorted(series))
+        rows[node] = {"series": len(series), "own_series": len(own),
+                      "history_lines": len(reply.history), "snapshots": len(snaps[0])}
+    print(f"native, scrape: {members} port members on native-tcp, cluster_timeseries of "
+          f"{len(cluster)} members {rows}; the history scrape {scrape_ms:.3f} ms, the phase "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return {"members": rows, "scrape_ms": scrape_ms}
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4671,6 +5071,12 @@ def main() -> int:
     libs = kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})", flush=True)
+
+    # --- the native host plane: (a) the g++ builds, (b) the hashes at 100k
+    # and 1M, before any phase that synthesizes a cluster or builds a view
+    t0 = time.perf_counter()
+    native = {"build": native_build(card), "hashes": native_hashes(card)}
+    print(f"native (a)-(b) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- the simulator bridge, first in the process: warm_compile does the
     # process's first-time work, the pumps after it show what is left -------
@@ -4702,6 +5108,15 @@ def main() -> int:
     agent = agent_sequence(N_NODES, card_device, scripted=gateway)
     print(f"member phase {t1 - t0:.1f} s, agent phase {time.perf_counter() - t1:.1f} s, "
           f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    # --- the native host plane: (c) the member's join on the numpy path
+    # beside the member phase's (native), (d) the reactor's front door and
+    # the native-tcp agent, (e) the scrape ------------------------------------
+    t0 = time.perf_counter()
+    native["member_join"] = native_member_join(N_NODES, card_device, card, members["pumps"][0])
+    native["gateway"] = native_gateway(N_NODES, card_device, card, gateway, agent)
+    native["scrape"] = native_scrape(card)
+    print(f"native (c)-(e) {time.perf_counter() - t0:.1f} s, the script so far "
+          f"{time.perf_counter() - started:.1f} s", flush=True)
     # --- the protocol plane's live engines (host Python; no kernel) --------
     live = live_planes_phase(card)
     print(f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
@@ -4940,7 +5355,8 @@ def main() -> int:
                                                     for p in bridge["pumps"]]),
                       "wire": wire, "gateway": gateway, "planes": planes_result,
                       "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
-                      "agent": agent, "live_planes": live, "search": search},
+                      "agent": agent, "live_planes": live, "search": search,
+                      "native": native},
                      default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,10 @@ A member of a swarm hosted by ``python -m rapid_tpu_torch.cli.gateway``
 joins with ``--gateway-address <gateway host:port> --seed-address <a swarm
 endpoint>`` (the gateway prints its seed endpoint). ``--serving`` turns on
 the serving demo (placement, handoff and serving on an in-memory store; each
-tick writes and reads back a demo key). The native-TCP and gRPC transports
-are refused: they are not ported yet (ROADMAP.md Queue 1 items 8c and 8d).
+tick writes and reads back a demo key). ``--transport native-tcp`` puts the
+server half on the port's C++ epoll reactor (``messaging/native_tcp.py``);
+the gRPC transport is refused: it is not ported yet (ROADMAP.md Queue 1
+item 8d).
 """
 
 import argparse
@@ -135,9 +137,9 @@ def main() -> None:
     parser.add_argument("--fd-window-threshold", type=float, default=0.4)
     parser.add_argument(
         "--transport", choices=("tcp", "native-tcp", "grpc"), default="tcp",
-        help="tcp = framed-TCP transport; native-tcp (the C++ epoll server "
-        "half) and grpc (wire-compatible with JVM Rapid) are not ported and "
-        "are refused",
+        help="tcp = framed-TCP transport; native-tcp = the same wire with the "
+        "server half on the C++ epoll reactor; grpc (wire-compatible with JVM "
+        "Rapid) is not ported and is refused",
     )
     parser.add_argument(
         "--broadcaster", choices=("unicast", "gossip"), default="unicast",
@@ -224,12 +226,17 @@ def main() -> None:
         settings = dataclasses.replace(
             settings, forensics=ForensicsSettings(enabled=True)
         )
-    if args.transport != "tcp":
+    if args.transport == "grpc":
         parser.error(
-            f"--transport {args.transport} is not ported to rapid_tpu_torch "
-            "(ROADMAP.md Queue 1 items 8c and 8d); use tcp"
+            "--transport grpc is not ported to rapid_tpu_torch "
+            "(ROADMAP.md Queue 1 item 8d); use tcp or native-tcp"
         )
-    client = server = TcpClientServer(listen, settings)
+    elif args.transport == "native-tcp":
+        from rapid_tpu_torch.messaging.native_tcp import NativeTcpClientServer
+
+        client = server = NativeTcpClientServer(listen, settings)
+    else:
+        client = server = TcpClientServer(listen, settings)
     if args.gateway_address:
         if args.broadcaster == "gossip":
             parser.error(

@@ -39,6 +39,11 @@ def main() -> None:
     parser.add_argument(
         "--snapshot", help="checkpoint the swarm to this path on Ctrl-C"
     )
+    parser.add_argument(
+        "--native-server", action="store_true",
+        help="accept routed frames on the C++ epoll reactor "
+        "(rapid_tpu_torch/csrc/host/rapid_io.cpp) instead of the Python accept loop",
+    )
     parser.add_argument("--verbose", action="store_true")
     args = parser.parse_args()
 
@@ -61,6 +66,7 @@ def main() -> None:
             settings=Settings(),
             pump_interval_ms=args.pump_interval_ms,
             restore_from=args.restore_from,
+            native_server=args.native_server,
             device=args.device,
         )
     else:
@@ -70,6 +76,7 @@ def main() -> None:
             seed=args.seed,
             settings=Settings(),
             pump_interval_ms=args.pump_interval_ms,
+            native_server=args.native_server,
             device=args.device,
         )
     gateway.start()

@@ -283,12 +283,18 @@ def endpoint_hash_batch(
 def xxh64_batch_auto(
     data: np.ndarray, lengths: np.ndarray, seed: int = 0
 ) -> np.ndarray:
-    """``xxh64_batch`` on arbitrary array-likes: the entry point for the
-    construction paths, which hand it views and int arrays of any width.
-    (The port has no native hashing library; this is the numpy path.)"""
+    """``xxh64_batch`` through the port's native library (``native.py``)
+    when it builds and loads, the vectorized-numpy implementation otherwise
+    (identical outputs; tests/test_torch_native.py holds them equal). Use
+    this on hot construction paths, which hand it views and int arrays of
+    any width -- the native lane loop is several times faster at
+    million-row batches."""
+    from . import native
+
     data = np.ascontiguousarray(data, dtype=np.uint8)
     lengths = np.ascontiguousarray(lengths, dtype=np.int64)
-    return xxh64_batch(data, lengths, seed)
+    out = native.xxh64_batch(data, lengths, seed)
+    return out if out is not None else xxh64_batch(data, lengths, seed)
 
 
 def pack_hostnames(hostnames: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:

@@ -121,16 +121,23 @@ class MembershipView:
         matrix and one stable argsort per ring. Produces bit-identical ring
         contents, hash caches, and collision errors to sequential
         ``_insert`` calls (keys are distinct signed int64s, so sorted order
-        is unique). The port hashes with its numpy ``endpoint_hash_batch``
-        (the JAX package takes its native library where it loads)."""
+        is unique)."""
         import numpy as np
 
+        from . import native
         from .hashing import endpoint_hash_batch, pack_hostnames
 
         data, lengths = pack_hostnames([ep.hostname for ep in endpoints])
         ports = np.array([ep.port for ep in endpoints], dtype=np.int64)
+        # all K rings in one native call where the library loads (the same
+        # dispatch sim/topology.py uses for cluster synthesis)
+        all_keys = native.ring_hashes(data, lengths, ports, self.k)
         for ring in range(self.k):
-            keys = endpoint_hash_batch(data, lengths, ports, ring).view(np.int64)
+            keys = (
+                all_keys[ring]
+                if all_keys is not None
+                else endpoint_hash_batch(data, lengths, ports, ring)
+            ).view(np.int64)
             order = np.argsort(keys, kind="stable")
             sorted_keys = keys[order]
             for d in np.flatnonzero(sorted_keys[1:] == sorted_keys[:-1]):

@@ -520,19 +520,13 @@ class SwarmGateway:
         devices; ``device`` is then unused). ``device``: where the swarm
         runs, as for ``Simulator``: CUDA unless the caller names another,
         and an error without a card, never a silent CPU run.
-        ``native_server``: the JAX package's C++ epoll front door
-        (``runtime/native_io.py`` over ``native/rapid_io.cpp``) is not
-        ported; True raises rather than falling back to the Python server,
-        which carries the same wire."""
+        ``native_server``: accept/read routed frames on the C++ epoll
+        reactor (``runtime/native_io.py`` over ``csrc/host/rapid_io.cpp``)
+        instead of the Python server; the wire format and everything above
+        it (routing, parking, the pump) is identical. ``start`` raises when
+        the reactor's library does not build or load."""
         from ..sim.bridge import TpuSimMessaging
 
-        if native_server:
-            raise NotImplementedError(
-                "native_server=True: the C++ epoll reactor (rapid_tpu's "
-                "runtime/native_io.py over native/rapid_io.cpp) is not ported; "
-                "see ROADMAP.md Queue 1 item 8c. The Python server carries the "
-                "same wire."
-            )
         require_single_process(mesh, "the gateway")
         if mesh is None:
             device = resolve_device(device)
@@ -589,7 +583,13 @@ class SwarmGateway:
             )
         self._pump_interval_s = pump_interval_ms / 1000.0
         self._pump_max_rounds = pump_max_rounds
-        self._framed = FramedTcpServer(listen_address, self._on_frame, "gateway")
+        self._native_server = native_server
+        self._reactor = None
+        self._framed = (
+            None
+            if native_server
+            else FramedTcpServer(listen_address, self._on_frame, "gateway")
+        )
         self._threads: List[threading.Thread] = []
         self._task_stats: Dict[str, list] = {}
         # reply-writer lanes: see _on_frame (keyed by connection so one
@@ -722,15 +722,37 @@ class SwarmGateway:
             (self._protocol_loop, "gateway-protocol"),
             (self._pump_loop, "gateway-pump"),
         ]
-        self._framed.start()
+        if self._native_server:
+            from ..runtime.native_io import NativeReactor
+
+            self._reactor = NativeReactor(
+                self.address.hostname.decode(), self.address.port
+            )
+            threads.append((self._native_dispatch_loop, "gateway-reactor"))
+        else:
+            self._framed.start()
         for target, name in threads:
             t = threading.Thread(target=target, name=name, daemon=True)  # noqa: messaging-thread
             t.start()
             self._threads.append(t)
 
+    def _native_dispatch_loop(self) -> None:
+        from ..runtime.native_io import EV_FRAME, EV_SHUTDOWN
+
+        reactor = self._reactor
+        while self._running:
+            ev, conn_id, payload = reactor.poll(timeout_ms=500)
+            if ev == EV_SHUTDOWN:
+                return
+            if ev == EV_FRAME:
+                self._on_native_frame(conn_id, payload)  # decode guarded inside
+
     def shutdown(self) -> None:
         self._running = False
-        self._framed.shutdown()
+        if self._reactor is not None:
+            self._reactor.shutdown()
+        if self._framed is not None:
+            self._framed.shutdown()
         self._put_task(None, self._PRIO_SENTINEL)
         self.network.shutdown()
         for pool in self._writers:
@@ -832,6 +854,15 @@ class SwarmGateway:
             if fd < 0:
                 return  # socket already closed; nothing to reply to
             self._writers[fd % len(self._writers)].submit(write)
+
+        self._enqueue_routed(reply_send, frame)
+
+    def _on_native_frame(self, conn_id: int, frame: bytes) -> None:
+        reactor = self._reactor
+
+        def reply_send(data: bytes) -> None:
+            if reactor is not None:
+                reactor.send(conn_id, data)
 
         self._enqueue_routed(reply_send, frame)
 

@@ -9,12 +9,21 @@
 - ``MetricsHistory`` (re-exported from observability.py): bounded,
   downsample-on-overflow snapshot rings giving every counter, gauge and
   histogram a queryable recent history.
-
-The JAX package's third piece, the cluster-wide scrape (``scrape.py``),
-assembles protocol-plane status responses and comes with the port's bridge.
+- ``cluster_timeseries`` (scrape.py): assembles the per-node history lines
+  scraped off ``ClusterStatusResponse.history`` into a cluster-wide
+  timeseries view (the form tools/statusz.py and tools/perfscope.py render).
 """
 
 from ..observability import MetricsHistory
 from .phases import DEVICE_PHASES, PHASES, PhaseProfiler
+from .scrape import cluster_timeseries, merge_by_series, node_segments
 
-__all__ = ["DEVICE_PHASES", "PHASES", "PhaseProfiler", "MetricsHistory"]
+__all__ = [
+    "DEVICE_PHASES",
+    "PHASES",
+    "PhaseProfiler",
+    "MetricsHistory",
+    "cluster_timeseries",
+    "merge_by_series",
+    "node_segments",
+]

@@ -64,7 +64,7 @@ class CompileEvent:
     name: str  # what was built or loaded
     wall_s: float  # its wall time
     steady: bool  # a timed window was open on the calling thread
-    kind: str  # "nvcc" | "load"
+    kind: str  # "nvcc" | "g++" | "load"
 
 
 _LOCK = threading.Lock()

@@ -170,9 +170,13 @@ class VirtualCluster:
         )
         id_high = rng.integers(-(2**63), 2**63, size=capacity, dtype=np.int64)
         id_low = rng.integers(-(2**63), 2**63, size=capacity, dtype=np.int64)
-        ring_hashes = np.stack(
-            [endpoint_hash_batch(data, lengths, ports, ring) for ring in range(k)]
-        )
+        from .. import native
+
+        ring_hashes = native.ring_hashes(data, lengths, ports, k)
+        if ring_hashes is None:
+            ring_hashes = np.stack(
+                [endpoint_hash_batch(data, lengths, ports, ring) for ring in range(k)]
+            )
         return VirtualCluster(
             hostnames=data,
             host_lengths=lengths,
@@ -382,6 +386,11 @@ def config_fold(
         eps[0::2] = host_h
         eps[1::2] = port_h
         xs = np.concatenate([ids, eps])
+        from .. import native
+
+        native_total = native.config_fold(xs)
+        if native_total is not None:
+            return native_total
         m = len(xs)
         pw = _powers_of_37(m)
         powers = pw[:m][::-1]  # [37^(m-1), ..., 37^0]

@@ -8,8 +8,9 @@ a crash under ingress loss 1.0 (both run on the gateway's protocol thread)
 and leaves on SIGINT. After each step but the leave its configuration id,
 read through its status RPC, equals the gateway's; every decision's id
 equals a plain simulator's driven alike. Then the agent alone: a seed and a
-joiner over loopback, ``--status`` against them, the serving demo
-(``--serving``) on two agents, and the transports the port refuses."""
+joiner over loopback, ``--status`` against them, the same two on the native
+transport (``--transport native-tcp``), the serving demo (``--serving``) on
+two agents, and the transport the port refuses."""
 
 import os
 import re
@@ -93,15 +94,47 @@ def test_two_agents_converge_and_answer_status():
             proc.stdout.close()
 
 
+def test_two_agents_converge_over_native_tcp():
+    """``--transport native-tcp``: a seed and a joiner, each its own process
+    with its server half on the port's C++ epoll reactor, converge on one
+    configuration id, and ``--status`` reads it through the joiner's native
+    server; SIGINT makes the joiner leave and exit 0."""
+    base = free_port_base(2)
+    seed, joiner = f"127.0.0.1:{base}", f"127.0.0.1:{base + 1}"
+    common = ("--transport", "native-tcp", "--fd-interval-ms", "100")
+    procs = [_agent("--listen-address", seed, *common)]
+    try:
+        seed_lines = []
+        _wait_for(procs[0], r"agent started at", seed_lines)
+        procs.append(_agent("--listen-address", joiner, "--seed-address", seed, *common))
+        configs = set()
+        for proc, lines in ((procs[1], []), (procs[0], seed_lines)):
+            line = _wait_for(proc, r"membership size=2 ", lines)
+            configs.add(re.search(r"config=(-?\d+)", line).group(1))
+        assert len(configs) == 1
+        status = subprocess.run([sys.executable, "-m", "rapid_tpu_torch.cli.agent", "--status",
+                                 joiner], cwd=REPO, capture_output=True, text=True, timeout=60)
+        assert status.returncode == 0, status.stdout + status.stderr
+        assert f"config={configs.pop()}  members=2" in status.stdout
+        procs[1].send_signal(signal.SIGINT)
+        assert procs[1].wait(timeout=60) == 0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()
+
+
 @pytest.mark.parametrize("args,refusal", [
     (["--transport", "grpc"], "--transport grpc is not ported"),
-    (["--transport", "native-tcp"], "--transport native-tcp is not ported"),
 ])
 def test_agent_refuses_what_is_not_ported(args, refusal):
     out = subprocess.run([sys.executable, "-m", "rapid_tpu_torch.cli.agent", "--listen-address",
                           "127.0.0.1:1", *args], cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert out.returncode == 2 and refusal in out.stderr, out.stderr
+    assert "Queue 1 item 8d" in out.stderr and "8c" not in out.stderr, out.stderr
 
 
 def test_serving_demo_agents_write_and_read_back():

@@ -10,10 +10,11 @@ wire. In every case each agent's configuration id and member list equal
 the gateway's. Virtual faults are injected through a task on the gateway's
 protocol thread, the one thread that touches the swarm. This file holds
 the routed frame, joins and cuts, a dead agent, a graceful leave and the
-unported native server; ``test_torch_gateway_restore.py``,
+front door on the native reactor; ``test_torch_gateway_restore.py``,
 ``test_torch_gateway_mesh.py`` and ``test_torch_gateway_member.py`` hold
 the rest (one file per worker under ``--dist loadfile``)."""
 
+import random
 import time
 
 import numpy as np
@@ -71,8 +72,9 @@ class GatewayHarness:
     loopback, with ``tests/test_gateway.py``'s settings."""
 
     def __init__(self, n_virtual=32, seed=11, capacity=None, fd_interval_ms=100,
-                 pump_interval_ms=50, broadcaster_factory=None, mesh=None, port_block=64):
-        self.base = free_port_base(port_block)
+                 pump_interval_ms=50, broadcaster_factory=None, mesh=None, port_block=64,
+                 native_server=False, base=None):
+        self.base = free_port_base(port_block) if base is None else base
         knobs = dict(failure_detector_interval_ms=fd_interval_ms, batching_window_ms=50,
                      consensus_fallback_base_delay_ms=1000)
         self.settings = Settings(**knobs)
@@ -81,7 +83,7 @@ class GatewayHarness:
         self.gateway = SwarmGateway(
             ptypes.Endpoint.from_parts("127.0.0.1", self.base), n_virtual=n_virtual,
             capacity=capacity, seed=seed, settings=self.port_settings,
-            pump_interval_ms=pump_interval_ms, mesh=mesh,
+            pump_interval_ms=pump_interval_ms, mesh=mesh, native_server=native_server,
             device=None if mesh is not None else "cpu")
         self.gateway.start()
         self.broadcaster_factory = broadcaster_factory
@@ -98,7 +100,8 @@ class GatewayHarness:
             settings=self.port_settings, pump_interval_ms=self.pump_interval_ms, device="cpu")
         self.gateway.start()
 
-    def join_agent(self, i, timeout=60):
+    def join_agent(self, i, timeout=60, rng=None):
+        """Agent ``i`` joins on port ``base + i``; ``rng`` seeds its node id."""
         addr = rtypes.Endpoint.from_parts("127.0.0.1", self.base + i)
         transport = TcpClientServer(addr, self.settings)
         client = jax_gateway.GatewayRoutedClient(
@@ -110,8 +113,10 @@ class GatewayHarness:
             .use_settings(self.settings)
             .set_messaging_client_and_server(client, transport)
             .set_broadcaster_factory(factory)
-            .join(jax_ep(self.gateway.seed_endpoint()), timeout=timeout)
         )
+        if rng is not None:
+            cluster = cluster.use_rng(rng)
+        cluster = cluster.join(jax_ep(self.gateway.seed_endpoint()), timeout=timeout)
         self.agents.append(cluster)
         return cluster
 
@@ -228,11 +233,32 @@ def test_agent_leaves_socket_swarm_gracefully():
         h.shutdown()
 
 
-def test_native_server_raises_and_names_the_roadmap_item():
-    base = free_port_base(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8c"):
-        SwarmGateway(ptypes.Endpoint.from_parts("127.0.0.1", base), n_virtual=8,
-                     native_server=True, device="cpu")
+def test_agents_join_swarm_through_native_reactor():
+    """The twin of ``tests/test_gateway.py::test_agents_join_swarm_through_native_reactor``:
+    the gateway's front door on the port's C++ epoll reactor
+    (``native_server=True``, no Python server). Two agents join, observe a
+    virtual cut and converge; the same agents (ports and node ids) against
+    the Python server give the same configuration ids at every step."""
+    base = free_port_base(64)
+    ids = {}
+    for native in (False, True):
+        h = GatewayHarness(n_virtual=24, seed=13, native_server=native, base=base)
+        try:
+            assert (h.gateway._framed is None) == native  # noqa: SLF001
+            assert (h.gateway._reactor is not None) == native  # noqa: SLF001
+            a1 = h.join_agent(1, rng=random.Random(101))
+            a2 = h.join_agent(2, rng=random.Random(102))
+            assert h.wait_converged(26)
+            joined = h.gateway.configuration_id()
+            crash(h.gateway, [5, 9])
+            assert h.wait_converged(24)
+            h.assert_agreement()
+            assert a1.get_current_configuration_id() == a2.get_current_configuration_id() \
+                == h.gateway.configuration_id()
+            ids[native] = (joined, h.gateway.configuration_id())
+        finally:
+            h.shutdown()
+    assert ids[True] == ids[False]
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
