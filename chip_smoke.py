@@ -206,6 +206,7 @@ or outside a checkout, it exits non-zero and prints no result.
 import collections
 import contextlib
 import gc
+import io
 import itertools
 import json
 import os
@@ -307,6 +308,7 @@ GATEWAY_WAIT_S = 180.0
 LARGE_FRAME = 64 * 1024  # frames listed one by one: (class, bytes, encode or decode ms)
 WIRE_FRAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "golden", "torch_wire_frames.json")
+PROTO_FRAMES = os.path.join(os.path.dirname(WIRE_FRAMES), "torch_proto_frames.json")
 
 
 def _time_ms(fn, reps=24, iters=11):
@@ -1076,41 +1078,81 @@ def _diff(after, before):
     return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
 
+PROFILE_DECISIONS = 3  # in-loop sampled decisions whose prefix times are printed
+PROFILE_REPEATS = 5  # the best-of-N sample that holds every phase > 0
+
+
 def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
     """``enable_profiling`` sampling every dispatch on the 100k scan path:
     samples, the four phases, and the prefixes' own ``fd_phase_fused``
     launches; then the GPU ops of one step and of each prefix on the
-    simulator's state (``profile_decision.profile_gpu``)."""
-    from rapid_tpu_torch.profiling.phases import _copy
+    simulator's state (``profile_decision.profile_gpu``).
+
+    The in-loop samples are one-shot, as the profiler's default is, so one
+    noisy prefix can clamp a phase to 0: every sample's three prefix times
+    are printed over ``PROFILE_DECISIONS`` decisions, and "every phase > 0"
+    is held on a best-of-``PROFILE_REPEATS`` sample of the first decision's
+    pre-dispatch state, as the JAX package's tests hold it."""
+    from rapid_tpu_torch.observability import Metrics
+    from rapid_tpu_torch.profiling.phases import PhaseProfiler, _copy
     from rapid_tpu_torch.sim.profile_decision import profile_gpu
 
     sim = Simulator(N_NODES, seed=PLANES_SEED + 70, device=device).ready()
     prof = sim.enable_profiling(ProfilingSettings(enabled=True, sample_every_dispatches=1))
-    _planes_fault(sim, "scan")(rng.choice(N_NODES, N_NODES // 100, replace=False))
+    fault = _planes_fault(sim, "scan")
+    fault(rng.choice(N_NODES, N_NODES // 100, replace=False))
     inputs = sim._const_inputs(None)
     state, generator = sim.state, _copy(sim._generator)
     ops = {name: profile_gpu(lambda fn=fn: fn(sim.config, state, inputs, True,
                                               _copy(generator)))["kernels"]
            for name, fn in (("step", engine.step), ("step_cut_detector", engine.step_cut_detector),
                             ("step_fd_scan", engine.step_fd_scan))}
+    prefix_ms = []  # every in-loop prefix time, in the order sample() takes them
+    segments = []  # the caching allocator's new device segments (cudaMalloc) in each
+    timed_ms = prof._timed_ms
+
+    def allocated():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    def recorded(*args):
+        before = allocated()
+        prefix_ms.append(timed_ms(*args))
+        segments.append(allocated() - before)
+        return prefix_ms[-1]
+
+    prof._timed_ms = recorded
     kernels.reset_launches()
     rec = sim.run_until_decision(max_rounds=16, batch=16)
     sim.ready()
     launches = dict(kernels.LAUNCHES)
-    totals = prof.attribution()
-    assert rec is not None and prof.samples >= 1, prof.samples
-    assert all(totals[p] > 0 for p in ("fd_scan", "cut_detector", "consensus_count",
-                                       "host_transfer")), totals
-    assert launches["fd_phase_fused"] == 16 + 3 * prof.samples, launches
-    per_sample = {p: totals[p] / prof.samples for p in ("fd_scan", "cut_detector",
-                                                        "consensus_count")}
-    print(f"profiling, scan path, every dispatch sampled: {prof.samples} sample(s), phase ms a "
+    totals, samples = prof.attribution(), prof.samples
+    assert rec is not None and samples >= 1, samples
+    assert totals["host_transfer"] > 0, totals
+    assert launches["fd_phase_fused"] == 16 + 3 * samples, launches
+    for _ in range(PROFILE_DECISIONS - 1):
+        fault(rng.choice(sim.members(), N_NODES // 100, replace=False))
+        assert sim.run_until_decision(max_rounds=16, batch=16) is not None
+    prefixes = [tuple(round(ms, 3) for ms in prefix_ms[i:i + 3])
+                for i in range(0, len(prefix_ms), 3)]
+    grown = [tuple(segments[i:i + 3]) for i in range(0, len(segments), 3)]
+    best = PhaseProfiler(Metrics(), ProfilingSettings(enabled=True)).sample(
+        sim.config, state, inputs, True, generator, repeats=PROFILE_REPEATS)
+    assert all(best[p] > 0 for p in ("fd_scan", "cut_detector", "consensus_count")), best
+    per_sample = {p: totals[p] / samples for p in ("fd_scan", "cut_detector",
+                                                   "consensus_count")}
+    print(f"profiling, scan path, every dispatch sampled: {samples} sample(s), phase ms a "
           f"sample {({p: round(v, 3) for p, v in per_sample.items()})}, host transfer "
           f"{totals['host_transfer']:.3f} ms over {sim.metrics.get('device_dispatches')} "
           f"dispatch(es); fd_phase_fused launches {launches['fd_phase_fused']} (16 in the "
           f"dispatch + 3 a sample, one a prefix); GPU ops of one round: {ops}", flush=True)
-    return {"samples": prof.samples, "attribution": totals, "per_sample": per_sample,
-            "launches": launches, "gpu_ops": ops}
+    print(f"profiling, in-loop prefix ms (step_fd_scan, step_cut_detector, step) of every "
+          f"sample over {PROFILE_DECISIONS} decisions, in order: {prefixes}; new device "
+          f"segments (cudaMalloc) in each: {grown}; best of {PROFILE_REPEATS} on the first "
+          f"decision's state: "
+          f"{({p: round(v, 3) for p, v in best.items()})}", flush=True)
+    return {"samples": samples, "attribution": totals, "per_sample": per_sample,
+            "launches": launches, "gpu_ops": ops, "prefix_ms": prefixes, "new_segments": grown,
+            "best_of": best}
 
 
 def _device_trace(Simulator, observability, rng, device):
@@ -3042,6 +3084,102 @@ def wire_phase(card, reps=5):
     return {"frames": len(frames), "classes": classes, "large": big}
 
 
+PROTO_BIG = "JoinResponse_100000_endpoints"  # its encode and decode are timed
+
+
+def proto_frame_miss(frame, wire):
+    """Where the port's gRPC conversions (``messaging/grpc_transport.py``)
+    depart from a frame of ``tests/golden/torch_proto_frames.json``, or None:
+    they must give its bytes (or, where the JAX conversion refused the
+    message, raise the same class of error), decode them to a message that
+    encodes to the same bytes again, and carry the trace context and the HLC
+    stamp across (an incarnation below 1 arrives as 1, as in JAX)."""
+    import dataclasses
+    import hashlib
+
+    import torch_wire_fixtures as fx
+
+    from rapid_tpu_torch.messaging import grpc_transport
+
+    request = frame["direction"] == "request"
+    to_wire = grpc_transport.to_wire_request if request else grpc_transport.to_wire_response
+    back = grpc_transport.from_wire_request if request else grpc_transport.from_wire_response
+    name = frame["name"]
+    try:
+        msg = fx.message(frame, wire)
+        data = to_wire(msg)
+    except (TypeError, ValueError) as exc:
+        if frame.get("error") == type(exc).__name__:
+            return None
+        return f"{name}: raised {type(exc).__name__}: {exc}"
+    if "error" in frame:
+        return f"{name}: gave bytes where the JAX conversion raised {frame['error']}"
+    if "hex" in frame and data.hex() != frame["hex"]:
+        return f"{name}: bytes differ"
+    if "sha256" in frame and (len(data), hashlib.sha256(data).hexdigest()) != (
+            frame["size"], frame["sha256"]):
+        return f"{name}: bytes differ ({len(data)} B against {frame['size']})"
+    got = back(data)
+    stamp = wire.hlc_of(msg) if request else None
+    if stamp is not None and stamp.incarnation < 1:
+        wire.stamp_hlc(msg, dataclasses.replace(stamp, incarnation=1))
+        data = to_wire(msg)
+    if to_wire(got) != data:
+        return f"{name}: the decoded message encodes to other bytes"
+    if request and ((wire.trace_context_of(got), wire.hlc_of(got))
+                    != (wire.trace_context_of(msg), wire.hlc_of(msg))):
+        return f"{name}: the trace context or the HLC stamp did not cross"
+    return None
+
+
+def proto_phase(card, reps=3, without_protobuf=True):
+    """The port's proto3 codec of the gRPC wire against
+    ``tests/golden/torch_proto_frames.json`` (frames ``rapid_tpu`` and
+    protobuf wrote), with no protobuf in the process: every frame through
+    ``proto_frame_miss``; then the 100k ``JoinResponse``'s encode and decode
+    beside the msgpack codec's for the same message (median of ``reps``,
+    each on a fresh message object). ``without_protobuf`` holds that no
+    protobuf module is loaded (the tests, which load it, pass False)."""
+    sys.path.insert(0, os.path.dirname(WIRE_FRAMES))
+    import torch_wire_fixtures as fx
+
+    from rapid_tpu_torch.messaging import grpc_transport
+
+    assert not without_protobuf or "google.protobuf" not in sys.modules, "protobuf is loaded"
+    wire = fx.port_wire()
+    with open(PROTO_FRAMES) as f:
+        frames = json.load(f)["frames"]
+    misses = [m for m in (proto_frame_miss(frame, wire) for frame in frames) if m]
+    assert not misses, f"proto: {len(misses)} frames differ: " + "; ".join(misses[:5])
+    big_frame = next(f for f in frames if f["name"] == PROTO_BIG)
+    walls = {}
+    for codec, encode, decode in (
+            ("proto3", grpc_transport.to_wire_response, grpc_transport.from_wire_response),
+            ("msgpack", lambda m: wire.encode(7, m), lambda d: wire.decode(d)[1])):
+        enc, dec = [], []
+        for _ in range(reps):
+            big = fx.message(big_frame, wire)  # a fresh message: no memo hits
+            t0 = time.perf_counter()
+            data = encode(big)
+            t1 = time.perf_counter()
+            got = decode(data)
+            dec.append((time.perf_counter() - t1) * 1e3)
+            enc.append((t1 - t0) * 1e3)
+            assert got == big, codec
+        walls[codec] = {"bytes": len(data), "encode_ms": statistics.median(enc),
+                        "decode_ms": statistics.median(dec)}
+    errors = sum(1 for f in frames if "error" in f)
+    print(f"proto: the port's gRPC conversions give all {len(frames)} golden frames of "
+          f"tests/golden/torch_proto_frames.json ({errors} of them refused as JAX refuses them) "
+          f"and decode each back, with no protobuf in the process ({card})", flush=True)
+    print(f"proto, {PROTO_BIG}: proto3 {walls['proto3']['bytes']} B, encode "
+          f"{walls['proto3']['encode_ms']:.1f} ms, decode {walls['proto3']['decode_ms']:.1f} ms; "
+          f"msgpack {walls['msgpack']['bytes']} B, encode {walls['msgpack']['encode_ms']:.1f} ms, "
+          f"decode {walls['msgpack']['decode_ms']:.1f} ms (median of {reps}) ({card})",
+          flush=True)
+    return {"frames": len(frames), "refused": errors, "join_response_100k": walls}
+
+
 # --------------------------------------------------------------------- #
 # The driver's host planes: placement (on placement_topr), handoff,
 # serving, SLO, durability and hierarchy
@@ -4792,6 +4930,39 @@ def native_build(card):
     return {"gxx_s": walls, "load_s": {"rapid_native": t1 - t0, "rapid_io": t2 - t1}}
 
 
+def native_stress(card):
+    """(f) The reactor's sanitizer stress harness
+    (``csrc/host/rapid_io_stress.cpp`` with ``rapid_io.cpp``) built and run
+    under ThreadSanitizer and AddressSanitizer: one line each with the build
+    and run seconds and the harness's ``stress ok`` line, with the compiler
+    that built it (``native.stress_compiler``). A toolchain that cannot link
+    a sanitizer at all is reported and the run goes on; a build failure or a
+    sanitizer report fails it."""
+    from rapid_tpu_torch import native
+
+    rows = {}
+    for sanitizer in native.SANITIZERS:
+        missing = native.sanitizer_missing(sanitizer)
+        if missing:
+            rows[sanitizer] = {"absent": missing}
+            print(f"native, stress -fsanitize={sanitizer}: absent, the toolchain cannot link "
+                  f"it ({missing}) ({card})", flush=True)
+            continue
+        compiler = native.stress_path(sanitizer)[1][0]
+        t0 = time.perf_counter()
+        native.build_stress(sanitizer)
+        t1 = time.perf_counter()
+        line, no_aslr = native.run_stress(sanitizer)
+        t2 = time.perf_counter()
+        rows[sanitizer] = {"compiler": compiler, "build_s": t1 - t0, "run_s": t2 - t1,
+                           "line": line, "aslr_off": no_aslr}
+        print(f"native, stress -fsanitize={sanitizer}: {compiler} build {t1 - t0:.2f} s, run "
+              f"{t2 - t1:.2f} s, {line}"
+              + (" (run again under setarch -R: TSAN refused the address layout)"
+                 if no_aslr else "") + f" ({card})", flush=True)
+    return rows
+
+
 def _timed_ms(fn, reps):
     """``fn()``'s result and its walls in ms over ``reps`` calls."""
     walls = []
@@ -4975,58 +5146,111 @@ def native_gateway(n, device, card, gateway, agent):
     return {"gateway": gw, "agent": ag}
 
 
-def native_scrape(card, members=SCRAPE_MEMBERS):
-    """(e) ``members`` port members on ``NativeTcpClientServer`` with
-    profiling on, scraped over real sockets with
-    ``ClusterStatusRequest(include_history=8)`` by a native-transport client
-    and folded with ``profiling.cluster_timeseries``: one series map a
-    member, each holding that member's own counters (series labelled with
-    its endpoint) and at least two history snapshots."""
+@contextlib.contextmanager
+def port_members(members, transport="native-tcp", settings=None):
+    """``members`` port members on real sockets of ``transport``
+    (``NativeTcpClientServer`` or, for "tcp", ``TcpClientServer``), the
+    first a seed and the rest joined through it, with static failure
+    detectors; their ``host:port`` targets. Every member and transport is
+    shut down on exit."""
     from rapid_tpu_torch import ClusterBuilder, Settings
     from rapid_tpu_torch.messaging.native_tcp import NativeTcpClientServer
+    from rapid_tpu_torch.messaging.tcp import TcpClientServer
     from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
-    from rapid_tpu_torch.profiling import cluster_timeseries
-    from rapid_tpu_torch.settings import ProfilingSettings
-    from rapid_tpu_torch.types import ClusterStatusRequest, Endpoint
+    from rapid_tpu_torch.types import Endpoint
 
-    ports = _free_ports(members + 1)
-    settings = Settings(failure_detector_interval_ms=30, batching_window_ms=10,
-                        profiling=ProfilingSettings(enabled=True, history_interval_ms=50))
+    cls = {"native-tcp": NativeTcpClientServer, "tcp": TcpClientServer}[transport]
+    if settings is None:
+        settings = Settings(failure_detector_interval_ms=30, batching_window_ms=10)
     clusters, transports = [], []
-    t0 = time.perf_counter()
     try:
-        for i in range(members):
-            addr = Endpoint.from_parts("127.0.0.1", ports[i])
-            t = NativeTcpClientServer(addr, settings)
+        for i, port in enumerate(_free_ports(members)):
+            addr = Endpoint.from_parts("127.0.0.1", port)
+            t = cls(addr, settings)
             transports.append(t)
             b = (ClusterBuilder(addr).use_settings(settings)
                  .set_messaging_client_and_server(t, t)
                  .set_edge_failure_detector_factory(StaticFailureDetectorFactory(set())))
             clusters.append(b.start() if i == 0 else
                             b.join(clusters[0].listen_address, timeout=GATEWAY_WAIT_S))
-        scraper = NativeTcpClientServer(Endpoint.from_parts("127.0.0.1", ports[-1]))
-        transports.append(scraper)
-        scraper.start()
-
-        def scrape(history):
-            return [scraper.send_message(c.listen_address, ClusterStatusRequest(
-                sender=scraper.address, include_history=history)).result(GATEWAY_WAIT_S)
-                for c in clusters]
-
-        for _ in range(3):  # status calls tick each member's history ring
-            scrape(0)
-            time.sleep(0.1)
-        t1 = time.perf_counter()
-        replies = scrape(8)
-        scrape_ms = (time.perf_counter() - t1) * 1e3
+        yield [str(c.listen_address) for c in clusters]
     finally:
         for c in clusters:
             c.shutdown()
         for t in transports:
             t.shutdown()
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output and error captured: its exit
+    code, both texts and its wall in ms."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def status_clis(targets, card):
+    """``python -m rapid_tpu_torch.cli.statusz`` and ``cli.slo`` against live
+    port members: statusz exits 0 and names exactly one configuration id
+    across the members, slo exits 0 with each member's "no SLO plane"
+    line."""
+    from rapid_tpu_torch.cli import slo, statusz
+
+    rc, out, err, statusz_ms = run_cli(statusz.main, targets)
+    ids = set(re.findall(r"config=(-?\d+)", out))
+    assert rc == 0 and err == "" and len(ids) == 1 and out.count("config=") == len(targets), \
+        f"statusz: rc {rc}, ids {ids}:\n{out}{err}"
+    slo_rc, slo_out, slo_err, slo_ms = run_cli(slo.main, targets)
+    off = slo_out.count("(no SLO plane -- settings.slo.enabled is off)")
+    assert slo_rc == 0 and slo_err == "" and off == len(targets), \
+        f"slo: rc {slo_rc}:\n{slo_out}{slo_err}"
+    print(f"native, statusz and slo over {len(targets)} members: statusz rc {rc}, one "
+          f"configuration id {ids.pop()}, {statusz_ms:.1f} ms; slo rc {slo_rc}, "
+          f"{off} \"no SLO plane\" lines, {slo_ms:.1f} ms ({card})", flush=True)
+    return {"statusz_rc": rc, "statusz_ms": statusz_ms, "slo_rc": slo_rc, "slo_ms": slo_ms}
+
+
+def native_scrape(card, members=SCRAPE_MEMBERS):
+    """(e) ``members`` port members on ``NativeTcpClientServer`` with
+    profiling on, scraped over real sockets with
+    ``ClusterStatusRequest(include_history=8)`` by a native-transport client
+    and folded with ``profiling.cluster_timeseries``: one series map a
+    member, each holding that member's own counters (series labelled with
+    its endpoint) and at least two history snapshots. Then the statusz and
+    slo CLIs against the same members (``status_clis``)."""
+    from rapid_tpu_torch import Settings
+    from rapid_tpu_torch.messaging.native_tcp import NativeTcpClientServer
+    from rapid_tpu_torch.profiling import cluster_timeseries
+    from rapid_tpu_torch.settings import ProfilingSettings
+    from rapid_tpu_torch.types import ClusterStatusRequest, Endpoint
+
+    settings = Settings(failure_detector_interval_ms=30, batching_window_ms=10,
+                        profiling=ProfilingSettings(enabled=True, history_interval_ms=50))
+    t0 = time.perf_counter()
+    with port_members(members, "native-tcp", settings) as targets:
+        scraper = NativeTcpClientServer(Endpoint.from_parts("127.0.0.1", _free_ports(1)[0]))
+        try:
+            scraper.start()
+
+            def scrape(history):
+                return [scraper.send_message(Endpoint.from_string(target), ClusterStatusRequest(
+                    sender=scraper.address, include_history=history)).result(GATEWAY_WAIT_S)
+                    for target in targets]
+
+            for _ in range(3):  # status calls tick each member's history ring
+                scrape(0)
+                time.sleep(0.1)
+            t1 = time.perf_counter()
+            replies = scrape(8)
+            scrape_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            scraper.shutdown()
+        clis = status_clis(targets, card)
     assert {r.membership_size for r in replies} == {members}, [r.membership_size for r in replies]
     cluster = cluster_timeseries(replies)
-    assert set(cluster) == {str(c.listen_address) for c in clusters}, sorted(cluster)
+    assert set(cluster) == set(targets), sorted(cluster)
     rows = {}
     for reply in replies:
         node = str(reply.sender)
@@ -5040,7 +5264,7 @@ def native_scrape(card, members=SCRAPE_MEMBERS):
     print(f"native, scrape: {members} port members on native-tcp, cluster_timeseries of "
           f"{len(cluster)} members {rows}; the history scrape {scrape_ms:.3f} ms, the phase "
           f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
-    return {"members": rows, "scrape_ms": scrape_ms}
+    return {"members": rows, "scrape_ms": scrape_ms, "clis": clis}
 
 
 def main() -> int:
@@ -5075,8 +5299,9 @@ def main() -> int:
     # --- the native host plane: (a) the g++ builds, (b) the hashes at 100k
     # and 1M, before any phase that synthesizes a cluster or builds a view
     t0 = time.perf_counter()
-    native = {"build": native_build(card), "hashes": native_hashes(card)}
-    print(f"native (a)-(b) {time.perf_counter() - t0:.1f} s", flush=True)
+    native = {"build": native_build(card), "hashes": native_hashes(card),
+              "stress": native_stress(card)}
+    print(f"native (a), (b), (f) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- the simulator bridge, first in the process: warm_compile does the
     # process's first-time work, the pumps after it show what is left -------
@@ -5091,6 +5316,7 @@ def main() -> int:
     # --- the wire, then the socket gateway with a member in its own process
     t0 = time.perf_counter()
     wire = wire_phase(card)
+    wire["proto"] = proto_phase(card)
     t1 = time.perf_counter()
     gateway = gateway_sequence(N_NODES, card_device)
     _print_gateway(gateway, card)

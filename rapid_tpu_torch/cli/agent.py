@@ -17,8 +17,8 @@ endpoint>`` (the gateway prints its seed endpoint). ``--serving`` turns on
 the serving demo (placement, handoff and serving on an in-memory store; each
 tick writes and reads back a demo key). ``--transport native-tcp`` puts the
 server half on the port's C++ epoll reactor (``messaging/native_tcp.py``);
-the gRPC transport is refused: it is not ported yet (ROADMAP.md Queue 1
-item 8d).
+the gRPC transport is refused: its proto3 codec is ported, its HTTP/2
+transport is not yet (ROADMAP.md Queue 1 item 8d.ii).
 """
 
 import argparse
@@ -54,29 +54,24 @@ def _write_prometheus_atomic(path: str) -> None:
 
 
 def query_status(target_raw: str, timeout_s: float):
-    """One ClusterStatusRequest to the agent at ``target_raw`` (host:port):
-    its reply, whatever class it is."""
-    from rapid_tpu_torch.types import ClusterStatusRequest
+    """One ClusterStatusRequest to the agent at ``target_raw`` (host:port),
+    through ``cli.statusz.fetch_status``: its ClusterStatusResponse (a
+    reply of another class raises RuntimeError)."""
+    from rapid_tpu_torch.cli.statusz import fetch_status
 
-    target = Endpoint.from_string(target_raw)
     client = TcpClientServer(Endpoint(b"127.0.0.1", 0), Settings())
     try:
-        return client.send_message(
-            target, ClusterStatusRequest(sender=client.address)
-        ).result(timeout_s)
+        return fetch_status(client, Endpoint.from_string(target_raw), timeout_s)
     finally:
         client.shutdown()
 
 
 def _print_status(target_raw: str, timeout_s: float) -> int:
     """--status mode: one-shot ClusterStatusRequest against a live agent."""
-    from rapid_tpu_torch.types import ClusterStatusResponse
-
-    reply = query_status(target_raw, timeout_s)
-    if not isinstance(reply, ClusterStatusResponse):
-        sys.stdout.write(
-            f"{target_raw}: unexpected reply {type(reply).__name__}\n"
-        )
+    try:
+        reply = query_status(target_raw, timeout_s)
+    except RuntimeError as exc:  # a reply of another class
+        sys.stdout.write(f"{exc}\n")
         return 1
     lines = [
         f"{reply.sender}  config={reply.configuration_id}"
@@ -228,8 +223,9 @@ def main() -> None:
         )
     if args.transport == "grpc":
         parser.error(
-            "--transport grpc is not ported to rapid_tpu_torch "
-            "(ROADMAP.md Queue 1 item 8d); use tcp or native-tcp"
+            "--transport grpc is not ported to rapid_tpu_torch: its proto3 codec "
+            "is (messaging/grpc_transport.py), its HTTP/2 transport is not "
+            "(ROADMAP.md Queue 1 item 8d.ii); use tcp or native-tcp"
         )
     elif args.transport == "native-tcp":
         from rapid_tpu_torch.messaging.native_tcp import NativeTcpClientServer

@@ -22,6 +22,11 @@ per entry point, so a run can show which path it took. ``BUILD_WALLS`` holds
 the seconds each ``g++`` of this process took.
 
     python -m rapid_tpu_torch.native    # build, and say whether it loads
+    python -m rapid_tpu_torch.native --stress thread address
+
+``build_stress`` / ``run_stress`` build the reactor's source with its stress
+harness (``csrc/host/rapid_io_stress.cpp``) under ThreadSanitizer or
+AddressSanitizer into an executable under ``build/native/`` and run it.
 """
 
 from __future__ import annotations
@@ -255,7 +260,149 @@ def config_fold(xs: np.ndarray) -> Optional[int]:
     return int(np.uint64(total).astype(np.int64))
 
 
+# -- the reactor's sanitizer stress harness ---------------------------------
+
+STRESS_SOURCES = ("rapid_io.cpp", "rapid_io_stress.cpp")
+STRESS_FLAGS = ("-O1", "-g", "-std=c++17", "-Wall", "-pthread")
+SANITIZERS = ("thread", "address")
+
+
+_LINKS: Dict[Tuple[str, ...], Optional[str]] = {}
+
+
+def _links(cxx: list, sanitizer: str) -> Optional[str]:
+    """Why ``cxx`` cannot link ``-fsanitize=<sanitizer>`` (a trivial program
+    built with the flag alone), or None when it can; asked once a process."""
+    key = (*cxx, sanitizer)
+    if key not in _LINKS:
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "probe.cpp")
+            with open(src, "w") as f:
+                f.write("int main(){return 0;}")
+            try:
+                proc = subprocess.run([*cxx, f"-fsanitize={sanitizer}", "-o", src + ".bin",
+                                       src], capture_output=True, text=True, timeout=120)
+                _LINKS[key] = (None if proc.returncode == 0 else
+                               f"{' '.join(cxx)} cannot link -fsanitize={sanitizer}: "
+                               f"{proc.stderr.strip()}")
+            except (OSError, subprocess.SubprocessError) as exc:
+                _LINKS[key] = f"{' '.join(cxx)}: {exc}"
+    return _LINKS[key]
+
+
+def stress_compiler(sanitizer: str) -> Tuple[Optional[list], str]:
+    """The compiler that builds the harness under ``sanitizer``: ``$CXX``
+    (else ``g++``) when it links the sanitizer, else the ``g++`` on the
+    path when that one does (a toolchain whose ``$CXX`` ships no sanitizer
+    runtime may have a system compiler that does); ``(None, why)`` when
+    none can."""
+    reasons = []
+    for cxx in [_cxx()] + ([["g++"]] if _cxx() != ["g++"] else []):
+        reason = _links(cxx, sanitizer)
+        if reason is None:
+            return cxx, ""
+        reasons.append(reason)
+    return None, "; ".join(reasons)
+
+
+def sanitizer_missing(sanitizer: str) -> Optional[str]:
+    """Why no compiler here can link ``-fsanitize=<sanitizer>`` at all (no
+    compiler, no libtsan / libasan), or None when one can."""
+    return stress_compiler(sanitizer)[1] or None
+
+
+def stress_path(sanitizer: str) -> Tuple[Path, list]:
+    """Where the harness built under ``sanitizer`` lives, and the command
+    that builds it there (its output path left out): keyed, as
+    ``library_path`` keys a library, by the compiler, its flags, its
+    ``--version`` and both sources. Raises RuntimeError when no compiler
+    links the sanitizer."""
+    if sanitizer not in SANITIZERS:
+        raise ValueError(f"sanitizer {sanitizer!r} is not one of {SANITIZERS}")
+    cxx, missing = stress_compiler(sanitizer)
+    if cxx is None:
+        raise RuntimeError(missing)
+    flags = [*STRESS_FLAGS, f"-fsanitize={sanitizer}"]
+    srcs = [HOST_SRC / name for name in STRESS_SOURCES]
+    digest = hashlib.sha256("\0".join([*cxx, *flags, _ask([*cxx, "--version"])]).encode())
+    for src in srcs:
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"rapid_io_stress-{sanitizer}-{digest.hexdigest()[:16]}"
+    return out, [*cxx, *flags, *map(str, srcs)]
+
+
+def build_stress(sanitizer: str) -> Path:
+    """Compile ``csrc/host/rapid_io.cpp`` with the stress harness under
+    ``-fsanitize=<sanitizer>`` ("thread" or "address") into an executable,
+    unless that build exists already; its path. Raises RuntimeError with the
+    compiler's output when the build fails."""
+    out, cmd = stress_path(sanitizer)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=out.name + ".", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        n = len(STRESS_SOURCES)
+        try:
+            proc = subprocess.run([*cmd[:-n], "-o", tmp, *cmd[-n:]], capture_output=True,
+                                  text=True, timeout=600)
+        except (OSError, subprocess.SubprocessError) as exc:
+            raise RuntimeError(f"{' '.join(cmd)}: {exc}") from exc
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    wall = time.perf_counter() - t0
+    BUILD_WALLS[f"rapid_io_stress-{sanitizer}"] = wall
+    jitwatch.record_compile(f"rapid_io_stress-{sanitizer}", wall, "g++")
+    return out
+
+
+# gcc's TSAN runtime refuses the address layout of kernels with a high
+# vm.mmap_rnd_bits; the harness then runs again with ASLR off
+_TSAN_MAPPING = "unexpected memory mapping"
+
+
+def run_stress(sanitizer: str, timeout_s: float = 300.0) -> Tuple[str, bool]:
+    """Build the harness under ``sanitizer`` and run it: its ``stress ok``
+    line, and whether it ran under ``setarch <arch> -R`` (ASLR off, after
+    TSAN refused the address layout). Raises RuntimeError with the
+    harness's output when it exits other than 0 (an assertion or a sanitizer
+    report) or prints no ``stress ok``."""
+    exe = str(build_stress(sanitizer))
+    no_aslr = False
+    proc = subprocess.run([exe], capture_output=True, text=True, timeout=timeout_s)
+    if proc.returncode != 0 and _TSAN_MAPPING in proc.stderr:
+        no_aslr = True
+        proc = subprocess.run(["setarch", platform.machine(), "-R", exe],
+                              capture_output=True, text=True, timeout=timeout_s)
+    ok = [line for line in proc.stdout.splitlines() if line.startswith("stress ok")]
+    if proc.returncode != 0 or not ok:
+        raise RuntimeError(f"{exe} (-fsanitize={sanitizer}"
+                           f"{', ASLR off' if no_aslr else ''}) exited {proc.returncode}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return ok[0], no_aslr
+
+
 if __name__ == "__main__":
-    path = build()
-    print(f"built {path}")  # noqa: print-in-lib
-    print("loadable:", available())  # noqa: print-in-lib
+    import sys
+
+    if sys.argv[1:2] == ["--stress"]:
+        # python -m rapid_tpu_torch.native --stress [thread] [address]
+        for name in sys.argv[2:] or SANITIZERS:
+            missing = sanitizer_missing(name)
+            if missing:
+                print(f"-fsanitize={name}: absent: {missing}")  # noqa: print-in-lib
+                continue
+            line, no_aslr = run_stress(name)
+            print(f"-fsanitize={name}: {line}"  # noqa: print-in-lib
+                  + (" (ASLR off)" if no_aslr else ""))
+    else:
+        path = build()
+        print(f"built {path}")  # noqa: print-in-lib
+        print("loadable:", available())  # noqa: print-in-lib

@@ -72,8 +72,23 @@ def _stack() -> List["_InstrumentedLock"]:
 
 def violations() -> List[str]:
     """Violations recorded so far (survives raises swallowed by blanket
-    executor handlers)."""
+    executor handlers; checked after every test by ``tests/torch_gate.py``)."""
     return list(_violations)
+
+
+def consume_violations() -> List[str]:
+    """Return and clear recorded violations. For tests that *intentionally*
+    provoke one: consume it so the test gate stays green."""
+    out = list(_violations)
+    del _violations[:]
+    return out
+
+
+def reset() -> None:
+    """Clear the order graph and violation log (test isolation helper)."""
+    with _graph_lock:
+        _graph.clear()
+    del _violations[:]
 
 
 def _reaches(src: str, dst: str) -> bool:

@@ -24,6 +24,8 @@ import pytest
 import chip_smoke
 from rapid_tpu_torch.messaging.ports import free_port_base
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -134,7 +136,7 @@ def test_agent_refuses_what_is_not_ported(args, refusal):
                           "127.0.0.1:1", *args], cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert out.returncode == 2 and refusal in out.stderr, out.stderr
-    assert "Queue 1 item 8d" in out.stderr and "8c" not in out.stderr, out.stderr
+    assert "Queue 1 item 8d.ii" in out.stderr and "8c" not in out.stderr, out.stderr
 
 
 def test_serving_demo_agents_write_and_read_back():

@@ -12,6 +12,8 @@ import torch
 from rapid_tpu.sim.driver import Simulator as JaxSimulator
 from rapid_tpu_torch.sim.driver import Simulator
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _params(fn):
     return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]

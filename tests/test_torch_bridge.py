@@ -43,6 +43,8 @@ from rapid_tpu_torch.shard.engine import make_mesh
 from rapid_tpu_torch.sim.bridge import Protocol, TpuSimMessaging as PortBridge
 from rapid_tpu_torch.sim.bridge import default_protocol, load_blob
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 RAPID = Protocol.from_modules(rtypes, Promise)
 
 

@@ -17,6 +17,8 @@ from rapid_tpu_torch.sim import classic as tclassic
 from rapid_tpu_torch.sim import engine as teng
 from rapid_tpu_torch.sim.driver import Simulator
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 ACCEPTOR = ("classic_rnd", "classic_vrnd", "classic_vval")
 
 

@@ -25,6 +25,8 @@ import types
 
 import pytest
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 PACKAGES = ("rapid_tpu", "rapid_tpu_torch")
 MODULES = ("cluster", "events", "faults", "membership", "cut_detector", "messaging.gossip",
            "messaging.inprocess", "messaging.unicast", "monitoring.pingpong",

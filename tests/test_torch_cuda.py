@@ -19,6 +19,8 @@ from rapid_tpu_torch.shard.engine import gather_state, make_mesh
 from rapid_tpu_torch.sim import engine
 from rapid_tpu_torch.sim.driver import Simulator
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 pytestmark = pytest.mark.cuda
 
 

@@ -18,6 +18,8 @@ from rapid_tpu.sim.engine import SimConfig as JaxConfig
 from rapid_tpu_torch.sim import engine as teng
 from rapid_tpu_torch.sim.driver import Simulator, _pow2_chunks
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _pair(n_nodes, seed, capacity=None):
     return (
@@ -219,9 +221,10 @@ def test_pow2_chunks():
 
 def test_port_imports_neither_jax_nor_rapid_tpu():
     """In a fresh interpreter, the port (its simulator bridge, protocol
-    classes, socket gateway, nemesis search, forensics timeline and their
-    CLIs too) and chip_smoke.py load no module of JAX, of the JAX package,
-    of msgpack or of protobuf."""
+    classes, socket gateway, nemesis search, forensics timeline, the gRPC
+    wire's codec and their CLIs, statusz and slo too) and chip_smoke.py load
+    no module of JAX, of the JAX package, of msgpack, of grpc or of
+    protobuf."""
     code = (
         "import runpy, sys\n"
         "import rapid_tpu_torch.sim.driver, rapid_tpu_torch.sim.classic\n"
@@ -238,9 +241,12 @@ def test_port_imports_neither_jax_nor_rapid_tpu():
         "import rapid_tpu_torch.search.shrinker, rapid_tpu_torch.search.hunt\n"
         "import rapid_tpu_torch.forensics.timeline\n"
         "import rapid_tpu_torch.cli.hunt, rapid_tpu_torch.cli.forensics\n"
+        "import rapid_tpu_torch.cli.statusz, rapid_tpu_torch.cli.slo\n"
+        "import rapid_tpu_torch.messaging.grpc_transport\n"
+        "import rapid_tpu_torch.messaging.proto_wire, rapid_tpu_torch.messaging.wire_schema\n"
         "runpy.run_path('chip_smoke.py')\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu', 'msgpack')\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu', 'msgpack', 'grpc')\n"
         "             or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n"
     )

@@ -20,6 +20,8 @@ import pytest
 
 from test_torch_cluster import PACKAGES, package, twin
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def files(directory):
     """Every file under ``directory``: name -> bytes."""

@@ -18,6 +18,8 @@ from rapid_tpu.sim.topology import VirtualCluster
 from rapid_tpu_torch.sim import engine as teng
 from rapid_tpu_torch.sim.topology import VirtualCluster as PortCluster
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 BASE = dict(capacity=32, k=5, h=4, l=2, fd_threshold=3)
 
 

@@ -16,6 +16,8 @@ from rapid_tpu_torch import faults as pf
 from rapid_tpu_torch import types as pt
 from rapid_tpu_torch.sim.topology import LatencyTopology
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _full_plan(faults, types, topology_cls=None, topology=True):
     """One plan holding every rule kind, with windows, links and message

@@ -19,6 +19,8 @@ from rapid_tpu_torch.sim.driver import Simulator
 from rapid_tpu_torch.sim.engine import SimConfig
 from rapid_tpu_torch.sim.topology import LatencyTopology, configuration_id_vectorized
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _pair(n, seed, config=None, **kw):
     """(JAX simulator, port simulator), seeded alike."""

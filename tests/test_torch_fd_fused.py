@@ -23,6 +23,8 @@ import torch
 
 from rapid_tpu_torch.sim import engine, fd_bench, kernels
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 OUTPUTS = ("alive", "fd_fail", "alerted", "fd_streak", "fd_ok", "down_arrivals")
 
 

@@ -12,6 +12,8 @@ import torch
 
 from rapid_tpu_torch.sim import kernels
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _inputs(rng, c, k, counter_lo, counter_hi, dtype):
     return (

@@ -34,15 +34,7 @@ from rapid_tpu_torch.messaging.gateway import SwarmGateway
 from rapid_tpu_torch.settings import Settings as PortSettings
 from rapid_tpu_torch.sim.topology import ring_order
 
-
-@pytest.fixture(scope="module", autouse=True)
-def port_lockdep_gate():
-    """Fail the module if the port's lock-order checker (its own registry,
-    on under ``RAPID_LOCKDEP=1``) recorded a violation on any thread."""
-    yield
-    from rapid_tpu_torch.runtime import lockdep
-
-    assert lockdep.violations() == [], lockdep.violations()
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
 
 
 def jax_ep(ep) -> rtypes.Endpoint:

@@ -13,6 +13,8 @@ returns."""
 
 import chip_smoke
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def test_gateway_sequence_with_a_member_in_its_own_process():
     out = chip_smoke.gateway_sequence(1000, "cpu")

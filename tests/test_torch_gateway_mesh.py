@@ -8,11 +8,13 @@ member list equal the gateway's after each phase."""
 
 import threading
 
-from test_torch_gateway import GatewayHarness, crash, port_lockdep_gate  # noqa: unused-import
+from test_torch_gateway import GatewayHarness, crash
 
 from rapid_tpu.messaging.gateway import GatewayGossipBroadcaster
 from rapid_tpu.messaging.gossip import GossipBroadcaster
 from rapid_tpu_torch.shard.engine import make_mesh
+
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
 
 
 def test_socket_agents_against_mesh_sharded_swarm():

@@ -17,7 +17,7 @@ from pathlib import Path
 
 import pytest
 from harness import free_port_base
-from test_torch_gateway import GatewayHarness, crash, port_ep, port_lockdep_gate  # noqa: unused-import
+from test_torch_gateway import GatewayHarness, crash, port_ep
 
 import rapid_tpu.types as rtypes
 from rapid_tpu import ClusterBuilder, Settings
@@ -25,6 +25,8 @@ from rapid_tpu.messaging.gateway import GatewayRoutedClient, GatewaySwarmBroadca
 from rapid_tpu.messaging.tcp import TcpClientServer
 from rapid_tpu_torch import types as ptypes
 from rapid_tpu_torch.messaging.gateway import SwarmGateway
+
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -14,6 +14,8 @@ import pytest
 
 from test_torch_cluster import twin
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 PLACEMENT = {"partitions": 16, "replicas": 2, "seed": 5}
 HANDOFF_COUNTERS = ("handoff.sessions_started", "handoff.sessions_completed",
                     "handoff.sessions_failed", "handoff.chunks_sent", "handoff.chunks_received",

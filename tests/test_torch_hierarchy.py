@@ -27,6 +27,8 @@ from rapid_tpu_torch.sim.engine import SimConfig
 from rapid_tpu_torch.sim.topology import LatencyTopology
 from rapid_tpu_torch.types import Endpoint
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _port_sim(*args, **kw):
     return Simulator(*args, device="cpu", **kw)

@@ -19,6 +19,8 @@ import pytest
 from test_torch_cluster import PACKAGES, package, twin
 from test_torch_serving_engine import plain
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 class FakeChannel:
     def __init__(self):

@@ -32,6 +32,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 REPO = Path(__file__).resolve().parent.parent
 N = 256
 SEED = 42

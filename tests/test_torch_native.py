@@ -29,6 +29,8 @@ from rapid_tpu_torch.runtime import jitwatch, native_io
 from rapid_tpu_torch.sim import topology
 from rapid_tpu_torch.types import Endpoint, NodeId
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 pytestmark = pytest.mark.skipif(
     not (native.available() and jax_native.available()),
     reason="g++ cannot build the host libraries here",

@@ -32,6 +32,8 @@ from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
 from rapid_tpu_torch.runtime.futures import Promise as PortPromise
 from rapid_tpu_torch.runtime.native_io import EV_FRAME, NativeReactor
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 pytestmark = pytest.mark.skipif(
     not native_io_available(), reason="the port's rapid_io.cpp did not build (no g++)"
 )

@@ -23,6 +23,8 @@ from rapid_tpu.sim.engine import SimConfig as JaxConfig
 from rapid_tpu_torch.sim.driver import Simulator
 from rapid_tpu_torch.sim.engine import SimConfig
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 
 both = pytest.mark.parametrize("obs", [jax_obs, port_obs], ids=["jax", "port"])

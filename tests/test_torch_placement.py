@@ -42,6 +42,8 @@ from rapid_tpu_torch.types import Endpoint
 
 from golden import fixtures as fx
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 GOLDEN = json.loads((Path(__file__).parent / "golden" / "parity_vectors.json").read_text())
 
 

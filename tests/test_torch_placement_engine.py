@@ -20,6 +20,8 @@ import rapid_tpu_torch.placement as ppl
 import rapid_tpu_torch.serving as pserving
 import rapid_tpu_torch.types as pt
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 JAX = (jev, jpl, jt, jrouter.RendezvousRouter)
 PORT = (pev, ppl, pt, pserving.RendezvousRouter)
 

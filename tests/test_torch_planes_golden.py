@@ -16,6 +16,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "gol
 
 import generate_torch_planes  # noqa: E402
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 with open(chip_smoke.PLANES_GOLDEN) as _f:
     GOLDEN = json.load(_f)["runs"]
 RUNS = ("serving_dimension", "sweep_point", "zone_churn")

@@ -31,6 +31,8 @@ from test_torch_engine import (
 )
 from tools.perfscope import extract_phases
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 POLICIES = {
     "cumulative": {},
     "windowed": {"fd_policy": "windowed", "fd_window": 4, "fd_window_threshold": 0.5},

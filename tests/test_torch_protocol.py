@@ -18,6 +18,8 @@ import uuid
 
 import pytest
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 PACKAGES = ("rapid_tpu", "rapid_tpu_torch")
 MODULES = ("cut_detector", "fast_paxos", "membership", "messaging.base", "monitoring.adaptive",
            "monitoring.pingpong", "monitoring.static_fd", "paxos", "runtime.futures",

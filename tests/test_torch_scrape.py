@@ -39,6 +39,8 @@ from tools.perfscope import parse_rendered
 sys.path.insert(0, str(Path(__file__).parent / "golden"))
 from torch_wire_fixtures import convert  # noqa: E402
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 GOLDEN = json.loads((Path(__file__).parent / "golden" / "scrape_frames.json").read_text())
 
 

@@ -27,6 +27,8 @@ import sys
 import pytest
 import torch
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("rapid_tpu", "rapid_tpu_torch")
 SEARCH_MODULES = ("checkers", "coverage", "fabric", "generator", "hunt", "runner", "shrinker")

@@ -19,6 +19,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "gol
 
 import generate_torch_search  # noqa: E402
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 with open(chip_smoke.SEARCH_GOLDEN) as _f:
     GOLDEN = json.load(_f)
 RUNS = ("engine_hunt", "bug_hunt", "sim_hunt", "wide_probe", "timeline")

@@ -29,6 +29,8 @@ from rapid_tpu_torch.serving import SERVING_SEED, decode_kv, encode_kv, partitio
 from rapid_tpu_torch.sim.driver import Simulator
 from rapid_tpu_torch.types import Put, PutAck
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 SIM_METRICS = (
     "serving.gets", "serving.puts", "serving.put_acks",
     "serving.put_retries", "serving.replication_writes",

@@ -22,6 +22,8 @@ import pytest
 
 from test_torch_cluster import PACKAGES, package, twin
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 PLACEMENT = {"partitions": 16, "replicas": 3, "seed": 5}
 SERVING_COUNTERS = ("serving.gets", "serving.puts", "serving.put_acks", "serving.put_retries",
                     "serving.replication_writes", "serving.leader_reads",

@@ -41,6 +41,8 @@ from rapid_tpu_torch.sim import engine as teng
 from rapid_tpu_torch.sim import kernels
 from rapid_tpu_torch.sim.driver import Simulator
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 CPU8 = ["cpu"] * 8
 
 

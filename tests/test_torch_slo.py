@@ -24,6 +24,8 @@ from rapid_tpu_torch import slo as pslo
 from rapid_tpu_torch.settings import SETTINGS_CATALOG, SLOSettings
 from rapid_tpu_torch.sim.driver import Simulator
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _port_sim(*args, **kw):
     return Simulator(*args, device="cpu", **kw)

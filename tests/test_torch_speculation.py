@@ -18,6 +18,8 @@ from rapid_tpu_torch.shard.engine import make_mesh
 from rapid_tpu_torch.sim.driver import Simulator
 from test_fuzz_parity import BATCH, CAPACITY, N_START, generate_and_run
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _summary(records):
     return [(r.cut.tolist(), r.configuration_id, r.virtual_time_ms, r.membership_size)

@@ -31,6 +31,8 @@ import pytest
 
 import chip_smoke
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("rapid_tpu", "rapid_tpu_torch")
 BUG_FLAG = "RAPID_BUG_NEWROW_SYNC"

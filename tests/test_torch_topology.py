@@ -10,6 +10,8 @@ from rapid_tpu.sim import topology as jax_topology
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.sim import topology
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 
 def _clusters(capacity, k, seed):
     return (

@@ -13,6 +13,8 @@ from hypothesis import strategies as st
 
 from rapid_tpu_torch.placement import device as pdev
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 SHAPES = st.tuples(
     st.integers(1, 120_000),  # rows
     st.integers(0, 1_200_000),  # columns

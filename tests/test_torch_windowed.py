@@ -18,6 +18,8 @@ from rapid_tpu_torch.sim import engine as teng
 from rapid_tpu_torch.sim import kernels
 from rapid_tpu_torch.sim.driver import Simulator
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 OUTPUTS = ("alive", "fd_fail", "alerted", "fd_streak", "fd_ok", "down_arrivals",
            "fd_hist", "fd_seen")
 WINDOWS = [1, 10, 16]

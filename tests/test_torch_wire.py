@@ -36,6 +36,8 @@ sys.path.insert(0, str(Path(__file__).parent / "golden"))
 
 import torch_wire_fixtures as fx  # noqa: E402
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 JAX, PORT = fx.jax_wire(), fx.port_wire()
 
 # --------------------------------------------------------------------------- #

@@ -21,6 +21,8 @@ sys.path.insert(0, str(Path(__file__).parent / "golden"))
 
 import torch_wire_fixtures as fx  # noqa: E402
 
+pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
+
 FRAMES = json.loads(
     (Path(__file__).parent / "golden" / "torch_wire_frames.json").read_text())["frames"]
 IDS = [f["name"] for f in FRAMES]
