@@ -196,7 +196,20 @@ into build/kernels/. Phases, each of which must pass:
    (``native_gateway``); (e) 3 port members on ``NativeTcpClientServer``
    scraped with ``ClusterStatusRequest(include_history=8)`` and folded with
    ``cluster_timeseries``, one series map a member holding its own counters
-   (``native_scrape``).
+   (``native_scrape``);
+21. the gRPC transport (``rapid_tpu_torch/messaging/http2.py`` under
+   ``grpc_transport.GrpcServer`` / ``GrpcClient``; host Python, no kernel),
+   after the native plane's (c)-(e) (``grpc_phase``): (a) the port's frame
+   reader and HPACK decoder replay ``tests/golden/torch_grpc_frames.json``
+   (grpcio's frames, captured where grpcio is installed) exactly; (b) the
+   100k ``JoinResponse`` over one RPC between a port server and client on
+   127.0.0.1, its wall split into encode, transfer and decode with its DATA
+   frames, WINDOW_UPDATEs and flow-control stalls, beside the same reply
+   over ``TcpClientServer`` and ``NativeTcpClientServer``, medians of 3,
+   every reply equal; (c) a seed and 20 concurrent joiners on gRPC agreeing
+   on one configuration id, then one crashed and the 20 left agreeing; (d)
+   ``python -m rapid_tpu_torch.cli.agent --transport grpc`` joining a port
+   seed and exiting 0 on SIGINT.
 
 Prints a JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -2962,7 +2975,10 @@ def agent_sequence(n, device, seed=SEED, scripted=None, transport="tcp", native_
         for thread in gateway._threads:  # noqa: SLF001 -- a pump in flight ends first
             thread.join(timeout=GATEWAY_WAIT_S)
     for row in steps[:3]:
-        assert row["agent_configuration_id"] == row["configuration_id"], row["name"]
+        assert row["agent_configuration_id"] == row["configuration_id"], (
+            row["name"], row["agent_configuration_id"], row["configuration_id"],
+            [line for _, line in child.lines if "VIEW_CHANGE" in line or "WARN" in line][-12:],
+            [line for _, line in child.lines[-12:]])
     if on_card:
         for row in steps:
             assert row["counted_syncs"] == sum(row["syncs"].values()), (
@@ -3178,6 +3194,34 @@ def proto_phase(card, reps=3, without_protobuf=True):
           f"decode {walls['msgpack']['decode_ms']:.1f} ms (median of {reps}) ({card})",
           flush=True)
     return {"frames": len(frames), "refused": errors, "join_response_100k": walls}
+
+
+def decode_capture(data: bytes, client_side: bool) -> dict:
+    """One direction of a captured HTTP/2 connection as the port's
+    ``messaging/http2.py`` reads it: its frames (name, flags, stream,
+    length) and its header blocks (stream, headers), through one HPACK
+    decoder in arrival order. The client's side opens with the connection
+    preface."""
+    from rapid_tpu_torch.messaging import http2
+
+    if client_side:
+        assert data.startswith(http2.PREFACE), "no connection preface"
+        data = data[len(http2.PREFACE):]
+    found = http2.FrameReader().feed(data)
+    assert sum(9 + len(f.payload) for f in found) == len(data), "a truncated frame"
+    decoder = http2.Decoder()
+    frames, blocks, block = [], [], None
+    for f in found:
+        frames.append([http2.FRAME_NAMES[f.type] if f.type < len(http2.FRAME_NAMES) else f.type,
+                       f.flags, f.stream_id, len(f.payload)])
+        if f.type == http2.HEADERS:
+            block = bytearray(http2.frame_body(f))
+        elif f.type == http2.CONTINUATION:
+            block += f.payload
+        if f.type in (http2.HEADERS, http2.CONTINUATION) and f.flags & http2.END_HEADERS:
+            blocks.append({"stream": f.stream_id,
+                           "headers": [list(h) for h in decoder.decode(bytes(block))]})
+    return {"frames": frames, "blocks": blocks}
 
 
 # --------------------------------------------------------------------- #
@@ -5267,6 +5311,261 @@ def native_scrape(card, members=SCRAPE_MEMBERS):
     return {"members": rows, "scrape_ms": scrape_ms, "clis": clis}
 
 
+# --------------------------------------------------------------------- #
+# The gRPC transport: the port's own HTTP/2, HPACK and gRPC framing
+# (messaging/http2.py) under GrpcServer / GrpcClient (host Python; no kernel)
+# --------------------------------------------------------------------- #
+
+GRPC_FRAMES = os.path.join(os.path.dirname(WIRE_FRAMES), "torch_grpc_frames.json")
+GRPC_REPS = 3  # the 100k JoinResponse's calls on each transport
+GRPC_JOINERS = 20  # tests/test_grpc_transport.py::test_concurrent_join_wave_through_one_seed
+
+
+def grpc_golden(card):
+    """(a) The port's frame reader and HPACK decoder replay every captured
+    direction of ``tests/golden/torch_grpc_frames.json`` (grpcio's client
+    against JAX's and the port's server, grpcio's server): the recorded
+    frames and header blocks, exactly; the ``-bin`` value grpcio's client
+    sent the port's server is the base64 of the recorded bytes, and its
+    Huffman code stands in the captured bytes."""
+    import base64
+
+    from rapid_tpu_torch.messaging import http2
+
+    with open(GRPC_FRAMES) as f:
+        doc = json.load(f)
+    frames = blocks = 0
+    for server, capture in sorted(doc["captures"].items()):
+        for side in ("client", "server"):
+            recorded = capture[side]
+            got = decode_capture(bytes.fromhex(recorded["hex"]), client_side=side == "client")
+            assert got["frames"] == recorded["frames"], f"grpc: {server} {side}: frames differ"
+            assert got["blocks"] == recorded["blocks"], f"grpc: {server} {side}: headers differ"
+            frames += len(got["frames"])
+            blocks += len(got["blocks"])
+    key, value = doc["bin_metadata"]
+    client = doc["captures"]["rapid_tpu_torch"]["client"]
+    coded = base64.b64encode(bytes.fromhex(value)).rstrip(b"=")
+    sent = [h for b in client["blocks"] for h in b["headers"] if h[0] == key]
+    assert sent == [[key, coded.decode()]], sent
+    assert http2.huffman_encode(coded).hex() in client["hex"], "no Huffman-coded -bin value"
+    print(f"grpc (a): the port's frame reader and HPACK decoder give all {frames} frames and "
+          f"{blocks} header blocks of {len(doc['captures'])} captures of grpcio "
+          f"{doc['grpcio']} exactly, a Huffman-coded -bin value among them ({card})", flush=True)
+    return {"frames": frames, "blocks": blocks}
+
+
+class AnswerService:
+    """A membership service stand-in that answers every request with one
+    prebuilt reply."""
+
+    def __init__(self, reply):
+        self.reply = reply
+
+    def handle_message(self, msg):
+        from rapid_tpu_torch.runtime.futures import Promise
+
+        promise = Promise()
+        promise.set_result(self.reply)
+        return promise
+
+
+def grpc_join_response(card, reps=GRPC_REPS):
+    """(b) The 100k ``JoinResponse`` of ``tests/golden/torch_proto_frames.json``
+    (4 099 619 B in proto3) over one RPC: a port ``GrpcServer`` whose service
+    answers it, called by a port ``GrpcClient`` over 127.0.0.1 with a
+    ``JoinMessage``; each call's wall split into the server's encode, the
+    client's decode and the transfer (the rest), with the DATA frames, the
+    client's WINDOW_UPDATEs and the server's flow-control stalls. Beside it
+    the same reply over the port's ``TcpClientServer`` and
+    ``NativeTcpClientServer`` (msgpack). Medians of ``reps``; every reply
+    equal to the one sent."""
+    sys.path.insert(0, os.path.dirname(WIRE_FRAMES))
+    import torch_wire_fixtures as fx
+
+    from rapid_tpu_torch import Settings
+    from rapid_tpu_torch.messaging.grpc_transport import GrpcClient, GrpcServer
+    from rapid_tpu_torch.messaging.native_tcp import NativeTcpClientServer
+    from rapid_tpu_torch.messaging.tcp import TcpClientServer
+    from rapid_tpu_torch.types import Endpoint, JoinMessage, NodeId
+
+    with open(PROTO_FRAMES) as f:
+        spec = next(f for f in json.load(f)["frames"] if f["name"] == PROTO_BIG)
+    big = fx.message(spec, fx.port_wire())
+    settings = Settings(join_message_timeout_ms=int(GATEWAY_WAIT_S * 1e3), message_retries=0)
+    eps = [Endpoint.from_parts("127.0.0.1", port) for port in _free_ports(6)]
+    request = JoinMessage(sender=eps[1], node_id=NodeId(1, 2), ring_numbers=tuple(range(10)),
+                          configuration_id=-1)
+    runs = {}
+    server, client = GrpcServer(eps[0]), GrpcClient(eps[1], settings)
+    server.set_membership_service(AnswerService(big))
+    server.start()
+    try:
+        calls = []
+        for _ in range(reps):
+            before_s, before_c = dict(server.stats), dict(client.stats)
+            t0 = time.perf_counter()
+            got = client.send_message(eps[0], request).result(GATEWAY_WAIT_S)
+            wall = (time.perf_counter() - t0) * 1e3
+            assert got == big, "grpc: the 100k JoinResponse arrived changed"
+            sd, cd = _diff(server.stats, before_s), _diff(client.stats, before_c)
+            calls.append({"wall_ms": wall, "encode_ms": sd["encode_ms"],
+                          "decode_ms": cd["decode_ms"],
+                          "transfer_ms": wall - sd["encode_ms"] - cd["decode_ms"],
+                          "data_frames": sd["DATA out"],
+                          "window_updates": cd.get("WINDOW_UPDATE out", 0),
+                          "stalls": sd.get("stalls", 0)})
+        runs["grpc"] = {k: statistics.median(c[k] for c in calls) for k in calls[0]}
+    finally:
+        client.shutdown()
+        server.shutdown()
+    for (name, cls), (srv_ep, cli_ep) in zip(
+            (("tcp", TcpClientServer), ("native-tcp", NativeTcpClientServer)),
+            ((eps[2], eps[3]), (eps[4], eps[5]))):
+        srv, cli = cls(srv_ep, settings), cls(cli_ep, settings)
+        srv.set_membership_service(AnswerService(big))
+        srv.start()
+        try:
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = cli.send_message(srv_ep, request).result(GATEWAY_WAIT_S)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                assert got == big, f"{name}: the 100k JoinResponse arrived changed"
+            runs[name] = {"wall_ms": statistics.median(walls)}
+        finally:
+            cli.shutdown()
+            srv.shutdown()
+    g = runs["grpc"]
+    print(f"grpc (b), {PROTO_BIG} over one RPC: wall {g['wall_ms']:.1f} ms = encode "
+          f"{g['encode_ms']:.1f} + transfer {g['transfer_ms']:.1f} + decode {g['decode_ms']:.1f} "
+          f"ms; {g['data_frames']:.0f} DATA frames, {g['window_updates']:.0f} WINDOW_UPDATEs, "
+          f"{g['stalls']:.0f} flow-control stalls; the same reply over tcp "
+          f"{runs['tcp']['wall_ms']:.1f} ms, native-tcp {runs['native-tcp']['wall_ms']:.1f} ms "
+          f"(msgpack) (medians of {reps}; equal replies) ({card})", flush=True)
+    return runs
+
+
+def _grpc_member(i, ports, settings, blacklist, seed=None, timeout=GATEWAY_WAIT_S):
+    """Port member ``i`` on the port's gRPC transport at ``ports[i]``, with a
+    static FD over ``blacklist``: a seed, or joined through ``seed`` within
+    ``timeout`` s."""
+    from rapid_tpu_torch import ClusterBuilder
+    from rapid_tpu_torch.messaging.grpc_transport import GrpcClient, GrpcServer
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.types import Endpoint
+
+    addr = Endpoint.from_parts("127.0.0.1", ports[i])
+    builder = (ClusterBuilder(addr).use_settings(settings)
+               .set_messaging_client_and_server(GrpcClient(addr, settings), GrpcServer(addr))
+               .set_edge_failure_detector_factory(StaticFailureDetectorFactory(blacklist)))
+    return builder.start() if seed is None else builder.join(seed, timeout=timeout)
+
+
+def _until_agreed(clusters, size, timeout=GATEWAY_WAIT_S):
+    """Wait until every member holds ``size`` members; assert one member
+    list (by text: members may be of either package) and one configuration
+    id, and return that id."""
+    deadline = time.time() + timeout
+    while time.time() < deadline and not all(c.get_membership_size() == size for c in clusters):
+        time.sleep(0.02)
+    lists = {tuple(str(e) for e in c.get_memberlist()) for c in clusters}
+    ids = {c.get_current_configuration_id() for c in clusters}
+    assert [c.get_membership_size() for c in clusters] == [size] * len(clusters), \
+        [c.get_membership_size() for c in clusters]
+    assert len(lists) == 1 and len(ids) == 1, (len(lists), ids)
+    return ids.pop()
+
+
+def grpc_cluster(card, joiners=GRPC_JOINERS):
+    """(c) A live cluster on the port's gRPC transport with
+    ``tests/test_grpc_transport.py``'s join-wave settings (FD 100 ms,
+    batching 50 ms, fallback 500 ms, ``GATEWAY_SETTINGS``): a seed and
+    ``joiners`` concurrent joiners through it, every parked join answered
+    without a thread held, until all agree on one member list and
+    configuration id; then one member crashed (static FD blacklist) until the
+    rest agree again."""
+    from rapid_tpu_torch import Settings
+
+    settings = Settings(**GATEWAY_SETTINGS)
+    ports, blacklist = _free_ports(joiners + 1), set()
+    t0 = time.perf_counter()
+    clusters = [_grpc_member(0, ports, settings, blacklist)]
+    errors, lock = [], threading.Lock()
+
+    def join(i):
+        try:
+            member = _grpc_member(i, ports, settings, blacklist, clusters[0].listen_address)
+            with lock:
+                clusters.append(member)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=join, args=(i,)) for i in range(1, joiners + 1)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(GATEWAY_WAIT_S)
+        assert not errors and not any(t.is_alive() for t in threads), errors
+        joined_id = _until_agreed(clusters, joiners + 1)
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        victim = clusters.pop()
+        blacklist.add(victim.listen_address)
+        t1 = time.perf_counter()
+        victim.shutdown()
+        crashed_id = _until_agreed(clusters, joiners)
+        crash_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        for c in clusters:
+            c.shutdown()
+    print(f"grpc (c), a live cluster on the port's gRPC: a seed and {joiners} concurrent "
+          f"joiners agree on one member list, configuration id {joined_id}, in "
+          f"{wave_ms:.1f} ms; one crashed, the {joiners} left agree on {crashed_id} in "
+          f"{crash_ms:.1f} ms ({card})", flush=True)
+    return {"wave_ms": wave_ms, "crash_ms": crash_ms, "joined_id": joined_id,
+            "crashed_id": crashed_id}
+
+
+def grpc_agent(card):
+    """(d) ``python -m rapid_tpu_torch.cli.agent --transport grpc`` in a child
+    process joins a port seed on gRPC (in this process), logs a membership
+    of 2 at the seed's configuration id, and leaves on SIGINT with exit 0."""
+    from rapid_tpu_torch import Settings
+
+    settings = Settings(**GATEWAY_SETTINGS)
+    ports = _free_ports(2)
+    seed = _grpc_member(0, ports, settings, set())
+    t0 = time.perf_counter()
+    child = _AgentChild(["--transport", "grpc", "--listen-address", f"127.0.0.1:{ports[1]}",
+                         "--seed-address", str(seed.listen_address), "--fd-interval-ms", "100"])
+    try:
+        _, _, line = child.wait("membership size=2 ")
+        join_ms = (time.perf_counter() - t0) * 1e3
+        agent_id = int(re.search(r"config=(-?\d+)", line).group(1))
+        seed_id = seed.get_current_configuration_id()
+        assert agent_id == seed_id and seed.get_membership_size() == 2, (agent_id, seed_id)
+        child.proc.send_signal(signal.SIGINT)
+        rc = child.proc.wait(timeout=60)
+        assert rc == 0, f"the grpc agent exited {rc}"
+    finally:
+        child.close()
+        seed.shutdown()
+    print(f"grpc (d), the agent on --transport grpc: joined the port seed at configuration "
+          f"id {agent_id} (the seed's) in {join_ms:.1f} ms from its start, exit {rc} on "
+          f"SIGINT ({card})", flush=True)
+    return {"join_ms": join_ms, "configuration_id": agent_id, "rc": rc}
+
+
+def grpc_phase(card):
+    """The gRPC transport's phase: (a)-(d) above."""
+    t0 = time.perf_counter()
+    out = {"golden": grpc_golden(card), "join_response_100k": grpc_join_response(card),
+           "cluster": grpc_cluster(card), "agent": grpc_agent(card)}
+    print(f"grpc phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5343,6 +5642,9 @@ def main() -> int:
     native["scrape"] = native_scrape(card)
     print(f"native (c)-(e) {time.perf_counter() - t0:.1f} s, the script so far "
           f"{time.perf_counter() - started:.1f} s", flush=True)
+    # --- the gRPC transport: golden wire, the 100k reply, a live cluster,
+    # the agent (host Python; no kernel) ----------------------------------
+    grpc_result = grpc_phase(card)
     # --- the protocol plane's live engines (host Python; no kernel) --------
     live = live_planes_phase(card)
     print(f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
@@ -5582,7 +5884,7 @@ def main() -> int:
                       "wire": wire, "gateway": gateway, "planes": planes_result,
                       "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
                       "agent": agent, "live_planes": live, "search": search,
-                      "native": native},
+                      "native": native, "grpc": grpc_result},
                      default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {

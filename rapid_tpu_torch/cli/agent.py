@@ -17,8 +17,10 @@ endpoint>`` (the gateway prints its seed endpoint). ``--serving`` turns on
 the serving demo (placement, handoff and serving on an in-memory store; each
 tick writes and reads back a demo key). ``--transport native-tcp`` puts the
 server half on the port's C++ epoll reactor (``messaging/native_tcp.py``);
-the gRPC transport is refused: its proto3 codec is ported, its HTTP/2
-transport is not yet (ROADMAP.md Queue 1 item 8d.ii).
+``--transport grpc`` speaks the reference's gRPC wire
+(``messaging/grpc_transport.py`` over the port's own HTTP/2,
+``messaging/http2.py``), with JVM Rapid peers and the JAX package's grpcio
+agents alike.
 """
 
 import argparse
@@ -133,8 +135,8 @@ def main() -> None:
     parser.add_argument(
         "--transport", choices=("tcp", "native-tcp", "grpc"), default="tcp",
         help="tcp = framed-TCP transport; native-tcp = the same wire with the "
-        "server half on the C++ epoll reactor; grpc (wire-compatible with JVM "
-        "Rapid) is not ported and is refused",
+        "server half on the C++ epoll reactor; grpc = wire-compatible with JVM "
+        "Rapid",
     )
     parser.add_argument(
         "--broadcaster", choices=("unicast", "gossip"), default="unicast",
@@ -222,11 +224,14 @@ def main() -> None:
             settings, forensics=ForensicsSettings(enabled=True)
         )
     if args.transport == "grpc":
-        parser.error(
-            "--transport grpc is not ported to rapid_tpu_torch: its proto3 codec "
-            "is (messaging/grpc_transport.py), its HTTP/2 transport is not "
-            "(ROADMAP.md Queue 1 item 8d.ii); use tcp or native-tcp"
-        )
+        if args.gateway_address:
+            parser.error(
+                "--gateway-address requires the tcp transport: the gateway "
+                "delivers swarm traffic over framed TCP to the agent's server"
+            )
+        from rapid_tpu_torch.messaging.grpc_transport import GrpcClient, GrpcServer
+
+        client, server = GrpcClient(listen, settings), GrpcServer(listen)
     elif args.transport == "native-tcp":
         from rapid_tpu_torch.messaging.native_tcp import NativeTcpClientServer
 

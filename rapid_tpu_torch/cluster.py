@@ -469,7 +469,22 @@ class ClusterBuilder:
     def _broadcaster(self, client: IMessagingClient, rng: random.Random):
         if self._broadcaster_factory is None:
             return None  # service defaults to UnicastToAllBroadcaster
-        return self._broadcaster_factory(client, rng)
+        broadcaster = self._broadcaster_factory(client, rng)
+        if getattr(broadcaster, "receive", None) is not None:
+            # gossip-style broadcasters wrap messages in GossipEnvelope,
+            # which the JVM-wire-compatible gRPC transport cannot carry
+            # (rapid.proto has no such message); best-effort sends would
+            # fail silently and the cluster would never converge, so refuse
+            # the pairing at build time
+            from .messaging.grpc_transport import GrpcClient
+
+            if isinstance(client, GrpcClient):
+                raise JoinException(
+                    "gossip-style broadcasters need a native-codec transport "
+                    "(tcp / native-tcp / in-process); the gRPC wire has no "
+                    "GossipEnvelope message"
+                )
+        return broadcaster
 
     # ------------------------------------------------------------------ #
 

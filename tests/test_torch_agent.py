@@ -10,7 +10,8 @@ read through its status RPC, equals the gateway's; every decision's id
 equals a plain simulator's driven alike. Then the agent alone: a seed and a
 joiner over loopback, ``--status`` against them, the same two on the native
 transport (``--transport native-tcp``), the serving demo (``--serving``) on
-two agents, and the transport the port refuses."""
+two agents, and the agent on ``--transport grpc`` (joining a port seed, and
+refusing a gateway as JAX's agent does)."""
 
 import os
 import re
@@ -18,8 +19,6 @@ import signal
 import subprocess
 import sys
 import time
-
-import pytest
 
 import chip_smoke
 from rapid_tpu_torch.messaging.ports import free_port_base
@@ -128,15 +127,24 @@ def test_two_agents_converge_over_native_tcp():
             proc.stdout.close()
 
 
-@pytest.mark.parametrize("args,refusal", [
-    (["--transport", "grpc"], "--transport grpc is not ported"),
-])
-def test_agent_refuses_what_is_not_ported(args, refusal):
+def test_grpc_agent_joins_a_port_seed_and_leaves():
+    """``--transport grpc``: the agent in its own process joins a port seed
+    on the port's gRPC transport (``chip_smoke.grpc_agent``, the card's
+    phase), logs a membership of 2 at the seed's configuration id, and
+    leaves on SIGINT with exit 0."""
+    out = chip_smoke.grpc_agent("cpu")
+    assert out["rc"] == 0 and out["join_ms"] > 0
+
+
+def test_grpc_agent_refuses_a_gateway():
+    """``--transport grpc --gateway-address``: exit 2 with the JAX agent's
+    message (the gateway speaks framed TCP only)."""
     out = subprocess.run([sys.executable, "-m", "rapid_tpu_torch.cli.agent", "--listen-address",
-                          "127.0.0.1:1", *args], cwd=REPO, capture_output=True, text=True,
-                         timeout=60)
-    assert out.returncode == 2 and refusal in out.stderr, out.stderr
-    assert "Queue 1 item 8d.ii" in out.stderr and "8c" not in out.stderr, out.stderr
+                          "127.0.0.1:1", "--transport", "grpc", "--gateway-address",
+                          "127.0.0.1:2"], cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 2, out.stderr
+    assert ("--gateway-address requires the tcp transport: the gateway delivers swarm traffic "
+            "over framed TCP to the agent's server") in out.stderr, out.stderr
 
 
 def test_serving_demo_agents_write_and_read_back():

@@ -222,7 +222,8 @@ def test_pow2_chunks():
 def test_port_imports_neither_jax_nor_rapid_tpu():
     """In a fresh interpreter, the port (its simulator bridge, protocol
     classes, socket gateway, nemesis search, forensics timeline, the gRPC
-    wire's codec and their CLIs, statusz and slo too) and chip_smoke.py load
+    wire's codec and its HTTP/2 transport and their CLIs, statusz and slo
+    too) and chip_smoke.py load
     no module of JAX, of the JAX package, of msgpack, of grpc or of
     protobuf."""
     code = (
@@ -242,7 +243,7 @@ def test_port_imports_neither_jax_nor_rapid_tpu():
         "import rapid_tpu_torch.forensics.timeline\n"
         "import rapid_tpu_torch.cli.hunt, rapid_tpu_torch.cli.forensics\n"
         "import rapid_tpu_torch.cli.statusz, rapid_tpu_torch.cli.slo\n"
-        "import rapid_tpu_torch.messaging.grpc_transport\n"
+        "import rapid_tpu_torch.messaging.grpc_transport, rapid_tpu_torch.messaging.http2\n"
         "import rapid_tpu_torch.messaging.proto_wire, rapid_tpu_torch.messaging.wire_schema\n"
         "runpy.run_path('chip_smoke.py')\n"
         "bad = sorted(m for m in sys.modules\n"

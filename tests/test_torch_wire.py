@@ -164,13 +164,15 @@ def test_invalid_input_raises_value_error(data):
 
 
 _FORBIDDEN_IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|msgpack|google\.protobuf|google|rapid_tpu)\b(?!_torch)")
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|msgpack|google\.protobuf|google|grpc|rapid_tpu)"
+    r"\b(?!_torch)")
 
 
 def test_the_port_imports_no_jax_msgpack_protobuf_or_rapid_tpu():
     """The import lines of ``rapid_tpu_torch/`` and ``chip_smoke.py`` name no
-    JAX, msgpack, protobuf or ``rapid_tpu`` module (``rapid_tpu_torch``
-    aside): the codec's packer is ``msgpack_wire``."""
+    JAX, msgpack, protobuf, grpc or ``rapid_tpu`` module (``rapid_tpu_torch``
+    aside): the codec's packer is ``msgpack_wire``, the gRPC transport's
+    HTTP/2 is ``http2``."""
     root = Path(__file__).resolve().parents[1]
     paths = sorted((root / "rapid_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     bad = [(str(path.relative_to(root)), line) for path in paths
