@@ -139,7 +139,7 @@ into build/kernels/. Phases, each of which must pass:
    ``TpuSimMessaging`` at 100k on the port's ``InProcessNetwork``, through
    ``bridge_sequence``'s script (join, the 1% crash in the closed form, the
    1% crash under ingress loss 1.0 through ``fd_phase_fused``, leave), then
-   8 members joining in one pump and all voting in the crash; every
+   2 members joining in one pump and both voting in the crash; every
    member's configuration id and member list equal to the swarm's, each id
    to a plain simulator's; each pump's wall split into dispatch, the
    members' own host work (their join's view and service build apart) and
@@ -148,7 +148,9 @@ into build/kernels/. Phases, each of which must pass:
    child process joining the port's ``SwarmGateway`` at 100k over TCP,
    through both crashes and a leave on SIGINT, its configuration id read
    through its status RPC after each step and equal to the gateway's and a
-   plain simulator's, each step's wall beside the scripted member's;
+   plain simulator's (a mismatch fails the run with ``_agent_fork_dump``:
+   both ids, the agent's journal and VIEW_CHANGE lines, the bridge's repair
+   paths), each step's wall beside the scripted member's;
 18. the protocol plane's live engines, after the agent (``live_planes_phase``,
    host Python, no kernel): 64 port members (``ClusterBuilder`` on the
    port's ``InProcessNetwork`` and ``VirtualScheduler``), placement 256 x 3,
@@ -189,7 +191,7 @@ into build/kernels/. Phases, each of which must pass:
    with the native entry points patched to None here, each build split
    into ``_bulk_insert``, the identifier insort, the scalar configuration id
    and the service, one id (``native_member_join``); then the view build of
-   those 100 000 endpoints alone, six times in turns on the two paths
+   those 100 000 endpoints alone, once on each path
    (``native_view_builds``); (d) ``gateway_sequence``
    with ``native_server=True``, every id equal to the Python server's run,
    and ``agent_sequence`` with the agent on ``--transport native-tcp``
@@ -205,15 +207,21 @@ into build/kernels/. Phases, each of which must pass:
    100k ``JoinResponse`` over one RPC between a port server and client on
    127.0.0.1, its wall split into encode, transfer and decode with its DATA
    frames, WINDOW_UPDATEs and flow-control stalls, beside the same reply
-   over ``TcpClientServer`` and ``NativeTcpClientServer``, medians of 3,
+   over ``TcpClientServer`` and ``NativeTcpClientServer``, one call each,
    every reply equal; (c) a seed and 20 concurrent joiners on gRPC agreeing
    on one configuration id, then one crashed and the 20 left agreeing; (d)
    ``python -m rapid_tpu_torch.cli.agent --transport grpc`` joining a port
    seed and exiting 0 on SIGINT.
 
-Prints a JSON line of kernel results, the card's name and power limit, and
-as the last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or outside a checkout, it exits non-zero and prints no result.
+Prints a JSON line of kernel results, one line of each phase's seconds, the
+card's name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or outside a checkout, it exits non-zero and
+prints no result. ``python3 chip_smoke.py --agent-loop N [M]`` runs 17's
+``member_sequence`` (every M-th time) then ``agent_sequence`` N times in one
+process and stops at the first disagreement, printing its dump
+(``agent_loop``);
+``--view-race TRIALS [N]`` races a configuration read against a view
+change's deletes on this host's CPU, unforced (``view_race``).
 """
 
 import collections
@@ -2087,6 +2095,102 @@ class _CodecClock:
             module.encode, module.decode = self._codec.encode, self._codec.decode
 
 
+def _frame_config(msg):
+    """The configuration id a protocol message is stamped with (an alert
+    batch's: its first alert's), or None."""
+    if getattr(msg, "messages", None):
+        return msg.messages[0].configuration_id
+    return getattr(msg, "configuration_id", None)
+
+
+class _LoggedDict(dict):
+    """A dict that logs its stores and pops (the bridge's ``_undelivered``)."""
+
+    def __init__(self, log, name, items=()):
+        super().__init__(items)
+        self._log, self._name = log, name
+
+    def __setitem__(self, key, value):
+        self._log(f"{self._name} set", key, config=value)
+        super().__setitem__(key, value)
+
+    def pop(self, key, *default):
+        if key in self:
+            self._log(f"{self._name} pop", key)
+        return super().pop(key, *default)
+
+
+class _LoggedSet(set):
+    """A set that logs its adds and discards (the bridge's ``_chain_inflight``)."""
+
+    def __init__(self, log, name, items=()):
+        super().__init__(items)
+        self._log, self._name = log, name
+
+    def add(self, item):
+        self._log(f"{self._name} add", item)
+        super().add(item)
+
+    def discard(self, item):
+        if item in self:
+            self._log(f"{self._name} discard", item)
+        super().discard(item)
+
+
+class _RedriveLog:
+    """The bridge's repair paths behind a gateway, logged for a failure
+    message (newest last, bounded): the swarm's decisions, every decision
+    chain started and by whom (``pump``, a catch-up replay
+    ``_maybe_catch_up``, ``_reconcile_lagging``, or a chain's walk forward
+    ``settle``), the transitions of ``_undelivered`` and
+    ``_chain_inflight``, a real member's traffic stamped with a configuration
+    the bridge still holds a packet or a record of, and every failed send
+    attempt of the gateway's outbound client to a real member (a delivery
+    retry follows each, within the 5 s deadline)."""
+
+    def __init__(self, gateway, size=400):
+        bridge = gateway.bridge
+        self.events = collections.deque(maxlen=size)
+        self._t0 = time.time()
+        chain, catch_up = bridge._deliver_decision_chain, bridge._maybe_catch_up  # noqa: SLF001
+        send_once = gateway._out._send_once  # noqa: SLF001
+
+        def logged_chain(member, packet=None):
+            p = packet if packet is not None else bridge._decision_packet  # noqa: SLF001
+            self.add("chain", member, by=sys._getframe(1).f_code.co_name,  # noqa: SLF001
+                     config=p and p[0], after=p and p[4])
+            return chain(member, packet)
+
+        def logged_catch_up(sender, config_id):
+            if sender in bridge._real and (config_id in bridge._packet_history  # noqa: SLF001
+                                           or config_id in bridge._prior_configs):  # noqa: SLF001
+                self.add("stale traffic", sender, config=config_id,
+                         replays=bridge._replay_counts.get(sender, 0))  # noqa: SLF001
+            return catch_up(sender, config_id)
+
+        def logged_send(remote, msg, timeout_ms=None):
+            out = send_once(remote, msg, timeout_ms)
+            if remote in bridge._real:  # noqa: SLF001
+                out.add_callback(lambda p: p.exception() is None or self.add(
+                    "send failed", remote, msg=type(msg).__name__, config=_frame_config(msg),
+                    error=str(p.exception())))
+            return out
+
+        bridge._deliver_decision_chain = logged_chain  # noqa: SLF001
+        bridge._maybe_catch_up = logged_catch_up  # noqa: SLF001
+        gateway._out._send_once = logged_send  # noqa: SLF001
+        bridge._undelivered = _LoggedDict(self.add, "undelivered", bridge._undelivered)  # noqa: SLF001
+        bridge._chain_inflight = _LoggedSet(self.add, "inflight",  # noqa: SLF001
+                                            bridge._chain_inflight)  # noqa: SLF001
+
+    def add(self, kind, who, **fields):
+        self.events.append((round(time.time() - self._t0, 3), threading.current_thread().name,
+                            kind, str(who), fields))
+
+    def tail(self, k=80):
+        return list(self.events)[-k:]
+
+
 class _GatewayProbe:
     """A ``SwarmGateway`` instrumented for a phase: the simulator's dispatches
     and the bridge's phase-B vote window timed, each pump that did device
@@ -2101,6 +2205,7 @@ class _GatewayProbe:
         from rapid_tpu_torch.sim import kernels
 
         sim, bridge = gateway.bridge.sim, gateway.bridge
+        self.redrives = _RedriveLog(gateway)
         self.lock = threading.Lock()
         self.pumps, self.registered, self.window_marks = [], [], []
         self.task_syncs, self.task_labels = 0, {}
@@ -2137,6 +2242,9 @@ class _GatewayProbe:
             t0, start = time.perf_counter(), time.time()
             rec = pump(*args, **kw)
             wall = time.perf_counter() - t0
+            if rec is not None:
+                self.redrives.add("decision", "swarm", config=rec.configuration_id,
+                                  cut=len(rec.cut))
             if rec is not None or timers["dispatch"] > 0:
                 with self.lock:
                     self.pumps.append({
@@ -2419,7 +2527,7 @@ def _print_gateway(result, card, label="gateway"):
              "swarm's own state") + f" ({card})", flush=True)
 
 
-PORT_MEMBERS = 8  # real port members of member_sequence's second bridge
+PORT_MEMBERS = 2  # real port members of member_sequence's second bridge
 MEMBER_RNG_SEED = 7_000  # member i's builder rng is random.Random(MEMBER_RNG_SEED + i)
 AGENT_JOIN_TIMEOUT_S = 300.0
 
@@ -2781,6 +2889,37 @@ def member_sequence(n, device, seed=SEED, scripted=None, join_only=False):
     return {"pumps": pumps}
 
 
+JOURNAL_KINDS = ("view_install", "view_refused", "kicked", "decision", "proposal", "alert_in",
+                 "alert_out", "fd_signal")
+
+
+def _agent_fork_dump(row, reply, child, probe, swarm_size):
+    """What names the cause when the agent's status disagrees with the
+    gateway: both ids and sizes, the agent's journal from the same status
+    reply (``view_install`` carries the id its protocol thread installed),
+    each VIEW_CHANGE line the agent logged (its id and its UP and DOWN
+    counts), and the bridge's repair paths (``_RedriveLog``)."""
+    journal = []
+    for raw in reply.journal:
+        entry = json.loads(raw)
+        if entry.get("kind") in JOURNAL_KINDS:
+            journal.append((entry.get("kind"), entry.get("virtual_ms"), entry.get("detail")))
+    views = []
+    for _, line in child.lines:
+        if " VIEW_CHANGE config=" in line:
+            config = line.split(" VIEW_CHANGE config=", 1)[1].split(" ", 1)[0]
+            views.append((config, line.count(":UP:"), line.count(":DOWN:")))
+    return json.dumps({
+        "step": row["name"], "gateway_configuration_id": row["configuration_id"],
+        "agent_configuration_id": reply.configuration_id,
+        "agent_membership_size": reply.membership_size,
+        "gateway_membership_size": swarm_size,
+        "agent_journal": journal, "agent_view_changes": views,
+        "agent_warnings": [line[:300] for _, line in child.lines
+                           if " WARNING " in line or " ERROR " in line][-10:],
+        "bridge_repair_paths": probe.redrives.tail()}, default=str)
+
+
 def _split_text(split):
     return ", ".join(f"{label} {ms:.3f} ms" for label, ms in split.items())
 
@@ -2883,11 +3022,16 @@ def agent_sequence(n, device, seed=SEED, scripted=None, transport="tcp", native_
     slot = n  # the first spare slot seats the joiner
     steps, child, seen_line = [], None, [0]
 
-    def status_id():
+    def check_status(row):
+        """The agent's status RPC after a step: its configuration id must be
+        the gateway's decision, or the run fails naming what each side saw."""
         reply = query_status(agent_addr, GATEWAY_WAIT_S)
         assert isinstance(reply, ClusterStatusResponse), reply
-        assert reply.membership_size == sim.membership_size, reply.membership_size
-        return reply.configuration_id
+        row["agent_configuration_id"] = reply.configuration_id
+        row["agent_membership_size"] = reply.membership_size
+        assert (reply.configuration_id, reply.membership_size) == (
+            row["configuration_id"], sim.membership_size), _agent_fork_dump(
+                row, reply, child, probe, sim.membership_size)
 
     def step(name, act, cut_slots, until):
         """``act()`` starts the step and returns when; ``until()`` returns
@@ -2957,13 +3101,13 @@ def agent_sequence(n, device, seed=SEED, scripted=None, transport="tcp", native_
         row = step("join", spawn, [slot], logged("agent started at"))
         assert bridge._slot_of[agent_ep] == slot  # noqa: SLF001
         identity = (int(sim.cluster.id_high[slot]), int(sim.cluster.id_low[slot]))
-        row["agent_configuration_id"] = status_id()
+        check_status(row)
         for name, fault, cut in (
                 ("crash, closed form", lambda v=victims[0]: sim.crash(v), victims[0]),
                 ("crash, scan", lambda v=victims[1]: (sim.crash(v), sim.ingress_loss(v, 1.0)),
                  victims[1])):
             row = step(name, on_protocol_thread(fault), cut, logged("VIEW_CHANGE config="))
-            row["agent_configuration_id"] = status_id()
+            check_status(row)
             if on_card and name == "crash, scan":
                 assert row["pump_launches"].get("fd_phase_fused", 0) > 0, row["pump_launches"]
         step("leave", sigint, [slot], exited)
@@ -2974,11 +3118,6 @@ def agent_sequence(n, device, seed=SEED, scripted=None, transport="tcp", native_
         gateway.shutdown()
         for thread in gateway._threads:  # noqa: SLF001 -- a pump in flight ends first
             thread.join(timeout=GATEWAY_WAIT_S)
-    for row in steps[:3]:
-        assert row["agent_configuration_id"] == row["configuration_id"], (
-            row["name"], row["agent_configuration_id"], row["configuration_id"],
-            [line for _, line in child.lines if "VIEW_CHANGE" in line or "WARN" in line][-12:],
-            [line for _, line in child.lines[-12:]])
     if on_card:
         for row in steps:
             assert row["counted_syncs"] == sum(row["syncs"].values()), (
@@ -5087,7 +5226,7 @@ def _numpy_call(fn, *args):
 
 
 NATIVE_JOIN_TURNS = ("numpy",)  # (c): the member's join again, on the numpy path
-NATIVE_VIEW_TURNS = ("native", "numpy", "numpy", "native", "native", "numpy")
+NATIVE_VIEW_TURNS = ("native", "numpy")
 
 
 def native_view_builds(n, card, turns=NATIVE_VIEW_TURNS, k=NATIVE_K, seed=SEED):
@@ -5317,7 +5456,7 @@ def native_scrape(card, members=SCRAPE_MEMBERS):
 # --------------------------------------------------------------------- #
 
 GRPC_FRAMES = os.path.join(os.path.dirname(WIRE_FRAMES), "torch_grpc_frames.json")
-GRPC_REPS = 3  # the 100k JoinResponse's calls on each transport
+GRPC_REPS = 1  # the 100k JoinResponse's calls on each transport
 GRPC_JOINERS = 20  # tests/test_grpc_transport.py::test_concurrent_join_wave_through_one_seed
 
 
@@ -5589,69 +5728,73 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    # seconds of each phase, printed on one line before the last
+    phases, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phases[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     t0 = time.perf_counter()
     topr_builds = start_topr_builds()
     libs = kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})", flush=True)
+    lap("kernel build")
 
     # --- the native host plane: (a) the g++ builds, (b) the hashes at 100k
     # and 1M, before any phase that synthesizes a cluster or builds a view
-    t0 = time.perf_counter()
     native = {"build": native_build(card), "hashes": native_hashes(card),
               "stress": native_stress(card)}
-    print(f"native (a), (b), (f) {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("native (a), (b), (f)")
 
     # --- the simulator bridge, first in the process: warm_compile does the
     # process's first-time work, the pumps after it show what is left -------
     os.environ["RAPID_JITWATCH"] = "1"
     card_device = torch.device("cuda", torch.cuda.current_device())
     bridge = bridge_sequence(N_NODES, device, [card_device] * 4)
+    lap("bridge")
     bridged_launches = {}
     for row in bridge["pumps"]:
         for name, count in row["launches"].items():
             bridged_launches.setdefault(name, []).append((row["name"], count))
 
     # --- the wire, then the socket gateway with a member in its own process
-    t0 = time.perf_counter()
     wire = wire_phase(card)
     wire["proto"] = proto_phase(card)
-    t1 = time.perf_counter()
+    lap("wire and proto")
     gateway = gateway_sequence(N_NODES, card_device)
     _print_gateway(gateway, card)
-    print(f"wire phase {t1 - t0:.1f} s, gateway phase {time.perf_counter() - t1:.1f} s, "
-          f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    lap("gateway")
     gateway_launches = {}
     for row in gateway["steps"]:
         for name, count in row["pump_launches"].items():
             gateway_launches.setdefault(name, []).append((row["name"], count))
 
     # --- real port members: in process on the bridge, and an agent over TCP
-    t0 = time.perf_counter()
     members = member_sequence(N_NODES, card_device, scripted=bridge)
-    t1 = time.perf_counter()
+    lap("member")
     agent = agent_sequence(N_NODES, card_device, scripted=gateway)
-    print(f"member phase {t1 - t0:.1f} s, agent phase {time.perf_counter() - t1:.1f} s, "
-          f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    lap("agent")
     # --- the native host plane: (c) the member's join on the numpy path
     # beside the member phase's (native), (d) the reactor's front door and
     # the native-tcp agent, (e) the scrape ------------------------------------
-    t0 = time.perf_counter()
     native["member_join"] = native_member_join(N_NODES, card_device, card, members["pumps"][0])
     native["gateway"] = native_gateway(N_NODES, card_device, card, gateway, agent)
     native["scrape"] = native_scrape(card)
-    print(f"native (c)-(e) {time.perf_counter() - t0:.1f} s, the script so far "
-          f"{time.perf_counter() - started:.1f} s", flush=True)
+    lap("native (c)-(e)")
     # --- the gRPC transport: golden wire, the 100k reply, a live cluster,
     # the agent (host Python; no kernel) ----------------------------------
     grpc_result = grpc_phase(card)
+    lap("grpc")
     # --- the protocol plane's live engines (host Python; no kernel) --------
     live = live_planes_phase(card)
-    print(f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    lap("live planes")
     # --- the nemesis search and the forensics timeline (the sim harness's
     # simulators on the card) ----------------------------------------------
     search = search_phase(card)
-    print(f"the script so far {time.perf_counter() - started:.1f} s", flush=True)
+    lap("search")
     # (run, launches) of the search's sim-harness runs: (c) the hunt, (d) the 100k probe
     search_launches = {}
     for run in ("sim_hunt", "wide_probe"):
@@ -5667,6 +5810,7 @@ def main() -> int:
     kernel_results = _kernel_phase(kernels, device)
     kernel_results["fd_phase_fused"] = _fused_phase(kernels, fd_bench, device)
     kernel_results["fd_phase_fused_windowed"] = _windowed_phase(kernels, fd_bench, engine, device)
+    lap("kernels")
 
     # --- headline: closed-form branch --------------------------------------
     rng = np.random.default_rng(SEED)
@@ -5718,11 +5862,13 @@ def main() -> int:
           f"{[round(w, 3) for w in scan_walls]}, kernel launches {scan_launches}, "
           f"synchronizing CUDA calls per decision: {scan_syncs}", flush=True)
 
+    lap("headline and scan")
     # --- the windowed policy's decisions, and the classic fallback ----------
     windowed = _windowed_decisions(Simulator, engine, kernels, rng, device)
     fallback = _classic_fallback(Simulator, engine, classic, kernels, device)
 
     _cross_check(Simulator, engine, device)
+    lap("windowed, classic, cross-check")
 
     # --- telemetry, speculation, profiling ---------------------------------
     planes = {"speculation": _speculation_pairs(Simulator, rng, device),
@@ -5731,21 +5877,20 @@ def main() -> int:
               "profiling": _profiling(Simulator, engine, kernels, ProfilingSettings, rng,
                                       device),
               "device_trace": _device_trace(Simulator, observability, rng, device)}
+    lap("speculation, timed windows, profiling")
 
     # --- the multi-device round loop, every shard on this card -------------
     split = _split_phase(kernels, fd_bench, engine, device)
     sharded = _sharded_decisions(Simulator, engine, shard, kernels, rng, device)
+    lap("split and sharded")
 
     # --- the mesh over several processes, and the port's own fault plane --
-    t0 = time.perf_counter()
     multihost = multihost_phase(Simulator, shard, kernels, card)
-    t1 = time.perf_counter()
+    lap("multihost")
     replay = fault_replay_phase(kernels, jitwatch, device, card)
-    print(f"multihost phase {t1 - t0:.1f} s, fault replay phase "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    lap("fault replay")
 
     # --- the driver's host planes, after every timed window above --------
-    t0 = time.perf_counter()
     planes_result, view_change = planes_path(device, card)
     _, parent_topr = finish_topr_builds(topr_builds, card)
     topr = topr_phase(device, card, view_change, parent_topr)
@@ -5757,7 +5902,7 @@ def main() -> int:
     print(f"planes, golden: the bench's serving dimension, the sweep's {SWEEP_N}-member placement "
           f"point and hierarchy-zone-churn equal tests/golden/torch_planes.json exactly ({card})",
           flush=True)
-    print(f"planes phase {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("planes")
 
     # each kernel's launches are those of its own path's run: the scan path
     # (ingress loss 1.0) under the policy the kernel serves
@@ -5872,7 +6017,6 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call computes a rendezvous top-R
         "sizes": topr,
     })
-    print(f"chip_smoke: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps(line))
     print(json.dumps({"headline_wall_ms": head_walls, "scan_wall_ms": scan_walls,
                       "headline_syncs": syncs, "scan_syncs": scan_syncs,
@@ -5886,6 +6030,8 @@ def main() -> int:
                       "agent": agent, "live_planes": live, "search": search,
                       "native": native, "grpc": grpc_result},
                      default=str))
+    phases["total"] = round(time.perf_counter() - started, 1)
+    print(f"phase seconds ({card}): {json.dumps(phases)}", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5894,7 +6040,120 @@ def main() -> int:
     return 0
 
 
+def agent_loop(iterations: int, members_every: int = 1, n: int = N_NODES, device=None) -> int:
+    """``python3 chip_smoke.py --agent-loop N [M]``: ``member_sequence`` then
+    ``agent_sequence`` at ``n`` (100k) on the card, in one process, N times
+    or until the agent's status disagrees with the gateway; the member
+    phase runs in every ``M``-th iteration only, from the first (``device``:
+    run there instead). A disagreement prints ``agent_sequence``'s dump
+    (``_agent_fork_dump``: both ids, the agent's journal and VIEW_CHANGE
+    lines, the bridge's repair paths) and returns 1. The member phase comes
+    first as in the script: the agent phase first in a fresh process fails
+    its sync audit (the debug mode misses two ``sim.ready`` syncs)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
+                  file=sys.stderr)
+            return 2
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from rapid_tpu_torch.sim import kernels
+
+        kernels.build()
+        device = torch.device("cuda", torch.cuda.current_device())
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            check=True, capture_output=True, text=True,
+        ).stdout.strip().splitlines()[0]
+    else:
+        card = str(device)
+    print(f"card: {card}", flush=True)
+    os.environ["RAPID_JITWATCH"] = "1"
+    started = time.perf_counter()
+    for i in range(iterations):
+        t0 = time.perf_counter()
+        if i % members_every == 0:
+            member_sequence(n, device)
+        t1 = time.perf_counter()
+        try:
+            agent = agent_sequence(n, device)
+        except AssertionError as exc:
+            print(f"agent loop, iteration {i + 1}: the agent's status disagrees with the gateway "
+                  f"({card}): {exc}", flush=True)
+            print(json.dumps({"iterations": i + 1, "mismatches": 1, "card": card}))
+            return 1
+        print(f"agent loop, iteration {i + 1} of {iterations} ({card}): every step's id equal: "
+              + "; ".join(f"{row['name']} {row['configuration_id']}" for row in agent["steps"])
+              + (f"; member phase {t1 - t0:.1f} s" if i % members_every == 0 else "")
+              + f"; agent phase {time.perf_counter() - t1:.1f} s", flush=True)
+    print(json.dumps({"iterations": iterations, "mismatches": 0, "card": card,
+                      "seconds": round(time.perf_counter() - started, 1)}))
+    return 0
+
+
+def view_race(trials: int, n: int = N_NODES, seed: int = SEED) -> int:
+    """``python3 chip_smoke.py --view-race TRIALS [N]``: the agent's race on
+    its own, unforced, on this host's CPU (no card). A ``MembershipView`` of
+    ``n`` synthesized members; each trial deletes 1% of them, as a crash's
+    view change does on the protocol thread, while a second thread (the
+    agent's status tick, ``cli/agent.py``) reads the configuration id once,
+    at a random point in the last 40% of the delete loop or just after it.
+    A fork is a trial after which the view's id is not the fold of its
+    content. The deleted members come back with fresh identifiers between
+    trials. Prints the forks and returns 1 if there was one."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rapid_tpu_torch import hashing
+    from rapid_tpu_torch.membership import MembershipView
+    from rapid_tpu_torch.sim.topology import VirtualCluster
+    from rapid_tpu_torch.types import Endpoint, NodeId
+
+    vc = VirtualCluster.synthesize(n, NATIVE_K, seed)
+    endpoints = [Endpoint(bytes(vc.hostnames[i, :vc.host_lengths[i]]), int(vc.ports[i]))
+                 for i in range(n)]
+    view = MembershipView(NATIVE_K, [NodeId(int(h), int(lo)) for h, lo in
+                                     zip(vc.id_high, vc.id_low)], endpoints)
+    rng = random.Random(seed)
+
+    def content_id():
+        return hashing.configuration_id(
+            ((i.high, i.low) for i in view._identifiers),  # noqa: SLF001
+            ((ep.hostname, ep.port) for ep in view.get_ring(0)))
+
+    forks, loop_s = [], None
+    for trial in range(trials + 1):
+        view.get_current_configuration_id()
+        victims = rng.sample(endpoints, n // 100)
+        delay = None if loop_s is None else rng.uniform(0.6, 1.05) * loop_s
+        reader = None
+        if delay is not None:
+            def tick(delay=delay):
+                time.sleep(delay)
+                view.get_current_configuration_id()
+            reader = threading.Thread(target=tick)
+            reader.start()
+        t0 = time.perf_counter()
+        for ep in victims:
+            view.ring_delete(ep)
+        if loop_s is None:
+            loop_s = time.perf_counter() - t0  # the first trial times the loop, unraced
+        installed = view.get_current_configuration_id()
+        if reader is not None:
+            reader.join()
+        cached, content = view.get_current_configuration_id(), content_id()
+        if installed != content or cached != content:
+            forks.append({"trial": trial, "tick_at": round(delay / loop_s, 3),
+                          "installed_is_content": installed == content})
+        for ep in victims:
+            view.ring_add(ep, NodeId(rng.getrandbits(63), rng.getrandbits(63)))
+    print(f"view race, {n} members, 1% deleted a trial, {trials} trials (the delete loop "
+          f"{loop_s * 1e3:.1f} ms): {len(forks)} forks {forks}", flush=True)
+    return 1 if forks else 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--gateway-member":
         sys.exit(gateway_member(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--view-race":
+        sys.exit(view_race(*(int(a) for a in sys.argv[2:])))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--agent-loop":
+        sys.exit(agent_loop(*(int(a) for a in sys.argv[2:])))
     sys.exit(main())

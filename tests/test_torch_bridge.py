@@ -23,6 +23,7 @@ import importlib
 import logging
 import pickle
 import random
+import threading
 
 import numpy as np
 import pytest
@@ -549,6 +550,148 @@ def test_bridge_twin_port_cluster(scenario, caplog):
 
 
 # --------------------------------------------------------------------- #
+# A configuration read in the middle of a view change (the agent's fork)
+# --------------------------------------------------------------------- #
+
+
+class HeldStatusTick:
+    """The agent's status tick forced into the middle of a view change.
+    ``cli/agent.py`` reads its cluster's configuration id once a second on
+    its main thread, while the protocol thread applies view changes. Here,
+    at the first ``ring_delete`` of each view change of ``view``, a reader
+    thread reads the configuration id; its fold (the scalar id, ~0.75 s at
+    100k members) is held until ``release``, after the view change is
+    installed. The reader starts after that first delete, so it folds a
+    view that is neither the old configuration nor the new one. On the card
+    this interleaving came by chance, about one run of
+    ``chip_smoke.agent_sequence`` in ten; here it comes every time."""
+
+    def __init__(self, package, view, read):
+        self._membership = importlib.import_module(f"{package.__name__}.membership")
+        self._view, self._read = view, read
+        self._fold = self._membership.configuration_id
+        self._snapped, self._released = threading.Event(), threading.Event()
+        self.reader = None
+        self.reads = []
+
+    def _held_fold(self, *args):
+        if threading.current_thread() is self.reader:
+            self._snapped.set()
+            assert self._released.wait(30), "the held fold was never released"
+        return self._fold(*args)
+
+    def _ring_delete(self, node):
+        type(self._view).ring_delete(self._view, node)
+        if self.reader is None:
+            self.reader = threading.Thread(target=lambda: self.reads.append(self._read()))
+            self.reader.start()
+            assert self._snapped.wait(30), "the status tick never reached its fold"
+
+    def __enter__(self):
+        self._membership.configuration_id = self._held_fold
+        self._view.ring_delete = self._ring_delete
+        return self
+
+    def release(self):
+        self._released.set()
+        if self.reader is not None:
+            self.reader.join(30)
+            assert not self.reader.is_alive()
+
+    def __exit__(self, *exc):
+        self.release()
+        self._membership.configuration_id = self._fold
+        del self._view.ring_delete
+
+
+def status_tick_during_view_change(side):
+    """``chip_smoke.agent_sequence``'s steps on the in-process bridge, with
+    the status tick held in each crash's view change (``HeldStatusTick``):
+    a real member joins a swarm of 24, then 2 members crash in the closed
+    form and 2 more under ingress loss 1.0 (the scan). After each step:
+    (the step, the member's configuration id, the swarm's id before the
+    step, the swarm's id, the member's size, the swarm's size, the id the
+    held read returned to its caller)."""
+    h = BridgeHarness(side, n_virtual=24, capacity=32, seed=12)
+    cluster, _ = h.join_real_node("10.9.9.4", 9400)
+    sim = h.swarm.sim
+    steps = [("join", cluster.get_current_configuration_id(), None, sim.configuration_id(),
+              cluster.get_membership_size(), sim.membership_size, None)]
+    victims = (np.array([3, 17]), np.array([8, 21]))
+    view = cluster._membership_service._view
+    for name, fault in (("crash, closed form", lambda: sim.crash(victims[0])),
+                        ("crash, scan", lambda: (sim.crash(victims[1]),
+                                                 sim.ingress_loss(victims[1], 1.0)))):
+        before = sim.configuration_id()
+        with HeldStatusTick(h.P, view, cluster.get_current_configuration_id) as tick:
+            fault()
+            rec = h.swarm.pump(max_rounds=32)
+            assert rec is not None, name
+            h.scheduler.run_for(300)  # the decision's packets; the member installs
+            tick.release()
+        steps.append((name, cluster.get_current_configuration_id(), before,
+                      sim.configuration_id(), cluster.get_membership_size(),
+                      sim.membership_size, tick.reads[0]))
+    return steps
+
+
+def test_status_tick_during_view_change_keeps_the_port_member_on_the_swarms_id():
+    """The smoke's check on the port's own member, bridge and scheduler: after
+    each step the member's configuration id and size equal the swarm's,
+    though a configuration read ran through the middle of each view change."""
+    steps = status_tick_during_view_change("port_cluster")
+    assert [s[0] for s in steps] == ["join", "crash, closed form", "crash, scan"]
+    for name, member_id, before, swarm_id, member_size, swarm_size, read in steps:
+        assert (member_id, member_size) == (swarm_id, swarm_size), name
+        # the held read folded a view between the two configurations
+        assert name == "join" or read not in (before, swarm_id), name
+    assert [s[5] for s in steps] == [25, 23, 21]
+
+
+def test_status_tick_during_view_change_forks_the_jax_member():
+    """The reference's behaviour under the same schedule, pinned: the JAX
+    package's ``MembershipView`` (``rapid_tpu/membership.py:253-265``) lets
+    the held read store the id of the half-changed view it folded over the
+    installed one and clear the dirty flag, so after each crash the JAX
+    member reports an id that is neither the swarm's before the step nor
+    after it, at the swarm's new size. The port's view installs the swarm's
+    id (the test above); ROADMAP Queue 3 logs it."""
+    steps = status_tick_during_view_change("jax")
+    join, *crashes = steps
+    assert join[1] == join[3] and join[4] == join[5]
+    for name, member_id, before, swarm_id, member_size, swarm_size, read in crashes:
+        assert member_id == read and read not in (before, swarm_id), name
+        assert member_size == swarm_size, name
+
+
+@pytest.mark.parametrize("package", [rapid_tpu_torch, rapid_tpu], ids=["port", "jax"])
+def test_configuration_read_mid_view_change(package):
+    """``MembershipView`` alone, in both packages: a reader snapshots the view
+    after a view change's first delete and folds it after the change. The
+    port's view answers the changed view's id after it; the JAX package's
+    keeps the reader's half-changed id (pinned)."""
+    membership = importlib.import_module(f"{package.__name__}.membership")
+    types = importlib.import_module(f"{package.__name__}.types")
+    rng = random.Random(23)
+    endpoints = [types.Endpoint.from_parts(f"10.3.0.{i}", 7000 + i) for i in range(64)]
+    ids = [types.NodeId(rng.getrandbits(62), -rng.getrandbits(62)) for _ in endpoints]
+    view = membership.MembershipView(10, node_ids=ids, endpoints=endpoints)
+    before = view.get_current_configuration_id()
+    with HeldStatusTick(package, view, view.get_current_configuration_id) as tick:
+        for ep in endpoints[5:9]:
+            view.ring_delete(ep)
+        installed = view.get_current_configuration_id()
+        tick.release()
+    after = view.get_current_configuration_id()
+    fresh = membership.MembershipView(10, node_ids=ids, endpoints=endpoints[:5] + endpoints[9:])
+    half = membership.MembershipView(10, node_ids=ids, endpoints=endpoints[:5] + endpoints[6:])
+    assert installed == fresh.get_current_configuration_id() != before
+    assert tick.reads == [half.get_current_configuration_id()]
+    assert view.membership_size == 60
+    assert after == (installed if package is rapid_tpu_torch else tick.reads[0])
+
+
+# --------------------------------------------------------------------- #
 # The port's copies: protocol classes, comparator, promise
 # --------------------------------------------------------------------- #
 
@@ -709,8 +852,8 @@ def test_scripted_member_on_default_protocol():
 def test_real_port_members_on_default_protocol():
     """``chip_smoke.py``'s real-member phase at 1000 members on the CPU: the
     port's own ``Cluster`` on the port's bridge, network and scheduler, through
-    the scripted member's join, crashes and leave, then 8 members joining in
-    one pump and voting in the crash; every member's view equal to the
+    the scripted member's join, crashes and leave, then ``PORT_MEMBERS``
+    members joining in one pump and voting in the crash; every member's view equal to the
     swarm's and each configuration id to a plain simulator's."""
     out = chip_smoke.member_sequence(1000, "cpu")
     names = [p["name"] for p in out["pumps"]]
