@@ -118,8 +118,8 @@ into build/kernels/. Phases, each of which must pass:
    ``planes_golden_check``);
 15. the mesh over several processes (after the single-controller meshes of
    9): ``python -m rapid_tpu_torch.cli.multihost_sim`` in 2 child processes
-   of 2 shards each on this card (gloo over localhost), the 100k crash and
-   ingress loss 1.0, and in 4 processes of 1 shard the crash, every child
+   of 2 shards each on this card (gloo over localhost), the 100k ingress
+   loss 1.0, and in 4 processes of 1 shard the crash, every child
    under a wall timeout; every rank's record (cut, protocol time,
    configuration id) equal to an in-process single-controller mesh of the
    same shape and seed, 16 ``fd_phase_rows`` and 16 ``fd_gather`` launches,
@@ -211,7 +211,22 @@ into build/kernels/. Phases, each of which must pass:
    every reply equal; (c) a seed and 20 concurrent joiners on gRPC agreeing
    on one configuration id, then one crashed and the 20 left agreeing; (d)
    ``python -m rapid_tpu_torch.cli.agent --transport grpc`` joining a port
-   seed and exiting 0 on SIGINT.
+   seed and exiting 0 on SIGINT;
+22. the scenario battery and the paper's experiments, after the planes
+   (``scenarios_phase``): every ``BATTERY`` scenario of
+   ``rapid_tpu_torch.cli.scenarios`` (the pinned corpus plans included) and
+   flip-flop-join-1m, the most demanding of the 1M trio, at the registry's
+   sizes through ``run_scenario`` on the card, each printed with its record, its kernel
+   launches by name and its host split (builds, decisions, view changes,
+   probe-drop masks, ``recomputed_config_id``), every check the record
+   carries held (``scenario_misses``); hierarchy-zone-churn is 14's golden
+   run, reported through ``zone_churn_run(result=...)``, not run twice;
+   ``placement_topr`` launched in serving-sawtooth and overload-recover;
+   crash-1k and one-way-loss at 1000 equal to the port's CPU path in every
+   field but ``wall_s``; ``join_wave`` at 100k with a 1% wave,
+   ``message_load`` at its defaults (in its own process, started before
+   18), and ``fig11_conflict_sweep``'s skew-9 row equal to BASELINE.md's
+   table.
 
 Prints a JSON line of kernel results, one line of each phase's seconds, the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -224,8 +239,10 @@ process and stops at the first disagreement, printing its dump
 change's deletes on this host's CPU, unforced (``view_race``).
 """
 
+import atexit
 import collections
 import contextlib
+import functools
 import gc
 import io
 import itertools
@@ -313,7 +330,7 @@ SHARD_SEED = SEED + 8000
 SPEC_PAIRS = 3  # speculate on/off pairs of decisions timed per branch
 MULTIHOST_SEED = SEED + 7000
 # (label, processes, shards a process, ingress loss or 0 for a crash)
-MULTIHOST_RUNS = (("(2, 2) crash", 2, 2, 0.0), ("(2, 2) ingress loss 1.0", 2, 2, 1.0),
+MULTIHOST_RUNS = (("(2, 2) ingress loss 1.0", 2, 2, 1.0),
                   ("(4, 1) crash", 4, 1, 0.0))
 MULTIHOST_TIMEOUT_S = 300.0  # each child's wall limit
 REPLAY_SEED = SEED + 6000
@@ -930,6 +947,12 @@ def _split_phase(kernels, fd_bench, engine, device):
                                       for a, (_, b) in zip(sets, cases)]),
                       "plain_ms": _time_ms([lambda a=a, b=b: kernels.fd_gather_plain(
                           a[0], a[4], a[6], b, rows) for a, (_, b) in zip(sets, cases)])}
+            # no single PyTorch call reads the packed bitset, ORs the reports and
+            # masks by active; the gather alone is one call on the unpacked bits
+            unpacked = [(torch.rand(c, 10, device=device) < 0.05, a[4].long()) for a in sets]
+            gather["gather_only_ms"] = _time_ms(
+                [lambda nd=nd, obs=obs: torch.gather(nd, 0, obs) for nd, obs in unpacked])
+            del unpacked
             nbytes = fd_bench.gather_bytes(c, shards, 10)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = OPS_PER_EDGE["fd_gather"] * c * 10 / PEAK_OPS_PER_S * 1e3
@@ -949,7 +972,8 @@ def _split_phase(kernels, fd_bench, engine, device):
         del cases, merged, every_shard, kws
     g = timed["fd_gather"]
     print(f"split timed: fd_gather over {shards} segments {g['ms'] * 1e3:.2f} us (plain "
-          f"{g['plain_ms'] * 1e3:.2f}, bound {g['bound_ms'] * 1e3:.2f})", flush=True)
+          f"{g['plain_ms'] * 1e3:.2f}, bound {g['bound_ms'] * 1e3:.2f}); torch.gather of the "
+          f"unpacked [{c}, 10] bits alone {g['gather_only_ms'] * 1e3:.2f} us", flush=True)
     del sets
     torch.cuda.empty_cache()
     return timed
@@ -1361,9 +1385,9 @@ def _multihost_children(processes, per_process, loss, seed, device="cuda", n=N_N
 
 
 def multihost_phase(Simulator, shard, kernels, card):
-    """The multi-process mesh on this one card (MULTIHOST_RUNS): the crash
-    and ingress loss 1.0 over 2 processes of 2 shards and the crash over 4
-    of 1, at 100k members, every rank's record equal to an in-process
+    """The multi-process mesh on this one card (MULTIHOST_RUNS): ingress
+    loss 1.0 over 2 processes of 2 shards and the crash over 4 of 1, at 100k
+    members, every rank's record equal to an in-process
     single-controller mesh of the same shape on this card with the same
     seed; each rank's decision wall, launches, collectives, bytes and syncs
     by label beside the in-process wall."""
@@ -3592,11 +3616,14 @@ def _hierarchy_rows(sim):
 
 
 def zone_churn_run(Simulator, SimConfig, LatencyTopology, Endpoint, cell_leaders,
-                   seed=19, zones=8, per_zone=256, **sim_kw):
+                   seed=19, zones=8, per_zone=256, result=None, **sim_kw):
     """``scenarios.py``'s hierarchy-zone-churn: ``zones`` topology cells of
     ``per_zone`` members, a scatter of 8 crashes across cells, then one
     whole cell, its leader included, killed. Returns the cells, the rows,
-    the parent rounds and the global fingerprints after each step."""
+    the parent rounds and the global fingerprints after each step; with
+    ``result`` (the port's ``cli.scenarios.zone_churn_result``) also the
+    registry scenario's record under "scenario", so the scenarios phase
+    reports this run and does not drive the scenario a second time."""
     n = zones * per_zone
     topo = LatencyTopology(racks=zones * 2, zones=zones, rack_rtt_ms=0, zone_rtt_ms=2,
                            region_rtt_ms=4, inter_region_rtt_ms=8)
@@ -3610,45 +3637,61 @@ def zone_churn_run(Simulator, SimConfig, LatencyTopology, Endpoint, cell_leaders
     leader = str(cell_leaders(members, 1)[0])
     others = [i for i in range(n) if topo.zone_of(i) != lost_zone]
     scatter = [int(i) for i in rng.choice(others, size=8, replace=False)]
-    records = []
+    records, decided = [], []
+    t0 = time.perf_counter()
     for victims in (scatter, zone_victims):
         sim.crash(np.array(victims))
         rec = sim.run_until_decision(max_rounds=32, batch=16)
         assert rec is not None
+        decided.append(rec)
         records.append(_record_digest(rec))
         fingerprints.append(int(sim.global_fingerprint()))
+    wall = time.perf_counter() - t0
     rows = _hierarchy_rows(sim)
     incremental = sim.global_fingerprint()
     for state in sim.hierarchy_rows():
         sim._hierarchy_recompute_cell(state.cell)
-    return {
+    run = {
         "lost_zone": lost_zone, "leader": leader, "scatter": scatter, "records": records,
         "rows": rows, "cells": {str(r[0]): r[2] for r in rows},
         "parent_rounds": int(sim.parent_rounds), "global_fingerprints": fingerprints,
         "fingerprint_ok": bool(incremental == sim.global_fingerprint()),
         "virtual_ms": int(sim.virtual_ms),
     }
+    if result is not None:
+        run["scenario"] = dict(result(
+            sim, seed=seed, zones=zones, per_zone=per_zone, lost_zone=lost_zone,
+            leader=leader, scatter=scatter, zone_victims=zone_victims, records=decided,
+            wall=wall), scenario="hierarchy-zone-churn")
+    return run
 
 
-def planes_golden_runs(device):
+def planes_golden_runs(device, result=None):
     """The three runs of ``tests/golden/torch_planes.json`` on the port, on
     ``device``: the bench's serving dimension, the sweep's placement point
-    and hierarchy-zone-churn."""
+    and hierarchy-zone-churn. With ``result`` (``zone_churn_run``'s), the
+    zone churn also carries the registry scenario's record and, under
+    "launches", its kernel launches."""
     from rapid_tpu_torch.hierarchy.parent import cell_leaders
     from rapid_tpu_torch.settings import SLOSettings
+    from rapid_tpu_torch.sim import kernels
     from rapid_tpu_torch.sim.driver import Simulator
     from rapid_tpu_torch.sim.engine import SimConfig
     from rapid_tpu_torch.sim.topology import LatencyTopology
     from rapid_tpu_torch.slo import OpenLoopGenerator
     from rapid_tpu_torch.types import Endpoint
 
-    return {
+    runs = {
         "serving_dimension": serving_dimension_run(Simulator, SLOSettings, OpenLoopGenerator,
                                                    device=device),
         "sweep_point": sweep_point_run(Simulator, device=device),
-        "zone_churn": zone_churn_run(Simulator, SimConfig, LatencyTopology, Endpoint,
-                                     cell_leaders, **ZONE_CHURN, device=device),
     }
+    before = dict(kernels.LAUNCHES)
+    runs["zone_churn"] = zone_churn_run(Simulator, SimConfig, LatencyTopology, Endpoint,
+                                        cell_leaders, **ZONE_CHURN, result=result, device=device)
+    if result is not None:
+        runs["zone_churn"]["launches"] = _diff(dict(kernels.LAUNCHES), before)
+    return runs
 
 
 def _golden_misses(got, want, path=""):
@@ -3666,12 +3709,13 @@ def _golden_misses(got, want, path=""):
     return [] if got == want else [f"{path}: {got!r}, want {want!r}"]
 
 
-def planes_golden_check(device):
-    """The port's runs against ``tests/golden/torch_planes.json``, exactly.
-    Returns {run: misses}."""
+def planes_golden_check(device, runs=None):
+    """The port's runs (``runs``, else ``planes_golden_runs(device)``'s)
+    against ``tests/golden/torch_planes.json``, exactly. Returns {run:
+    misses}."""
     with open(PLANES_GOLDEN) as f:
         want = json.load(f)["runs"]
-    got = json.loads(json.dumps(planes_golden_runs(device)))
+    got = json.loads(json.dumps(runs if runs is not None else planes_golden_runs(device)))
     return {name: _golden_misses(got[name], want[name]) for name in want}
 
 
@@ -5705,6 +5749,231 @@ def grpc_phase(card):
     return out
 
 
+# --------------------------------------------------------------------- #
+# 22. the scenario battery and the paper's experiments (host and card)
+# --------------------------------------------------------------------- #
+
+# the 1M-member scenario the phase runs at full size: flip-flop-join-1m, the
+# most demanding of the 1M trio (capacity 1 001 000, 1000 joiners, view
+# changes with joins); crash-1m and one-way-loss-1m run in ``python -m
+# rapid_tpu_torch.cli.scenarios --scale-1m`` on the card, to keep the script
+# within half its time limit
+SCENARIOS_1M = ("flip-flop-join-1m",)
+# the record fields that must hold, each True, where a record has it
+SCENARIO_TRUE = ("cut_ok", "config_id_ok", "config_id_parity", "cell_evicted_ok",
+                 "parent_rounds_ok", "metastable_recovery_ok", "fast_alerts_cleared",
+                 "identities_retained")
+# the port's CPU path against the card: (label, scenario function, parameters)
+SCENARIO_CROSS_CHECKS = (("crash-1k", "scenario_crash",
+                          {"n": 1000, "n_fail": 1, "seed": 100,
+                           "label": "1k virtual nodes, single crash-stop fault"}),
+                         ("one-way-loss, n 1000", "scenario_one_way_loss",
+                          {"n": 1000, "n_fail": 10, "seed": 300}))
+JOIN_WAVE_N = 100_000
+JOIN_WAVE_FRACTION = 0.01
+# BASELINE.md's timing-conflicts table: skew -> conflicts (= stalls) of 18
+FIG11_TABLE = {0: 0, 2: 0, 5: 6, 9: 18}
+FIG11_SKEWS = (9,)
+
+
+def scenario_misses(rec):
+    """Which of a record's checks fail, as text (none: an empty list)."""
+    misses = [f"{key} {rec[key]!r}" for key in SCENARIO_TRUE if key in rec and rec[key] is not True]
+    if "hierarchy" in rec and rec["hierarchy"]["fingerprint_ok"] is not True:
+        misses.append("hierarchy fingerprint_ok false")
+    for key in ("lost_acked_writes", "spurious_view_changes"):
+        if rec.get(key, 0) != 0:
+            misses.append(f"{key} {rec[key]}")
+    if rec.get("violations", []) != []:
+        misses.append(f"violations {rec['violations']}")
+    return misses
+
+
+@contextlib.contextmanager
+def _timed_calls(owner, attr, into):
+    """While open, ``owner.attr`` (a function or method) adds its calls' host
+    seconds to ``into[attr]`` and their count to ``into[attr + "_calls"]``."""
+    original = getattr(owner, attr)
+    into.setdefault(attr, 0.0)
+    into.setdefault(attr + "_calls", 0)
+
+    @functools.wraps(original)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            into[attr] += time.perf_counter() - t0
+            into[attr + "_calls"] += 1
+
+    setattr(owner, attr, timed)
+    try:
+        yield into
+    finally:
+        setattr(owner, attr, original)
+
+
+def run_registry_scenario(scenarios, kernels, name, device):
+    """One registered scenario through ``scenarios.run_scenario`` on
+    ``device``, with its kernel launches (the change of ``kernels.LAUNCHES``
+    by name), its whole host wall, and its host seconds split by what it
+    called: simulator builds, ``run_until_decision`` (of it, the view
+    changes: the simulators' "view_change" spans), the probe-drop masks and
+    ``recomputed_config_id``."""
+    from rapid_tpu_torch.observability import global_tracer
+    from rapid_tpu_torch.sim import driver
+
+    split = {}
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for owner, attr in ((driver.Simulator, "__init__"),
+                            (driver.Simulator, "run_until_decision"),
+                            (driver.Simulator, "_probe_drop_mask"),
+                            (scenarios, "recomputed_config_id")):
+            stack.enter_context(_timed_calls(owner, attr, split))
+        rec = scenarios.run_scenario(name, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    view_changes = [s for s in global_tracer().collect_spans()
+                    if s.name == "view_change" and s.plane == "sim" and s.wall_start_s >= t0]
+    split = {"build_s": split["__init__"], "builds": split["__init___calls"],
+             "decide_s": split["run_until_decision"] - sum(s.wall_ms for s in view_changes) / 1e3,
+             "dispatch_calls": split["run_until_decision_calls"],
+             "view_change_s": sum(s.wall_ms for s in view_changes) / 1e3,
+             "view_changes": len(view_changes),
+             "probe_drop_mask_s": split["_probe_drop_mask"],
+             "probe_drop_masks": split["_probe_drop_mask_calls"],
+             "recomputed_config_id_s": split["recomputed_config_id"]}
+    return {"record": rec, "launches": _diff(dict(kernels.LAUNCHES), before),
+            "seconds": seconds, "split": split}
+
+
+def _scenario_line(name, run, card):
+    split = run["split"]
+    extra = ""
+    if split["builds"] or split["dispatch_calls"]:
+        extra = (f"; host split: build {split['build_s']:.3f} s ({split['builds']}), decisions "
+                 f"{split['decide_s']:.3f} s ({split['dispatch_calls']} run_until_decision calls), "
+                 f"view changes {split['view_change_s']:.3f} s ({split['view_changes']}), "
+                 f"probe-drop masks {split['probe_drop_mask_s']:.3f} s "
+                 f"({split['probe_drop_masks']}), recomputed_config_id "
+                 f"{split['recomputed_config_id_s']:.3f} s")
+    print(f"scenario {name} ({card}): {json.dumps(run['record'])}; launches {run['launches']}"
+          f"; {run['seconds']:.3f} s in all{extra}", flush=True)
+
+
+def _comparable(rec):
+    """A record as JSON, without ``wall_s`` and the registry's name."""
+    return json.loads(json.dumps({k: v for k, v in rec.items() if k not in ("wall_s", "scenario")}))
+
+
+def start_message_load():
+    """``python -m rapid_tpu_torch.experiments.message_load`` at its
+    defaults in a child process (host Python, no card), started before the
+    live planes phase, whose single thread of host work it overlaps with its
+    own ~40 s on another core; ``scenarios_phase`` reads it. Killed at exit
+    if still running. Returns (process, start time, [end time]), the end
+    time set when the child exits."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rapid_tpu_torch.experiments.message_load"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    ended = []
+    threading.Thread(target=lambda: (proc.wait(), ended.append(time.perf_counter())),
+                     daemon=True).start()
+    return proc, time.perf_counter(), ended
+
+
+def scenarios_phase(card, kernels, zone_churn, message_load_child):
+    """The port's scenario battery (``rapid_tpu_torch.cli.scenarios``) on the
+    card, at the registry's sizes: every ``BATTERY`` scenario, corpus plans
+    included, and ``SCENARIOS_1M``, each through ``run_scenario``,
+    each printed with its record, its kernel launches and its host split,
+    each record's every check held (``scenario_misses``). hierarchy-zone-churn
+    is the planes phase's run (``zone_churn``: its record and launches), not
+    a second one. Then crash-1k and one-way-loss at 1000 on the port's CPU
+    path, each record equal to the card's in every field but ``wall_s``; and
+    the experiments: ``join_wave`` at 100k with a 1% wave,
+    ``message_load`` at its defaults (host code: ``message_load_child``'s
+    output, ``start_message_load``) with its test's assertions, and
+    ``fig11_conflict_sweep``'s rows of ``FIG11_SKEWS``, each equal to
+    BASELINE.md's table. Returns every result."""
+    from rapid_tpu_torch.cli import scenarios
+    from rapid_tpu_torch.experiments import fig11_conflict_sweep, join_wave
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    runs = {}
+    for name in scenarios.BATTERY + list(SCENARIOS_1M):
+        if name == "hierarchy-zone-churn":
+            run = {"record": zone_churn["record"], "launches": zone_churn["launches"],
+                   "seconds": zone_churn["record"]["wall_s"], "reused": "planes phase",
+                   "split": {"builds": 0, "dispatch_calls": 0}}
+        else:
+            run = run_registry_scenario(scenarios, kernels, name, device)
+        runs[name] = run
+        _scenario_line(name, run, card)
+        misses = scenario_misses(run["record"])
+        assert not misses, f"scenario {name}: {'; '.join(misses)}"
+    for name in ("serving-sawtooth", "overload-recover"):
+        # the placement map's builds and updates launch the kernel
+        assert runs[name]["launches"].get("placement_topr", 0) > 0, (name, runs[name]["launches"])
+
+    cross = {}
+    for label, fn_name, params in SCENARIO_CROSS_CHECKS:
+        fn = getattr(scenarios, fn_name)
+        card_rec = runs[label]["record"] if label in runs else fn(**params, device=device)
+        got, want = _comparable(card_rec), _comparable(fn(**params, device="cpu"))
+        assert got == want, f"cross-check scenario {label}: card {got} != cpu {want}"
+        cross[label] = want
+        print(f"cross-check scenario {label}: card == cpu in every field but wall_s "
+              f"(virtual {want['virtual_ms']} ms, cut_ok {want['cut_ok']}, config_id_ok "
+              f"{want['config_id_ok']})", flush=True)
+
+    t0 = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    wave = join_wave.run_size(JOIN_WAVE_N, JOIN_WAVE_FRACTION, SEED, device)
+    wave["launches"] = _diff(dict(kernels.LAUNCHES), before)
+    wave["seconds"] = time.perf_counter() - t0
+    assert wave["admitted_ok"] and wave["virtual_ms"] == 2 * 1000 + 100, wave
+    print(f"experiment join_wave ({card}): {json.dumps(wave)}", flush=True)
+
+    proc, t0, ended = message_load_child
+    out, err = proc.communicate(timeout=600)
+    load_s = (ended[0] if ended else time.perf_counter()) - t0
+    assert proc.returncode == 0, f"message_load exited {proc.returncode}: {err[-2000:]}"
+    load = {line["strategy"]: line for line in map(json.loads, out.splitlines())}
+    assert list(load) == ["unicast", "gossip", "gossip-pushpull"], list(load)
+    uni, gos = load["unicast"]["per_type_totals"], load["gossip"]["per_type_totals"]
+    assert uni["BatchedAlertMessage"] == gos["BatchedAlertMessage"], load
+    assert uni["FastRoundPhase2bMessage"] == gos["FastRoundPhase2bMessage"], load
+    assert "GossipEnvelope" not in uni and gos["GossipEnvelope"] > 0, load
+    assert load["gossip"]["mean_msgs"] > load["unicast"]["mean_msgs"], load
+    print(f"experiment message_load (host, {load_s:.1f} s in its own process): "
+          + "; ".join(json.dumps(v) for v in load.values()), flush=True)
+
+    fig11 = {}
+    before = dict(kernels.LAUNCHES)
+    for skew in FIG11_SKEWS:
+        t0 = time.perf_counter()
+        conflicts, stalls, trials = fig11_conflict_sweep.sweep_row(skew, device)
+        assert conflicts == stalls == FIG11_TABLE[skew] and trials == 18, (skew, conflicts, stalls)
+        fig11[skew] = {"conflicts": conflicts, "stalls": stalls, "trials": trials,
+                       "seconds": time.perf_counter() - t0}
+        print(f"experiment fig11_conflict_sweep ({card}): skew {skew}: conflicts "
+              f"{conflicts}/{trials}, stalls {stalls}/{trials}, all converged (BASELINE.md's "
+              f"row), {fig11[skew]['seconds']:.1f} s", flush=True)
+    fig11_launches = _diff(dict(kernels.LAUNCHES), before)
+    seconds = time.perf_counter() - t_phase
+    print(f"scenarios phase {seconds:.1f} s ({card}): {len(runs)} scenarios, every check true",
+          flush=True)
+    return {"runs": runs, "cross_checks": cross, "join_wave": wave, "message_load": load,
+            "message_load_s": load_s,
+            "fig11": fig11, "fig11_launches": fig11_launches, "seconds": seconds}
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5788,7 +6057,9 @@ def main() -> int:
     # the agent (host Python; no kernel) ----------------------------------
     grpc_result = grpc_phase(card)
     lap("grpc")
-    # --- the protocol plane's live engines (host Python; no kernel) --------
+    # --- the protocol plane's live engines (host Python; no kernel), with
+    # the message_load experiment (host Python too) in its own process ------
+    message_load_child = start_message_load()
     live = live_planes_phase(card)
     lap("live planes")
     # --- the nemesis search and the forensics timeline (the sim harness's
@@ -5896,13 +6167,32 @@ def main() -> int:
     topr = topr_phase(device, card, view_change, parent_topr)
     del view_change
     planes_result["host_memory"] = planes_host_memory(device, card)
-    golden_misses = planes_golden_check(device)
+    from rapid_tpu_torch.cli import scenarios as port_scenarios
+
+    golden_runs = planes_golden_runs(device, result=port_scenarios.zone_churn_result)
+    golden_misses = planes_golden_check(device, golden_runs)
     assert not any(golden_misses.values()), f"planes: runs differ from {PLANES_GOLDEN}: " + "; ".join(
         m for misses in golden_misses.values() for m in misses[:5])
     print(f"planes, golden: the bench's serving dimension, the sweep's {SWEEP_N}-member placement "
           f"point and hierarchy-zone-churn equal tests/golden/torch_planes.json exactly ({card})",
           flush=True)
+    zone_churn = {"record": golden_runs["zone_churn"]["scenario"],
+                  "launches": golden_runs["zone_churn"]["launches"]}
+    del golden_runs
     lap("planes")
+
+    # --- the scenario battery and the paper's experiments, after the planes:
+    # hierarchy-zone-churn is the planes phase's run ---------------------------
+    scenario_result = scenarios_phase(card, kernels, zone_churn, message_load_child)
+    lap("scenarios")
+    # (scenario or experiment, launches) of each run of the phase that launched the kernel
+    scenario_launches = {}
+    runs_launches = [(name, run["launches"]) for name, run in scenario_result["runs"].items()]
+    runs_launches += [("join_wave 100k", scenario_result["join_wave"]["launches"]),
+                      ("fig11_conflict_sweep", scenario_result["fig11_launches"])]
+    for label, launches in runs_launches:
+        for name, count in launches.items():
+            scenario_launches.setdefault(name, []).append((label, count))
 
     # each kernel's launches are those of its own path's run: the scan path
     # (ingress loss 1.0) under the policy the kernel serves
@@ -5937,6 +6227,8 @@ def main() -> int:
             "launches_search": search_launches.get(name, []),
             # the 100k fault replay (drop rule at 1.0 and the gray streak: the scan path)
             "launches_replay": replay["launches"].get(name, 0),
+            # (scenario or experiment, launches) of the scenarios phase's runs
+            "launches_scenarios": scenario_launches.get(name, []),
             "match": True,
             "max_abs_err": max(s["max_abs_err"] for s in sizes.values()),
             "ms": main_shape["ms"],
@@ -5975,6 +6267,7 @@ def main() -> int:
             # the live planes' phase (serving, hierarchy, recovery): no kernel
             "launches_live_planes": live["launches"].get(name, 0),
             "launches_search": search_launches.get(name, []),
+            "launches_scenarios": scenario_launches.get(name, []),
             # (run, rank, launches) of each process of the multi-process decisions
             "launches_multiprocess": [
                 (label, r["process"], r["launches"].get(name, 0))
@@ -5989,7 +6282,10 @@ def main() -> int:
             "bound_us": t["bound_ms"] * 1e3,
             "bound_by": t["bound_by"],
             "tolerance": 0,
-            "library_ms": None,  # no single PyTorch call computes either half
+            # no single PyTorch call computes either half; fd_gather's gather
+            # alone, torch.gather on the unpacked [C, K] bits, is timed beside it
+            "library_ms": None,
+            "gather_only_ms": t.get("gather_only_ms"),
             "sizes": {f"{t['shape'][0]}x10": t},
         })
     main_case = topr[TOPR_CASES[0][0]]
@@ -6004,6 +6300,7 @@ def main() -> int:
         "launches": planes_result["launches"]["placement_topr"],
         "launches_live_planes": live["launches"].get("placement_topr", 0),
         "launches_search": search_launches.get("placement_topr", []),
+        "launches_scenarios": scenario_launches.get("placement_topr", []),
         "match": True,
         "max_abs_err": max(t["max_abs_err"] for t in topr.values()),
         "ms": main_case["ms"],
@@ -6028,7 +6325,7 @@ def main() -> int:
                       "wire": wire, "gateway": gateway, "planes": planes_result,
                       "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
                       "agent": agent, "live_planes": live, "search": search,
-                      "native": native, "grpc": grpc_result},
+                      "native": native, "grpc": grpc_result, "scenarios": scenario_result},
                      default=str))
     phases["total"] = round(time.perf_counter() - started, 1)
     print(f"phase seconds ({card}): {json.dumps(phases)}", flush=True)

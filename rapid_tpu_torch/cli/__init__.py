@@ -2,6 +2,7 @@
 (``python -m rapid_tpu_torch.cli.gateway``), the standalone agent
 (``python -m rapid_tpu_torch.cli.agent``), a multi-process mesh rank
 (``python -m rapid_tpu_torch.cli.multihost_sim``), the nemesis search
-(``python -m rapid_tpu_torch.cli.hunt``, ``tools/hunt.py``'s counterpart)
-and the forensics timeline (``python -m rapid_tpu_torch.cli.forensics``,
-``tools/forensics.py``'s counterpart)."""
+(``python -m rapid_tpu_torch.cli.hunt``, ``tools/hunt.py``'s counterpart),
+the forensics timeline (``python -m rapid_tpu_torch.cli.forensics``,
+``tools/forensics.py``'s counterpart) and the scenario battery (``python -m
+rapid_tpu_torch.cli.scenarios``, ``scenarios.py``'s counterpart)."""

@@ -272,7 +272,9 @@ class Simulator:
         self._down_reports_dev: Optional[torch.Tensor] = None
         self._subjects_host: Optional[np.ndarray] = None
         self._observers_host: Optional[np.ndarray] = None
-        self._ring_nodes: Optional[List[np.ndarray]] = None
+        # each ring's active nodes in ring order and their ring hashes, per
+        # configuration: a joiner's predecessors are a binary search away
+        self._ring_nodes: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
         self._ids_sorted: Optional[np.ndarray] = None
         self.state = self._fresh_state(self.seed)
         self._billed_rounds = 0  # rounds of this configuration already billed
@@ -1516,16 +1518,17 @@ class Simulator:
         k = self.config.k
         ids = np.zeros(k, dtype=np.int32)
         alive = np.zeros(k, dtype=bool)
+        signed = self.cluster.ring_hashes.view(np.int64)
         if self._ring_nodes is None:
             full_order = self.cluster.full_ring_order()
-            self._ring_nodes = [
-                full_order[ring][self.active[full_order[ring]]] for ring in range(k)
-            ]
-        signed = self.cluster.ring_hashes.view(np.int64)
+            self._ring_nodes = []
+            for ring in range(k):
+                nodes = full_order[ring][self.active[full_order[ring]]]
+                self._ring_nodes.append((nodes, signed[ring, nodes]))
         for ring in range(k):
-            ring_nodes = self._ring_nodes[ring]
+            ring_nodes, ring_hashes = self._ring_nodes[ring]
             me = signed[ring, node]
-            pos = np.searchsorted(signed[ring, ring_nodes], me)
+            pos = np.searchsorted(ring_hashes, me)
             pred = ring_nodes[pos - 1] if pos > 0 else ring_nodes[-1]
             ids[ring] = pred
             alive[ring] = self.alive[pred]
