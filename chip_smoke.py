@@ -226,7 +226,22 @@ into build/kernels/. Phases, each of which must pass:
    field but ``wall_s``; ``join_wave`` at 100k with a 1% wave,
    ``message_load`` at its defaults (in its own process, started before
    18), and ``fig11_conflict_sweep``'s skew-9 row equal to BASELINE.md's
-   table.
+   table;
+23. the tools and examples, after the battery (``tools_examples_phase``):
+   (a) ``rapid_tpu_torch.examples.load_balancer`` at the paper's Fig. 13
+   shape (50 backends behind the port's ``SwarmGateway``, its simulator on
+   the card, 10 failing at once, seed 23): one view change, the cut exactly
+   the 10 victims, no route to a dead backend, the router's configuration
+   id equal to the swarm's, with the keys moved out of 200, the wall and
+   the launches of ``fd_phase_fused`` and ``placement_topr`` in the run
+   (and, apart, in the gateway's warm-up before it);
+   (b) ``examples.swarm_agent`` at 1000 virtual nodes with a 1% crash: the
+   real member's id equal to the swarm's after the join and the crash, the
+   swarm back to 990 after the leave; (c) ``cli.perfscope render`` over the
+   port profiler's ``json_snapshot`` of a profiled 100k decision on the
+   card (rc 0, four phase bars) and ``cli.tracecat`` over two port members'
+   Chrome traces of one churn episode (rc 0, one shared ``virtual-time
+   (ms)`` process).
 
 Prints a JSON line of kernel results, one line of each phase's seconds, the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -2174,7 +2189,9 @@ class _RedriveLog:
 
     def __init__(self, gateway, size=400):
         bridge = gateway.bridge
-        self.events = collections.deque(maxlen=size)
+        # appended from the protocol, writer and callback threads: a deque's
+        # append is atomic
+        self.events = collections.deque(maxlen=size)  # guarded-by: atomic-append
         self._t0 = time.time()
         chain, catch_up = bridge._deliver_decision_chain, bridge._maybe_catch_up  # noqa: SLF001
         send_once = gateway._out._send_once  # noqa: SLF001
@@ -2379,9 +2396,9 @@ def gateway_sequence(n, device, seed=SEED, native_server=False, member_port=None
     resident = torch.cuda.memory_allocated() if on_card else 0
     child = None
     steps = []
-    clock = _CodecClock()
+    codec_timer = _CodecClock()
     try:
-        with clock:
+        with codec_timer:
             gateway.start()
             assert (gateway._reactor is not None) == native_server  # noqa: SLF001
             assert (gateway._framed is None) == native_server  # noqa: SLF001
@@ -2395,7 +2412,7 @@ def gateway_sequence(n, device, seed=SEED, native_server=False, member_port=None
             def step(name, act, event, cut_slots):
                 n_before = sim.membership_size
                 probe.reset()
-                clock.reset()
+                codec_timer.reset()
                 kernels.reset_launches()
                 start = time.time()
                 act()
@@ -2415,7 +2432,7 @@ def gateway_sequence(n, device, seed=SEED, native_server=False, member_port=None
                        "vote_window_ms": decision["vote_window_ms"],
                        "host_ms": decision["wall_ms"] - decision["dispatch_ms"]
                        - decision["vote_window_ms"],
-                       "codec": clock.snapshot(),
+                       "codec": codec_timer.snapshot(),
                        "member_decode_ms": seen.get("decoded_ms"),
                        "member_largest_frame": seen.get("largest_frame"),
                        "member_largest_decode_ms": seen.get("largest_decode_ms"),
@@ -4696,24 +4713,17 @@ SEARCH_REDUCED = {"engine_budget": 30, "sim_budget": 10, "wide_n": 5}
 BUG_FLAG = "RAPID_BUG_NEWROW_SYNC"
 
 
-def search_modules(package):
-    """``live_modules(package)`` plus the search's and the timeline's modules
-    and the forensics CLI's ``main``: the port's ``rapid_tpu_torch.cli.forensics``,
-    or for ``"rapid_tpu"`` ``tools/forensics.py`` (which the golden generator runs)."""
+def search_modules():
+    """``live_modules`` of the port plus the search's and the timeline's
+    modules and the forensics CLI's ``main`` (``rapid_tpu_torch.cli.forensics``).
+    The JAX package's namespace, which the golden generator and the twins
+    build, lives with them (``tests/test_torch_timeline.py``)."""
     import importlib
-    import importlib.util
 
-    ns = live_modules(package)
+    ns = live_modules("rapid_tpu_torch")
     for module in SEARCH_MODULES:
-        setattr(ns, module.replace(".", "_"), importlib.import_module(f"{package}.{module}"))
-    if package == "rapid_tpu":
-        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "forensics.py")
-        spec = importlib.util.spec_from_file_location("_forensics_cli", path)
-        cli = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(cli)
-    else:
-        cli = importlib.import_module(f"{package}.cli.forensics")
-    ns.forensics_main = cli.main
+        setattr(ns, module.replace(".", "_"), importlib.import_module(f"rapid_tpu_torch.{module}"))
+    ns.forensics_main = importlib.import_module("rapid_tpu_torch.cli.forensics").main
     return ns
 
 
@@ -5052,7 +5062,7 @@ def search_phase(card):
 
     from rapid_tpu_torch.sim import kernels
 
-    P = search_modules("rapid_tpu_torch")
+    P = search_modules()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-search-") as root:
         outcome, walls = search_sequence(
@@ -5974,6 +5984,156 @@ def scenarios_phase(card, kernels, zone_churn, message_load_child):
             "fig11": fig11, "fig11_launches": fig11_launches, "seconds": seconds}
 
 
+# --------------------------------------------------------------------- #
+# 23. the tools and examples (host and card)
+# --------------------------------------------------------------------- #
+
+LB_BACKENDS, LB_FAIL, LB_SEED = 50, 10, 23  # the paper's Fig. 13 shape
+SWARM_AGENT_N, SWARM_AGENT_CRASH_PERCENT, SWARM_AGENT_SEED = 1000, 1.0, 42
+PERFSCOPE_N = N_NODES
+TOOL_KERNELS = ("fd_phase_fused", "placement_topr")
+
+
+def load_balancer_run(card, kernels, device="cuda"):
+    """(a): Fig. 13 through ``examples.load_balancer.run_scenario``; its
+    four properties held, the launches of TOOL_KERNELS in the gateway's
+    warm-up (``warm_compile`` runs a decision of each branch) and, counted
+    from 0 after it, in the run: the router's join and the crash."""
+    from rapid_tpu_torch.examples import load_balancer
+    from rapid_tpu_torch.messaging.gateway import SwarmGateway
+
+    warm, warm_launches = SwarmGateway.warm, {}
+
+    def warm_then_count(gateway, *args, **kwargs):
+        warm(gateway, *args, **kwargs)
+        warm_launches.update({name: kernels.LAUNCHES.get(name, 0) for name in TOOL_KERNELS})
+        kernels.reset_launches()
+
+    kernels.reset_launches()
+    SwarmGateway.warm = warm_then_count
+    t0 = time.perf_counter()
+    try:
+        out = load_balancer.run_scenario(LB_BACKENDS, LB_FAIL, LB_SEED, quiet=True,
+                                         device=device)
+    finally:
+        SwarmGateway.warm = warm
+    wall_s = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES.get(name, 0) for name in TOOL_KERNELS}
+    checks = load_balancer.holds(out)
+    print(f"tools and examples (a), load balancer: {LB_BACKENDS} backends, {LB_FAIL} failed "
+          f"at once (seed {LB_SEED}), the swarm on {device}: {out['view_changes']} view "
+          f"change(s), cut {len(out['cut'])} (the victims: {out['cut'] == out['victims']}), "
+          f"{len(out['dead_routes'])} routes to dead backends, {out['moved']}/{out['keys']} "
+          f"keys moved, router id {out['config_id_router']}, swarm id "
+          f"{out['config_id_swarm']}; wall {wall_s:.2f} s; launches in the run {launches}, "
+          f"in the gateway's warm-up before it {warm_launches} ({card})", flush=True)
+    assert all(checks.values()), f"load balancer: Fig. 13 does not hold: {checks}"
+    return {"view_changes": out["view_changes"], "cut": len(out["cut"]),
+            "cut_is_victims": out["cut"] == out["victims"],
+            "dead_routes": len(out["dead_routes"]), "moved": out["moved"], "keys": out["keys"],
+            "config_id_router": out["config_id_router"],
+            "config_id_swarm": out["config_id_swarm"], "wall_s": wall_s,
+            "launches": launches, "warm_launches": warm_launches, "checks": checks}
+
+
+def swarm_agent_run(card, kernels, device="cuda"):
+    """(b): ``examples.swarm_agent.run`` at 1000 virtual nodes, 1% crashed."""
+    from rapid_tpu_torch.examples import swarm_agent
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = swarm_agent.run(SWARM_AGENT_N, SWARM_AGENT_CRASH_PERCENT, SWARM_AGENT_SEED,
+                          device=device, quiet=True)
+    wall_s = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES.get(name, 0) for name in TOOL_KERNELS}
+    for row in out["steps"]:
+        print(f"tools and examples (b), swarm_agent, {row['name']}: member id "
+              f"{row['member_id']}, swarm id {row['swarm_id']}, member size "
+              f"{row['member_size']}, swarm size {row['swarm_size']}, holds {row['ok']}",
+              flush=True)
+    print(f"tools and examples (b), swarm_agent: {SWARM_AGENT_N} virtual nodes, "
+          f"{out['crashed']} crashed, the swarm on {device}; wall {wall_s:.2f} s; launches "
+          f"{launches} ({card})", flush=True)
+    assert out["ok"], f"swarm_agent: the member's and the swarm's ids differ: {out['steps']}"
+    return {"steps": out["steps"], "crashed": out["crashed"], "wall_s": wall_s,
+            "launches": launches}
+
+
+def operator_tools_run(card, root, device="cuda"):
+    """(c): ``cli.perfscope render`` over the profiler's ``json_snapshot`` of
+    a profiled decision at PERFSCOPE_N on the card, and ``cli.tracecat`` over
+    two port members' Chrome traces of one churn episode."""
+    from rapid_tpu_torch.cli import perfscope, tracecat
+    from rapid_tpu_torch.harness import ClusterHarness
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.observability import Metrics, chrome_trace, json_snapshot
+    from rapid_tpu_torch.profiling import PHASES
+    from rapid_tpu_torch.settings import ProfilingSettings
+    from rapid_tpu_torch.sim.driver import Simulator
+
+    sim = Simulator(PERFSCOPE_N, seed=SEED, metrics=Metrics(), device=device).ready()
+    prof = sim.enable_profiling(ProfilingSettings(enabled=True, sample_every_dispatches=1))
+    sim.crash(np.random.default_rng(SEED).choice(PERFSCOPE_N, PERFSCOPE_N // 100, replace=False))
+    assert sim.run_until_decision(max_rounds=16, batch=16) is not None
+    snapshot = os.path.join(root, "metrics.json")
+    with open(snapshot, "w") as fh:
+        json.dump(json_snapshot(sim.metrics), fh)
+    rc, text, _, _ = run_cli(perfscope.main, ["render", snapshot])
+    bars = [line for line in text.splitlines() if line.split() and line.split()[0] in PHASES]
+    print(f"tools and examples (c), perfscope render over the profiled {PERFSCOPE_N} decision's "
+          f"json_snapshot on {device} ({prof.attribution()}): rc {rc}, {len(bars)} phase bars "
+          f"({card})", flush=True)
+    for line in text.splitlines():
+        print(f"  {line}", flush=True)
+    assert rc == 0 and len(bars) == len(PHASES) == 4, (rc, text)
+
+    h = ClusterHarness(seed=7, use_static_fd=False)
+    try:
+        blacklist = set()
+        h.start_seed(0, fd=StaticFailureDetectorFactory(blacklist))
+        h.join(1, fd=StaticFailureDetectorFactory(blacklist))
+        h.join(2, fd=StaticFailureDetectorFactory(set()))
+        h.wait_and_verify_agreement(3)
+        victim = h.addr(2)
+        services = [h.instances[h.addr(i)]._membership_service for i in (0, 1)]
+        h.instances.pop(victim).shutdown()
+        blacklist.add(victim)
+        h.wait_and_verify_agreement(2, timeout_ms=1_200_000)
+        traces = []
+        for i, svc in enumerate(services):
+            traces.append(os.path.join(root, f"node{i}.json"))
+            with open(traces[-1], "w") as fh:
+                json.dump(chrome_trace(svc.tracer), fh)
+    finally:
+        h.shutdown()
+    merged_path = os.path.join(root, "merged.json")
+    rc_cat, _, _, _ = run_cli(tracecat.main, [*traces, "-o", merged_path])
+    with open(merged_path) as fh:
+        merged = json.load(fh)["traceEvents"]
+    processes = [e["args"]["name"] for e in merged
+                 if e.get("ph") == "M" and e.get("name") == "process_name"]
+    virtual = processes.count(tracecat.VIRTUAL_PROCESS_NAME)
+    print(f"tools and examples (c), tracecat over 2 port members' Chrome traces: rc {rc_cat}, "
+          f"{len(merged)} events, processes {processes}, {virtual} shared "
+          f"'{tracecat.VIRTUAL_PROCESS_NAME}' process ({card})", flush=True)
+    assert rc_cat == 0 and virtual == 1, (rc_cat, processes)
+    return {"perfscope_rc": rc, "phase_bars": len(bars), "tracecat_rc": rc_cat,
+            "merged_events": len(merged), "processes": processes}
+
+
+def tools_examples_phase(card, kernels):
+    """The tools and examples phase: (a)-(c) above, on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"load_balancer": load_balancer_run(card, kernels),
+           "swarm_agent": swarm_agent_run(card, kernels)}
+    with tempfile.TemporaryDirectory(prefix="rapid-tools-") as root:
+        out["operator_tools"] = operator_tools_run(card, root)
+    print(f"tools and examples phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6185,6 +6345,11 @@ def main() -> int:
     # hierarchy-zone-churn is the planes phase's run ---------------------------
     scenario_result = scenarios_phase(card, kernels, zone_churn, message_load_child)
     lap("scenarios")
+    # --- the tools and examples: Fig. 13's load balancer and the swarm agent
+    # with their swarms on the card, perfscope and tracecat on the card's own
+    # artifacts ----------------------------------------------------------------
+    tools_result = tools_examples_phase(card, kernels)
+    lap("tools and examples")
     # (scenario or experiment, launches) of each run of the phase that launched the kernel
     scenario_launches = {}
     runs_launches = [(name, run["launches"]) for name, run in scenario_result["runs"].items()]
@@ -6325,7 +6490,8 @@ def main() -> int:
                       "wire": wire, "gateway": gateway, "planes": planes_result,
                       "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
                       "agent": agent, "live_planes": live, "search": search,
-                      "native": native, "grpc": grpc_result, "scenarios": scenario_result},
+                      "native": native, "grpc": grpc_result, "scenarios": scenario_result,
+                      "tools_examples": tools_result},
                      default=str))
     phases["total"] = round(time.perf_counter() - started, 1)
     print(f"phase seconds ({card}): {json.dumps(phases)}", flush=True)

@@ -4,5 +4,9 @@
 (``python -m rapid_tpu_torch.cli.multihost_sim``), the nemesis search
 (``python -m rapid_tpu_torch.cli.hunt``, ``tools/hunt.py``'s counterpart),
 the forensics timeline (``python -m rapid_tpu_torch.cli.forensics``,
-``tools/forensics.py``'s counterpart) and the scenario battery (``python -m
-rapid_tpu_torch.cli.scenarios``, ``scenarios.py``'s counterpart)."""
+``tools/forensics.py``'s counterpart), the scenario battery (``python -m
+rapid_tpu_torch.cli.scenarios``, ``scenarios.py``'s counterpart), the
+merge gate (``python -m rapid_tpu_torch.cli.check --all``: ``check``,
+``concur`` and ``devlint`` over ``lintlib``), and the operator's
+``perfscope``, ``tracecat`` and ``coverage``, each the counterpart of its
+namesake in ``tools/``."""

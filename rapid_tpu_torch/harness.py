@@ -42,7 +42,9 @@ class ClusterHarness:
         self.settings = settings if settings is not None else Settings()
         self.blacklist: Set[Endpoint] = set()
         self.use_static_fd = use_static_fd
-        self.instances: Dict[Endpoint, Cluster] = {}
+        # written by the caller and by join callbacks, which run on the thread
+        # that drives the virtual scheduler: the caller's
+        self.instances: Dict[Endpoint, Cluster] = {}  # guarded-by: virtual-scheduler
         self.servers: Dict[Endpoint, InProcessServer] = {}
         # optional dissemination swap: factory(client, rng) -> IBroadcaster
         self.broadcaster_factory = None

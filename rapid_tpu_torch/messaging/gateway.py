@@ -108,6 +108,10 @@ def decode_routed(frame: bytes) -> Tuple[int, Endpoint, RapidMessage]:
 
 DEFAULT_DIRECT_HOSTS = (b"127.0.0.1", b"localhost")
 
+# how long SwarmGateway.on_protocol_thread waits for the protocol thread to
+# run a call, or to exit after shutdown, before it raises TimeoutError
+PROTOCOL_CALL_TIMEOUT_S = 60.0
+
 
 class GatewayRoutedClient(IMessagingClient):
     """Agent-side client: direct transport for routable peers, the gateway
@@ -600,6 +604,7 @@ class SwarmGateway:
             for i in range(2)
         ]
         self._running = False
+        self._protocol_thread: Optional[threading.Thread] = None
         self._decisions: List[object] = []
         self._decision_lock = make_lock("SwarmGateway._decision_lock")
         self._warned_lock = make_lock("SwarmGateway._warned_lock")
@@ -662,10 +667,63 @@ class SwarmGateway:
             return list(self._decisions)
 
     def configuration_id(self) -> int:
-        return self.bridge.sim.configuration_id()
+        """The swarm's configuration id, read on the protocol thread: from
+        any other thread a read could fold the id in the middle of a view
+        change and cache it over the installed one."""
+        return self.on_protocol_thread(lambda: self.bridge.sim.configuration_id())
 
     def membership_size(self) -> int:
-        return self.bridge.sim.membership_size
+        """The swarm's size, read on the protocol thread (as above)."""
+        return self.on_protocol_thread(lambda: self.bridge.sim.membership_size)
+
+    def on_protocol_thread(self, fn: Callable[[], object]):
+        """``fn()`` on the protocol thread, the one thread that touches the
+        swarm, at join priority, and its result (or its exception, raised
+        here): how a caller reads the swarm or injects a virtual fault. It
+        runs in place on that thread itself, and on the caller's thread only
+        when no protocol thread can run a task: before ``start``, or after
+        ``shutdown`` once that thread has left its last task and exited. It
+        runs once either way."""
+        thread = self._protocol_thread
+        if thread is threading.current_thread():
+            return fn()
+        if thread is None:
+            return fn()  # not started: no other thread touches the swarm
+        done = threading.Event()
+        claim = threading.Lock()  # whoever takes it runs fn()
+        out: list = []
+
+        def run() -> None:
+            try:
+                out.append((True, fn()))
+            except Exception as e:  # noqa: BLE001 -- raised on the caller's thread
+                out.append((False, e))
+            finally:
+                done.set()
+
+        def task() -> None:
+            if claim.acquire(blocking=False):
+                run()
+
+        deadline = time.monotonic() + PROTOCOL_CALL_TIMEOUT_S
+        if self._running:
+            self._put_task(task, self.PRIO_JOIN, "caller")
+            while self._running and not done.wait(0.05):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the gateway's protocol thread did not run the call")
+        if not done.is_set():
+            # shut down: a task the protocol thread holds (or one that drains
+            # the queue, and may still run this call) ends before fn() runs here
+            thread.join(max(0.0, deadline - time.monotonic()))
+            if thread.is_alive():
+                raise TimeoutError("the gateway's protocol thread did not exit")
+            if claim.acquire(blocking=False):
+                run()
+        done.wait()
+        ok, value = out[0]
+        if not ok:
+            raise value
+        return value
 
     def save(self, path: str, timeout: float = 30.0) -> None:
         """Checkpoint the swarm (configuration + real-member plane) from the
@@ -733,6 +791,8 @@ class SwarmGateway:
             self._framed.start()
         for target, name in threads:
             t = threading.Thread(target=target, name=name, daemon=True)  # noqa: messaging-thread
+            if target == self._protocol_loop:
+                self._protocol_thread = t
             t.start()
             self._threads.append(t)
 

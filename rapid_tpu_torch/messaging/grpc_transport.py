@@ -751,7 +751,7 @@ class _Channel:
         self._conn: Optional[http2.Connection] = None  # loop-only, and the rest
         self._dial: Optional[asyncio.Task] = None
         self._closed = False
-        self._calls: set = set()
+        self._calls: set = set()  # guarded-by: aio-loop (_start and its callbacks)
 
     def call(self, request: bytes, timeout_s: float,
              on_done: Callable[[Optional[bytes], Optional[BaseException]], None]) -> None:

@@ -212,8 +212,9 @@ class ClassicCoordinator:
             sim.config, sim.state, self.rank, self._hears_coord, self._coord_hears,
             self._resp_time,
         )
+        # the phase's one sync  # devlint: sync-point
         self._summary = Phase1Summary.from_words(
-            words.cpu().numpy(), sim.config.proposal_rows  # the phase's one sync
+            words.cpu().numpy(), sim.config.proposal_rows
         )
         self.elapsed_rounds += self._summary.cutoff
         return self._summary.promised > int(sim.active.sum()) // 2
@@ -248,6 +249,7 @@ class ClassicCoordinator:
             sim.config, sim.state, self.rank, row, self._hears_coord,
             self._coord_hears, self._resp_time,
         )
-        accepted, cutoff = (int(x) for x in words.cpu().numpy())  # the phase's one sync
+        # the phase's one sync  # devlint: sync-point
+        accepted, cutoff = (int(x) for x in words.cpu().numpy())
         self.elapsed_rounds += cutoff
         return row if accepted > int(sim.active.sum()) // 2 else None

@@ -159,7 +159,11 @@ class ViewChangeRecord:
     via_classic_round: bool = False  # decided by the Paxos fallback
 
 
-class Simulator:
+# One thread drives a simulator (the sim loop): the caller's, or a gateway's
+# protocol thread, which serializes every task that touches it. The
+# speculation worker writes ``_spec`` alone, and the simulator joins it before
+# any read; the lazy caches its calls reach are warmed before it starts.
+class Simulator:  # guarded-by: sim-loop
     def __init__(
         self,
         n_nodes: int,

@@ -205,6 +205,7 @@ def state_from_numpy(
 
 def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
     """The inverse of ``state_from_numpy``, in the JAX engine's dtypes."""
+    # a snapshot's copy, off the round loop  # devlint: sync-point
     out = {name: getattr(state, name).cpu().numpy() for name in _FIELDS}
     out["fd_hist"] = out["fd_hist"].astype(np.uint16)
     return out
@@ -334,8 +335,8 @@ def route_and_tally(
         hist = torch.cat([down_arrivals[None], arrival_hist], dim=0)
         arrival_hist = hist[:dmax]
         delay_gck = inputs.deliver_delay[:, sender].long()  # [G, C, K]
-        c_idx = torch.arange(c, device=dev)[None, :, None]
-        k_idx = torch.arange(k, device=dev)[None, None, :]
+        c_idx = torch.arange(c, dtype=torch.int64, device=dev)[None, :, None]
+        k_idx = torch.arange(k, dtype=torch.int64, device=dev)[None, None, :]
         arrived = hist[delay_gck, c_idx, k_idx]  # [G, C, K]
         joins = inputs.join_reports[None, :, :]
         if not uniform_delivery:
@@ -407,7 +408,7 @@ def route_and_tally(
     if dmax > 0:
         vhist = torch.cat([state.vote_new[None], vote_hist], dim=0)
         vote_hist = vhist[:dmax]
-        c_idx = torch.arange(c, device=dev)[None, :]
+        c_idx = torch.arange(c, dtype=torch.int64, device=dev)[None, :]
         arrived_votes = vhist[inputs.deliver_delay.long(), c_idx]  # [G, C]
         if not uniform_delivery:
             arrived_votes = arrived_votes & inputs.deliver
@@ -841,14 +842,14 @@ def device_initial_state(
     order = torch.argsort(keys, dim=1, stable=True)  # int64 [K, C]
     n = active.sum()
     n1 = n.clamp(min=1)
-    p = torch.arange(c, device=dev)[None, :]
+    p = torch.arange(c, dtype=torch.int64, device=dev)[None, :]
     pred_idx = torch.where(p < n, (p - 1) % n1, p).expand(k, c)
     succ_idx = torch.where(p < n, (p + 1) % n1, p).expand(k, c)
     preds = order.gather(1, pred_idx).to(torch.int32)
     succs = order.gather(1, succ_idx).to(torch.int32)
 
     base = torch.arange(c, dtype=torch.int32, device=dev)[:, None].repeat(1, k)
-    ring_ids = torch.arange(k, device=dev)[:, None].expand(k, c).reshape(-1)
+    ring_ids = torch.arange(k, dtype=torch.int64, device=dev)[:, None].expand(k, c).reshape(-1)
     nodes_flat = order.reshape(-1)
     subjects = base.clone().index_put_((nodes_flat, ring_ids), preds.reshape(-1))
     observers = base.index_put_((nodes_flat, ring_ids), succs.reshape(-1))

@@ -5,7 +5,8 @@ timeline), which the port must reproduce on the CPU
 card (``chip_smoke.py``, whose machine has no JAX; the ``full`` section).
 
 The runs are ``chip_smoke.search_sequence`` on ``rapid_tpu``'s modules, with
-``tools/forensics.py`` as the forensics CLI:
+``tools/forensics.py`` as the forensics CLI (``jax_search_modules`` of
+``tests/test_torch_timeline.py``):
 
 - (a) ``Hunter(seed=0, budget=200, harness="engine")``, ``tools/hunt.py``'s
   defaults: the report, the coverage and the transition count;
@@ -42,10 +43,13 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import chip_smoke  # noqa: E402
 
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from test_torch_timeline import jax_search_modules  # noqa: E402
+
 
 def jax_run(section: str) -> dict:
     """``section`` ("full" or "reduced") of the file, run on ``rapid_tpu``."""
-    P = chip_smoke.search_modules("rapid_tpu")
+    P = jax_search_modules()
     assert P.search_hunt.SIM_DEFAULTS["capacity"] == 5
     kw = {} if section == "full" else dict(chip_smoke.SEARCH_REDUCED)
     with tempfile.TemporaryDirectory(prefix="rapid-search-golden-") as root:

@@ -28,7 +28,7 @@ RUNS = ("engine_hunt", "bug_hunt", "sim_hunt", "wide_probe", "timeline")
 
 @pytest.fixture(scope="module")
 def port_reduced(tmp_path_factory):
-    P = chip_smoke.search_modules("rapid_tpu_torch")
+    P = chip_smoke.search_modules()
     return chip_smoke.search_sequence(P, str(tmp_path_factory.mktemp("search")), device="cpu",
                                       **chip_smoke.SEARCH_REDUCED)
 

@@ -72,10 +72,31 @@ def assert_twin(bundles):
     return jax
 
 
+def jax_search_modules():
+    """``chip_smoke.search_modules`` for the JAX package: its live modules,
+    the search's and the timeline's modules, and ``tools/forensics.py``'s
+    ``main`` as the forensics CLI (loaded by path, as the golden generator
+    runs it). ``chip_smoke.py`` builds the port's alone: it imports nothing
+    of the JAX package."""
+    ns = chip_smoke.live_modules("rapid_tpu")
+    for module in chip_smoke.SEARCH_MODULES:
+        setattr(ns, module.replace(".", "_"), importlib.import_module(f"rapid_tpu.{module}"))
+    spec = importlib.util.spec_from_file_location("_forensics_cli", REPO / "tools" / "forensics.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    ns.forensics_main = cli.main
+    return ns
+
+
+def search_modules(package):
+    """The search namespace of ``package`` (either of PACKAGES)."""
+    return jax_search_modules() if package == "rapid_tpu" else chip_smoke.search_modules()
+
+
 def journal_bundle(events):
     """``tests/test_forensics.py``'s ``_bundle_with`` (built with the JAX
     package, so both packages read the same document)."""
-    return chip_smoke._journal_bundle(chip_smoke.search_modules("rapid_tpu"), events)
+    return chip_smoke._journal_bundle(jax_search_modules(), events)
 
 
 FIXTURES = {
@@ -199,7 +220,7 @@ def test_witness_bundle_twin(monkeypatch):
         {"device": "cpu"} if p == "rapid_tpu_torch" else {})).info["bundle"] for p in PACKAGES]
     out = assert_twin([bundles[0]])
     assert out[0] and all(e[5] is not None for e in out[0])  # every event HLC-stamped
-    norm = [chip_smoke._normalized(chip_smoke.search_modules(p), b)
+    norm = [chip_smoke._normalized(search_modules(p), b)
             for p, b in zip(PACKAGES, bundles)]
     assert norm[0] == norm[1]
     assert bundles[0]["detail"] == bundles[1]["detail"]
@@ -209,7 +230,7 @@ def test_bundles_captured_from_each_package_members_twin():
     """The skewed churn of ``tests/test_forensics.py`` on each package's own
     members: the captured journals (wall times and span ids aside) and every
     timeline output over them are equal, and HLC order holds."""
-    jax_P, port_P = (chip_smoke.search_modules(p) for p in PACKAGES)
+    jax_P, port_P = (search_modules(p) for p in PACKAGES)
     captured = [chip_smoke.skewed_churn_bundle(P) for P in (jax_P, port_P)]
     norm = [chip_smoke._normalized(P, b) for P, b in zip((jax_P, port_P), captured)]
     assert norm[0] == norm[1]
