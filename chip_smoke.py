@@ -64,8 +64,13 @@ into build/kernels/. Phases, each of which must pass:
    (sync debug mode "error": they must raise and record nothing, and both
    speculation hits must land) and every sync counted in the same decision
    audited by ``jitwatch``; ``enable_profiling`` on the
-   scan path sampling every dispatch (four phases above 0, ``fd_phase_fused``
-   launched by each prefix); the GPU ops of one step and of its prefixes;
+   scan path sampling every dispatch under both FD policies (the phases
+   timed as device work, CUDA graph replays of the prefixes, beside the
+   same state's host walls; the kernel counted once a replay; the captured
+   step equal to the eager one; every phase of the best-of-5 sample and of
+   at least 50 one-shot in-loop samples above 0; decisions with profiling
+   on equal to those with it off under ingress loss 0.5 and 1.0); the GPU
+   ops of one step and of its prefixes;
    and ``observability.device_trace`` around one decision, whose Chrome
    trace must name ``fd_phase_fused``;
 11. the simulator bridge (``rapid_tpu_torch/sim/bridge.py``), run first after
@@ -192,10 +197,11 @@ into build/kernels/. Phases, each of which must pass:
    into ``_bulk_insert``, the identifier insort, the scalar configuration id
    and the service, one id (``native_member_join``); then the view build of
    those 100 000 endpoints alone, once on each path
-   (``native_view_builds``); (d) ``gateway_sequence``
-   with ``native_server=True``, every id equal to the Python server's run,
-   and ``agent_sequence`` with the agent on ``--transport native-tcp``
-   (``native_gateway``); (e) 3 port members on ``NativeTcpClientServer``
+   (``native_view_builds``); (d) ``agent_sequence`` with the agent on
+   ``--transport native-tcp`` behind a gateway on the reactor
+   (``native_gateway``; its ``gateway_sequence`` with the scripted member
+   behind the reactor, every id equal to the Python server's run, runs in
+   the CPU tests, and is cut here for time); (e) 3 port members on ``NativeTcpClientServer``
    scraped with ``ClusterStatusRequest(include_history=8)`` and folded with
    ``cluster_timeseries``, one series map a member holding its own counters
    (``native_scrape``);
@@ -241,7 +247,13 @@ into build/kernels/. Phases, each of which must pass:
    port profiler's ``json_snapshot`` of a profiled 100k decision on the
    card (rc 0, four phase bars) and ``cli.tracecat`` over two port members'
    Chrome traces of one churn episode (rc 0, one shared ``virtual-time
-   (ms)`` process).
+   (ms)`` process);
+24. the scaling sweep, last (``scaling_sweep_phase``):
+   ``rapid_tpu_torch.experiments.scaling_sweep.run_size`` at 1k, 10k, 100k
+   and 1M (seed 42), each size's JSON line with the cut held, its build
+   seconds, and no kernel built or loaded and no ``fd_phase_fused`` launched
+   in the timed window (the closed form); and the placement-and-handoff
+   point at 100k through the same ``warmed_run`` (``sweep_point_run``).
 
 Prints a JSON line of kernel results, one line of each phase's seconds, the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -251,7 +263,9 @@ prints no result. ``python3 chip_smoke.py --agent-loop N [M]`` runs 17's
 process and stops at the first disagreement, printing its dump
 (``agent_loop``);
 ``--view-race TRIALS [N]`` races a configuration read against a view
-change's deletes on this host's CPU, unforced (``view_race``).
+change's deletes on this host's CPU, unforced (``view_race``);
+``--grpc-loop TRIALS [BUSY]`` runs the gRPC phase's live cluster TRIALS
+times beside BUSY threads of Python work, on this host's CPU (``grpc_loop``).
 """
 
 import atexit
@@ -1112,9 +1126,15 @@ def _timed_windows(Simulator, observability, jitwatch, ProfilingSettings, rng, d
         counted = _count_syncs(lambda: twin.run_until_decision(max_rounds=16, batch=16))
         twin_audited = _diff(jitwatch.sync_counts(), before)
         # an explicit device synchronize (a drain) may escape the debug mode;
-        # what it counts must be audited either way
+        # what it counts must be audited either way. The profiler drains once
+        # a replay, three a turn; a turn whose times do not rise is taken
+        # again, and each profiler counts the turns it took
         drains = sum(v for k, v in audited.items() if k != "sim.decision_words")
-        assert twin_audited == audited and counted in (
+        turns = (prof.turns, twin_prof.turns)
+        assert [d.get("sim.profile.sample", 0) for d in (audited, twin_audited)] == [
+            3 * t for t in turns], (branch, turns, audited, twin_audited)
+        assert {**twin_audited, "sim.profile.sample": 0} == {
+            **audited, "sim.profile.sample": 0} and counted in (
             audited["sim.decision_words"], audited["sim.decision_words"] + drains), (
             branch, counted, audited, twin_audited)
         _planes_fault(twin, branch)(rng.choice(twin.members(), 10, replace=False))
@@ -1138,38 +1158,40 @@ def _diff(after, before):
     return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
 
-PROFILE_DECISIONS = 3  # in-loop sampled decisions whose prefix times are printed
+PROFILE_DECISIONS = 6  # in-loop sampled decisions: the first in one dispatch, the rest a round each
 PROFILE_REPEATS = 5  # the best-of-N sample that holds every phase > 0
+PROFILE_MIN_SAMPLES = 50  # one-shot in-loop samples over those decisions, no phase of any at 0
+PROFILE_LOSSES = ((0.5, N_NODES // 1000), (1.0, N_NODES // 100))  # (p, members): on == off
 
 
-def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
-    """``enable_profiling`` sampling every dispatch on the 100k scan path:
-    samples, the four phases, and the prefixes' own ``fd_phase_fused``
-    launches; then the GPU ops of one step and of each prefix on the
-    simulator's state (``profile_decision.profile_gpu``).
-
-    The in-loop samples are one-shot, as the profiler's default is, so one
-    noisy prefix can clamp a phase to 0: every sample's three prefix times
-    are printed over ``PROFILE_DECISIONS`` decisions, and "every phase > 0"
-    is held on a best-of-``PROFILE_REPEATS`` sample of the first decision's
-    pre-dispatch state, as the JAX package's tests hold it."""
+def _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device, policy):
+    """One 100k scan-path decision with every dispatch sampled under the FD
+    ``policy``: samples, the four phases, the prefixes' kernel launches
+    (16 and one a replay: 3 a turn the profiler counts, more than one turn
+    a sample only where a turn was taken again; a captured prefix counts
+    once a replay, not at capture). On the first decision's pre-dispatch state, a fresh
+    profiler's best-of-``PROFILE_REPEATS`` sample must hold every phase
+    > 0, its captured full step must equal the eager ``engine.step`` on a
+    copy of the generator, bit for bit, and the generator handed in must
+    stay where it was; the same state's host walls (the eager prefixes up to
+    a drain, the CPU's source) are printed beside the device times."""
     from rapid_tpu_torch.observability import Metrics
-    from rapid_tpu_torch.profiling.phases import PhaseProfiler, _copy
-    from rapid_tpu_torch.sim.profile_decision import profile_gpu
+    from rapid_tpu_torch.profiling import phases
 
-    sim = Simulator(N_NODES, seed=PLANES_SEED + 70, device=device).ready()
+    windowed = policy == "windowed"
+    counter = "fd_phase_fused_windowed" if windowed else "fd_phase_fused"
+    other = "fd_phase_fused" if windowed else "fd_phase_fused_windowed"
+    config = engine.SimConfig(capacity=N_NODES, fd_policy=policy)
+    sim = Simulator(N_NODES, config=config, seed=PLANES_SEED + 70, device=device).ready()
     prof = sim.enable_profiling(ProfilingSettings(enabled=True, sample_every_dispatches=1))
     fault = _planes_fault(sim, "scan")
     fault(rng.choice(N_NODES, N_NODES // 100, replace=False))
     inputs = sim._const_inputs(None)
-    state, generator = sim.state, _copy(sim._generator)
-    ops = {name: profile_gpu(lambda fn=fn: fn(sim.config, state, inputs, True,
-                                              _copy(generator)))["kernels"]
-           for name, fn in (("step", engine.step), ("step_cut_detector", engine.step_cut_detector),
-                            ("step_fd_scan", engine.step_fd_scan))}
+    state, generator = sim.state, phases._copy(sim._generator)
     prefix_ms = []  # every in-loop prefix time, in the order sample() takes them
     segments = []  # the caching allocator's new device segments (cudaMalloc) in each
-    timed_ms = prof._timed_ms
+    in_loop = []  # the phases of every in-loop sample
+    timed_ms, sample = prof._timed_ms, prof.sample
 
     def allocated():
         return torch.cuda.memory_stats().get("segment.all.allocated", 0)
@@ -1180,7 +1202,11 @@ def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
         segments.append(allocated() - before)
         return prefix_ms[-1]
 
-    prof._timed_ms = recorded
+    def kept(*args, **kw):
+        in_loop.append(sample(*args, **kw))
+        return in_loop[-1]
+
+    prof._timed_ms, prof.sample = recorded, kept
     kernels.reset_launches()
     rec = sim.run_until_decision(max_rounds=16, batch=16)
     sim.ready()
@@ -1188,31 +1214,109 @@ def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
     totals, samples = prof.attribution(), prof.samples
     assert rec is not None and samples >= 1, samples
     assert totals["host_transfer"] > 0, totals
-    assert launches["fd_phase_fused"] == 16 + 3 * samples, launches
+    replays = len(prefix_ms)
+    assert replays == 3 * prof.turns >= 3 * samples and launches[counter] == 16 + replays, (
+        replays, prof.turns, launches)
+    assert launches[other] == 0, launches
+
+    before = generator.get_state()
+    fresh = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
+    best = fresh.sample(sim.config, state, inputs, True, generator, repeats=PROFILE_REPEATS)
+    assert all(best[p] > 0 for p in phases.DEVICE_PHASES), best
+    assert torch.equal(generator.get_state(), before), "a sample moved the generator"
+    captured = fresh._captured[phases._class_key(sim.config, state, inputs, True)]
+    eager = engine.step(sim.config, state, inputs, True, phases._copy(generator))
+    mismatched = [f for f, t in phases._tensors(eager).items()
+                  if not torch.equal(getattr(captured.outputs[2], f), t)]
+    assert not mismatched, f"captured step != eager step in {mismatched}"
+    walls = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
+    walls._timed_ms = phases.wall_ms  # the CPU's source: host walls up to a drain
+    host = walls.sample(sim.config, state, inputs, True, generator, repeats=PROFILE_REPEATS)
+    per_sample = {p: totals[p] / samples for p in phases.DEVICE_PHASES}
+    rounded = lambda d: {p: round(v, 4) for p, v in d.items()}  # noqa: E731
+    print(f"profiling, {policy} scan path, every dispatch sampled: {samples} sample(s), device "
+          f"phase ms a sample {rounded(per_sample)}, host transfer "
+          f"{totals['host_transfer']:.3f} ms over {sim.metrics.get('device_dispatches')} "
+          f"dispatch(es); {counter} launches {launches[counter]} (16 in the dispatch + one a "
+          f"replay, {replays} replays); best of {PROFILE_REPEATS} turns on the pre-dispatch state: "
+          f"device (graph replays) {rounded(best)}, host walls of the same prefixes "
+          f"{rounded(host)}; the captured step == the eager step, every field; the "
+          f"generator untouched", flush=True)
+    return {"sim": sim, "prof": prof, "fault": fault, "prefix_ms": prefix_ms,
+            "segments": segments, "in_loop": in_loop, "launches": launches,
+            "samples": samples, "attribution": totals, "per_sample": per_sample,
+            "best_of": best, "host_walls": host, "state": state, "inputs": inputs,
+            "generator": generator}
+
+
+def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
+    """``enable_profiling`` sampling every dispatch on the 100k scan path
+    under both FD policies (``_profiled_policy``); then, cumulative, further
+    decisions a round a dispatch, every one sampled once (one shot, the
+    in-loop default): at least ``PROFILE_MIN_SAMPLES`` samples, no phase of
+    any at 0, ``fd_phase_fused`` launched once a dispatch (its round) and
+    once a replay; the GPU ops of one step and of each prefix; and the
+    decisions with profiling on equal those with it off under ingress loss
+    below 1.0 and at 1.0 (cut, configuration id, virtual ms)."""
+    from rapid_tpu_torch.profiling import phases
+    from rapid_tpu_torch.sim.profile_decision import profile_gpu
+
+    run = _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device,
+                           "cumulative")
+    windowed = _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device,
+                                "windowed")
+    sim, prof, fault = run["sim"], run["prof"], run["fault"]
+    state, inputs, generator = run["state"], run["inputs"], run["generator"]
+    ops = {name: profile_gpu(lambda fn=fn: fn(sim.config, state, inputs, True,
+                                              phases._copy(generator)))["kernels"]
+           for name, fn in (("step", engine.step), ("step_cut_detector", engine.step_cut_detector),
+                            ("step_fd_scan", engine.step_fd_scan))}
+    prefix_ms = run["prefix_ms"]
     for _ in range(PROFILE_DECISIONS - 1):
         fault(rng.choice(sim.members(), N_NODES // 100, replace=False))
-        assert sim.run_until_decision(max_rounds=16, batch=16) is not None
-    prefixes = [tuple(round(ms, 3) for ms in prefix_ms[i:i + 3])
-                for i in range(0, len(prefix_ms), 3)]
-    grown = [tuple(segments[i:i + 3]) for i in range(0, len(segments), 3)]
-    best = PhaseProfiler(Metrics(), ProfilingSettings(enabled=True)).sample(
-        sim.config, state, inputs, True, generator, repeats=PROFILE_REPEATS)
-    assert all(best[p] > 0 for p in ("fd_scan", "cut_detector", "consensus_count")), best
-    per_sample = {p: totals[p] / samples for p in ("fd_scan", "cut_detector",
-                                                   "consensus_count")}
-    print(f"profiling, scan path, every dispatch sampled: {samples} sample(s), phase ms a "
-          f"sample {({p: round(v, 3) for p, v in per_sample.items()})}, host transfer "
-          f"{totals['host_transfer']:.3f} ms over {sim.metrics.get('device_dispatches')} "
-          f"dispatch(es); fd_phase_fused launches {launches['fd_phase_fused']} (16 in the "
-          f"dispatch + 3 a sample, one a prefix); GPU ops of one round: {ops}", flush=True)
-    print(f"profiling, in-loop prefix ms (step_fd_scan, step_cut_detector, step) of every "
-          f"sample over {PROFILE_DECISIONS} decisions, in order: {prefixes}; new device "
-          f"segments (cudaMalloc) in each: {grown}; best of {PROFILE_REPEATS} on the first "
-          f"decision's state: "
-          f"{({p: round(v, 3) for p, v in best.items()})}", flush=True)
-    return {"samples": samples, "attribution": totals, "per_sample": per_sample,
-            "launches": launches, "gpu_ops": ops, "prefix_ms": prefixes, "new_segments": grown,
-            "best_of": best}
+        taken, replays, turns = prof.samples, len(prefix_ms), prof.turns
+        kernels.reset_launches()
+        assert sim.run_until_decision(max_rounds=16, batch=1) is not None
+        sampled, replays = prof.samples - taken, len(prefix_ms) - replays
+        assert replays == 3 * (prof.turns - turns) and kernels.LAUNCHES[
+            "fd_phase_fused"] == sampled + replays, (sampled, replays, kernels.LAUNCHES)
+    in_loop = run["in_loop"]
+    assert len(prefix_ms) == 3 * prof.turns, (len(prefix_ms), prof.turns)
+    zero = [s for s in in_loop if min(s[p] for p in phases.DEVICE_PHASES) <= 0]
+    assert len(in_loop) >= PROFILE_MIN_SAMPLES and not zero, (len(in_loop), zero[:3])
+    grown = [tuple(run["segments"][i:i + 3]) for i in range(0, len(prefix_ms), 3)]
+    least = {p: round(min(s[p] for s in in_loop), 4) for p in phases.DEVICE_PHASES}
+    print(f"profiling, in-loop one-shot samples over {PROFILE_DECISIONS} decisions (the "
+          f"first in one dispatch, the rest a round a dispatch): {len(in_loop)} samples, "
+          f"{len(zero)} with a phase at 0, least phase ms {least}; {len(prefix_ms)} "
+          f"replays ({prof.turns - len(in_loop)} turns taken again); first prefix ms "
+          f"(step_fd_scan, step_cut_detector, step) {[round(ms, 4) for ms in prefix_ms[:3]]}; "
+          f"new device segments (cudaMalloc) in a prefix: {sum(map(sum, grown))} over "
+          f"{len(grown)} samples; GPU ops of one round: {ops}", flush=True)
+
+    on_off = {}
+    for loss, members in PROFILE_LOSSES:
+        lossy = rng.choice(N_NODES, members, replace=False)
+        records = []
+        for profiled in (False, True):
+            twin = Simulator(N_NODES, seed=PLANES_SEED + 75, device=device).ready()
+            if profiled:
+                twin.enable_profiling(ProfilingSettings(enabled=True, sample_every_dispatches=1))
+            twin.ingress_loss(lossy, loss)
+            rec = twin.run_until_decision(max_rounds=128, batch=16)
+            assert rec is not None, (loss, profiled)
+            records.append((sorted(int(c) for c in rec.cut), int(rec.configuration_id),
+                            int(rec.virtual_time_ms)))
+        assert records[0] == records[1], (loss, records)
+        on_off[loss] = {"cut": len(records[0][0]), "configuration_id": records[0][1],
+                        "virtual_ms": records[0][2]}
+    print(f"profiling on == off, ingress loss on {[m for _, m in PROFILE_LOSSES]} members at "
+          f"{[p for p, _ in PROFILE_LOSSES]}: {on_off}", flush=True)
+    keep = ("launches", "samples", "attribution", "per_sample", "best_of", "host_walls")
+    return {"cumulative": {k: run[k] for k in keep},
+            "windowed": {k: windowed[k] for k in keep},
+            "in_loop_samples": len(in_loop), "in_loop_zero": len(zero), "least": least,
+            "gpu_ops": ops, "new_segments": sum(map(sum, grown)), "on_off": on_off}
 
 
 def _device_trace(Simulator, observability, rng, device):
@@ -3422,7 +3526,6 @@ SERVING_SLO_WINDOW_SCALE = 0.001
 # the bench sweep's placement point (bench.py run_sweep / warmed_run)
 SWEEP_N = 10_000
 SWEEP_PARTITIONS = 1024
-SWEEP_FAIL_FRACTION = 0.01
 # hierarchy-zone-churn at its defaults (scenarios.py)
 ZONE_CHURN = {"seed": 19, "zones": 8, "per_zone": 256}
 # the full-width path: test_sim_placement_at_scale's map, every plane on
@@ -3600,31 +3703,36 @@ def serving_dimension_run(Simulator, SLOSettings, OpenLoopGenerator, seed=SEED, 
     }
 
 
-def sweep_point_run(Simulator, seed=SEED, n=SWEEP_N, partitions=SWEEP_PARTITIONS, **sim_kw):
-    """The bench sweep's placement point (``bench.warmed_run(n,
-    placement_partitions=partitions, handoff_partitions=partitions)``): its
-    timed simulator, with placement and handoff, 1% crashed, one
-    ``run_until_decision(16, 16)``. The victims are drawn after the warm-up
-    run's, as the bench draws them."""
-    rng = np.random.default_rng(seed)
-    n_fail = max(1, int(n * SWEEP_FAIL_FRACTION))
-    rng.choice(n, size=n_fail, replace=False)  # the bench's warm-up victims
-    sim = Simulator(n, seed=seed + 4444, **sim_kw)
-    sim.enable_placement(partitions=partitions)
-    sim.enable_handoff()
-    versions = [int(sim.placement.version)]
-    victims = rng.choice(n, size=n_fail, replace=False)
-    sim.crash(victims)
-    rec = sim.run_until_decision(max_rounds=16, batch=16)
-    assert rec is not None and set(int(c) for c in rec.cut) == set(int(v) for v in victims)
-    versions.append(int(sim.placement.version))
+def sweep_point_digest(sim, rec):
+    """What the golden file holds of the sweep's placement point: the timed
+    simulator's record, its placement versions before and after the view
+    change, the moved partitions, the handoff counters and transfers."""
+    diffs = sim.placement_diffs
     return {
-        "record": _record_digest(rec), "placement_versions": versions,
-        "moved": [int(d.moved) for d in sim.placement_diffs],
-        "moved_partitions": [int(p) for p in sim.placement_diffs[0].partitions_moved],
+        "record": _record_digest(rec),
+        "placement_versions": [int(diffs[0].old_version), int(sim.placement.version)],
+        "moved": [int(d.moved) for d in diffs],
+        "moved_partitions": [int(p) for p in diffs[0].partitions_moved],
         "handoff": {m: int(sim.metrics.get(m)) for m in HANDOFF_METRICS},
         "transfers": len(sim.handoff_transfers[0]), "virtual_ms": int(sim.virtual_ms),
     }
+
+
+def sweep_point_run(n=SWEEP_N, partitions=SWEEP_PARTITIONS, seed=SEED, device=None,
+                    details=None):
+    """The bench sweep's placement point on the port: ``scaling_sweep.
+    warmed_run(n, placement_partitions=partitions, handoff_partitions=
+    partitions)``, which asserts the cut, minimal motion and every handoff
+    session completed, and its timed simulator's ``sweep_point_digest``.
+    ``details`` gets ``warmed_run``'s, and the timed decision's
+    ``wall_ms``."""
+    from rapid_tpu_torch.experiments.scaling_sweep import warmed_run
+
+    details = {} if details is None else details
+    details["wall_ms"], rec, _, _ = warmed_run(
+        n, seed, placement_partitions=partitions, handoff_partitions=partitions,
+        device=device, details=details)
+    return sweep_point_digest(details.pop("sim"), rec)
 
 
 def _hierarchy_rows(sim):
@@ -3701,7 +3809,7 @@ def planes_golden_runs(device, result=None):
     runs = {
         "serving_dimension": serving_dimension_run(Simulator, SLOSettings, OpenLoopGenerator,
                                                    device=device),
-        "sweep_point": sweep_point_run(Simulator, device=device),
+        "sweep_point": sweep_point_run(device=device),
     }
     before = dict(kernels.LAUNCHES)
     runs["zone_churn"] = zone_churn_run(Simulator, SimConfig, LatencyTopology, Endpoint,
@@ -5144,12 +5252,44 @@ def numpy_paths():
             setattr(native, name, fn)
 
 
-def native_build(card):
-    """(a) Both host libraries built from ``rapid_tpu_torch/csrc/host/`` with
-    g++ and loaded; no fallback: the run fails when either does not."""
+def start_native_builds():
+    """Start, beside the kernel build, the g++ builds of (a) and (f), each
+    in a thread of its own: both host libraries and the stress harness under
+    every sanitizer the toolchain links. Returns the threads; ``native_build``
+    joins them. A build that fails here is tried again, and reported, by
+    the phase that needs it; (a) and (f) print each build's wall from
+    ``native.BUILD_WALLS``."""
     from rapid_tpu_torch import native
     from rapid_tpu_torch.runtime import native_io
 
+    def quietly(build, *args):
+        try:
+            build(*args)
+        except RuntimeError:
+            pass
+
+    def stress(sanitizer):
+        if not native.sanitizer_missing(sanitizer):
+            quietly(native.build_stress, sanitizer)
+
+    jobs = [(quietly, native.build_library, native.SOURCE),
+            (quietly, native.build_library, native_io.SOURCE, native_io.CXX_FLAGS)]
+    jobs += [(stress, sanitizer) for sanitizer in native.SANITIZERS]
+    threads = [threading.Thread(target=job[0], args=job[1:], daemon=True) for job in jobs]
+    for thread in threads:
+        thread.start()
+    return threads
+
+
+def native_build(card, builds=()):
+    """(a) Both host libraries built from ``rapid_tpu_torch/csrc/host/`` with
+    g++ and loaded; no fallback: the run fails when either does not.
+    ``builds``: ``start_native_builds``' threads, joined first."""
+    from rapid_tpu_torch import native
+    from rapid_tpu_torch.runtime import native_io
+
+    for thread in builds:
+        thread.join()
     t0 = time.perf_counter()
     lib = native.load()
     t1 = time.perf_counter()
@@ -5191,9 +5331,11 @@ def native_stress(card):
         t1 = time.perf_counter()
         line, no_aslr = native.run_stress(sanitizer)
         t2 = time.perf_counter()
-        rows[sanitizer] = {"compiler": compiler, "build_s": t1 - t0, "run_s": t2 - t1,
+        # a build started beside the kernel build has its wall recorded there
+        build_s = native.BUILD_WALLS.get(f"rapid_io_stress-{sanitizer}", t1 - t0)
+        rows[sanitizer] = {"compiler": compiler, "build_s": build_s, "run_s": t2 - t1,
                            "line": line, "aslr_off": no_aslr}
-        print(f"native, stress -fsanitize={sanitizer}: {compiler} build {t1 - t0:.2f} s, run "
+        print(f"native, stress -fsanitize={sanitizer}: {compiler} build {build_s:.2f} s, run "
               f"{t2 - t1:.2f} s, {line}"
               + (" (run again under setarch -R: TSAN refused the address layout)"
                  if no_aslr else "") + f" ({card})", flush=True)
@@ -5356,31 +5498,19 @@ def native_member_join(n, device, card, native_join, turns=NATIVE_JOIN_TURNS):
     return {"member_phase": native_join, "joins": rows, "views": native_view_builds(n, card)}
 
 
-def native_gateway(n, device, card, gateway, agent):
-    """(d) The gateway's front door on the C++ epoll reactor: ``gateway_sequence``
-    with ``native_server=True`` and the scripted member at the Python-server
-    run's port (``gateway``), every configuration id equal to that run's;
-    then ``agent_sequence`` with the agent on ``--transport native-tcp``
-    against a native-server gateway, every id equal to the plain
-    simulator's and the agent's status RPC (the agent draws its node id, so
-    its ids are not the earlier agent run's). Walls printed beside the
-    Python-server runs'."""
-    gw = gateway_sequence(n, device, native_server=True, member_port=gateway["member_port"])
-    _print_gateway(gw, card, label="native, gateway")
-    for ours, theirs in zip(gw["steps"], gateway["steps"], strict=True):
-        assert ours["configuration_id"] == theirs["configuration_id"], (ours["name"], ours,
-                                                                       theirs)
-        print(f"native, gateway {ours['name']}: configuration id {ours['configuration_id']} "
-              f"== the Python server's; wall as the member sees it {ours['member_wall_ms']:.3f} "
-              f"ms (Python server {theirs['member_wall_ms']:.3f} ms), decision pump "
-              f"{ours['pump_wall_ms']:.3f} ms ({theirs['pump_wall_ms']:.3f} ms) ({card})",
-              flush=True)
-    scan = {r["name"]: r for r in gw["steps"]}["crash, scan"]
-    on_card = torch.device(device).type == "cuda"
-    assert not on_card or scan["pump_launches"].get("fd_phase_fused", 0) > 0, scan
+def native_gateway(n, device, agent):
+    """(d) The gateway's front door on the C++ epoll reactor: ``agent_sequence``
+    with the agent on ``--transport native-tcp`` against a native-server
+    gateway, every id equal to the plain simulator's and the agent's status
+    RPC (the agent draws its node id, so its ids are not the earlier agent
+    run's), the scan crash's pump launching ``fd_phase_fused`` on the card.
+    Walls printed beside the tcp agent's (``agent``). The scripted member's
+    run behind the reactor (``gateway_sequence(native_server=True)``) is
+    left to ``tests/test_torch_native_tcp.py`` on the CPU, to keep the
+    script under half its time limit."""
     ag = agent_sequence(n, device, scripted=agent, transport="native-tcp", native_server=True,
                         label="native, agent (native-tcp)", beside="the tcp agent's")
-    return {"gateway": gw, "agent": ag}
+    return {"agent": ag}
 
 
 @contextlib.contextmanager
@@ -5670,14 +5800,14 @@ def _until_agreed(clusters, size, timeout=GATEWAY_WAIT_S):
     return ids.pop()
 
 
-def grpc_cluster(card, joiners=GRPC_JOINERS):
+def grpc_cluster(card, joiners=GRPC_JOINERS, agree_s=GATEWAY_WAIT_S):
     """(c) A live cluster on the port's gRPC transport with
     ``tests/test_grpc_transport.py``'s join-wave settings (FD 100 ms,
     batching 50 ms, fallback 500 ms, ``GATEWAY_SETTINGS``): a seed and
     ``joiners`` concurrent joiners through it, every parked join answered
     without a thread held, until all agree on one member list and
     configuration id; then one member crashed (static FD blacklist) until the
-    rest agree again."""
+    rest agree again, each agreement within ``agree_s`` s."""
     from rapid_tpu_torch import Settings
 
     settings = Settings(**GATEWAY_SETTINGS)
@@ -5701,13 +5831,13 @@ def grpc_cluster(card, joiners=GRPC_JOINERS):
         for t in threads:
             t.join(GATEWAY_WAIT_S)
         assert not errors and not any(t.is_alive() for t in threads), errors
-        joined_id = _until_agreed(clusters, joiners + 1)
+        joined_id = _until_agreed(clusters, joiners + 1, agree_s)
         wave_ms = (time.perf_counter() - t0) * 1e3
         victim = clusters.pop()
         blacklist.add(victim.listen_address)
         t1 = time.perf_counter()
         victim.shutdown()
-        crashed_id = _until_agreed(clusters, joiners)
+        crashed_id = _until_agreed(clusters, joiners, agree_s)
         crash_ms = (time.perf_counter() - t1) * 1e3
     finally:
         for c in clusters:
@@ -6121,6 +6251,60 @@ def operator_tools_run(card, root, device="cuda"):
             "merged_events": len(merged), "processes": processes}
 
 
+SWEEP_SIZES = (1_000, 10_000, 100_000, 1_000_000)  # experiments/scaling_sweep.py's defaults
+SWEEP_POINT_N = N_NODES  # the sweep phase's placement-and-handoff point
+
+
+def scaling_sweep_phase(card, kernels, device="cuda"):
+    """``rapid_tpu_torch.experiments.scaling_sweep`` on the card: its
+    ``run_size`` at each of ``SWEEP_SIZES`` (seed 42, 1% crashed, the
+    closed form: no FD kernel in the timed window), each size's JSON line,
+    build seconds and launches, with no kernel built or loaded in the timed
+    window; then the placement-and-handoff point at ``SWEEP_POINT_N``
+    members through the same ``warmed_run`` (``sweep_point_run``: the cut,
+    minimal motion, every handoff session completed), its moved partitions
+    and ``placement_topr`` launches (the build at ``enable_placement``, then
+    the view change)."""
+    from rapid_tpu_torch.experiments import scaling_sweep
+
+    lines, runs = [], {}
+    for n in SWEEP_SIZES:
+        details, t0 = {}, time.perf_counter()
+        line = scaling_sweep.run_size(n, SEED, device, details=details)
+        del details["sim"]
+        details["phase_s"] = round(time.perf_counter() - t0, 2)
+        assert line["cut_ok"] and line["virtual_ms"] == 11_100, line
+        assert details["kernel_builds_steady"] == details["kernel_loads_steady"] == 0, details
+        assert details["launches_steady"].get("fd_phase_fused", 0) == 0, details
+        print(json.dumps(line), flush=True)
+        print(f"scaling sweep, {n}: build {details['build_s']:.2f} s (the warm-up simulator), "
+              f"warm-up decision {details['warmup_wall_s'] * 1000:.1f} ms, launches in the "
+              f"timed window {details['launches_steady']}, kernel builds / loads there "
+              f"{details['kernel_builds_steady']} / {details['kernel_loads_steady']}, "
+              f"{details['phase_s']} s in all ({card})", flush=True)
+        lines.append(line)
+        runs[n] = details
+    details, t0 = {}, time.perf_counter()
+    point = sweep_point_run(SWEEP_POINT_N, SWEEP_PARTITIONS, device=device, details=details)
+    versions = point["placement_versions"]
+    assert versions[0] != versions[1] and point["moved"] == [len(point["moved_partitions"])]
+    assert point["transfers"] == point["handoff"]["handoff.sessions_completed"] > 0, point
+    topr = details["launches_warmup"].get("placement_topr", 0), details["launches_steady"].get(
+        "placement_topr", 0)
+    assert topr == (1, 1), topr
+    print(f"scaling sweep, placement point: {SWEEP_POINT_N} members, {SWEEP_PARTITIONS} "
+          f"partitions, handoff on: cut ok ({len(point['record']['cut'])}), "
+          f"{point['moved']} partitions moved, sessions "
+          f"{point['handoff']['handoff.sessions_completed']}/"
+          f"{point['handoff']['handoff.sessions_started']}, virtual "
+          f"{point['record']['virtual_time_ms']} ms, timed decision {details['wall_ms']:.1f} ms, "
+          f"placement_topr launches {topr[0]} (enable_placement) + {topr[1]} (the view change), "
+          f"{time.perf_counter() - t0:.1f} s in all ({card})", flush=True)
+    return {"lines": lines, "runs": runs, "placement_point": {
+        "wall_ms": details["wall_ms"], "moved": point["moved"], "handoff": point["handoff"],
+        "placement_topr": list(topr), "virtual_ms": point["virtual_ms"]}}
+
+
 def tools_examples_phase(card, kernels):
     """The tools and examples phase: (a)-(c) above, on the card."""
     import tempfile
@@ -6167,6 +6351,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     topr_builds = start_topr_builds()
+    native_builds = start_native_builds()
     libs = kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})", flush=True)
@@ -6174,7 +6359,7 @@ def main() -> int:
 
     # --- the native host plane: (a) the g++ builds, (b) the hashes at 100k
     # and 1M, before any phase that synthesizes a cluster or builds a view
-    native = {"build": native_build(card), "hashes": native_hashes(card),
+    native = {"build": native_build(card, native_builds), "hashes": native_hashes(card),
               "stress": native_stress(card)}
     lap("native (a), (b), (f)")
 
@@ -6210,7 +6395,7 @@ def main() -> int:
     # beside the member phase's (native), (d) the reactor's front door and
     # the native-tcp agent, (e) the scrape ------------------------------------
     native["member_join"] = native_member_join(N_NODES, card_device, card, members["pumps"][0])
-    native["gateway"] = native_gateway(N_NODES, card_device, card, gateway, agent)
+    native["gateway"] = native_gateway(N_NODES, card_device, agent)
     native["scrape"] = native_scrape(card)
     lap("native (c)-(e)")
     # --- the gRPC transport: golden wire, the 100k reply, a live cluster,
@@ -6350,6 +6535,9 @@ def main() -> int:
     # artifacts ----------------------------------------------------------------
     tools_result = tools_examples_phase(card, kernels)
     lap("tools and examples")
+    # --- the last experiment: the warmed decision across the scale axis ----
+    sweep_result = scaling_sweep_phase(card, kernels)
+    lap("scaling sweep")
     # (scenario or experiment, launches) of each run of the phase that launched the kernel
     scenario_launches = {}
     runs_launches = [(name, run["launches"]) for name, run in scenario_result["runs"].items()]
@@ -6466,6 +6654,8 @@ def main() -> int:
         "launches_live_planes": live["launches"].get("placement_topr", 0),
         "launches_search": search_launches.get("placement_topr", []),
         "launches_scenarios": scenario_launches.get("placement_topr", []),
+        # (enable_placement, the view change) at the scaling sweep's placement point
+        "launches_sweep": sweep_result["placement_point"]["placement_topr"],
         "match": True,
         "max_abs_err": max(t["max_abs_err"] for t in topr.values()),
         "ms": main_case["ms"],
@@ -6491,7 +6681,7 @@ def main() -> int:
                       "members": {"pumps": [dict(p, cut=len(p["cut"])) for p in members["pumps"]]},
                       "agent": agent, "live_planes": live, "search": search,
                       "native": native, "grpc": grpc_result, "scenarios": scenario_result,
-                      "tools_examples": tools_result},
+                      "tools_examples": tools_result, "scaling_sweep": sweep_result},
                      default=str))
     phases["total"] = round(time.perf_counter() - started, 1)
     print(f"phase seconds ({card}): {json.dumps(phases)}", flush=True)
@@ -6612,6 +6802,49 @@ def view_race(trials: int, n: int = N_NODES, seed: int = SEED) -> int:
     return 1 if forks else 0
 
 
+def grpc_loop(trials: int, busy: int = 1, agree_s: float = 20.0) -> int:
+    """``python3 chip_smoke.py --grpc-loop TRIALS [BUSY]``: ``grpc_cluster``
+    (a seed, 20 concurrent joiners, a crash) TRIALS times in one process on
+    this host's CPU (no card), with BUSY threads of pure-Python work beside
+    it that take the interpreter lock as a simulator's pump does, each
+    agreement within ``agree_s`` s. Prints each trial's walls or failure
+    (a join that failed, or members at different sizes after the crash) and
+    a JSON line of the counts; returns 1 if a trial failed."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    stop = threading.Event()
+
+    def spin():
+        x = 0
+        while not stop.is_set():
+            for i in range(20_000):
+                x += i * i
+            time.sleep(0.001)
+
+    spinners = [threading.Thread(target=spin, name=f"grpc-loop-busy-{i}", daemon=True)
+                for i in range(busy)]
+    for t in spinners:
+        t.start()
+    counts = {"ok": 0, "join failed": 0, "crash not agreed": 0}
+    try:
+        for trial in range(trials):
+            t0 = time.perf_counter()
+            try:
+                grpc_cluster("cpu", agree_s=agree_s)
+                counts["ok"] += 1
+            except AssertionError as exc:
+                kind = "join failed" if "Exception(" in str(exc) else "crash not agreed"
+                counts[kind] += 1
+                print(f"grpc loop, trial {trial + 1}: {kind}: {str(exc)[:300]}", flush=True)
+            print(f"grpc loop, trial {trial + 1} of {trials}, {busy} busy threads: "
+                  f"{time.perf_counter() - t0:.1f} s {counts}", flush=True)
+    finally:
+        stop.set()
+        for t in spinners:
+            t.join()
+    print(json.dumps({"trials": trials, "busy": busy, **counts}))
+    return 0 if counts["ok"] == trials else 1
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--gateway-member":
         sys.exit(gateway_member(sys.argv[2], int(sys.argv[3])))
@@ -6619,4 +6852,6 @@ if __name__ == "__main__":
         sys.exit(view_race(*(int(a) for a in sys.argv[2:])))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--agent-loop":
         sys.exit(agent_loop(*(int(a) for a in sys.argv[2:])))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--grpc-loop":
+        sys.exit(grpc_loop(*(int(a) for a in sys.argv[2:])))
     sys.exit(main())

@@ -9,6 +9,8 @@ given ``--device cpu``:
   and gossip dissemination (paper Table 2), on in-process clusters (host
   code: ``--device`` is not needed);
 - ``fig11_conflict_sweep``: timing-induced proposal conflicts and their
-  classic-fallback recovery (BASELINE.md's timing-conflicts table).
+  classic-fallback recovery (BASELINE.md's timing-conflicts table);
+- ``scaling_sweep``: the warmed decision across the scale axis, through
+  ``warmed_run``, the port's counterpart of ``bench.py``'s.
 
 Each prints the JSON lines (or table rows) of its JAX counterpart."""

@@ -22,12 +22,20 @@ Rapid peers and with the JAX package's grpcio nodes.
   194-203); the server answers probes BOOTSTRAPPING until the membership
   service is wired (GrpcServer.java:77-96). A failed call raises
   ``http2.GrpcError``, whose ``code().name`` is grpcio's status name.
+- Where a deadline runs out, the port's transport loses no message that
+  grpcio would have sent in time: the server hands a whole request to the
+  service before any reset behind it, a request whose dial outlasted its
+  deadline still leaves, and the client keeps the channel (its loop, not
+  the connection, was late). Many members share the one loop, and a
+  crash's burst of first messages to new peers outlasted 1 s deadlines on a
+  busy host (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import functools
 import logging
 import re
 import threading
@@ -619,11 +627,23 @@ class GrpcServer(IMessagingServer):
         conn.start()
 
     def _on_request(self, conn: http2.Connection, stream: http2.Stream) -> None:
-        stream.task = asyncio.get_running_loop().create_task(self._answer(conn, stream))
-
-    async def _answer(self, conn: http2.Connection, stream: http2.Stream) -> None:
+        # The request is whole: it goes to the service here, in its frame's
+        # own callback, so that a reset the client sends after it (its
+        # deadline passed while this loop was behind) abandons the reply and
+        # not the message -- a best-effort alert or vote is not lost for a
+        # late answer. Only the wait for the service's promise is a task.
         try:
-            code, details, payload = StatusCode.OK, "", await self._handle(stream)
+            outcome = self._dispatch(stream)
+        except Exception as e:  # noqa: BLE001 -- answered as the status it maps to
+            outcome = e
+        stream.task = asyncio.get_running_loop().create_task(self._answer(conn, stream, outcome))
+
+    async def _answer(self, conn: http2.Connection, stream: http2.Stream, outcome) -> None:
+        try:
+            if isinstance(outcome, BaseException):
+                raise outcome
+            payload = outcome if isinstance(outcome, bytes) else await self._reply(*outcome)
+            code, details = StatusCode.OK, ""
         except GrpcError as e:
             code, details, payload = e.code(), e.details(), None
         except Exception as e:  # noqa: BLE001 -- the handler's own fault: the call still ends
@@ -640,7 +660,9 @@ class GrpcServer(IMessagingServer):
         except GrpcError:
             pass  # the client reset the stream, or the connection is gone
 
-    async def _handle(self, stream: http2.Stream) -> bytes:
+    def _dispatch(self, stream: http2.Stream):
+        """The request handed to the service: its reply's bytes where the
+        server answers alone, else ``(promise, grpc-timeout in s or None)``."""
         if stream.too_large:
             raise http2.too_large(stream.too_large)
         headers = dict(stream.headers)
@@ -658,9 +680,12 @@ class GrpcServer(IMessagingServer):
                 return to_wire_response(T.ProbeResponse(T.NodeStatus.BOOTSTRAPPING))
             raise GrpcError(StatusCode.UNAVAILABLE, "membership service not ready")
         try:
-            promise = service.handle_message(request)
+            return service.handle_message(request), timeout_s
         except Exception as e:  # noqa: BLE001 -- grpc.aio's answer to a handler that raised
             raise GrpcError(StatusCode.UNKNOWN, f"Unexpected {type(e)}: {e}") from None
+
+    async def _reply(self, promise: Promise, timeout_s: Optional[float]) -> bytes:
+        """The service's answer, encoded, once its promise settles."""
         loop = asyncio.get_running_loop()
         done: asyncio.Future = loop.create_future()
 
@@ -739,6 +764,8 @@ def _retrieve(task: asyncio.Task) -> None:
 class _Channel:
     """One remote's HTTP/2 connection, dialed on the first call and again
     once it closed or the peer sent GOAWAY, as a grpcio channel reconnects.
+    A request whose deadline runs out before it is written still leaves once
+    the connection is up (``_send_late``, counted as ``"late requests"``).
     Its state lives on the shared loop; ``call`` and ``close`` may come from
     any thread."""
 
@@ -747,7 +774,7 @@ class _Channel:
     def __init__(self, remote: T.Endpoint, stats: collections.Counter) -> None:
         self._host, self._port = remote.hostname.decode(), remote.port
         self._authority = f"{self._host}:{self._port}"
-        self._stats = stats
+        self._stats = stats  # guarded-by: aio-loop (every writer runs on the shared loop)
         self._conn: Optional[http2.Connection] = None  # loop-only, and the rest
         self._dial: Optional[asyncio.Task] = None
         self._closed = False
@@ -775,18 +802,53 @@ class _Channel:
         task.add_done_callback(finished)
 
     async def _call(self, request: bytes, timeout_s: float) -> bytes:
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        dial = loop.create_task(self._connection())
+        dial.add_done_callback(_retrieve)
         try:
-            return await asyncio.wait_for(self._exchange(request, timeout_s), timeout_s)
+            conn = await asyncio.wait_for(asyncio.shield(dial), timeout_s)
+        except TimeoutError:
+            # The deadline ran out in the dial, before the request left: it
+            # leaves once the dial is done, and no one waits for its reply
+            dial.add_done_callback(functools.partial(self._send_late, request, timeout_s))
+            raise GrpcError(StatusCode.DEADLINE_EXCEEDED, "Deadline Exceeded") from None
+        left = deadline - loop.time()
+        if left <= 0:  # the dial ended in time but this task woke past the deadline
+            self._send_late(request, timeout_s, dial)
+            raise GrpcError(StatusCode.DEADLINE_EXCEEDED, "Deadline Exceeded")
+        try:
+            # the request is written before the first wait, so it leaves
+            # even where the deadline comes first
+            return await asyncio.wait_for(self._exchange(conn, request, timeout_s), left)
         except TimeoutError:
             raise GrpcError(StatusCode.DEADLINE_EXCEEDED, "Deadline Exceeded") from None
 
-    async def _exchange(self, request: bytes, timeout_s: float) -> bytes:
-        conn = await self._connection()
+    def _send_late(self, request: bytes, timeout_s: float, dial: asyncio.Task) -> None:
+        """A request whose call ran out of time while this channel dialed,
+        sent on the dial's connection: the server takes it as any other and
+        its reply is refused (RST_STREAM). A message that is only late is
+        not lost: on one loop shared by many members, a burst of first
+        messages to new peers queues their dials past the deadline, and a
+        crash's alerts and votes were lost that way."""
+        if dial.cancelled() or dial.exception() is not None or not dial.result().usable():
+            return
+        self._stats["late requests"] += 1
+        task = asyncio.get_running_loop().create_task(
+            self._exchange(dial.result(), request, timeout_s, wait=False))
+        self._calls.add(task)
+        task.add_done_callback(self._calls.discard)
+        task.add_done_callback(_retrieve)
+
+    async def _exchange(self, conn: http2.Connection, request: bytes, timeout_s: float,
+                        wait: bool = True) -> bytes:
         stream = conn.open_stream()
         try:
             conn.send_headers(stream, http2.request_headers(GRPC_METHOD_PATH, self._authority,
                                                             timeout_s))
             await conn.send_data(stream, http2.grpc_frame(request), end_stream=True)
+            if not wait:
+                return b""
             await stream.done
             if stream.error is not None:
                 raise stream.error
@@ -843,6 +905,16 @@ class GrpcClient(IMessagingClient):
     GrpcClient.java:113,131) and evicted after 30s idle (GrpcClient.java:87-95),
     so a peer that restarts on the same address is reached over a fresh
     connection within the retry budget instead of starving behind a dead one.
+
+    A call that ran out of time is the one failure that keeps its channel.
+    Its deadline says that the peer, or this process's one loop, is behind,
+    not that the connection broke: a broken one ends by itself (EOF, reset,
+    GOAWAY) and ``_Channel`` redials, and a dial still under way goes on for
+    the next call, as a grpcio channel stays CONNECTING past a call's
+    deadline. On grpcio a new channel's dial costs the interpreter nothing;
+    here it is work on the loop that is already late, and dialing anew after
+    every late reply fed itself until a crash's alerts and votes timed out
+    at most members of a 21-member process (``chip_smoke.py --grpc-loop``).
 
     ``_channels`` holds one multiplexed HTTP/2 connection per remote (a
     ``_Channel``, which redials after a close or GOAWAY). ``stats`` counts
@@ -932,7 +1004,8 @@ class GrpcClient(IMessagingClient):
                     return
                 except Exception as e:  # noqa: BLE001
                     error = e
-            self.invalidate(remote)
+            if not (isinstance(error, GrpcError) and error.code() == StatusCode.DEADLINE_EXCEEDED):
+                self.invalidate(remote)
             out.try_set_exception(error)
 
         channel.call(request, timeout_s, on_done)

@@ -26,7 +26,8 @@ grpcio peers on a machine without grpcio.
   settings (but its private id 0xfe03) and open the connection window to
   4 MiB. Every frame of a connection is read and written on its loop's
   thread, so its HPACK decoder sees header blocks strictly in the order they
-  arrived, across concurrent streams too.
+  arrived, across concurrent streams too. The frames written in one pass of
+  the loop leave in one socket write.
 - gRPC: the 5-byte message prefix, the request headers grpcio's client
   sends, the response's headers, DATA and trailers (``grpc-status``, a
   percent-encoded ``grpc-message``) or a trailers-only reply,
@@ -648,6 +649,9 @@ class Stream:
             self.task.cancel()
 
 
+FLUSH_BYTES = 64 * 1024  # queued bytes that a sender hands to the socket before its drain
+
+
 class Connection:
     """One HTTP/2 connection, client or server side, run by the asyncio loop
     that calls ``start``; every method runs on that loop's thread.
@@ -682,6 +686,8 @@ class Connection:
         self.closed = False
         self._task: Optional[asyncio.Task] = None
         self.on_close: Optional[Callable[["Connection"], None]] = None
+        self._out: List[bytes] = []  # guarded-by: aio-loop (frames since the last flush)
+        self._out_bytes = 0  # guarded-by: aio-loop
 
     # -- life ---------------------------------------------------------------
 
@@ -737,6 +743,7 @@ class Connection:
     def _lost(self, error: Optional[BaseException], failure: Optional[GrpcError] = None) -> None:
         if self.closed:
             return
+        self.flush()  # a GOAWAY written just before goes out ahead of the close
         self.closed = True
         if failure is None:
             failure = GrpcError(StatusCode.UNAVAILABLE, "the connection was lost" + (
@@ -750,10 +757,24 @@ class Connection:
             self.on_close(self)
 
     def _write(self, data: bytes, *names: str) -> None:
+        """Queue ``data`` for the socket; the frames written in one pass of
+        the loop leave together in one write (``flush``). Each socket write
+        lets go of the interpreter lock and must win it back from the other
+        threads, so a write a frame put one such wait behind every frame."""
         if not self.closed:
-            self._writer.write(data)
+            if not self._out:
+                asyncio.get_running_loop().call_soon(self.flush)
+            self._out.append(data)
+            self._out_bytes += len(data)
             for name in names:
                 self.stats[f"{name} out"] += 1
+
+    def flush(self) -> None:
+        """Hand the queued frames to the socket as one write."""
+        if self._out and not self.closed:
+            self._writer.write(b"".join(self._out))
+        self._out.clear()
+        self._out_bytes = 0
 
     # -- frames in ------------------------------------------------------------
 
@@ -984,6 +1005,8 @@ class Connection:
             self._send_window -= n
             stream.send_window -= n
             pos += n
+            if self._out_bytes >= FLUSH_BYTES:
+                self.flush()  # a large message: the drain below waits on it
             try:
                 await self._writer.drain()
             except (ConnectionError, OSError) as e:

@@ -4,41 +4,77 @@ The port of ``rapid_tpu/profiling/phases.py``. The dispatch loop is
 untouched: attribution is a *shadow* measurement. Every sampled dispatch,
 the profiler re-executes the current round's computation through three
 prefixes of ``sim.engine.step`` (outputs discarded) and differences their
-wall times:
+times:
 
     fd_scan         = t(step_fd_scan)
     cut_detector    = t(step_cut_detector) - t(step_fd_scan)
     consensus_count = t(step)              - t(step_cut_detector)
 
 so the three device phases sum to the measured full-step time by
-construction. Each time is host wall time up to ``jitwatch.drain`` (a device
-synchronize on the card), as in JAX. On a CUDA state every prefix runs the
-FD phase in the kernel ``fd_phase_fused``, as ``step`` does. The fourth
-phase, ``host_transfer``, is not shadowed: the driver times the real
-decision fetch (``jitwatch.fetch("sim.decision_words", ...)``) and reports
-it here.
+construction. The fourth phase, ``host_transfer``, is not shadowed: the
+driver times the real decision fetch (``jitwatch.fetch("sim.decision_words",
+...)``) and reports it here.
+
+What a prefix's time is depends on the device. JAX times one compiled XLA
+executable a prefix, nearly all of it device work. On the card the port's
+prefix is hundreds of eager ops whose host enqueue outweighs their device
+time, so a host wall would mostly time the enqueue. There each prefix is
+captured once per (config, shapes, ``random_loss``) class as a CUDA graph
+over static input buffers, in a private memory pool, between two CUDA
+events recorded inside the graph (external event nodes); a sample copies
+the current state and inputs into those buffers, replays each graph and
+reads its events: device time from the graph's first node to its last,
+with no host enqueue inside it (events recorded around the replay on the
+host's side would count the host's delay in launching it). A
+captured ``fd_phase_fused`` counts in ``kernels.LAUNCHES`` once a replay. A
+prefix that cannot be captured raises. On the CPU a prefix's time is the
+host wall up to ``jitwatch.drain``, JAX's own source.
+
+A sample takes its three times in turns (``step_fd_scan``, then
+``step_cut_detector``, then ``step``) and keeps the turn with the least
+full step, never minima taken apart: each prefix runs a strict superset of
+the ops of the one before it, so a turn's times rise, and where each
+prefix's time is the same in every turn the result is what separate minima
+give. On the card a turn whose times do not rise was disturbed by
+something outside the round's work (a replay now and then takes a few
+tenths of a millisecond more, about one turn in a thousand): it is taken
+again, up to ``TURN_ATTEMPTS`` times in all, so that no phase of a real
+round is clamped to 0. ``turns`` counts the turns taken, so a caller knows
+the replays (three a turn) and the drains exactly. On the CPU a turn is
+taken once, as JAX takes its prefixes, and the clamp guards as in JAX.
+
+The three prefixes are separate programs, each timed whole, because that
+is what JAX times and what the CPU twins hold the port to prefix by
+prefix; events recorded at the phase boundaries inside one captured
+``step`` would need hooks in the engine's round and would time something
+JAX does not.
 
 The shadow must not perturb the run. The prefixes leave the state as it
 came, and where JAX's prefixes are pure because the PRNG key lives in the
 state, the port's random-loss draw comes from the simulator's
-``torch.Generator``: every prefix call draws from a copy of it, so a run
-with profiling on draws exactly what it draws with profiling off.
+``torch.Generator``: every prefix draws from a copy of it (a captured prefix
+from the generator registered with its graphs, set to the simulator's state
+before each replay), so a run with profiling on draws exactly what it draws
+with profiling off.
 
-Overhead discipline: ``warm()`` runs every prefix once (building and
-loading the kernels outside any timed window), and sampling is 1-of-N
+Overhead discipline: ``warm()`` runs every prefix once (building and loading
+the kernels) and, on the card, captures them, outside any timed window; a
+class first met in ``sample()`` is warmed there. Sampling is 1-of-N
 dispatches (``ProfilingSettings.sample_every_dispatches``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..observability import PROFILE_PHASE_BUCKETS_MS, Metrics, MetricsHistory
 from ..runtime import jitwatch
 from ..settings import ProfilingSettings
+from ..sim import kernels
 from ..sim.engine import step, step_cut_detector, step_fd_scan
 
 DEVICE_PHASES = ("fd_scan", "cut_detector", "consensus_count")
@@ -46,6 +82,7 @@ PHASES = DEVICE_PHASES + ("host_transfer",)
 
 # the shadow entry points, in phase order
 _PROFILE_FNS = (step_fd_scan, step_cut_detector, step)
+TURN_ATTEMPTS = 3  # takes of a turn whose times do not rise
 
 
 def _copy(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
@@ -56,6 +93,86 @@ def _copy(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
     out = torch.Generator(device=generator.device)
     out.set_state(generator.get_state())
     return out
+
+
+def wall_ms(fn, config, state, inputs, random_loss: bool,
+            generator: Optional[torch.Generator]) -> float:
+    """Host wall ms of one prefix call up to ``jitwatch.drain``: a prefix's
+    time on the CPU, as JAX's ``_timed_ms`` takes it."""
+    generator = _copy(generator)
+    t0 = time.perf_counter()
+    out = fn(config, state, inputs, random_loss, generator)
+    jitwatch.drain("sim.profile.sample", out)
+    return (time.perf_counter() - t0) * 1000.0
+
+
+def _on_card(state) -> bool:
+    return state.active.device.type == "cuda"
+
+
+def _tensors(tree) -> Dict[str, torch.Tensor]:
+    return {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)}
+
+
+def _class_key(config, state, inputs, random_loss: bool) -> Tuple:
+    shapes = tuple((name, tuple(t.shape), t.dtype, t.device)
+                   for tree in (state, inputs) for name, t in _tensors(tree).items())
+    return config, bool(random_loss), shapes
+
+
+@dataclasses.dataclass
+class _Captured:
+    """The three prefixes of one (config, shapes, ``random_loss``) class,
+    captured as CUDA graphs over static input buffers."""
+
+    state: object  # the SimState of static buffers the graphs read
+    inputs: object  # the RoundInputs of static buffers
+    generator: Optional[torch.Generator]  # registered with every graph
+    graphs: Tuple[torch.cuda.CUDAGraph, ...]  # in _PROFILE_FNS order
+    events: Tuple[Tuple[torch.cuda.Event, torch.cuda.Event], ...]  # each graph's first, last node
+    outputs: Tuple  # each graph's outputs, kept alive in the class's pool
+    launches: Tuple[Dict[str, int], ...]  # the kernel launches of one replay
+
+    def load(self, state, inputs, generator: Optional[torch.Generator]) -> None:
+        """Copy the current state and inputs into the static buffers and
+        set the registered generator to ``generator``'s state (in place:
+        the graphs hold that state, not the generator object)."""
+        for static, live in ((self.state, state), (self.inputs, inputs)):
+            for name, t in _tensors(live).items():
+                getattr(static, name).copy_(t)
+        if self.generator is not None:
+            self.generator.set_state(generator.get_state())
+
+
+def _capture(config, state, inputs, random_loss: bool,
+             generator: Optional[torch.Generator]) -> _Captured:
+    """Capture every prefix of this class, each in its own graph, all in
+    one private pool; the prefixes have run eagerly before, so nothing is
+    built or loaded inside a capture."""
+    static_state = dataclasses.replace(
+        state, **{name: t.clone() for name, t in _tensors(state).items()})
+    static_inputs = dataclasses.replace(
+        inputs, **{name: t.clone() for name, t in _tensors(inputs).items()})
+    gen = _copy(generator) if random_loss else None
+    pool = torch.cuda.graph_pool_handle()
+    graphs, events, outputs, launches = [], [], [], []
+    for fn in _PROFILE_FNS:
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        start, end = (torch.cuda.Event(enable_timing=True, external=True) for _ in range(2))
+        with kernels.captured_launches() as counted, kernels.no_collection():
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                start.record()
+                out = fn(config, static_state, static_inputs, random_loss, gen)
+                end.record()
+        graphs.append(graph)
+        events.append((start, end))
+        outputs.append(out)
+        launches.append(counted)
+    return _Captured(static_state, static_inputs, gen, tuple(graphs), tuple(events),
+                     tuple(outputs), tuple(launches))
 
 
 class PhaseProfiler:  # guarded-by: dispatch-thread
@@ -76,9 +193,11 @@ class PhaseProfiler:  # guarded-by: dispatch-thread
         self.metrics = metrics
         self.plane = plane
         self.samples = 0
+        self.turns = 0  # turns taken, three prefix times (replays on the card) each
         self.last_sample: Optional[Dict[str, float]] = None
         self._dispatches = 0
         self._totals: Dict[str, float] = {phase: 0.0 for phase in PHASES}
+        self._captured: Dict[Tuple, _Captured] = {}  # by _class_key, on the card
         self.history = MetricsHistory(
             metrics,
             interval_s=self.settings.history_interval_ms / 1000.0,
@@ -102,32 +221,63 @@ class PhaseProfiler:  # guarded-by: dispatch-thread
 
     def _timed_ms(self, fn, config, state, inputs, random_loss: bool,
                   generator: Optional[torch.Generator]) -> float:
-        generator = _copy(generator)
-        t0 = time.perf_counter()
-        out = fn(config, state, inputs, random_loss, generator)
-        jitwatch.drain("sim.profile.sample", out)
-        return (time.perf_counter() - t0) * 1000.0
+        """One prefix's time: on a CUDA state the device ms of its graph's
+        replay, between the events inside it, else its host wall
+        (``wall_ms``)."""
+        if not _on_card(state):
+            return wall_ms(fn, config, state, inputs, random_loss, generator)
+        key = _class_key(config, state, inputs, random_loss)
+        if key not in self._captured:
+            self.warm(config, state, inputs, random_loss, generator)
+        captured = self._captured[key]
+        i = _PROFILE_FNS.index(fn)
+        captured.load(state, inputs, generator)
+        captured.graphs[i].replay()
+        kernels.count_replay(captured.launches[i])
+        jitwatch.drain("sim.profile.sample", state)
+        start, end = captured.events[i]
+        return start.elapsed_time(end)
 
     def warm(self, config, state, inputs, random_loss: bool = False,
              generator: Optional[torch.Generator] = None) -> None:
         """Run every shadow prefix once for this (config, shapes,
-        random_loss) class, outside any timed window, so the kernels are
-        built and loaded before a sample is timed."""
+        random_loss) class, so the kernels are built and loaded, and on a
+        CUDA state capture the prefixes; a capture is recorded with
+        ``jitwatch`` as the class's compile (a violation inside a timed
+        window, as a JAX compile is)."""
         for fn in _PROFILE_FNS:
             jitwatch.drain("sim.profile.warm",
                            fn(config, state, inputs, random_loss, _copy(generator)))
+        key = _class_key(config, state, inputs, random_loss)
+        if not _on_card(state) or key in self._captured:
+            return
+        t0 = time.perf_counter()
+        # torch.cuda.graph synchronizes the device before it captures
+        with jitwatch.host_transfer("sim.profile.capture"):
+            self._captured[key] = _capture(config, state, inputs, random_loss, generator)
+        jitwatch.record_compile("sim.profile.prefixes", time.perf_counter() - t0, "capture")
+
+    def _turn(self, config, state, inputs, random_loss: bool,
+              generator: Optional[torch.Generator]) -> Tuple[float, float, float]:
+        """The three prefixes' times in order; on the card taken again
+        while they do not rise, at most ``TURN_ATTEMPTS`` times."""
+        for _ in range(TURN_ATTEMPTS if _on_card(state) else 1):
+            times = tuple(self._timed_ms(fn, config, state, inputs, random_loss, generator)
+                          for fn in _PROFILE_FNS)
+            self.turns += 1
+            if times[0] < times[1] < times[2]:
+                break
+        return times
 
     def sample(self, config, state, inputs, random_loss: bool = False,
                generator: Optional[torch.Generator] = None,
                repeats: int = 1) -> Dict[str, float]:
-        """One shadow attribution of the current round's computation.
-        ``repeats`` takes the best-of-N per prefix (timing noise guard for
-        assertions; the in-loop default is one shot)."""
-        t_fd, t_cut, t_full = (
-            min(self._timed_ms(fn, config, state, inputs, random_loss, generator)
-                for _ in range(max(1, int(repeats))))
-            for fn in _PROFILE_FNS
-        )
+        """One shadow attribution of the current round's computation, from
+        the turn with the least full step of ``repeats`` turns (the in-loop
+        default is one)."""
+        turns = [self._turn(config, state, inputs, random_loss, generator)
+                 for _ in range(max(1, int(repeats)))]
+        t_fd, t_cut, t_full = min(turns, key=lambda turn: turn[2])
         phases = {
             "fd_scan": t_fd,
             "cut_detector": max(t_cut - t_fd, 0.0),
@@ -162,5 +312,5 @@ class PhaseProfiler:  # guarded-by: dispatch-thread
     # -- reading ------------------------------------------------------------
 
     def attribution(self) -> Dict[str, float]:
-        """Accumulated per-phase wall ms across every sample so far."""
+        """Accumulated per-phase ms across every sample so far."""
         return dict(self._totals)

@@ -7,7 +7,9 @@ seams and the same switch: ``RAPID_JITWATCH=1`` turns the bookkeeping on
 - *Compile events.* An eager PyTorch program compiles nothing per call; what
   stands in for an XLA compile is a hand kernel's build (``nvcc``) or the
   load of its library, in ``sim/kernels.py``, which reports each through
-  :func:`record_compile`. One inside a timed window is a violation: warm the
+  :func:`record_compile`; so does the profiler's capture of its prefixes as
+  CUDA graphs (``profiling/phases.py``), the counterpart of JAX's compile of
+  its prefix jits. One inside a timed window is a violation: warm the
   kernels before the measured region.
 - *Timed windows* (:func:`timed_window`) declare a measured steady-state
   region. On the card they arm ``torch.cuda.set_sync_debug_mode("error")``
@@ -64,7 +66,7 @@ class CompileEvent:
     name: str  # what was built or loaded
     wall_s: float  # its wall time
     steady: bool  # a timed window was open on the calling thread
-    kind: str  # "nvcc" | "g++" | "load"
+    kind: str  # "nvcc" | "g++" | "load" | "capture"
 
 
 _LOCK = threading.Lock()

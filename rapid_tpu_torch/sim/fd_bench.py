@@ -207,7 +207,7 @@ def graph_ms(fn, reps: int = 24, iters: int = 11) -> float:
         f()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with kernels.no_collection(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for i in range(reps):
             fns[i % len(fns)]()
     graph.replay()

@@ -30,7 +30,9 @@ CPU tensors runs the kernel's plain version, which is also what the tests and
 ``LAUNCHES`` counts launches per kernel, and per policy for
 ``fd_phase_fused`` and ``fd_phase_rows`` (``fd_phase_fused_windowed`` and
 ``fd_phase_rows_windowed`` count their windowed instantiations): a wrapper
-adds one where it launches its kernel, and nowhere else. Under a running
+adds one where it launches its kernel, and nowhere else; a launch captured
+in a CUDA graph counts on each replay instead (``captured_launches``,
+``count_replay``). Under a running
 ``torch.profiler`` each launch sits in a host range named after its counter,
 so a trace names the kernel whose passes it shows. Every build and library
 load is reported to ``runtime.jitwatch`` as a compile event.
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -87,6 +90,44 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: the launches the wrappers counted while
+    the graph was captured move from ``LAUNCHES`` into the dict this yields.
+    A captured kernel runs on each replay and not at capture, so its
+    launches count once a replay, through ``count_replay``."""
+    before, into = dict(LAUNCHES), {}
+    try:
+        yield into
+    finally:
+        for name, count in LAUNCHES.items():
+            if count != before[name]:
+                into[name] = count - before[name]
+                LAUNCHES[name] = before[name]
+
+
+@contextlib.contextmanager
+def no_collection():
+    """No cyclic garbage collection inside the block, which holds a CUDA
+    graph capture: a dead cycle that holds another graph (a profiler's
+    captured prefixes) would be collected there, and freeing that graph or
+    its memory pool is a CUDA call that invalidates the capture. Garbage
+    left meanwhile is collected after the block."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture counted ``launches``."""
+    for name, count in launches.items():
+        LAUNCHES[name] += count
 
 
 def _nvcc() -> str:

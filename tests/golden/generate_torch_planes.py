@@ -14,8 +14,10 @@ and on the card (``chip_smoke.py``, whose machine has no JAX):
   records, the composed rows, the parent rounds, the global fingerprints.
 
 The steps are ``chip_smoke.py``'s (``serving_dimension_run``,
-``sweep_point_run``, ``zone_churn_run``), run here on ``rapid_tpu``'s
-classes; the generator first checks that they give what ``bench.py`` and
+``zone_churn_run``), run here on ``rapid_tpu``'s classes, and the sweep
+point's digest (``sweep_point_digest``) of ``bench.warmed_run``'s own timed
+simulator, whose port side runs through the port's ``warmed_run``; the
+generator first checks that the steps give what ``bench.py`` and
 ``scenarios.py`` give for the same runs.
 
 Run from the repo root: JAX_PLATFORMS=cpu python tests/golden/generate_torch_planes.py
@@ -33,6 +35,7 @@ sys.path.insert(0, ROOT)
 
 import bench  # noqa: E402
 import chip_smoke  # noqa: E402
+import rapid_tpu.sim.driver as jax_driver  # noqa: E402
 import scenarios  # noqa: E402
 from rapid_tpu.hierarchy.parent import cell_leaders  # noqa: E402
 from rapid_tpu.settings import SLOSettings  # noqa: E402
@@ -43,11 +46,33 @@ from rapid_tpu.slo import OpenLoopGenerator  # noqa: E402
 from rapid_tpu.types import Endpoint  # noqa: E402
 
 
+def jax_sweep_point(n=chip_smoke.SWEEP_N, partitions=chip_smoke.SWEEP_PARTITIONS,
+                    seed=chip_smoke.SEED) -> dict:
+    """``bench.warmed_run``'s placement point, placement and handoff at
+    ``partitions``: the digest of the timed simulator it made (its second),
+    recorded through a ``Simulator`` subclass; the port's side is
+    ``chip_smoke.sweep_point_run``."""
+    made = []
+
+    class Recorded(Simulator):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    jax_driver.Simulator = Recorded
+    try:
+        _, record, _, _ = bench.warmed_run(n, seed=seed, placement_partitions=partitions,
+                                           handoff_partitions=partitions)
+    finally:
+        jax_driver.Simulator = Simulator
+    return chip_smoke.sweep_point_digest(made[-1], record)
+
+
 def jax_runs() -> dict:
     return {
         "serving_dimension": chip_smoke.serving_dimension_run(
             Simulator, SLOSettings, OpenLoopGenerator),
-        "sweep_point": chip_smoke.sweep_point_run(Simulator),
+        "sweep_point": jax_sweep_point(),
         "zone_churn": chip_smoke.zone_churn_run(
             Simulator, SimConfig, LatencyTopology, Endpoint, cell_leaders,
             **chip_smoke.ZONE_CHURN),
@@ -64,12 +89,6 @@ def check_against_harness(runs: dict) -> None:
     for name, _ops in chip_smoke.SERVING_OPS:
         assert entry[name]["p99_ms"] == bench._latency_window(
             serving["windows"][name]["latencies_ms"])["p99_ms"]
-    _, record, _, _ = bench.warmed_run(
-        chip_smoke.SWEEP_N, seed=chip_smoke.SEED,
-        placement_partitions=chip_smoke.SWEEP_PARTITIONS,
-        handoff_partitions=chip_smoke.SWEEP_PARTITIONS)
-    assert record.configuration_id == runs["sweep_point"]["record"]["configuration_id"]
-    assert record.virtual_time_ms == runs["sweep_point"]["record"]["virtual_time_ms"]
     churn = scenarios.scenario_hierarchy_zone_churn(**chip_smoke.ZONE_CHURN)
     mine = runs["zone_churn"]
     assert churn["hierarchy"]["global_fingerprint"] == mine["global_fingerprints"][-1]

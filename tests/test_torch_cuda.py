@@ -147,7 +147,53 @@ def test_speculation_and_timed_window_on_card(cuda_device, monkeypatch, branch):
     assert _decide_in_window(sim, f"{branch} profiled") == want
     assert sim._profiler.samples == 1
     counts = jitwatch.sync_counts()
-    assert counts["sim.decision_words"] == 3 and counts["sim.profile.sample"] == 3
+    # the sample drains once a replay, three a turn; a turn whose times do
+    # not rise is taken again, and the profiler counts every turn it takes
+    assert counts["sim.decision_words"] == 3
+    assert counts["sim.profile.sample"] == 3 * sim._profiler.turns
+
+
+@pytest.mark.parametrize("policy", ["cumulative", "windowed"])
+def test_profiler_times_graph_replays_on_card(cuda_device, policy):
+    """At 1000 members, every dispatch sampled on the scan path: every phase
+    of every one-shot sample above 0, the FD kernel counted once a replay
+    (3 a turn, and ``turns`` counts every turn taken),
+    the captured full step equal to the eager one on the same generator
+    state, and the simulator's generator untouched by a sample."""
+    from rapid_tpu_torch.profiling import phases
+    from rapid_tpu_torch.settings import ProfilingSettings
+    from rapid_tpu_torch.sim import kernels
+
+    config = engine.SimConfig(capacity=1000, fd_policy=policy)
+    sim = Simulator(1000, config=config, seed=6, device=cuda_device)
+    prof = sim.enable_profiling(ProfilingSettings(enabled=True, sample_every_dispatches=1))
+    victims = np.arange(2, 1000, 103)
+    sim.crash(victims)
+    sim.ingress_loss(victims, 1.0)
+    inputs, state = sim._const_inputs(None), sim.state
+    generator = phases._copy(sim._generator)
+    counter = "fd_phase_fused_windowed" if policy == "windowed" else "fd_phase_fused"
+    replays = []
+    timed_ms = prof._timed_ms
+
+    def counted(*args):
+        replays.append(timed_ms(*args))
+        return replays[-1]
+
+    prof._timed_ms = counted
+    kernels.reset_launches()
+    samples = []
+    for _ in range(4):
+        samples.append(prof.sample(sim.config, state, inputs, True, sim._generator))
+    assert len(replays) == 3 * prof.turns >= 12 and kernels.LAUNCHES[counter] == len(replays)
+    assert all(s[p] > 0 for s in samples for p in phases.DEVICE_PHASES), samples
+    assert torch.equal(generator.get_state(), sim._generator.get_state())
+    captured = prof._captured[phases._class_key(sim.config, state, inputs, True)]
+    eager = engine.step(sim.config, state, inputs, True, phases._copy(generator))
+    for field, value in phases._tensors(eager).items():
+        assert torch.equal(getattr(captured.outputs[2], field), value), field
+    rec = sim.run_until_decision(max_rounds=16, batch=1)
+    assert rec is not None and sorted(rec.cut.tolist()) == victims.tolist()
 
 
 def test_profiling_prefixes_on_card_match_cpu(cuda_device):

@@ -9,8 +9,8 @@ load's whole line, and each trial's conflict, cut, classic-round flag,
 configuration id and final membership. The simulators run on
 ``device="cpu"``; the message load is host code on both.
 
-``experiments/scaling_sweep.py`` (``bench.py``'s ``warmed_run``) is not
-ported: it goes with the port's bench entry.
+``experiments/scaling_sweep.py`` and its ``bench.warmed_run`` are held in
+``tests/test_torch_scaling_sweep.py``.
 """
 
 import json

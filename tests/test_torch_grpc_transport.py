@@ -499,6 +499,96 @@ def test_channel_idle_eviction():
         client.shutdown()
 
 
+def test_request_reset_behind_it_still_reaches_the_service():
+    """A request whose client resets it in the same read (its deadline
+    passed while the server's loop was behind) still reaches the service:
+    the reset abandons the reply, not the message. Best-effort alerts and
+    votes were lost this way under load, and a crash's view change then
+    never reached every member."""
+    import socket
+
+    from rapid_tpu_torch.messaging import http2
+
+    base = free_port_base(2)
+    addr = PORT_SIDE.ep(base)
+    server = port_gt.GrpcServer(addr)
+    service = Service(PORT_SIDE)
+    service.override = lambda msg: None  # parked: the reply never comes
+    server.set_membership_service(service)
+    server.start()
+    body = http2.grpc_frame(port_gt.to_wire_request(ptypes.ProbeMessage(sender=PORT_SIDE.ep(base + 1))))
+    block = http2.encode_headers(http2.request_headers(GRPC_METHOD_PATH, f"127.0.0.1:{base}", 1.0))
+    burst = (http2.PREFACE + http2.settings_frame(http2.CLIENT_SETTINGS)
+             + http2.header_frames(1, block, http2.DEFAULT_MAX_FRAME, False)
+             + http2.frame_head(http2.DATA, http2.END_STREAM, 1, len(body)) + body
+             + http2.rst_stream(1, http2.CANCEL))
+    try:
+        with socket.create_connection(("127.0.0.1", base), timeout=WAIT_S) as sock:
+            sock.sendall(burst)
+            deadline = time.time() + WAIT_S
+            while not service.received and time.time() < deadline:
+                time.sleep(0.01)
+        assert [type(m).__name__ for m in service.received] == ["ProbeMessage"]
+    finally:
+        server.shutdown()
+
+
+@pytest.mark.parametrize("late", ["dialing", "parked"])
+def test_call_out_of_time_keeps_the_channel(monkeypatch, late):
+    """A call whose deadline runs out fails as DEADLINE_EXCEEDED and the
+    client keeps the channel, whether the time ran out while the channel
+    was still dialing (the dial goes on, and the request leaves late on its
+    connection) or while the service held the reply: the next call takes
+    the same connection, and the service gets both messages. Retiring the
+    channel and dialing anew after each late call grew a loaded loop's
+    backlog until a crash's votes timed out everywhere (hundreds of dials a
+    member), and a request whose deadline ran out in the dial was lost."""
+    import asyncio
+
+    real = asyncio.open_connection
+
+    async def slow_dial(*args, **kwargs):
+        await asyncio.sleep(0.5)
+        return await real(*args, **kwargs)
+
+    if late == "dialing":
+        monkeypatch.setattr(asyncio, "open_connection", slow_dial)
+    base = free_port_base(2)
+    addr, me = PORT_SIDE.ep(base), PORT_SIDE.ep(base + 1)
+    client = port_gt.GrpcClient(me, Settings(message_retries=0, message_timeout_ms=100))
+    server = port_gt.GrpcServer(addr)
+    service = Service(PORT_SIDE)
+    if late == "parked":
+        service.override = lambda msg: None  # the first call's reply never comes
+    server.set_membership_service(service)
+    server.start()
+    try:
+        with pytest.raises(GrpcError) as info:
+            client.send_message_best_effort(addr, ptypes.LeaveMessage(sender=me)).result(WAIT_S)
+        assert info.value.code().name == "DEADLINE_EXCEEDED"
+        assert addr in client._channels  # kept
+        time.sleep(0.8)  # a dial under way ends
+        service.override = None
+        reply = client.send_message_best_effort(addr, ptypes.LeaveMessage(sender=me)).result(WAIT_S)
+        assert reply == ptypes.Response()
+        assert client.stats["connections"] == 1  # one dial served both calls
+        assert client.stats["late requests"] == (1 if late == "dialing" else 0)
+        assert [type(m).__name__ for m in service.received] == ["LeaveMessage"] * 2
+    finally:
+        server.shutdown()
+        client.shutdown()
+
+
+def test_chip_smoke_grpc_loop(capsys):
+    """``chip_smoke.py --grpc-loop``: the gRPC phase's live cluster (a seed,
+    20 joiners, a crash) repeated in one process; one trial with no busy
+    thread agrees and prints its JSON line of counts."""
+    assert chip_smoke.grpc_loop(1, 0) == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last) == {"trials": 1, "busy": 0, "ok": 1, "join failed": 0,
+                                "crash not agreed": 0}
+
+
 def test_concurrent_join_wave_through_one_seed():
     """10 concurrent joiners through ONE seed over real sockets. Join
     phase-2 responses are parked until the view change commits

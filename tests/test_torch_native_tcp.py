@@ -8,9 +8,10 @@ clients against the port's native server, the port's native client against
 the ephemeral port, EOF on shutdown, a stalled peer, an oversized frame, and
 a real-time cluster of port members entirely on the native transport. Last,
 ``chip_smoke.py``'s native gateway phase on the CPU at 1000 virtual members
-(``native_gateway``): the port's ``SwarmGateway(native_server=True)`` with a
-member in its own process, every configuration id equal to the Python
-server's run, and the port agent on ``--transport native-tcp``."""
+(``gateway_sequence(native_server=True)``): the port's
+``SwarmGateway(native_server=True)`` with a member in its own process, every
+configuration id equal to the Python server's run; and ``native_gateway``,
+the port agent on ``--transport native-tcp``."""
 
 import socket
 import struct
@@ -277,12 +278,14 @@ def test_oversized_frame_kills_only_that_connection():
 def test_chip_smoke_native_gateway_and_agent():
     python_gateway = chip_smoke.gateway_sequence(1000, "cpu")
     python_agent = chip_smoke.agent_sequence(1000, "cpu", scripted=python_gateway)
-    out = chip_smoke.native_gateway(1000, "cpu", "cpu", python_gateway, python_agent)
+    gateway = chip_smoke.gateway_sequence(1000, "cpu", native_server=True,
+                                          member_port=python_gateway["member_port"])
+    out = chip_smoke.native_gateway(1000, "cpu", python_agent)
     names = ["join", "crash, closed form", "crash, scan", "leave"]
-    assert [r["name"] for r in out["gateway"]["steps"]] == names
-    assert out["gateway"]["native_server"] and out["gateway"]["member_port"] \
+    assert [r["name"] for r in gateway["steps"]] == names
+    assert gateway["native_server"] and gateway["member_port"] \
         == python_gateway["member_port"]
-    assert [r["configuration_id"] for r in out["gateway"]["steps"]] \
+    assert [r["configuration_id"] for r in gateway["steps"]] \
         == [r["configuration_id"] for r in python_gateway["steps"]]
     agent = out["agent"]
     assert agent["transport"] == "native-tcp" and agent["native_server"]
