@@ -127,8 +127,8 @@ into build/kernels/. Phases, each of which must pass:
    loss 1.0, and in 4 processes of 1 shard the crash, every child
    under a wall timeout; every rank's record (cut, protocol time,
    configuration id) equal to an in-process single-controller mesh of the
-   same shape and seed, 16 ``fd_phase_rows`` and 16 ``fd_gather`` launches,
-   16 all-gathers and 16 ``shard.exchange`` syncs in each rank
+   same shape and seed, 16 ``fd_phase_rows``, 16 ``fd_gather`` and 16
+   ``threefry_draw`` launches, 16 all-gathers and 16 ``shard.exchange`` syncs in each rank
    (``multihost_phase``);
 16. the port's own fault plane (``rapid_tpu_torch/faults.py``): the bench's
    gray-detection dimension through ``replay_on_simulator``, equal to
@@ -180,8 +180,8 @@ into build/kernels/. Phases, each of which must pass:
    ``placement_topr`` launch); the timeline over the bug's witness bundle,
    a skewed-churn cluster bundle of port members and the stuck-handoff
    fixtures, with the forensics CLI's exit codes; all of it equal to
-   ``tests/golden/torch_search.json``, which the JAX package wrote (sim
-   probes whose plans draw loss below 1.0 by verdicts and configuration id);
+   ``tests/golden/torch_search.json``, which the JAX package wrote, exactly,
+   the sim probes whose plans draw loss below 1.0 included;
 20. the native host plane (``rapid_tpu_torch/native.py``,
    ``runtime/native_io.py``, ``messaging/native_tcp.py``, the gateway's
    ``native_server``, ``profiling/scrape.py``; host C++, no kernel): (a)
@@ -253,7 +253,21 @@ into build/kernels/. Phases, each of which must pass:
    and 1M (seed 42), each size's JSON line with the cut held, its build
    seconds, and no kernel built or loaded and no ``fd_phase_fused`` launched
    in the timed window (the closed form); and the placement-and-handoff
-   point at 100k through the same ``warmed_run`` (``sweep_point_run``).
+   point at 100k through the same ``warmed_run`` (``sweep_point_run``);
+25. the random-loss draw (``threefry_phase``, after the kernels of 2 and 5):
+   the kernel ``threefry_draw`` (``csrc/threefry.cu``, JAX's threefry key
+   split and uniform block) against its plain version, bit for bit, at
+   [100_000, 10] and [1_000_000, 10] and over the 8 shards of a 100k mesh
+   with the fold, with its halt flag clear and set, and against ``tests/golden/torch_threefry.json``, which
+   the JAX package wrote (every vector and digest); the file's lossy
+   decision (10 000 members, 1% at ingress loss 0.5) run on the card and
+   equal to the JAX package's record; the kernel timed cold (after a write
+   that evicts the L2) and hot beside its plain version, ``torch.rand`` of
+   the same shape and its bound, and the scan decisions' walls of 4 beside
+   the draw's launches in them. Every lossy scan round of the phases above
+   launches ``threefry_draw`` once (one a device call on a mesh, where a
+   round without loss launches it once to split the key), and the expected
+   launch counts say so.
 
 Prints a JSON line of kernel results, one line of each phase's seconds, the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -273,6 +287,7 @@ import collections
 import contextlib
 import functools
 import gc
+import hashlib
 import io
 import itertools
 import json
@@ -681,10 +696,11 @@ def _windowed_decisions(Simulator, engine, kernels, rng, device):
             launches = dict(kernels.LAUNCHES)
             walls.append(ms)
             # the scan executes its whole budget (16 rounds, masked after the
-            # decision), one launch a round; the closed form launches nothing
+            # decision), one launch of each kernel a round; the closed form
+            # launches nothing
             want = {key: 0 for key in launches}
             if name == "ingress_loss":
-                want["fd_phase_fused_windowed"] = 16
+                want["fd_phase_fused_windowed"] = want["threefry_draw"] = 16
             assert launches == want, (name, launches)
         out[name] = {"walls_ms": walls, "launches": launches}
         print(f"windowed decision ({'closed form, crash' if name == 'crash' else 'scan, ingress loss 1.0'}): "
@@ -1167,12 +1183,13 @@ PROFILE_LOSSES = ((0.5, N_NODES // 1000), (1.0, N_NODES // 100))  # (p, members)
 def _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device, policy):
     """One 100k scan-path decision with every dispatch sampled under the FD
     ``policy``: samples, the four phases, the prefixes' kernel launches
-    (16 and one a replay: 3 a turn the profiler counts, more than one turn
-    a sample only where a turn was taken again; a captured prefix counts
-    once a replay, not at capture). On the first decision's pre-dispatch state, a fresh
+    (16 and one a replay of the FD kernel and of ``threefry_draw`` alike: 3
+    a turn the profiler counts, more than one turn a sample only where a
+    turn was taken again; a captured prefix counts once a replay, not at
+    capture). On the first decision's pre-dispatch state, a fresh
     profiler's best-of-``PROFILE_REPEATS`` sample must hold every phase
-    > 0, its captured full step must equal the eager ``engine.step`` on a
-    copy of the generator, bit for bit, and the generator handed in must
+    > 0, its captured full step must equal the eager ``engine.step`` of the
+    same state, bit for bit, the key included, and the state's key must
     stay where it was; the same state's host walls (the eager prefixes up to
     a drain, the CPU's source) are printed beside the device times."""
     from rapid_tpu_torch.observability import Metrics
@@ -1187,7 +1204,7 @@ def _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device,
     fault = _planes_fault(sim, "scan")
     fault(rng.choice(N_NODES, N_NODES // 100, replace=False))
     inputs = sim._const_inputs(None)
-    state, generator = sim.state, phases._copy(sim._generator)
+    state = sim.state
     prefix_ms = []  # every in-loop prefix time, in the order sample() takes them
     segments = []  # the caching allocator's new device segments (cudaMalloc) in each
     in_loop = []  # the phases of every in-loop sample
@@ -1217,36 +1234,37 @@ def _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device,
     replays = len(prefix_ms)
     assert replays == 3 * prof.turns >= 3 * samples and launches[counter] == 16 + replays, (
         replays, prof.turns, launches)
+    assert launches["threefry_draw"] == 16 + replays, (replays, launches)
     assert launches[other] == 0, launches
 
-    before = generator.get_state()
+    before = state.rng_key.clone()
     fresh = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
-    best = fresh.sample(sim.config, state, inputs, True, generator, repeats=PROFILE_REPEATS)
+    best = fresh.sample(sim.config, state, inputs, True, repeats=PROFILE_REPEATS)
     assert all(best[p] > 0 for p in phases.DEVICE_PHASES), best
-    assert torch.equal(generator.get_state(), before), "a sample moved the generator"
+    assert torch.equal(state.rng_key, before), "a sample moved the state's key"
     captured = fresh._captured[phases._class_key(sim.config, state, inputs, True)]
-    eager = engine.step(sim.config, state, inputs, True, phases._copy(generator))
+    eager = engine.step(sim.config, state, inputs, True)
     mismatched = [f for f, t in phases._tensors(eager).items()
                   if not torch.equal(getattr(captured.outputs[2], f), t)]
     assert not mismatched, f"captured step != eager step in {mismatched}"
     walls = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
     walls._timed_ms = phases.wall_ms  # the CPU's source: host walls up to a drain
-    host = walls.sample(sim.config, state, inputs, True, generator, repeats=PROFILE_REPEATS)
+    host = walls.sample(sim.config, state, inputs, True, repeats=PROFILE_REPEATS)
     per_sample = {p: totals[p] / samples for p in phases.DEVICE_PHASES}
     rounded = lambda d: {p: round(v, 4) for p, v in d.items()}  # noqa: E731
     print(f"profiling, {policy} scan path, every dispatch sampled: {samples} sample(s), device "
           f"phase ms a sample {rounded(per_sample)}, host transfer "
           f"{totals['host_transfer']:.3f} ms over {sim.metrics.get('device_dispatches')} "
-          f"dispatch(es); {counter} launches {launches[counter]} (16 in the dispatch + one a "
-          f"replay, {replays} replays); best of {PROFILE_REPEATS} turns on the pre-dispatch state: "
-          f"device (graph replays) {rounded(best)}, host walls of the same prefixes "
-          f"{rounded(host)}; the captured step == the eager step, every field; the "
-          f"generator untouched", flush=True)
+          f"dispatch(es); {counter} and threefry_draw launches {launches[counter]} and "
+          f"{launches['threefry_draw']} (16 in the dispatch + one a replay, {replays} replays); "
+          f"best of {PROFILE_REPEATS} turns on the pre-dispatch state: device (graph replays) "
+          f"{rounded(best)}, host walls of the same prefixes {rounded(host)}; the captured step "
+          f"== the eager step, every field, the key included; the state's key untouched",
+          flush=True)
     return {"sim": sim, "prof": prof, "fault": fault, "prefix_ms": prefix_ms,
             "segments": segments, "in_loop": in_loop, "launches": launches,
             "samples": samples, "attribution": totals, "per_sample": per_sample,
-            "best_of": best, "host_walls": host, "state": state, "inputs": inputs,
-            "generator": generator}
+            "best_of": best, "host_walls": host, "state": state, "inputs": inputs}
 
 
 def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
@@ -1254,10 +1272,11 @@ def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
     under both FD policies (``_profiled_policy``); then, cumulative, further
     decisions a round a dispatch, every one sampled once (one shot, the
     in-loop default): at least ``PROFILE_MIN_SAMPLES`` samples, no phase of
-    any at 0, ``fd_phase_fused`` launched once a dispatch (its round) and
-    once a replay; the GPU ops of one step and of each prefix; and the
-    decisions with profiling on equal those with it off under ingress loss
-    below 1.0 and at 1.0 (cut, configuration id, virtual ms)."""
+    any at 0, ``fd_phase_fused`` and ``threefry_draw`` each launched once a
+    dispatch (its round) and once a replay; the GPU ops of one step and of
+    each prefix; and the decisions with profiling on equal those with it off
+    under ingress loss below 1.0 and at 1.0 (cut, configuration id, virtual
+    ms)."""
     from rapid_tpu_torch.profiling import phases
     from rapid_tpu_torch.sim.profile_decision import profile_gpu
 
@@ -1266,9 +1285,8 @@ def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
     windowed = _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device,
                                 "windowed")
     sim, prof, fault = run["sim"], run["prof"], run["fault"]
-    state, inputs, generator = run["state"], run["inputs"], run["generator"]
-    ops = {name: profile_gpu(lambda fn=fn: fn(sim.config, state, inputs, True,
-                                              phases._copy(generator)))["kernels"]
+    state, inputs = run["state"], run["inputs"]
+    ops = {name: profile_gpu(lambda fn=fn: fn(sim.config, state, inputs, True))["kernels"]
            for name, fn in (("step", engine.step), ("step_cut_detector", engine.step_cut_detector),
                             ("step_fd_scan", engine.step_fd_scan))}
     prefix_ms = run["prefix_ms"]
@@ -1279,7 +1297,8 @@ def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
         assert sim.run_until_decision(max_rounds=16, batch=1) is not None
         sampled, replays = prof.samples - taken, len(prefix_ms) - replays
         assert replays == 3 * (prof.turns - turns) and kernels.LAUNCHES[
-            "fd_phase_fused"] == sampled + replays, (sampled, replays, kernels.LAUNCHES)
+            "fd_phase_fused"] == kernels.LAUNCHES["threefry_draw"] == sampled + replays, (
+            sampled, replays, kernels.LAUNCHES)
     in_loop = run["in_loop"]
     assert len(prefix_ms) == 3 * prof.turns, (len(prefix_ms), prof.turns)
     zero = [s for s in in_loop if min(s[p] for p in phases.DEVICE_PHASES) <= 0]
@@ -1386,11 +1405,11 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
             inputs = sim._const_inputs(None)
             sim.ready()
             scan_dispatch = _profile(lambda: engine.run_rounds_const(
-                sim.config, sim.state, inputs, 16, True, sim._generator))
+                sim.config, sim.state, inputs, 16, True))
             out["single"][branch]["dispatch"] = scan_dispatch
         print(f"single device, {branch}: cut ok, virtual {rec.virtual_time_ms} ms, wall "
-              f"{ms:.3f} ms, GPU ops {prof['kernels']}, device busy "
-              f"{prof['device_busy_ms']:.3f} ms, launches "
+              f"{ms:.3f} ms, GPU ops {prof['kernels']} (and {prof['annotations']} named "
+              f"ranges), device busy {prof['device_busy_ms']:.3f} ms, launches "
               f"{ {k: v for k, v in launches.items() if v} }", flush=True)
 
     for label, spec, size in MESHES:
@@ -1402,8 +1421,9 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
             walls.append(ms)
             assert rec.configuration_id == reference_id, (label, rec.configuration_id)
             want = {name: 0 for name in launches}
-            # one fd_phase_rows call a round covers every shard of the card
-            want.update(fd_phase_rows=16, fd_gather=16)
+            # one fd_phase_rows call a round covers every shard of the card;
+            # without loss threefry_draw only splits the key, once a round
+            want.update(fd_phase_rows=16, fd_gather=16, threefry_draw=16)
             assert launches == want, (label, launches)
         sim = fresh(mesh=mesh)
         sim.crash(victims)
@@ -1418,8 +1438,7 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
         sim.crash(victims)
         inputs = sim._const_inputs(None)
         sim.ready()
-        dispatch = _profile(lambda: sim._sharded_run_until(False)(
-            sim.state, inputs, 16, sim._generators))
+        dispatch = _profile(lambda: sim._sharded_run_until(False)(sim.state, inputs, 16))
         words = kernels.segment_words(N_NODES // size, 10)
         out[label] = {"walls_ms": walls, "launches": launches, "syncs": syncs, **prof,
                       "dispatch": dispatch, "exchange_bytes_per_round": size * words * 4,
@@ -1432,7 +1451,8 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
               f"single-device one), walls {[round(w, 3) for w in walls]} ms (the first "
               f"warms the mesh), syncs per dispatch {syncs}, launches "
               f"{ {k: v for k, v in launches.items() if v} }; profiled decision: GPU ops "
-              f"{prof['kernels']}, device busy {prof['device_busy_ms']:.3f} ms, idle "
+              f"{prof['kernels']} (and {prof['annotations']} named ranges), device busy "
+              f"{prof['device_busy_ms']:.3f} ms, idle "
               f"{prof['idle_share']:.1%}, copies {prof['copies']} (uploads, the view "
               f"change's placement); the dispatch alone: GPU ops {dispatch['kernels']}, "
               f"copies a round {dispatch['copies'] / 16:g} ({dispatch['copy_us'] / 16:.2f} us) "
@@ -1446,7 +1466,7 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
     mesh = shard.make_mesh(devices=[card] * 4)
     rec, ms, launches = decide(fresh(mesh=mesh, config=config))
     want = {name: 0 for name in launches}
-    want.update(fd_phase_rows_windowed=16, fd_gather=16)
+    want.update(fd_phase_rows_windowed=16, fd_gather=16, threefry_draw=16)
     assert launches == want, launches
     out["windowed 4 shards"] = {"wall_ms": ms, "launches": launches}
     print(f"sharded decision, windowed, 4 shards: cut ok, virtual {rec.virtual_time_ms} ms, "
@@ -1537,6 +1557,7 @@ def multihost_phase(Simulator, shard, kernels, card):
         for r in ranks:
             assert r["record"] == want, (label, r["process"], r["record"], want)
             assert r["launches"]["fd_phase_rows"] == r["launches"]["fd_gather"] == 16, r
+            assert r["launches"]["threefry_draw"] == 16, r
             assert r["collectives"] == r["syncs"]["shard.exchange"] == 16, r
             assert r["syncs"]["sim.decision_words"] == 1, r
         out[label] = {"ranks": ranks, "inprocess_walls_ms": walls,
@@ -1553,7 +1574,8 @@ def multihost_phase(Simulator, shard, kernels, card):
             print(f"multihost {label}, rank {r['process']} (shards {r['shards']}): decision "
                   f"wall {r['wall_ms']:.3f} ms (after one warm-up decision), launches "
                   f"fd_phase_rows {r['launches']['fd_phase_rows']}, fd_gather "
-                  f"{r['launches']['fd_gather']}, collectives {r['collectives']} of "
+                  f"{r['launches']['fd_gather']}, threefry_draw "
+                  f"{r['launches']['threefry_draw']}, collectives {r['collectives']} of "
                   f"{r['bytes_a_collective']} B each, syncs {r['syncs']}", flush=True)
     return out
 
@@ -4859,9 +4881,8 @@ def _kinds(result):
 
 def draws_loss(spec):
     """Whether the plan of ``spec`` has a device rule that drops below
-    probability 1.0: on the port such a probe draws from a ``torch.Generator``,
-    not threefry, and matches the JAX package by verdicts and configuration id,
-    not by round (ROADMAP Queue 3)."""
+    probability 1.0, so that the probe's simulator draws random loss (from
+    its state's key, threefry's bits in both packages)."""
     return spec.get("harness") == "sim" and any(
         r.get("type") in ("DropRule", "LossyLinkRule") and r.get("probability", 1.0) < 1.0
         and r.get("msg_types") != ["Put"]
@@ -5018,6 +5039,18 @@ def timeline_digest(P, bundles, paths):
             "verify_rc": [_cli(P, "verify", p) for p in paths]}
 
 
+def sim_hunt(P, device=None, budget=None):
+    """(c) of ``search_sequence``: the simulator hunt of package ``P`` at
+    ``SEARCH_SIM_HUNT`` (``budget`` probes if given), its report, coverage
+    and every probe (``_ProbeLog``)."""
+    c = SEARCH_SIM_HUNT if budget is None else dict(SEARCH_SIM_HUNT, budget=budget)
+    dev = {} if device is None else {"device": device}
+    with _bug_flag(False), _ProbeLog(P) as log:
+        report = P.search_hunt.Hunter(harness="sim", **c, **dev).run()
+    return {"report": report.to_json(), "coverage": _signals(report.coverage),
+            "probes": log.probes}
+
+
 def search_sequence(P, root, device=None, counter=None, engine_budget=None, sim_budget=None,
                     wide_n=SEARCH_WIDE_N):
     """The search phase's runs (a)-(e) on package ``P`` (``search_modules``)
@@ -5075,11 +5108,7 @@ def search_sequence(P, root, device=None, counter=None, engine_budget=None, sim_
                        "corpus_replay": replays}
 
     # (c) the simulator hunt at the search's own size (SIM_DEFAULTS, capacity 5)
-    c = SEARCH_SIM_HUNT if sim_budget is None else dict(SEARCH_SIM_HUNT, budget=sim_budget)
-    with _bug_flag(False), _ProbeLog(P) as log:
-        report = timed("sim_hunt", lambda: H.Hunter(harness="sim", **c, **dev).run())
-    out["sim_hunt"] = {"report": report.to_json(), "coverage": _signals(report.coverage),
-                       "probes": log.probes}
+    out["sim_hunt"] = timed("sim_hunt", lambda: sim_hunt(P, device, sim_budget))
 
     # (d) one simulator probe at full width
     spec = wide_probe_spec(P, wide_n)
@@ -5125,41 +5154,12 @@ def search_sequence(P, root, device=None, counter=None, engine_budget=None, sim_
 
 
 def search_golden_misses(outcome, want):
-    """``outcome`` against a section ``want`` of ``tests/golden/torch_search.json``:
-    exact, except (c)'s probes whose plans draw loss below 1.0 (``draws_loss``),
-    held by verdicts and configuration id. Once such a probe's coverage differs,
-    the hunt's corpus and every later plan may differ by design, and the rest
-    of (c) is held to what it must be: no violation. Returns the misses and
-    the probes compared by verdicts only."""
-    misses = []
-    for key in ("engine_hunt", "bug_hunt", "wide_probe", "timeline"):
-        misses += _golden_misses(outcome[key], want[key], f"/{key}")
-    got, exp = outcome["sim_hunt"], want["sim_hunt"]
-    diverged, loose = False, []
-    for i, (g, w) in enumerate(zip(got["probes"], exp["probes"])):
-        if diverged:
-            loose.append(i)
-            if g["kinds"]:
-                misses.append(f"/sim_hunt/probes[{i}]: violations {g['kinds']}")
-            continue
-        if g["spec"] != w["spec"]:
-            misses.append(f"/sim_hunt/probes[{i}]: spec differs before any lossy probe diverged")
-        elif w["draws_loss"]:
-            loose.append(i)
-            misses += _golden_misses([g["kinds"], g["configuration_id"]],
-                                     [w["kinds"], w["configuration_id"]],
-                                     f"/sim_hunt/probes[{i}]")
-            diverged = g["coverage_signals"] != w["coverage_signals"] or g["info"] != w["info"]
-        else:
-            misses += _golden_misses(g, w, f"/sim_hunt/probes[{i}]")
-    if len(got["probes"]) != len(exp["probes"]):
-        misses.append(f"/sim_hunt: {len(got['probes'])} probes, want {len(exp['probes'])}")
-    if not diverged:
-        misses += _golden_misses({k: v for k, v in got.items() if k != "probes"},
-                                 {k: v for k, v in exp.items() if k != "probes"}, "/sim_hunt")
-    elif got["report"]["violations"]:
-        misses.append(f"/sim_hunt: violations {got['report']['violations']}")
-    return misses, loose
+    """``outcome`` against a section ``want`` of ``tests/golden/torch_search.json``,
+    exactly: (c)'s probes whose plans draw loss below 1.0 (``draws_loss``)
+    included, since the port draws threefry's bits as the JAX package does.
+    Returns the misses."""
+    return [m for key in ("engine_hunt", "bug_hunt", "sim_hunt", "wide_probe", "timeline")
+            for m in _golden_misses(outcome[key], want[key], f"/{key}")]
 
 
 def search_phase(card):
@@ -5179,7 +5179,7 @@ def search_phase(card):
     phase_s = time.perf_counter() - t0
     with open(SEARCH_GOLDEN) as f:
         want = json.load(f)["full"]
-    misses, loose = search_golden_misses(outcome, want)
+    misses = search_golden_misses(outcome, want)
     for name in ("engine_hunt", "bug_hunt", "sim_hunt"):
         r, w = outcome[name]["report"], walls[name]
         print(f"search, {name}: seed {r['seed']}, harness {r['harness']}, {r['probes']} probes, "
@@ -5194,10 +5194,11 @@ def search_phase(card):
           f"{os.path.basename(SEARCH_CORPUS_PIN)}: flag off {b['corpus_replay']['flag_off']['kinds']}, "
           f"flag on {b['corpus_replay']['flag_on']['kinds']}", flush=True)
     probes = outcome["sim_hunt"]["probes"]
+    lossy = [i for i, p in enumerate(probes) if p["draws_loss"]]
     print(f"search, sim_hunt probes: {len(probes)} on cuda, capacity "
-          f"{probes[0]['spec']['capacity']}; {len(loose)} compared by verdicts and "
-          f"configuration id only (loss below 1.0 draws from a torch.Generator) {loose}; "
-          f"violations {sum(1 for p in probes if p['kinds'])}", flush=True)
+          f"{probes[0]['spec']['capacity']}; {len(lossy)} drawing loss below 1.0 {lossy}, held "
+          f"exactly like the rest; violations {sum(1 for p in probes if p['kinds'])}",
+          flush=True)
     d, dw = outcome["wide_probe"], walls["wide_probe"]
     print(f"search, wide_probe: {d['spec']['n']} members, fd_gray_confirm "
           f"{d['spec']['fd_gray_confirm']}, restart {d['spec']['plan']['rules'][0]['dst']} and "
@@ -5223,7 +5224,7 @@ def search_phase(card):
         assert run["launches"].get("fd_phase_u8", 0) == 0, run
     print(f"search, golden: (a)-(e) equal tests/golden/torch_search.json's full section; "
           f"phase {phase_s:.1f} s", flush=True)
-    return {"walls": walls, "phase_s": phase_s, "loose_probes": loose,
+    return {"walls": walls, "phase_s": phase_s, "lossy_probes": lossy,
             "wide_info": d["info"]}
 
 
@@ -6318,6 +6319,191 @@ def tools_examples_phase(card, kernels):
     return out
 
 
+THREEFRY_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                               "torch_threefry.json")
+THREEFRY_SEEDS = (0, 3, 7, 42, 2**31 - 1)
+THREEFRY_SHAPES = ((1, 1), (37, 10), (1000, 10))
+THREEFRY_FOLD = 3  # the shard index folded into the vectors' second draw
+# (rows, shards) of the main path's draws, key PRNGKey(SEED), K = 10: the
+# scan round at 100k and 1M, and one call over the 8 shards of a 100k mesh
+THREEFRY_DRAWS = ((N_NODES, None), (1_000_000, None), (N_NODES // 8, tuple(range(8))))
+THREEFRY_WORDS = 400  # vectors up to this many words are kept whole, longer ones as digests
+# the lossy decision of the golden file: 1% of members at ingress loss 0.5
+THREEFRY_DECISION = {"n": 10_000, "seed": 3, "members": 100, "probability": 0.5,
+                     "max_rounds": 64, "batch": 16}
+# operations an element of threefry_draw takes, by the pipe that can issue
+# them (csrc/threefry.cu's header counts them in the loop's SASS): the 20
+# rotates, 21 xors and the float's shift-and-or only on the ALU's 64 lanes a
+# clock an SM; those, the 27 fused adds and the float's subtract on the ALU
+# and FMA pipes' 128 lanes together
+THREEFRY_ALU_OPS_PER_ELEMENT = 42
+THREEFRY_OPS_PER_ELEMENT = 70
+TWO_PIPE_OPS_PER_S = 2 * INT32_OPS_PER_S  # both pipes: 132 SMs x 128 lanes x 1.98 GHz
+
+
+def threefry_vector(key, draw):
+    """A draw as the golden file keeps it: the split key's two words, the
+    draw's shape, and its float32 bits as uint32 words (whole when short,
+    else their SHA-256 over the little-endian bytes and the first 8)."""
+    words = np.ascontiguousarray(np.asarray(draw, dtype=np.float32)).view("<u4")
+    out = {"key": [int(w) for w in np.asarray(key)], "shape": list(words.shape),
+           "sha256": hashlib.sha256(words.tobytes()).hexdigest(),
+           "first": [int(w) for w in words.reshape(-1)[:8]]}
+    if words.size <= THREEFRY_WORDS:
+        out["words"] = [int(w) for w in words.reshape(-1)]
+    return out
+
+
+def threefry_cases():
+    """Every (seed, rows, k, shards) draw the golden file holds: each seed
+    and shape with and without the fold, then the main path's draws."""
+    cases = [(seed, rows, k, fold) for seed in THREEFRY_SEEDS for rows, k in THREEFRY_SHAPES
+             for fold in (None, (THREEFRY_FOLD,))]
+    return cases + [(SEED, rows, 10, shards) for rows, shards in THREEFRY_DRAWS]
+
+
+def threefry_decision(Simulator, **sim_kw):
+    """The golden file's lossy decision on ``Simulator`` (either package's):
+    its cut, configuration id, virtual time and the rounds it ran."""
+    d = THREEFRY_DECISION
+    sim = Simulator(d["n"], seed=d["seed"], **sim_kw)
+    victims = np.sort(np.random.default_rng(d["seed"]).choice(d["n"], d["members"],
+                                                              replace=False))
+    sim.ingress_loss(victims, d["probability"])
+    rec = sim.run_until_decision(d["max_rounds"], d["batch"])
+    assert rec is not None, "the lossy decision was not reached"
+    return {"cut": sorted(int(c) for c in rec.cut), "configuration_id": int(rec.configuration_id),
+            "virtual_time_ms": int(rec.virtual_time_ms), "rounds": int(sim.metrics.get("rounds"))}
+
+
+def _cold_ms(fn, flush, iters=11):
+    """Device ms of ``fn`` right after ``flush`` is written (more bytes than
+    the L2 holds, so nothing ``fn`` touches stays there): CUDA events around
+    the call alone, the median over ``iters``."""
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in times)
+
+
+def threefry_phase(kernels, threefry, Simulator, card, device, scan_walls, scan_launches):
+    """``threefry_draw`` on the card: against its plain version at the main
+    path's shapes, against the JAX package's vectors and digests and its
+    lossy decision (``THREEFRY_GOLDEN``), and timed cold and hot beside its
+    plain version, ``torch.rand`` of the same shape (the nearest single
+    PyTorch call, though not the same function) and its bound. Returns the
+    kernel's entry for the kernels line (without ``launches``)."""
+    with open(THREEFRY_GOLDEN) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    for rows, shards in THREEFRY_DRAWS:
+        key, keys = threefry.prng_key(SEED).to(device), {}
+        for halted in (False, True):  # a halted round keeps its key
+            halt = torch.tensor(halted, device=device)
+            want_key, want = threefry.draw_plain(key, rows, 10, shards, halt)
+            got_key, got = kernels.threefry_draw(key, rows, 10, shards, halt=halt)
+            torch.cuda.synchronize()
+            assert torch.equal(got_key, want_key) and torch.equal(
+                got.view(torch.int32), want.view(torch.int32)), (
+                f"threefry_draw at [{rows}, 10], shards {shards}, halt {halted}, disagrees "
+                f"with its plain version")
+            assert torch.equal(got_key, key) == halted, (rows, shards, halted)
+            keys[halted] = got_key.tolist()
+        print(f"threefry, [{rows}, 10]{' over shards ' + str(list(shards)) if shards else ''}: "
+              f"bit-identical to plain (tolerance 0) with the halt flag clear and set, key "
+              f"{keys[False]} split, {keys[True]} kept", flush=True)
+    got = [threefry_vector(*(t.cpu().numpy() for t in kernels.threefry_draw(
+               threefry.prng_key(seed).to(device), rows, k, shards)))
+           for seed, rows, k, shards in threefry_cases()]
+    misses = _golden_misses(got, golden["vectors"])
+    assert not misses, f"threefry_draw differs from {THREEFRY_GOLDEN}: " + "; ".join(misses[:5])
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    decision = threefry_decision(Simulator, device=device)
+    decision_ms = (time.perf_counter() - t1) * 1e3
+    decision_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    misses = _golden_misses(decision, golden["decision"])
+    assert not misses, f"the lossy decision differs from {THREEFRY_GOLDEN}: {misses[:5]}"
+    assert decision_launches.get("threefry_draw", 0) == decision_launches.get(
+        "fd_phase_fused", -1) > 0, decision_launches
+    print(f"threefry, golden: {len(got)} vectors and digests equal the JAX package's; the "
+          f"lossy decision ({THREEFRY_DECISION['n']} members, {THREEFRY_DECISION['members']} "
+          f"at ingress loss {THREEFRY_DECISION['probability']}) cut {len(decision['cut'])}, "
+          f"configuration id {decision['configuration_id']}, virtual "
+          f"{decision['virtual_time_ms']} ms, {decision['rounds']} rounds == the JAX package's; "
+          f"wall {decision_ms:.1f} ms (first on this size), launches {decision_launches} "
+          f"({card})", flush=True)
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    sizes = {}
+    for rows in KERNEL_SIZES:
+        key = threefry.prng_key(SEED).to(device)
+        kernel = lambda: kernels.threefry_draw(key, rows, 10)  # noqa: E731
+        plain = lambda: threefry.draw_plain(key, rows, 10)  # noqa: E731
+        rand = lambda: torch.rand((rows, 10), device=device)  # noqa: E731
+        t = {"cold_ms": _cold_ms(kernel, flush), "hot_ms": _time_ms(kernel),
+             "plain_cold_ms": _cold_ms(plain, flush), "plain_hot_ms": _time_ms(plain),
+             "torch_rand_cold_ms": _cold_ms(rand, flush), "torch_rand_hot_ms": _time_ms(rand)}
+        elements = rows * 10
+        ops_ms = max(THREEFRY_ALU_OPS_PER_ELEMENT * elements / INT32_OPS_PER_S,
+                     THREEFRY_OPS_PER_ELEMENT * elements / TWO_PIPE_OPS_PER_S) * 1e3
+        bytes_ms = (4 * elements + 4 * 8) / HBM_BYTES_PER_S * 1e3  # the draw out, keys in and out
+        bound_ms = max(ops_ms, bytes_ms)
+        sizes[f"{rows}x10"] = dict(
+            t, max_abs_err=0, ms=t["cold_ms"], plain_ms=t["plain_cold_ms"], bound_ms=bound_ms,
+            bound_us=bound_ms * 1e3, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            share_of_bound=bound_ms / t["cold_ms"])
+        print(f"threefry_draw [{rows}, 10] timed: "
+              + ", ".join(f"{name} {ms * 1e3:.2f} us" for name, ms in t.items())
+              + f"; bound {bound_ms * 1e3:.2f} us (operations {ops_ms * 1e3:.2f} us: "
+              f"{THREEFRY_ALU_OPS_PER_ELEMENT} ALU ops an element at 64 lanes, "
+              f"{THREEFRY_OPS_PER_ELEMENT} in all at 128; bytes {bytes_ms * 1e3:.2f} us), "
+              f"{bound_ms / t['cold_ms']:.1%} of it cold ({card})", flush=True)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"threefry, scan decisions (100k, ingress loss 1.0): walls "
+          f"{[round(w, 3) for w in scan_walls]} ms, median {statistics.median(scan_walls):.3f} ms, "
+          f"threefry_draw launches {scan_launches['threefry_draw']} of fd_phase_fused's "
+          f"{scan_launches['fd_phase_fused']} ({card})", flush=True)
+    main_shape = sizes[f"{KERNEL_SIZES[0]}x10"]
+    return {
+        "name": "threefry_draw",
+        "route": "cuda",
+        "source": "rapid_tpu_torch/csrc/threefry.cu",
+        # no Pallas kernel: jax.random's threefry in the round's XLA program
+        "replaces": "rapid_tpu/sim/engine.py:575",
+        "on_main_path": True,
+        "path": "scan (ingress loss 1.0); the lossy decision of the golden file",
+        "launches_golden_decision": decision_launches.get("threefry_draw", 0),
+        "match": True,
+        "max_abs_err": 0,
+        "ms": main_shape["ms"],
+        "kernel_ms": main_shape["ms"],
+        "hot_ms": main_shape["hot_ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_us": main_shape["bound_us"],
+        "bound_by": main_shape["bound_by"],
+        "tolerance": 0,
+        # no PyTorch call computes JAX's threefry; torch.rand of the same
+        # shape (another generator) is timed beside it
+        "library_ms": None,
+        "torch_rand_ms": main_shape["torch_rand_cold_ms"],
+        "sizes": sizes,
+        "golden_decision": decision,
+        "golden_vectors": len(got),
+        "phase_s": time.perf_counter() - t0,
+    }
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6329,7 +6515,7 @@ def main() -> int:
     from rapid_tpu_torch.runtime import jitwatch
     from rapid_tpu_torch.settings import ProfilingSettings
     from rapid_tpu_torch.shard import engine as shard
-    from rapid_tpu_torch.sim import classic, engine, fd_bench, kernels
+    from rapid_tpu_torch.sim import classic, engine, fd_bench, kernels, threefry
     from rapid_tpu_torch.sim.driver import Simulator
 
     device = torch.device("cuda")
@@ -6479,6 +6665,10 @@ def main() -> int:
           f"synchronizing CUDA calls per decision: {scan_syncs}", flush=True)
 
     lap("headline and scan")
+    # --- the random-loss draw: JAX's threefry bits on the card ---------------
+    threefry_line = threefry_phase(kernels, threefry, Simulator, card, device, scan_walls,
+                                   scan_launches)
+    lap("threefry")
     # --- the windowed policy's decisions, and the classic fallback ----------
     windowed = _windowed_decisions(Simulator, engine, kernels, rng, device)
     fallback = _classic_fallback(Simulator, engine, classic, kernels, device)
@@ -6641,6 +6831,24 @@ def main() -> int:
             "gather_only_ms": t.get("gather_only_ms"),
             "sizes": {f"{t['shape'][0]}x10": t},
         })
+    line["kernels"].append(dict(
+        threefry_line,
+        # the scan path's decision (ingress loss 1.0), one launch a round
+        launches=scan_launches["threefry_draw"],
+        # the windowed scan's and the sharded decisions' (8 shards, no loss:
+        # the key's split alone, once a round)
+        launches_windowed=windowed["ingress_loss"]["launches"]["threefry_draw"],
+        launches_sharded=sharded["8 shards"]["launches"]["threefry_draw"],
+        launches_bridged=bridged_launches.get("threefry_draw", []),
+        launches_gateway=gateway_launches.get("threefry_draw", []),
+        launches_member=member_launches.get("threefry_draw", []),
+        launches_agent=agent_launches.get("threefry_draw", []),
+        launches_search=search_launches.get("threefry_draw", []),
+        launches_replay=replay["launches"].get("threefry_draw", 0),
+        launches_scenarios=scenario_launches.get("threefry_draw", []),
+        launches_multiprocess=[(label, r["process"], r["launches"].get("threefry_draw", 0))
+                               for label, run in multihost.items() for r in run["ranks"]],
+    ))
     main_case = topr[TOPR_CASES[0][0]]
     line["kernels"].append({
         "name": "placement_topr",

@@ -19,7 +19,7 @@ loss ``P`` instead of crashing them (the scan round). One decision on a
 simulator of another seed warms the process first. Prints the JAX script's
 two lines, ``mesh {...}; ...`` and ``cut N nodes in T ms protocol time (W ms
 wall); config ID``, then ``stats {...}``: this process's index, the
-decision's wall, its collectives and the bytes each gathered, its syncs by
+decision's wall and the rounds it ran, its collectives and the bytes each gathered, its syncs by
 ``jitwatch`` label and its kernel launches.
 """
 
@@ -107,7 +107,7 @@ def main() -> None:
         print("stats " + json.dumps({
             "process": mesh.process_index, "processes": mesh.process_count,
             "device": str(mesh.home), "shards": list(mesh.local_shards),
-            "wall_ms": wall_ms, "collectives": count,
+            "wall_ms": wall_ms, "rounds": sim.metrics.get("rounds"), "collectives": count,
             "bytes_a_collective": (mesh.collective_bytes - gathered) // count if count else 0,
             "syncs": jitwatch.sync_counts(), "launches": dict(kernels.LAUNCHES),
         }), flush=True)

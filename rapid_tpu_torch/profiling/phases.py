@@ -26,7 +26,8 @@ the current state and inputs into those buffers, replays each graph and
 reads its events: device time from the graph's first node to its last,
 with no host enqueue inside it (events recorded around the replay on the
 host's side would count the host's delay in launching it). A
-captured ``fd_phase_fused`` counts in ``kernels.LAUNCHES`` once a replay. A
+captured kernel (``threefry_draw``, ``fd_phase_fused``) counts in
+``kernels.LAUNCHES`` once a replay. A
 prefix that cannot be captured raises. On the CPU a prefix's time is the
 host wall up to ``jitwatch.drain``, JAX's own source.
 
@@ -49,13 +50,11 @@ prefix; events recorded at the phase boundaries inside one captured
 ``step`` would need hooks in the engine's round and would time something
 JAX does not.
 
-The shadow must not perturb the run. The prefixes leave the state as it
-came, and where JAX's prefixes are pure because the PRNG key lives in the
-state, the port's random-loss draw comes from the simulator's
-``torch.Generator``: every prefix draws from a copy of it (a captured prefix
-from the generator registered with its graphs, set to the simulator's state
-before each replay), so a run with profiling on draws exactly what it draws
-with profiling off.
+The shadow must not perturb the run. As in JAX, the PRNG key lives in the
+state: a prefix reads the key from its copy of the state (a captured prefix
+from the graphs' static buffers, loaded before each replay) and the key it
+returns is thrown away, so a run with profiling on draws exactly what it
+draws with profiling off. The key is one of the graphs' static inputs.
 
 Overhead discipline: ``warm()`` runs every prefix once (building and loading
 the kernels) and, on the card, captures them, outside any timed window; a
@@ -85,23 +84,11 @@ _PROFILE_FNS = (step_fd_scan, step_cut_detector, step)
 TURN_ATTEMPTS = 3  # takes of a turn whose times do not rise
 
 
-def _copy(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
-    """A generator in ``generator``'s state, so a prefix's draw leaves the
-    simulator's own generator where it was."""
-    if generator is None:
-        return None
-    out = torch.Generator(device=generator.device)
-    out.set_state(generator.get_state())
-    return out
-
-
-def wall_ms(fn, config, state, inputs, random_loss: bool,
-            generator: Optional[torch.Generator]) -> float:
+def wall_ms(fn, config, state, inputs, random_loss: bool) -> float:
     """Host wall ms of one prefix call up to ``jitwatch.drain``: a prefix's
     time on the CPU, as JAX's ``_timed_ms`` takes it."""
-    generator = _copy(generator)
     t0 = time.perf_counter()
-    out = fn(config, state, inputs, random_loss, generator)
+    out = fn(config, state, inputs, random_loss)
     jitwatch.drain("sim.profile.sample", out)
     return (time.perf_counter() - t0) * 1000.0
 
@@ -126,27 +113,21 @@ class _Captured:
     """The three prefixes of one (config, shapes, ``random_loss``) class,
     captured as CUDA graphs over static input buffers."""
 
-    state: object  # the SimState of static buffers the graphs read
+    state: object  # the SimState of static buffers the graphs read, its key included
     inputs: object  # the RoundInputs of static buffers
-    generator: Optional[torch.Generator]  # registered with every graph
     graphs: Tuple[torch.cuda.CUDAGraph, ...]  # in _PROFILE_FNS order
     events: Tuple[Tuple[torch.cuda.Event, torch.cuda.Event], ...]  # each graph's first, last node
     outputs: Tuple  # each graph's outputs, kept alive in the class's pool
     launches: Tuple[Dict[str, int], ...]  # the kernel launches of one replay
 
-    def load(self, state, inputs, generator: Optional[torch.Generator]) -> None:
-        """Copy the current state and inputs into the static buffers and
-        set the registered generator to ``generator``'s state (in place:
-        the graphs hold that state, not the generator object)."""
+    def load(self, state, inputs) -> None:
+        """Copy the current state and inputs into the static buffers."""
         for static, live in ((self.state, state), (self.inputs, inputs)):
             for name, t in _tensors(live).items():
                 getattr(static, name).copy_(t)
-        if self.generator is not None:
-            self.generator.set_state(generator.get_state())
 
 
-def _capture(config, state, inputs, random_loss: bool,
-             generator: Optional[torch.Generator]) -> _Captured:
+def _capture(config, state, inputs, random_loss: bool) -> _Captured:
     """Capture every prefix of this class, each in its own graph, all in
     one private pool; the prefixes have run eagerly before, so nothing is
     built or loaded inside a capture."""
@@ -154,24 +135,21 @@ def _capture(config, state, inputs, random_loss: bool,
         state, **{name: t.clone() for name, t in _tensors(state).items()})
     static_inputs = dataclasses.replace(
         inputs, **{name: t.clone() for name, t in _tensors(inputs).items()})
-    gen = _copy(generator) if random_loss else None
     pool = torch.cuda.graph_pool_handle()
     graphs, events, outputs, launches = [], [], [], []
     for fn in _PROFILE_FNS:
         graph = torch.cuda.CUDAGraph()
-        if gen is not None:
-            graph.register_generator_state(gen)
         start, end = (torch.cuda.Event(enable_timing=True, external=True) for _ in range(2))
         with kernels.captured_launches() as counted, kernels.no_collection():
             with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                 start.record()
-                out = fn(config, static_state, static_inputs, random_loss, gen)
+                out = fn(config, static_state, static_inputs, random_loss)
                 end.record()
         graphs.append(graph)
         events.append((start, end))
         outputs.append(out)
         launches.append(counted)
-    return _Captured(static_state, static_inputs, gen, tuple(graphs), tuple(events),
+    return _Captured(static_state, static_inputs, tuple(graphs), tuple(events),
                      tuple(outputs), tuple(launches))
 
 
@@ -219,50 +197,46 @@ class PhaseProfiler:  # guarded-by: dispatch-thread
 
     # -- measurement --------------------------------------------------------
 
-    def _timed_ms(self, fn, config, state, inputs, random_loss: bool,
-                  generator: Optional[torch.Generator]) -> float:
+    def _timed_ms(self, fn, config, state, inputs, random_loss: bool) -> float:
         """One prefix's time: on a CUDA state the device ms of its graph's
         replay, between the events inside it, else its host wall
         (``wall_ms``)."""
         if not _on_card(state):
-            return wall_ms(fn, config, state, inputs, random_loss, generator)
+            return wall_ms(fn, config, state, inputs, random_loss)
         key = _class_key(config, state, inputs, random_loss)
         if key not in self._captured:
-            self.warm(config, state, inputs, random_loss, generator)
+            self.warm(config, state, inputs, random_loss)
         captured = self._captured[key]
         i = _PROFILE_FNS.index(fn)
-        captured.load(state, inputs, generator)
+        captured.load(state, inputs)
         captured.graphs[i].replay()
         kernels.count_replay(captured.launches[i])
         jitwatch.drain("sim.profile.sample", state)
         start, end = captured.events[i]
         return start.elapsed_time(end)
 
-    def warm(self, config, state, inputs, random_loss: bool = False,
-             generator: Optional[torch.Generator] = None) -> None:
+    def warm(self, config, state, inputs, random_loss: bool = False) -> None:
         """Run every shadow prefix once for this (config, shapes,
         random_loss) class, so the kernels are built and loaded, and on a
         CUDA state capture the prefixes; a capture is recorded with
         ``jitwatch`` as the class's compile (a violation inside a timed
         window, as a JAX compile is)."""
         for fn in _PROFILE_FNS:
-            jitwatch.drain("sim.profile.warm",
-                           fn(config, state, inputs, random_loss, _copy(generator)))
+            jitwatch.drain("sim.profile.warm", fn(config, state, inputs, random_loss))
         key = _class_key(config, state, inputs, random_loss)
         if not _on_card(state) or key in self._captured:
             return
         t0 = time.perf_counter()
         # torch.cuda.graph synchronizes the device before it captures
         with jitwatch.host_transfer("sim.profile.capture"):
-            self._captured[key] = _capture(config, state, inputs, random_loss, generator)
+            self._captured[key] = _capture(config, state, inputs, random_loss)
         jitwatch.record_compile("sim.profile.prefixes", time.perf_counter() - t0, "capture")
 
-    def _turn(self, config, state, inputs, random_loss: bool,
-              generator: Optional[torch.Generator]) -> Tuple[float, float, float]:
+    def _turn(self, config, state, inputs, random_loss: bool) -> Tuple[float, float, float]:
         """The three prefixes' times in order; on the card taken again
         while they do not rise, at most ``TURN_ATTEMPTS`` times."""
         for _ in range(TURN_ATTEMPTS if _on_card(state) else 1):
-            times = tuple(self._timed_ms(fn, config, state, inputs, random_loss, generator)
+            times = tuple(self._timed_ms(fn, config, state, inputs, random_loss)
                           for fn in _PROFILE_FNS)
             self.turns += 1
             if times[0] < times[1] < times[2]:
@@ -270,12 +244,11 @@ class PhaseProfiler:  # guarded-by: dispatch-thread
         return times
 
     def sample(self, config, state, inputs, random_loss: bool = False,
-               generator: Optional[torch.Generator] = None,
                repeats: int = 1) -> Dict[str, float]:
         """One shadow attribution of the current round's computation, from
         the turn with the least full step of ``repeats`` turns (the in-loop
         default is one)."""
-        turns = [self._turn(config, state, inputs, random_loss, generator)
+        turns = [self._turn(config, state, inputs, random_loss)
                  for _ in range(max(1, int(repeats)))]
         t_fd, t_cut, t_full = min(turns, key=lambda turn: turn[2])
         phases = {

@@ -39,13 +39,18 @@ Eager PyTorch cannot leave a loop on device data without a host sync, so the
 "until" runner evaluates its whole budget, with the rounds after the
 decision (and, under ``stop_when_announced``, after the first announcement)
 as masked no-ops, as the single-device loops do; halted state stays
-bit-equal. The FD kernel reads the halt flag on the device and leaves a
-halted round's planes as they were, so no plane is masked after it.
+bit-equal. The FD and draw kernels read the halt flag on the device and
+leave a halted round's planes and key as they were, so neither is masked
+after them.
 
-Random ingress loss: each shard draws its ``[C / n, K]`` block from its own
-``torch.Generator`` on its device (``shard_generators``). JAX folds the shard
-index into its key, so a lossy sharded run differs from a single-device run
-in both packages; such runs compare by outcome.
+Random ingress loss draws from the replicated key as JAX's sharded round
+does: each round splits it, and each shard draws its ``[C / n, K]`` block from
+the probe half folded with its linear shard index (row-major over the mesh
+axes), in one ``kernels.threefry_draw`` launch a device call, beside its
+``fd_phase_rows`` call; home's launch gives the new key. A round without loss
+still splits the key, in a launch that draws nothing. The bits are JAX's, so
+a lossy sharded run matches ``rapid_tpu.shard.engine`` round for round (it
+differs from a single-device run in both packages, by the fold).
 
 Several processes (``make_multihost_mesh(coordinator_address=...)``): every
 process runs the same program over the same global mesh, as JAX's SPMD
@@ -57,7 +62,7 @@ segments (``C * K / 8`` bytes in all), and every process gathers, tallies and
 decides on its own replicated state, which stays identical everywhere: the
 counterpart of JAX's one ``pmax`` a round, with no second collective. Every
 process evaluates every round of a budget, so all make the same collectives.
-Shards keep their global index wherever a seed or a row offset needs one, so
+Shards keep their global index wherever a fold or a row offset needs one, so
 a multi-process run equals the single-process run on a mesh of the same
 shape bit for bit, random loss included. The group is gloo's: NCCL refuses
 two ranks on one card, and gloo stages CUDA tensors through the host, so each
@@ -424,21 +429,6 @@ def gather_state(state: ShardedState) -> SimState:
                        for f in _FIELDS})
 
 
-def shard_seed(seed: int, shard: int) -> int:
-    """The seed of shard ``shard``'s random-loss generator in a
-    configuration seeded ``seed``: ``(seed << 16 | shard) mod 2**64``, for
-    shard indices below 2**16."""
-    assert 0 <= shard < 1 << 16
-    return ((seed << 16) | shard) % (1 << 64)
-
-
-def shard_generators(mesh: Mesh, seed: int) -> List[torch.Generator]:
-    """One ``torch.Generator`` for each of this process's shards, on its
-    device, seeded by ``shard_seed`` with the shard's global index."""
-    return [torch.Generator(device=mesh.device_list[s]).manual_seed(shard_seed(seed, s))
-            for s in mesh.local_shards]
-
-
 def device_groups(mesh: Mesh) -> List[Tuple[torch.device, List[int]]]:
     """This process's shards (global indices) grouped by device, in the mesh
     order of each device's first shard, and within a device in mesh order,
@@ -489,18 +479,15 @@ class _DeviceCall:
 
 def _run(
     config: SimConfig, mesh: Mesh, state: ShardedState, inputs: ShardedInputs,
-    rounds: int, random_loss: bool, generators: Optional[Sequence[torch.Generator]],
-    stop_when_announced: bool,
+    rounds: int, random_loss: bool, stop_when_announced: bool,
 ) -> ShardedState:
     """``rounds`` sharded rounds, each masked once the state has decided
     (or, with ``stop_when_announced``, once a group has announced): the FD
-    kernel reads the halt flag and leaves the planes as they were, and the
-    replicated state takes ``_select``. On a multi-process mesh each round
-    makes one all-gather of this process's run of segments."""
+    and draw kernels read the halt flag and leave the planes and the key as
+    they were, and the rest of the replicated state takes ``_select``. On a
+    multi-process mesh each round makes one all-gather of this process's run
+    of segments."""
     local = mesh.local_shards
-    if random_loss and (generators is None or len(generators) != len(local)):
-        raise ValueError("random_loss needs one torch.Generator for each of this "
-                         "process's shards")
     rows, k, g = config.capacity // mesh.size, config.k, config.groups
     words = kernels.segment_words(rows, k)
     policy = fd_kernel_policy(config)
@@ -536,29 +523,40 @@ def _run(
 
             def column(name):
                 return [block[name] for block in mine]
-            draws = ([torch.rand((rows, k), generator=generators[s - local.start], device=dev)
-                      for s in call.shards] if random_loss else None)
+            halt_dev = _to(halt, dev)
+            draws = None
+            if random_loss:
+                key, draw = kernels.threefry_draw(_to(home.rng_key, dev), rows, k, call.shards,
+                                                  halt=halt_dev)
+                if call is calls[0]:
+                    # home's call (device_groups starts at the process's
+                    # first shard): its split is the replicated key
+                    rng_key = key
+                draws = [draw[i * rows:(i + 1) * rows] for i in range(len(call.shards))]
             outs = kernels.fd_phase_rows(
                 *call.nodes, column("subjects"),
                 [inputs.probe_drop_rows[s - local.start] for s in call.shards],
                 draws, column("fd_fail"), column("alerted"), column("fd_streak"),
                 column("fd_ok"), _to(home.round, dev), call.segments,
                 row0=[s * rows for s in call.shards], fd_hist=column("fd_hist"),
-                fd_seen=column("fd_seen"), halt=_to(halt, dev), node_table=call.node_table,
+                fd_seen=column("fd_seen"), halt=halt_dev, node_table=call.node_table,
                 **policy,
             )
             if call.buffer is not None:
                 _exchange(bits, call.buffer, call.shards, words)
             for s, block, out in zip(call.shards, mine, outs):
                 blocks[s - local.start] = {**block, **dict(zip(_FD_OUTPUTS, out))}
+        if not random_loss:  # the round splits the key all the same
+            rng_key, _ = kernels.threefry_draw(home.rng_key, 0, k, halt=halt)
         if mesh.process_count > 1:
             _gather_ranks(mesh, bits, mine_bits, "shard.exchange")
         down_arrivals = kernels.fd_gather(home.active, home.observers, inputs.down_reports,
                                           bits, rows)
         tallied = route_and_tally(config, home, down_arrivals, inputs, home.active, alive,
                                   observers_idx=obs)
-        home = _select(halt, home, dataclasses.replace(
-            tallied, alive=inputs.alive, round=home.round + 1))
+        # the draw kernel has already kept a halted round's key
+        home = _select(halt, dataclasses.replace(home, rng_key=rng_key), dataclasses.replace(
+            tallied, alive=inputs.alive, round=home.round + 1, rng_key=rng_key))
     return ShardedState(**{f: getattr(home, f) for f in _FIELDS}, rows=tuple(blocks),
                         mesh=mesh)
 
@@ -570,15 +568,14 @@ def make_sharded_run(
     config: SimConfig, mesh: Mesh, rounds: int, random_loss: bool = True
 ) -> Runner:
     """The multi-device round loop of ``rounds`` rounds, masked after the
-    decision: ``run(state, inputs, generators=None)`` on a placed state and
-    placed inputs (``place_state``, ``place_inputs``). With ``random_loss``
-    each shard draws from its generator in ``generators`` (one a shard,
-    ``shard_generators``) every round. The input state is not modified."""
+    decision: ``run(state, inputs)`` on a placed state and placed inputs
+    (``place_state``, ``place_inputs``). With ``random_loss`` each shard
+    draws from the state's key every round. The input state is not
+    modified."""
     _check_capacity(config.capacity, mesh)
 
-    def run(state: ShardedState, inputs: ShardedInputs,
-            generators: Optional[Sequence[torch.Generator]] = None) -> ShardedState:
-        return _run(config, mesh, state, inputs, rounds, random_loss, generators, False)
+    def run(state: ShardedState, inputs: ShardedInputs) -> ShardedState:
+        return _run(config, mesh, state, inputs, rounds, random_loss, False)
 
     return run
 
@@ -587,18 +584,17 @@ def make_sharded_run_until(
     config: SimConfig, mesh: Mesh, random_loss: bool = True,
     stop_when_announced: bool = False,
 ) -> Runner:
-    """One dispatch of a decision: ``run_until(state, inputs, max_rounds,
-    generators=None)`` evaluates ``max_rounds`` rounds, those after the
-    decision (and, with ``stop_when_announced``, after the first group
-    announcement) as masked no-ops, so it ends where JAX's ``while_loop``
-    stops, with the same state. The budget is a plain argument: every batch
-    size shares one runner. The same round body as ``make_sharded_run``, so
-    the two give equal states and generators after equal budgets."""
+    """One dispatch of a decision: ``run_until(state, inputs, max_rounds)``
+    evaluates ``max_rounds`` rounds, those after the decision (and, with
+    ``stop_when_announced``, after the first group announcement) as masked
+    no-ops that keep the key, so it ends where JAX's ``while_loop`` stops,
+    with the same state. The budget is a plain argument: every batch size
+    shares one runner. The same round body as ``make_sharded_run``, so the
+    two give equal states after equal budgets."""
     _check_capacity(config.capacity, mesh)
 
-    def run_until(state: ShardedState, inputs: ShardedInputs, max_rounds: int,
-                  generators: Optional[Sequence[torch.Generator]] = None) -> ShardedState:
-        return _run(config, mesh, state, inputs, max_rounds, random_loss, generators,
+    def run_until(state: ShardedState, inputs: ShardedInputs, max_rounds: int) -> ShardedState:
+        return _run(config, mesh, state, inputs, max_rounds, random_loss,
                     stop_when_announced)
 
     return run_until

@@ -74,10 +74,10 @@ from ..shard.engine import (
     place_inputs,
     place_state,
     row_field,
-    shard_generators,
 )
 from ..slo import SloPlane
 from ..types import Endpoint, HandoffRequest, Put, PutAck
+from . import threefry
 from .classic import ClassicCoordinator
 from .engine import (
     FAST_RANK,
@@ -363,13 +363,12 @@ class Simulator:  # guarded-by: sim-loop
 
     def _fresh_state(self, seed: int) -> SimState:
         """Fresh-configuration state, built on the device
-        (engine.device_initial_state) and placed on the mesh if there is
-        one, and this configuration's random-loss generator, seeded as the
-        JAX driver seeds its PRNG key (on a mesh, one a shard,
-        ``shard.engine.shard_generators``). A speculated state for exactly
-        this configuration (``_speculate_view_change``) is taken instead of
-        a new build; the generators and the per-configuration latches are
-        set here either way."""
+        (engine.device_initial_state) with the key ``PRNGKey(seed)``, as the
+        JAX driver seeds it, and placed on the mesh if there is one. A
+        speculated state for exactly this configuration
+        (``_speculate_view_change``, built with the same seed) is taken
+        instead of a new build; the per-configuration latches are set here
+        either way."""
         # extern proposal rows, the per-sender vote dedup, and the classic
         # round counter are per-configuration, like every consensus latch
         self._extern_rows: dict = {}  # proposal-mask bytes -> extern row
@@ -384,10 +383,6 @@ class Simulator:  # guarded-by: sim-loop
         self._alive_dev = None
         self._probe_drop_dev = None  # partition set maps onto new adjacency
         self._down_reports_dev = None  # leave alerts map onto new adjacency
-        if self.mesh is None:
-            self._generator = torch.Generator(device=dev).manual_seed(seed)
-        else:
-            self._generators = shard_generators(self.mesh, seed)
         spec = self._spec
         if (
             spec is not None
@@ -400,13 +395,13 @@ class Simulator:  # guarded-by: sim-loop
             self._spec = None
             self.metrics.incr("speculation_hits_fresh_state")
             return self._adopt(spec[3])
-        return self._build_state(self.active, self.alive & self.active)
+        return self._build_state(self.active, self.alive & self.active, seed)
 
-    def _build_state(self, active: np.ndarray, alive: np.ndarray) -> SimState:
+    def _build_state(self, active: np.ndarray, alive: np.ndarray, seed: int) -> SimState:
         """A fresh configuration's state for ``active``/``alive`` on the
-        device (engine.device_initial_state), placed on the mesh if there is
-        one. Device ops and queued uploads only: no synchronizing call, so
-        the speculation worker can run it."""
+        device (engine.device_initial_state), its key ``PRNGKey(seed)``,
+        placed on the mesh if there is one. Device ops and queued uploads
+        only: no synchronizing call, so the speculation worker can run it."""
         state = device_initial_state(
             self.config,
             self._ring_rank_dev,
@@ -414,6 +409,7 @@ class Simulator:  # guarded-by: sim-loop
             self._tensor(alive),
             self._tensor(self.group_of),
             self._tensor(self.auto_vote),
+            self._tensor(np.array(threefry.key_words(seed), dtype=np.int64)),
         )
         return state if self.mesh is None else place_state(state, self.mesh)
 
@@ -1462,8 +1458,7 @@ class Simulator:  # guarded-by: sim-loop
         if self.mesh is None:
             inputs = self._const_inputs(None)
             for random_loss in (False, True):
-                prof.warm(self.config, self.state, inputs, random_loss,
-                          generator=self._generator)
+                prof.warm(self.config, self.state, inputs, random_loss)
         self._profiler = prof
         return prof
 
@@ -1553,10 +1548,11 @@ class Simulator:  # guarded-by: sim-loop
         Under a deterministic fault plane each batch is one closed-form
         dispatch (engine.run_until_decided_const); under random ingress loss
         it is a scan of ``step`` (engine.run_rounds_const), whose FD phase is
-        the CUDA kernel. On a mesh each batch is one dispatch of the sharded
-        runner (``shard.engine.make_sharded_run_until``), whose FD phase is
-        the CUDA kernels ``fd_phase_rows`` on every shard and ``fd_gather`` on
-        home. Either way the host syncs once per batch, fetching the packed
+        the CUDA kernels ``threefry_draw`` (the round's key split and draw)
+        and ``fd_phase_fused``. On a mesh each batch is one dispatch of the
+        sharded runner (``shard.engine.make_sharded_run_until``), whose FD
+        phase is the CUDA kernels ``threefry_draw`` and ``fd_phase_rows`` on
+        every device and ``fd_gather`` on home. Either way the host syncs once per batch, fetching the packed
         decision words (``jitwatch.fetch("sim.decision_words")``); while it
         waits, a worker builds the view change the fault plane predicts
         (``_speculate_view_change``). Each batch bills the ``rounds`` it
@@ -1582,11 +1578,10 @@ class Simulator:  # guarded-by: sim-loop
             prof = self._profiler
             if prof is not None:
                 # shadow attribution of 1-of-N dispatches against the live
-                # pre-dispatch state (the prefixes leave it, and the
-                # generator, as they were); the history ring ticks every one
+                # pre-dispatch state (the prefixes leave it, its key
+                # included, as it was); the history ring ticks every one
                 if self.mesh is None and prof.should_sample():
-                    prof.sample(self.config, self.state, inputs, random_loss,
-                                generator=self._generator)
+                    prof.sample(self.config, self.state, inputs, random_loss)
                 prof.tick_history()
             if stop_when_announced and not random_loss:
                 # the closed form pauses at the announcement round itself,
@@ -1602,12 +1597,11 @@ class Simulator:  # guarded-by: sim-loop
                         # no-ops; the budget is an argument, so every batch
                         # size shares one cached runner
                         self.state = self._sharded_run_until(random_loss, stop_when_announced)(
-                            self.state, inputs, n, self._generators)
+                            self.state, inputs, n)
                     elif random_loss:
                         for chunk in _pow2_chunks(n, batch):
                             self.state = run_rounds_const(
-                                self.config, self.state, inputs, chunk, True, self._generator
-                            )
+                                self.config, self.state, inputs, chunk, True)
                     else:
                         self.state = run_until_decided_const(
                             self.config, self.state, inputs, n,
@@ -1686,9 +1680,9 @@ class Simulator:  # guarded-by: sim-loop
         back). It makes no synchronizing call
         (torch's sync debug mode is process-global, so one would trip a
         timed window armed on the calling thread; a sync error it meets is
-        recorded in ``jitwatch.violations()``). It creates no generator and
-        touches no per-configuration latch: ``_fresh_state`` sets those on a
-        hit as on a miss."""
+        recorded in ``jitwatch.violations()``). It touches no
+        per-configuration latch: ``_fresh_state`` sets those on a hit as on a
+        miss."""
         if not self.speculate or self._pending_joiners:
             return None
         cut_pred = self.active & ~self.alive
@@ -1720,7 +1714,7 @@ class Simulator:  # guarded-by: sim-loop
                 with (torch.cuda.stream(stream) if stream is not None
                       else contextlib.nullcontext()):
                     cid = self._fold_configuration_id(new_active)
-                    state = self._build_state(new_active, alive_pred)
+                    state = self._build_state(new_active, alive_pred, seed)
                 self._spec = (key, seed, cid, state, alive_pred.tobytes())
             except Exception as exc:  # a failed guess must never break the run
                 jitwatch.record_sync_error("the speculation worker", exc)

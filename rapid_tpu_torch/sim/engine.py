@@ -29,9 +29,11 @@ decision (or, in the closed form, before the fast-forward start) is a masked
 no-op, exactly as ``step`` masks after a decision. The host syncs once per
 dispatch, on the packed decision words.
 
-Random ingress loss draws from an explicit ``torch.Generator``; its numbers
-differ from JAX's threefry, so lossy runs match the JAX engine bit for bit
-only where the draw cannot matter (drop probability 1.0).
+Random ingress loss draws from the state's key as JAX's engine does:
+threefry-2x32, split every round that is not masked, then a uniform
+``[C, K]`` block from the probe half, in the hand-written CUDA kernel
+``kernels.threefry_draw`` (``sim/threefry.py`` is its plain version). The
+bits are JAX's, so lossy runs match the JAX engine round for round.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, threefry
 from .topology import VirtualCluster, build_adjacency
 
 
@@ -127,9 +129,8 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclass(frozen=True)
 class SimState:
-    """Per-round protocol state (tensors on one device). The JAX
-    ``SimState`` without ``rng_key``: random loss draws from a
-    ``torch.Generator`` the caller holds."""
+    """Per-round protocol state (tensors on one device): the JAX
+    ``SimState``, field for field."""
 
     active: torch.Tensor  # bool[C] current membership
     alive: torch.Tensor  # bool[C] fault-model liveness (crashed => False)
@@ -161,6 +162,7 @@ class SimState:
     decided_group: torch.Tensor  # int32[] proposal row whose value won
     decided_round: torch.Tensor  # int32[] round at which decision happened
     round: torch.Tensor  # int32[] rounds elapsed in this configuration
+    rng_key: torch.Tensor  # int64[2] JAX's uint32 key words (threefry.prng_key)
 
 
 @dataclass(frozen=True)
@@ -183,19 +185,21 @@ def state_from_numpy(
     config: SimConfig, arrays: Dict[str, np.ndarray], device=None
 ) -> SimState:
     """A JAX ``SimState``, given as numpy arrays keyed by field name, as the
-    port's ``SimState`` on ``device``. ``rng_key`` is dropped; ``fd_hist`` is
-    widened from uint16 to int32."""
+    port's ``SimState`` on ``device``. ``fd_hist`` is widened from uint16 to
+    int32 and ``rng_key``'s uint32 words to int64."""
     dev = resolve_device(device)
     fields = {}
     for name in _FIELDS:
         arr = np.asarray(arrays[name])
         if name == "fd_hist":
             arr = arr.astype(np.int32)
+        elif name == "rng_key":
+            arr = arr.astype(np.int64)
         fields[name] = torch.from_numpy(np.array(arr)).to(dev)
     state = SimState(**fields)
     c, k, g, p = config.capacity, config.k, config.groups, config.proposal_rows
     want = {"fd_fail": (c, k), "reports": (g, c, k), "proposal": (p, c),
-            "arrival_hist": (config.max_delivery_delay, c, k)}
+            "arrival_hist": (config.max_delivery_delay, c, k), "rng_key": (2,)}
     for name, shape in want.items():
         if tuple(getattr(state, name).shape) != shape:
             raise ValueError(f"{name} has shape {tuple(getattr(state, name).shape)}, "
@@ -208,6 +212,7 @@ def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
     # a snapshot's copy, off the round loop  # devlint: sync-point
     out = {name: getattr(state, name).cpu().numpy() for name in _FIELDS}
     out["fd_hist"] = out["fd_hist"].astype(np.uint16)
+    out["rng_key"] = out["rng_key"].astype(np.uint32)
     return out
 
 
@@ -255,12 +260,12 @@ def initial_state(
     config: SimConfig,
     cluster: VirtualCluster,
     active: np.ndarray,
+    seed: int = 0,
     group_of: Optional[np.ndarray] = None,
     device=None,
 ) -> SimState:
-    """Fresh-configuration state from the host adjacency build. (The JAX
-    version's ``seed`` went into the state's key; the port's state holds no
-    key.)"""
+    """Fresh-configuration state from the host adjacency build, its key
+    ``PRNGKey(seed)``."""
     dev = resolve_device(device)
     subjects, observers = build_adjacency(cluster, active)
     c = config.capacity
@@ -274,6 +279,7 @@ def initial_state(
         subjects=torch.as_tensor(subjects, device=dev),
         observers=torch.as_tensor(observers, device=dev),
         auto_vote=torch.ones(c, dtype=torch.bool, device=dev),
+        rng_key=threefry.prng_key(seed, dev),
         **_fresh_fields(config, dev),
     )
 
@@ -524,37 +530,34 @@ def _fd_phase(
     state: SimState,
     inputs: RoundInputs,
     random_loss: bool,
-    generator: Optional[torch.Generator],
+    halt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Probe evaluation + alert routing, the leading phase of ``step``: the
-    round's uniform draw (with ``random_loss``), then the CUDA kernel
-    ``fd_phase_fused`` (its plain version for CPU tensors), which reads the
+    round's key split and, with ``random_loss``, its uniform ``[C, K]`` draw
+    (the CUDA kernel ``threefry_draw``; as in JAX the key advances with or
+    without a draw, and where ``halt`` holds it is kept), then the CUDA kernel
+    ``fd_phase_fused`` (plain versions for CPU tensors), which reads the
     state's int32 adjacency and its round counter directly, under the
-    config's FD policy. Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok,
-    down_arrivals, fd_hist, fd_seen)``."""
-    draw = None
-    if random_loss:
-        if generator is None:
-            raise ValueError("random_loss needs a torch.Generator")
-        draw = torch.rand(
-            (config.capacity, config.k), generator=generator, device=state.active.device
-        )
-    return kernels.fd_phase_fused(
+    config's FD policy. Returns ``(rng_key, alive, fd_fail, alerted,
+    fd_streak, fd_ok, down_arrivals, fd_hist, fd_seen)``."""
+    rows = config.capacity if random_loss else 0
+    rng_key, draw = kernels.threefry_draw(state.rng_key, rows, config.k, halt=halt)
+    return (rng_key,) + kernels.fd_phase_fused(
         state.active, inputs.alive, inputs.drop_prob, state.subjects,
-        state.observers, inputs.probe_drop, inputs.down_reports, draw,
+        state.observers, inputs.probe_drop, inputs.down_reports,
+        draw if random_loss else None,
         state.fd_fail, state.alerted, state.fd_streak, state.fd_ok, state.round,
         fd_hist=state.fd_hist, fd_seen=state.fd_seen, **fd_kernel_policy(config),
     )
 
 
 def _step(
-    config: SimConfig, state: SimState, inputs: RoundInputs,
-    random_loss: bool, generator: Optional[torch.Generator],
+    config: SimConfig, state: SimState, inputs: RoundInputs, random_loss: bool,
     obs: torch.Tensor,  # int64[C, K] state.observers, for route_and_tally
 ) -> SimState:
     halt = state.decided
-    (alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
-     fd_seen) = _fd_phase(config, state, inputs, random_loss, generator)
+    (rng_key, alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
+     fd_seen) = _fd_phase(config, state, inputs, random_loss, halt)
     tallied = route_and_tally(
         config, state, down_arrivals, inputs, state.active, alive,
         observers_idx=obs,
@@ -569,20 +572,21 @@ def _step(
         fd_ok=fd_ok,
         alerted=alerted,
         round=state.round + 1,
+        rng_key=rng_key,
     )
     # after a decision the configuration is frozen until the host applies the
-    # view change: all updates become no-ops
-    return _select(halt, state, new_state)
+    # view change: all updates become no-ops (the draw kernel has already
+    # kept the key, so it passes through)
+    return _select(halt, dataclasses.replace(state, rng_key=rng_key), new_state)
 
 
 def step(
-    config: SimConfig, state: SimState, inputs: RoundInputs,
-    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+    config: SimConfig, state: SimState, inputs: RoundInputs, random_loss: bool = True,
 ) -> SimState:
-    """One protocol round. With ``random_loss`` the per-edge ingress loss is
-    drawn from ``generator``, which is then required; without it no number
-    is drawn."""
-    return _step(config, state, inputs, random_loss, generator, state.observers.long())
+    """One protocol round. The state's key is split; with ``random_loss``
+    the per-edge ingress loss is drawn from its probe half, without it no
+    number is drawn."""
+    return _step(config, state, inputs, random_loss, state.observers.long())
 
 
 # --------------------------------------------------------------------- #
@@ -592,20 +596,20 @@ def step(
 # shadow profiler can time consecutive prefixes and difference them:
 # per-phase wall time then sums to the full step by construction. No
 # dispatch path calls them. They leave their arguments as they came (the
-# FD kernel writes fresh outputs), and with ``random_loss`` they draw from
-# ``generator``, so the profiler hands them a copy of the simulator's.
+# kernels write fresh outputs, the key's split included), so a prefix draws
+# what the round would.
 
 
 def step_fd_scan(
-    config: SimConfig, state: SimState, inputs: RoundInputs,
-    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+    config: SimConfig, state: SimState, inputs: RoundInputs, random_loss: bool = True,
 ) -> Tuple[SimState, torch.Tensor]:
     """FD-scan prefix: probe evaluation and alert routing only, through the
-    same ``_fd_phase`` as ``step`` (on a CUDA state, the kernel
-    ``fd_phase_fused``). Returns the partially updated state (the round not
-    advanced) and the ``down_arrivals`` gather."""
-    (_alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
-     fd_seen) = _fd_phase(config, state, inputs, random_loss, generator)
+    same ``_fd_phase`` as ``step`` (on a CUDA state, the kernels
+    ``threefry_draw`` and ``fd_phase_fused``). Returns the partially updated
+    state (the round not advanced, the key split) and the ``down_arrivals``
+    gather."""
+    (rng_key, _alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
+     fd_seen) = _fd_phase(config, state, inputs, random_loss)
     partial = dataclasses.replace(
         state,
         alive=inputs.alive,
@@ -615,19 +619,19 @@ def step_fd_scan(
         fd_streak=fd_streak,
         fd_ok=fd_ok,
         alerted=alerted,
+        rng_key=rng_key,
     )
     return partial, down_arrivals
 
 
 def step_cut_detector(
-    config: SimConfig, state: SimState, inputs: RoundInputs,
-    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+    config: SimConfig, state: SimState, inputs: RoundInputs, random_loss: bool = True,
 ) -> SimState:
     """FD-scan + cut-detector prefix: everything in ``step`` through
     proposal emission; vote casting and the fast-round tally are skipped
     (``route_and_tally(stop_after_cut=True)``)."""
-    (alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
-     fd_seen) = _fd_phase(config, state, inputs, random_loss, generator)
+    (rng_key, alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
+     fd_seen) = _fd_phase(config, state, inputs, random_loss)
     tallied = route_and_tally(config, state, down_arrivals, inputs, state.active, alive,
                               stop_after_cut=True)
     return dataclasses.replace(
@@ -640,36 +644,36 @@ def step_cut_detector(
         fd_ok=fd_ok,
         alerted=alerted,
         round=state.round + 1,
+        rng_key=rng_key,
     )
 
 
 def run_rounds(
-    config: SimConfig, state: SimState, inputs: RoundInputs,
-    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+    config: SimConfig, state: SimState, inputs: RoundInputs, random_loss: bool = True,
 ) -> SimState:
     """``step`` over stacked per-round inputs (each field's leading axis is
     the round), one round per slice; rounds after a decision are masked
     no-ops. JAX's ``run_rounds`` always draws (``random_loss`` on); without
     loss (drop probability 0) the draw cannot matter, so the port may skip
-    it."""
+    it: the key advances alike."""
     rounds = inputs.alive.shape[0]
     obs = state.observers.long()
     for r in range(rounds):
         per_round = RoundInputs(
             **{f.name: getattr(inputs, f.name)[r] for f in dataclasses.fields(RoundInputs)})
-        state = _step(config, state, per_round, random_loss, generator, obs)
+        state = _step(config, state, per_round, random_loss, obs)
     return state
 
 
 def run_rounds_const(
     config: SimConfig, state: SimState, inputs: RoundInputs, rounds: int,
-    random_loss: bool = True, generator: Optional[torch.Generator] = None,
+    random_loss: bool = True,
 ) -> SimState:
     """``rounds`` rounds of ``step`` under a constant fault plane; rounds
     after a decision are masked no-ops. The input state is not modified."""
     obs = state.observers.long()
     for _ in range(rounds):
-        state = _step(config, state, inputs, random_loss, generator, obs)
+        state = _step(config, state, inputs, random_loss, obs)
     return state
 
 
@@ -695,7 +699,8 @@ def run_until_decided_const(
     ``stop_when_announced``, at the first group announcement). Here the
     rounds outside that window run as masked no-ops: the dispatch always
     evaluates ``max_rounds`` rounds and needs no host sync. The result equals
-    the JAX function's field for field; it draws no random numbers.
+    the JAX function's field for field; it draws no random numbers and
+    leaves the key as it came.
     """
     subj, obs = state.subjects.long(), state.observers.long()
     active = state.active
@@ -830,6 +835,7 @@ def device_initial_state(
     alive: torch.Tensor,  # bool[C]
     group_of: torch.Tensor,  # int32[C]
     auto_vote: torch.Tensor,  # bool[C]
+    rng_key: torch.Tensor,  # int64[2] the configuration's key (threefry.prng_key)
 ) -> SimState:
     """Fresh-configuration state built on the device: a masked stable sort
     of the resident per-ring ranks (inactive entries sort to the end), then
@@ -860,6 +866,7 @@ def device_initial_state(
         subjects=subjects,
         observers=observers,
         auto_vote=auto_vote,
+        rng_key=rng_key,
         **_fresh_fields(config, dev),
     )
 

@@ -31,7 +31,7 @@ import sys
 
 import torch
 
-from . import engine, kernels
+from . import engine, kernels, threefry
 
 L2_BYTES = 50e6  # H100 L2 cache
 
@@ -157,7 +157,7 @@ def fused_case(c: int, seed: int, device, random: bool, k: int = 10):
     state = engine.device_initial_state(
         engine.SimConfig(capacity=c, k=k), ranks, active, active.clone(),
         torch.zeros(c, dtype=torch.int32, device=device),
-        torch.ones(c, dtype=torch.bool, device=device),
+        torch.ones(c, dtype=torch.bool, device=device), threefry.prng_key(seed, device),
     )
     return (
         active, rand(c) < 0.99, rand(c) * (rand(c) < 0.05), state.subjects,

@@ -16,6 +16,10 @@ their build and their launch counters.
   (up to ``MAX_SHARDS_PER_CALL``), writing each shard's new_down bits into
   its segment of a per-shard bitset (``segment_words``), and the home
   device runs ``fd_gather`` over every destination from all the segments.
+- ``threefry_draw`` (``csrc/threefry.cu``) is a round's random ingress-loss
+  draw: JAX's threefry key split and uniform block, bit for bit (the plain
+  version is ``sim/threefry.py``), on one device or for the shards of one
+  device's call.
 - ``placement_topr`` (``csrc/placement_topr.cu``) is the placement plane's
   rendezvous top-R; its wrapper and plain version live beside the plane,
   in ``rapid_tpu_torch/placement/device.py``, and build and count here.
@@ -50,11 +54,12 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..runtime import jitwatch
+from . import threefry
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -66,7 +71,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "fd_phase_i32": 0, "fd_phase_u8": 0, "fd_phase_fused": 0, "fd_phase_fused_windowed": 0,
     "fd_phase_rows": 0, "fd_phase_rows_windowed": 0, "fd_gather": 0,
-    "placement_topr": 0,
+    "threefry_draw": 0, "placement_topr": 0,
 }
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -76,6 +81,7 @@ _ARGTYPES = {
     "fd_phase_fused": [_P] * 25 + [_LL] + [_I] * 7 + [_P],
     "fd_phase_rows": [_P] * 5 + [ctypes.POINTER(_LL), _I, _P, _LL] + [_I] * 7 + [_P],
     "fd_gather": [_P] * 5 + [_LL, _I, _LL, _LL, ctypes.c_uint, _I, _P],
+    "threefry_draw": [_P, _P, _P, _P, _LL, ctypes.POINTER(_I), _I, _P],
     "placement_topr": [_P, _LL, _P, _LL, _I, _P, _P, _P, _LL, _P, _P] + [_I] * 5 + [_P],
 }
 # shards of one fd_phase_rows call: its C entry point takes them as a table
@@ -880,3 +886,53 @@ def fd_gather(
     if c * k:
         LAUNCHES[name] += 1
     return down_arrivals
+
+
+def threefry_draw(
+    key: torch.Tensor, rows: int, k: int, shards: Optional[Sequence[int]] = None,
+    halt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round's key split and uniform draw in the CUDA kernel
+    ``threefry_draw`` (``threefry.draw_plain`` for a CPU key): ``key`` is the
+    state's int64 ``[2]`` key. Returns ``(new key, draw)``, the draw float32
+    ``[rows, k]`` from the probe key, or, with ``shards`` (the global shard
+    indices of one device's call, at most ``MAX_SHARDS_PER_CALL``), each
+    shard's ``[rows, k]`` block from the probe key folded with its index,
+    stacked in that order. ``rows`` 0 only splits the key. ``halt``, a 0-d
+    bool on the key's device read by the kernel: when it holds True the
+    round is halted and the new key is ``key`` as it came (the draw is the
+    same either way). Launched on the key's device and stream; one launch
+    counted a call."""
+    name = "threefry_draw"
+    if key.dtype != torch.int64 or tuple(key.shape) != (2,):
+        raise TypeError(f"{name}: key must be int64 [2], got {key.dtype} {tuple(key.shape)}")
+    if halt is not None:
+        _check(name, [("halt", halt, torch.bool, ())], key.device)
+    if rows < 0 or k < 1:
+        raise ValueError(f"{name}: rows {rows} and k {k} out of range")
+    if shards is not None:
+        shards = [int(s) for s in shards]
+        if not 1 <= len(shards) <= MAX_SHARDS_PER_CALL:
+            raise ValueError(f"{name}: {len(shards)} shards, 1 to {MAX_SHARDS_PER_CALL} a call")
+        if not all(0 <= s < 1 << 31 for s in shards):
+            raise ValueError(f"{name}: shard indices {shards} outside [0, 2**31)")
+    if key.device.type == "cpu":
+        return threefry.draw_plain(key, rows, k, shards, halt)
+    if key.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {key.device}")
+    if not key.is_contiguous():
+        raise ValueError(f"{name}: key must be contiguous")
+    n_shards = 0 if shards is None else len(shards)
+    key_out = torch.empty_like(key)
+    draw = torch.empty((max(n_shards, 1) * rows, k), dtype=torch.float32, device=key.device)
+    with torch.cuda.device(key.device), _traced(name):
+        err = _function(name)(
+            _ptr(key), _ptr(key_out), _ptr(halt), _ptr(draw) if draw.numel() else None,
+            rows * k,
+            (_I * max(n_shards, 1))(*(shards or [0])), n_shards,
+            torch.cuda.current_stream(key.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return key_out, draw

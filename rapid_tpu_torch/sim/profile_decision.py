@@ -21,7 +21,8 @@ line with:
   the worker on a hit); ``speculation_hits``;
 - ``device_busy_ms``, ``kernels``, ``idle_share``: from a torch.profiler trace
   of a third decision, the summed duration of the GPU activity (kernels and
-  copies), their count, and 1 - busy / profiled wall;
+  copies), their count, and 1 - busy / profiled wall; ``annotations``, the
+  ranges the trace names around the hand-written kernels, counted apart;
 - ``top_device_ops``: the operators with the most GPU time in that trace;
 - ``syncs``: synchronizing CUDA calls (torch's sync debug mode), by source
   line.
@@ -65,7 +66,7 @@ def _split(sim: Simulator, branch: str) -> dict:
     if branch == "closed_form":
         state = run_until_decided_const(sim.config, sim.state, inputs, 16, True)
     else:
-        state = run_rounds_const(sim.config, sim.state, inputs, 16, True, sim._generator)
+        state = run_rounds_const(sim.config, sim.state, inputs, 16, True)
     sim.state = state
     packed = pack_decision(sim.config, state)
     t1 = time.perf_counter()
@@ -108,7 +109,10 @@ def profile_gpu(fn, passes=()) -> dict:
     host-clock ``profiled_wall_ms``, ``idle_share``, the operators with the
     most GPU time, the ``copies`` and their ``copy_us``, and the device µs
     of each name in ``passes`` (summed over the kernels whose name holds
-    it)."""
+    it). The ranges that ``kernels._traced`` names around a hand-written
+    kernel's launch show on the GPU's timeline too; they are neither a
+    kernel nor a copy and overlap the kernel they name, so they are counted
+    apart, as ``annotations``, and not in the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -116,7 +120,8 @@ def profile_gpu(fn, passes=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in on_gpu if not e.is_user_annotation]
 
     def us(name):
         return sum(e.time_range.elapsed_us() for e in device if name in e.name)
@@ -130,6 +135,7 @@ def profile_gpu(fn, passes=()) -> dict:
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "kernels": len(device),
+        "annotations": len(on_gpu) - len(device),
         "idle_share": 1.0 - busy_ms / wall_ms,
         "top_device_ops": [{"op": k, "device_ms": ms, "calls": n} for k, ms, n in by_op],
         "copies": sum("emcpy" in e.name for e in device),  # Memcpy DtoD/HtoD/DtoH

@@ -63,8 +63,7 @@ def main() -> None:
             "generated by tests/golden/generate_torch_search.py with rapid_tpu's search "
             "and forensics planes on the CPU (chip_smoke.py's search_sequence: full at the "
             "CLI's and README's budgets and a 100 000-member sim probe, reduced at 30 and "
-            "10 probes and capacity 5); the port must give every value exactly, but for sim "
-            "probes whose plans draw loss below 1.0 (verdicts and configuration id)"
+            "10 probes and capacity 5); the port must give every value exactly"
         ),
         "full": jax_run("full"),
         "reduced": jax_run("reduced"),

@@ -1,6 +1,8 @@
 """The PyTorch port on an NVIDIA GPU against the same port on the CPU (which
 the other test_torch_* files hold against the JAX package), every state
-field. Exact equality: the engine is integer and boolean only.
+field. Exact equality: the engine is integer and boolean only, and its
+random draw is threefry's bits on both (the kernel ``threefry_draw`` against
+its plain version, held here too).
 
 Every test here needs the card and skips without one. This file imports
 neither JAX nor rapid_tpu, so it also runs where JAX is not installed; there,
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from rapid_tpu_torch.shard.engine import gather_state, make_mesh
-from rapid_tpu_torch.sim import engine
+from rapid_tpu_torch.sim import engine, kernels, threefry
 from rapid_tpu_torch.sim.driver import Simulator
 
 pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
@@ -77,19 +79,18 @@ def test_sharded_simulator_on_card_matches_cpu(cuda_device, name):
 
 
 def test_scan_path_state_on_card_matches_cpu(cuda_device):
-    """Every field after a lossy scan (drop probability 1.0, so the two
-    generators' draws cannot matter) and the packed words."""
+    """Every field after a lossy scan (drop probabilities 1.0 and 0.5: the
+    card's threefry draw is the CPU's, bit for bit) and the packed words."""
     config = engine.SimConfig(capacity=512, groups=2, fd_gray_confirm=3)
     outs = []
     for device in ("cpu", cuda_device):
         sim = Simulator(500, capacity=512, config=config, seed=2, device=device)
         sim.set_delivery_groups(np.arange(512, dtype=np.int32) % 2)
         sim.ingress_loss(np.array([3, 77]), 1.0)
+        sim.ingress_loss(np.array([200, 301, 450]), 0.5)
         sim.crash(np.array([100]))
         sim.drop_broadcasts(1, np.array([9]))
-        state = engine.run_rounds_const(
-            config, sim.state, sim._const_inputs(None), 14, True, sim._generator
-        )
+        state = engine.run_rounds_const(config, sim.state, sim._const_inputs(None), 14, True)
         outs.append((engine.state_to_numpy(state),
                      engine.pack_decision(config, state).cpu().numpy()))
     np.testing.assert_array_equal(outs[1][1], outs[0][1])
@@ -156,10 +157,10 @@ def test_speculation_and_timed_window_on_card(cuda_device, monkeypatch, branch):
 @pytest.mark.parametrize("policy", ["cumulative", "windowed"])
 def test_profiler_times_graph_replays_on_card(cuda_device, policy):
     """At 1000 members, every dispatch sampled on the scan path: every phase
-    of every one-shot sample above 0, the FD kernel counted once a replay
-    (3 a turn, and ``turns`` counts every turn taken),
-    the captured full step equal to the eager one on the same generator
-    state, and the simulator's generator untouched by a sample."""
+    of every one-shot sample above 0, the FD kernel and ``threefry_draw``
+    counted once a replay (3 a turn, and ``turns`` counts every turn taken),
+    the captured full step equal to the eager one, the key included, and the
+    state's key untouched by a sample."""
     from rapid_tpu_torch.profiling import phases
     from rapid_tpu_torch.settings import ProfilingSettings
     from rapid_tpu_torch.sim import kernels
@@ -171,7 +172,7 @@ def test_profiler_times_graph_replays_on_card(cuda_device, policy):
     sim.crash(victims)
     sim.ingress_loss(victims, 1.0)
     inputs, state = sim._const_inputs(None), sim.state
-    generator = phases._copy(sim._generator)
+    key = state.rng_key.clone()
     counter = "fd_phase_fused_windowed" if policy == "windowed" else "fd_phase_fused"
     replays = []
     timed_ms = prof._timed_ms
@@ -184,12 +185,13 @@ def test_profiler_times_graph_replays_on_card(cuda_device, policy):
     kernels.reset_launches()
     samples = []
     for _ in range(4):
-        samples.append(prof.sample(sim.config, state, inputs, True, sim._generator))
+        samples.append(prof.sample(sim.config, state, inputs, True))
     assert len(replays) == 3 * prof.turns >= 12 and kernels.LAUNCHES[counter] == len(replays)
+    assert kernels.LAUNCHES["threefry_draw"] == len(replays)
     assert all(s[p] > 0 for s in samples for p in phases.DEVICE_PHASES), samples
-    assert torch.equal(generator.get_state(), sim._generator.get_state())
+    assert torch.equal(state.rng_key, key)
     captured = prof._captured[phases._class_key(sim.config, state, inputs, True)]
-    eager = engine.step(sim.config, state, inputs, True, phases._copy(generator))
+    eager = engine.step(sim.config, state, inputs, True)
     for field, value in phases._tensors(eager).items():
         assert torch.equal(getattr(captured.outputs[2], field), value), field
     rec = sim.run_until_decision(max_rounds=16, batch=1)
@@ -198,16 +200,18 @@ def test_profiler_times_graph_replays_on_card(cuda_device, policy):
 
 def test_profiling_prefixes_on_card_match_cpu(cuda_device):
     """``step_fd_scan`` and ``step_cut_detector`` on the card (through
-    ``fd_phase_fused``) against the CPU, every field, mid-decision."""
+    ``threefry_draw`` and ``fd_phase_fused``) against the CPU, every field,
+    mid-decision, under ingress loss 1.0 and 0.5."""
     outs = []
     for device in ("cpu", cuda_device):
         sim = Simulator(1000, seed=8, device=device)
         sim.crash(np.arange(3, 1000, 101))
         sim.ingress_loss(np.arange(5, 1000, 89), 1.0)
+        sim.ingress_loss(np.arange(7, 1000, 131), 0.5)
         inputs = sim._const_inputs(None)
-        state = engine.run_rounds_const(sim.config, sim.state, inputs, 9, True, sim._generator)
-        partial, down = engine.step_fd_scan(sim.config, state, inputs, True, sim._generator)
-        cut = engine.step_cut_detector(sim.config, state, inputs, True, sim._generator)
+        state = engine.run_rounds_const(sim.config, sim.state, inputs, 9, True)
+        partial, down = engine.step_fd_scan(sim.config, state, inputs, True)
+        cut = engine.step_cut_detector(sim.config, state, inputs, True)
         outs.append((engine.state_to_numpy(partial), down.cpu().numpy(),
                      engine.state_to_numpy(cut)))
     np.testing.assert_array_equal(outs[1][1], outs[0][1])
@@ -481,3 +485,41 @@ def test_placement_topr_refused_plan_raises_on_card(cuda_device, change):
     with pytest.raises(RuntimeError, match="CUDA error"):
         pdev._placement_topr(*(t.to(cuda_device) for t in (part, inst, w, active)), 3,
                              plan=plan)
+
+
+@pytest.mark.parametrize("rows, k, shards", [
+    (1, 1, None), (37, 10, None), (100_000, 10, None), (0, 10, None),
+    (12_500, 10, list(range(8))), (25_000, 10, [3, 1]), (5, 3, [15]),
+])
+def test_threefry_draw_kernel_matches_plain(cuda_device, rows, k, shards):
+    """The kernel ``threefry_draw`` against its plain version: the split key
+    and every bit of the draw, one launch counted a call, the key read but
+    not written."""
+    for seed in (0, 3, 2**31 - 1):
+        key = threefry.prng_key(seed)
+        want_key, want = threefry.draw_plain(key, rows, k, shards)
+        card_key = key.to(cuda_device)
+        before = kernels.LAUNCHES["threefry_draw"]
+        got_key, got = kernels.threefry_draw(card_key, rows, k, shards)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["threefry_draw"] == before + 1
+        assert torch.equal(card_key.cpu(), key)
+        assert torch.equal(got_key.cpu(), want_key)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows, shards", [(100_000, None), (0, None), (12_500, [3, 1])])
+@pytest.mark.parametrize("halted", [False, True])
+def test_threefry_draw_kernel_reads_the_halt_flag(cuda_device, halted, rows, shards):
+    """The kernel reads the halt flag on the card: halted, the new key is the
+    key as it came, else the split's; the draw is the plain version's either
+    way."""
+    key = threefry.prng_key(3)
+    want_key, want = threefry.draw_plain(key, rows, 10, shards, halt=torch.tensor(halted))
+    got_key, got = kernels.threefry_draw(key.to(cuda_device), rows, 10, shards,
+                                         halt=torch.tensor(halted, device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(want_key, key) == halted
+    assert torch.equal(got_key.cpu(), want_key)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

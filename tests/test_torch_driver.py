@@ -1,9 +1,9 @@
 """The PyTorch port's Simulator against the JAX Simulator, seeded alike and
 driven through the same fault schedule: each view change must decide the same
 cut, add and remove the same nodes, and land on the same configuration id,
-virtual time and member list. Random ingress loss below probability 1.0 is
-compared by outcome only, since torch.Generator and threefry draw different
-numbers."""
+virtual time, rounds run and member list, and the two states must be equal
+field by field, the PRNG key included. Random ingress loss below probability
+1.0 is held the same way: the port draws threefry's bits from the same key."""
 
 import subprocess
 import sys
@@ -42,6 +42,10 @@ def _assert_same(jax_sim, port_sim, jax_rec, port_rec):
     np.testing.assert_array_equal(port_sim.members(), jax_sim.members())
     assert port_sim.virtual_ms == jax_sim.virtual_ms
     assert port_sim.configuration_id() == jax_sim.configuration_id()
+    assert port_sim.metrics.get("rounds") == jax_sim.metrics.get("rounds")
+    for name, value in teng.state_to_numpy(port_sim.state).items():
+        np.testing.assert_array_equal(value, np.asarray(getattr(jax_sim.state, name)),
+                                      err_msg=f"state field {name}")
 
 
 def _drive(pair, fault, **run):
@@ -75,13 +79,12 @@ def test_ingress_loss_at_probability_one():
 
 
 def test_ingress_loss_at_eighty_percent_decides_same_cut():
-    cuts = []
-    for sim in _pair(30, seed=4):
-        sim.ingress_loss(np.array([11]), 0.8)
-        rec = sim.run_until_decision(max_rounds=64)
-        assert rec is not None
-        cuts.append(rec.cut.tolist())
-    assert cuts == [[11], [11]]
+    pair = _pair(30, seed=4)
+    # mid-decision first: the lossy scan's states equal after a dispatch
+    _assert_same(*pair, *(s.ingress_loss(np.array([11]), 0.8) or s.run_until_decision(
+        max_rounds=5, batch=5) for s in pair))
+    rec = _drive(pair, lambda s: None, max_rounds=64)
+    assert rec.cut.tolist() == [11]
 
 
 def test_graceful_leave():
@@ -190,6 +193,12 @@ def test_resume_from_jax_snapshot(tmp_path):
     restored = JaxSimulator.from_configuration(path)
     rec = _drive((restored, port_sim), lambda s: s.crash(np.array([28])), max_rounds=40)
     assert rec.cut.tolist() == [28]
+    # a lossy run resumed from the snapshot: the restored key draws alike
+    port_sim = Simulator.from_configuration(path, device="cpu")
+    restored = JaxSimulator.from_configuration(path)
+    rec = _drive((restored, port_sim), lambda s: s.ingress_loss(np.array([3, 17]), 0.5),
+                 max_rounds=64)
+    assert rec.cut.tolist() == [3, 17]
 
 
 def test_delivery_groups_and_delays():

@@ -1,8 +1,9 @@
 """The PyTorch port's round engine against the JAX engine: both start from the
 same state (carried across with ``state_from_numpy``) under the same fault
 plane, made with numpy from a seed, and every ``SimState`` field must come out
-equal, dtype included. The engine is integer and boolean only, so the
-tolerance is zero."""
+equal, dtype included, the PRNG key among them. The engine is integer and
+boolean only, and its random ingress loss draws JAX's own threefry bits, so
+the tolerance is zero at every loss probability."""
 
 import dataclasses
 
@@ -16,6 +17,7 @@ from rapid_tpu.sim import engine as jeng
 from rapid_tpu.sim.driver import Simulator as JaxSimulator
 from rapid_tpu.sim.topology import VirtualCluster
 from rapid_tpu_torch.sim import engine as teng
+from rapid_tpu_torch.sim import threefry
 from rapid_tpu_torch.sim.topology import VirtualCluster as PortCluster
 
 pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
@@ -41,7 +43,7 @@ def _port_inputs(config, inputs):
 
 def _assert_states_equal(jax_state, port_state):
     got = teng.state_to_numpy(port_state)
-    assert set(got) == set(jax_state.__dataclass_fields__) - {"rng_key"}
+    assert set(got) == set(jax_state.__dataclass_fields__)
     for name, value in got.items():
         want = np.asarray(getattr(jax_state, name))
         assert value.dtype == want.dtype, name
@@ -172,21 +174,38 @@ def test_run_until_decided_const_resumes_across_dispatches():
 
 
 def test_random_loss_at_probability_one_matches_jax():
-    """Random ingress loss draws from a torch.Generator, whose numbers differ
-    from threefry's; at drop probability 1.0 every draw drops, so the scan
-    path must match the JAX scan in every field but the key."""
+    """At drop probability 1.0 every draw drops: the scan path matches the
+    JAX scan in every field, the key split once a round included."""
     config, state, crash_inputs = _scenario("crash")
     drop_prob = np.zeros(32, np.float32)
     drop_prob[[2, 13]] = 1.0
     inputs = jeng.const_inputs(config, np.asarray(crash_inputs.alive), drop_prob=drop_prob)
     want = jeng.run_rounds_const(config, state, inputs, 14, True)
-    gen = torch.Generator().manual_seed(0)
     got = teng.run_rounds_const(
         _port_config(config), _port_state(config, state), _port_inputs(config, inputs),
-        14, True, gen,
+        14, True,
     )
     _assert_states_equal(want, got)
     assert bool(want.decided)
+
+
+@pytest.mark.parametrize("name", ["crash", "groups_deliver", "staggered_phases", "gray_streak"])
+@pytest.mark.parametrize("probability", [0.3, 0.5, 0.8])
+def test_random_loss_below_probability_one_matches_jax(name, probability):
+    """Below probability 1.0 the draw decides which probes drop: the port's
+    threefry draw is JAX's, so every field, the key included, is equal after
+    each of several dispatches of the scan."""
+    config, state, base = _scenario(name)
+    drop_prob = np.zeros(32, np.float32)
+    drop_prob[[2, 13, 20]] = probability
+    inputs = jeng.const_inputs(config, np.asarray(base.alive), drop_prob=drop_prob,
+                               deliver=np.asarray(base.deliver))
+    want, got = state, _port_state(config, state)
+    for rounds in (5, 9, 16):
+        want = jeng.run_rounds_const(config, want, inputs, rounds, True)
+        got = teng.run_rounds_const(_port_config(config), got, _port_inputs(config, inputs),
+                                    rounds, True)
+        _assert_states_equal(want, got)
 
 
 def test_step_matches_jax():
@@ -211,12 +230,13 @@ def test_device_initial_state_matches_jax(n_active):
     want = jeng.device_initial_state(
         config, jnp.asarray(cluster.ring_rank()), jnp.asarray(active),
         jnp.asarray(alive), jnp.asarray(group_of), jnp.asarray(auto_vote),
-        jax.random.PRNGKey(0),
+        jax.random.PRNGKey(n_active),
     )
     got = teng.device_initial_state(
         _port_config(config), torch.from_numpy(cluster.ring_rank()),
         torch.from_numpy(active), torch.from_numpy(alive),
         torch.from_numpy(group_of), torch.from_numpy(auto_vote),
+        threefry.prng_key(n_active),
     )
     _assert_states_equal(want, got)
 
@@ -262,13 +282,17 @@ def test_const_inputs_and_initial_state_match_jax():
 
 def test_unported_options_raise():
     """Every engine entry point is ported (the profiling prefixes since they
-    were stubs); what raises is a random-loss round with no generator to
-    draw from, and a config the JAX engine rejects too."""
+    were stubs, random loss on and off); what raises is a state whose key is
+    not the int64 ``[2]`` the draw takes, and a config the JAX engine rejects
+    too."""
     config, state, inputs = _scenario("crash")
-    args = (_port_config(config), _port_state(config, state), _port_inputs(config, inputs))
+    pconfig, pstate, pinputs = (_port_config(config), _port_state(config, state),
+                                _port_inputs(config, inputs))
+    bad = dataclasses.replace(pstate, rng_key=pstate.rng_key.to(torch.int32))
     for prefix in (teng.step_fd_scan, teng.step_cut_detector, teng.step):
-        prefix(*args, False)
-        with pytest.raises(ValueError, match="Generator"):
-            prefix(*args, True)
+        for loss in (False, True):
+            prefix(pconfig, pstate, pinputs, loss)
+            with pytest.raises(TypeError, match="int64"):
+                prefix(pconfig, bad, pinputs, loss)
     with pytest.raises(AssertionError):
         teng.SimConfig(capacity=8, fd_threshold=256)

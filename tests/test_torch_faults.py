@@ -2,8 +2,7 @@
 ``apply_topology`` and ``replay_on_simulator`` call only members the port's
 Simulator shares with the JAX one, so one FaultPlan replays on both. The
 replays of tests/test_faults.py and tests/test_gray_failures.py must give
-the same records (exactly for deterministic plans, by cut for lossy ones),
-and the port's own ``LatencyTopology`` and ``configuration_id_vectorized``
+the same records exactly, lossy ones included, and the port's own ``LatencyTopology`` and ``configuration_id_vectorized``
 equal the JAX package's."""
 
 import numpy as np
@@ -106,16 +105,19 @@ def test_topology_zone_loss_replay_matches_jax(seed):
 
 
 def test_lossy_link_replay_decides_the_same_cut():
-    """A lossy link (loss 0.7 to one member) compiles onto ingress loss:
-    torch's draws differ from threefry's, so the twins agree by cut."""
-    cuts = []
+    """A lossy link (loss 0.7 to one member) compiles onto ingress loss: the
+    port draws threefry's bits from the same key, so the twins' records,
+    rounds and final keys are equal."""
+    outs = []
     for sim in _pair(24, 6):
         victim = next(ep for ep, s in endpoint_slots(sim).items() if s == 9)
         plan = FaultPlan(seed=4).lossy_link(0.7, dst=victim)
         records = replay_on_simulator(sim, plan, duration_ms=80_000)
-        cuts.append([[int(c) for c in r.cut] for r in records])
+        outs.append((_records(records), sim.metrics.get("rounds"),
+                     np.asarray(sim.state.rng_key).astype(np.uint32).tolist()))
         assert sim._drop_prob[9] == pytest.approx(0.7)
-    assert cuts[1] == cuts[0] == [[9]]
+    assert outs[1] == outs[0]
+    assert [cut for cut, *_ in outs[1][0]] == [(9,)]
 
 
 def test_partition_windows_replay_alike():

@@ -9,8 +9,9 @@ device, halted or not) followed by ``fd_gather`` equals the fused phase, in
 plain versions on the CPU and in the kernels on the card; the gather's
 multiply-shift reciprocal is exact. Exact equality
 throughout: the phase is integer and boolean only, and where a random draw
-enters, both sides read the same draw (or a drop probability of 0 or 1,
-where the draw cannot matter).
+enters, both sides read the same draw: against JAX, the round's own threefry
+draw from the state's key (``threefry.draw_plain``), at any drop
+probability.
 
 JAX is imported only inside the JAX comparisons, so the CUDA tests also run
 where JAX is not installed (see tests/test_torch_cuda.py for the command)."""
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from rapid_tpu_torch.sim import engine, fd_bench, kernels
+from rapid_tpu_torch.sim import engine, fd_bench, kernels, threefry
 
 pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
 
@@ -75,11 +76,10 @@ def _assert_matches_jax(config, state, inputs, random_loss=False):
     t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
     draw = None
     if random_loss:
-        # drop probabilities are 0 or 1 here, so any draw in [0, 1) decides
-        # exactly as threefry's does
-        draw = torch.from_numpy(
-            np.random.default_rng(0).random((config.capacity, config.k)).astype(np.float32)
-        )
+        # the round's draw from the state's key, as JAX's _fd_phase draws it,
+        # and the split key it returns
+        key, draw = threefry.draw_plain(t(state.rng_key).long(), config.capacity, config.k)
+        np.testing.assert_array_equal(key.numpy().astype(np.uint32), np.asarray(out[0]))
     got = kernels.fd_phase_fused_plain(
         t(state.active), t(inputs.alive), t(inputs.drop_prob), t(state.subjects),
         t(state.observers), t(inputs.probe_drop), t(inputs.down_reports), draw,
@@ -116,6 +116,14 @@ def _lossy(sim):
     sim.crash(np.array([7]))
     drop = np.zeros(sim.config.capacity, dtype=np.float32)
     drop[[2, 30, 44]] = 1.0
+    return {"drop_prob": drop}
+
+
+def _half_lossy(sim):
+    sim.crash(np.array([7]))
+    drop = np.zeros(sim.config.capacity, dtype=np.float32)
+    drop[[2, 30, 44]] = 1.0
+    drop[[5, 11, 19, 50]] = (0.2, 0.5, 0.5, 0.9)
     return {"drop_prob": drop}
 
 
@@ -166,6 +174,19 @@ def test_fused_plain_matches_jax_random_loss_at_probability_zero_and_one():
     _assert_matches_jax(*_jax_case({}, _lossy), random_loss=True)
 
 
+@pytest.mark.parametrize("overrides", [{}, {"fd_gray_confirm": 3, "fd_threshold": 8},
+                                       {"rounds_per_interval": 4}])
+def test_fused_plain_matches_jax_random_loss_below_one(overrides):
+    """Drop probabilities between 0 and 1: which probes drop depends on every
+    bit of the draw, so this holds the threefry draw to JAX's as well."""
+    config, state, inputs = _jax_case(overrides, _half_lossy, seed_counters=(0, 9))
+    want = _assert_matches_jax(config, state, inputs, random_loss=True)
+    plain = _assert_matches_jax(config, state, dataclasses.replace(
+        inputs, drop_prob=inputs.drop_prob * (inputs.drop_prob >= 1.0)), random_loss=True)
+    assert any(not np.array_equal(np.asarray(want[n]), np.asarray(plain[n]))
+               for n in ("fd_fail", "fd_streak", "fd_ok")), "the partial loss should matter"
+
+
 # --------------------------------------------------------------------- #
 # Against a numpy reference, and the wrapper's CPU path
 # --------------------------------------------------------------------- #
@@ -183,7 +204,7 @@ def _case(c, k, seed, device="cpu", random=True, joiners=True, round_=None):
         np.stack([rng.permutation(c) for _ in range(k)]).astype(np.int32)).to(dev)
     state = engine.device_initial_state(
         config, ranks, active, active.clone(), torch.zeros(c, dtype=torch.int32, device=dev),
-        torch.ones(c, dtype=torch.bool, device=dev),
+        torch.ones(c, dtype=torch.bool, device=dev), threefry.prng_key(seed, dev),
     )
     observers = state.observers
     if joiners:  # inactive rows hold expected observers, as after a join wave
@@ -278,7 +299,7 @@ def test_fused_wrapper_rejects_bad_arguments():
 
 def test_scan_round_goes_through_the_fused_wrapper(monkeypatch):
     """``engine.step`` hands the state's int32 adjacency and its round
-    counter to ``fd_phase_fused``, and draws only with random loss."""
+    counter to ``fd_phase_fused``, and a draw only with random loss."""
     calls = []
     real = kernels.fd_phase_fused
 
@@ -292,8 +313,7 @@ def test_scan_round_goes_through_the_fused_wrapper(monkeypatch):
     config = engine.SimConfig(capacity=64, rounds_per_interval=2)
     state = Simulator(64, config=config, seed=1, device="cpu").state
     inputs = engine.const_inputs(config, np.ones(64, dtype=bool), device="cpu")
-    gen = torch.Generator().manual_seed(0)
-    engine.step(config, state, inputs, random_loss=True, generator=gen)
+    engine.step(config, state, inputs, random_loss=True)
     engine.step(config, state, inputs, random_loss=False)
     assert len(calls) == 2
     (args, kw), (args2, _) = calls

@@ -4,14 +4,14 @@ tests/test_multihost_processes.py.
 ``rapid_tpu_torch.cli.multihost_sim --device cpu`` runs in 2 or 4 processes
 that meet over ``torch.distributed`` (gloo) on localhost, each holding its
 row of a ("dcn", "ici") mesh of CPU shards. Every process must report the
-record (cut, protocol time, configuration id) of the port's single-process
-run on a mesh of the same shape, and of JAX's ``Simulator`` on a mesh of
-that shape over the 8 CPU devices tests/conftest.py forces. Under random
-ingress loss each global shard draws from its own generator, so a
-multi-process run equals the port's single-process run bit for bit (the
-state itself is held so below, mid-decision); against JAX, whose draws are
-threefry's, lossy runs compare by cut and configuration id only. Uneven
-rows fail in every process with the width message.
+record (cut, protocol time, configuration id, rounds run) of the port's
+single-process run on a mesh of the same shape, and of JAX's ``Simulator``
+on a mesh of that shape over the 8 CPU devices tests/conftest.py forces.
+Under random ingress loss each global shard draws from the round's probe key
+folded with its global index, threefry's bits as in JAX, so a lossy
+multi-process run equals the port's single-process run and JAX's run record
+for record, and its state (the key included) equals both, field by field,
+mid-decision. Uneven rows fail in every process with the width message.
 
 Every child has a wall timeout and is killed in ``finally``. Run as a
 script (``--worker``), this file is the child that holds the gathered state
@@ -88,8 +88,8 @@ def _records(outputs, num_processes, devices_per_host):
         assert f"mesh {{'dcn': {num_processes}, 'ici': {devices_per_host}}}" in text, text
         m = _RECORD.search(text)
         assert m, f"no record line in process {pid}'s output:\n{text}"
-        records.append(tuple(int(g) for g in m.groups()))
         stats.append(json.loads(text.split("stats ", 1)[1].splitlines()[0]))
+        records.append(tuple(int(g) for g in m.groups()) + (stats[-1]["rounds"],))
     return records, stats
 
 
@@ -111,7 +111,7 @@ def _port_record(shape, loss=0.0):
         sim.crash(victims)
     rec = sim.run_until_decision(max_rounds=64 if loss else 16, batch=16)
     assert rec is not None and set(rec.cut) == set(victims)
-    return len(rec.cut), rec.virtual_time_ms, rec.configuration_id
+    return len(rec.cut), rec.virtual_time_ms, rec.configuration_id, sim.metrics.get("rounds")
 
 
 def _jax_record(shape, loss=0.0):
@@ -126,7 +126,7 @@ def _jax_record(shape, loss=0.0):
         sim.crash(victims)
     rec = sim.run_until_decision(max_rounds=64 if loss else 16, batch=16)
     assert rec is not None and set(rec.cut) == set(victims)
-    return len(rec.cut), rec.virtual_time_ms, rec.configuration_id
+    return len(rec.cut), rec.virtual_time_ms, rec.configuration_id, sim.metrics.get("rounds")
 
 
 @pytest.mark.parametrize("num_processes,devices_per_host", [(2, 2), (4, 1)])
@@ -151,15 +151,13 @@ def test_every_process_reports_the_single_process_record(tmp_path, num_processes
 
 
 def test_lossy_processes_equal_the_single_process_run(tmp_path):
-    """Ingress loss 0.5: the draws come from one generator a global shard,
-    so every process reports the single-process record exactly (protocol
-    time included); JAX's threefry draws agree by cut and configuration id."""
+    """Ingress loss 0.5: each global shard draws from the probe key folded
+    with its index, so every process reports the single-process record and
+    JAX's exactly (protocol time and rounds included)."""
     outputs = _run_processes(tmp_path, _cli(2, 2, "--ingress-loss", "0.5"), 2, "lossy")
     records, _ = _records(outputs, 2, 2)
     assert len(set(records)) == 1, records
-    assert records[0] == _port_record((2, 2), loss=0.5)
-    cut, _, config_id = _jax_record((2, 2), loss=0.5)
-    assert (records[0][0], records[0][2]) == (cut, config_id)
+    assert records[0] == _port_record((2, 2), loss=0.5) == _jax_record((2, 2), loss=0.5)
 
 
 def test_uneven_devices_per_process_fail_loudly_in_every_process(tmp_path):
@@ -188,7 +186,7 @@ def test_a_process_holds_its_own_run_of_shards_under_global_seeds(process_index)
     import torch
 
     from rapid_tpu_torch.shard import engine as shard
-    from rapid_tpu_torch.sim import engine
+    from rapid_tpu_torch.sim import engine, kernels, threefry
     from rapid_tpu_torch.sim.driver import Simulator
 
     mesh = _process_mesh(process_index, process_count=3)
@@ -196,10 +194,12 @@ def test_a_process_holds_its_own_run_of_shards_under_global_seeds(process_index)
     assert mesh.size == 6 and mesh.local_shards == local
     assert mesh.local_devices == (torch.device("cpu"),) * 2 and mesh.home == torch.device("cpu")
     assert shard.device_groups(mesh) == [(torch.device("cpu"), list(local))]
-    whole = shard.shard_generators(_process_mesh(0, process_count=1, per_process=6), 5)
-    mine = shard.shard_generators(mesh, 5)
-    for s, g in zip(local, mine):
-        assert torch.equal(torch.rand(3, generator=g), torch.rand(3, generator=whole[s]))
+    # a process's draw is its global shards' blocks of the whole mesh's draw
+    key = threefry.prng_key(5)
+    whole = kernels.threefry_draw(key, 3, 10, list(range(6)))
+    mine = kernels.threefry_draw(key, 3, 10, list(local))
+    assert torch.equal(mine[0], whole[0])
+    assert torch.equal(mine[1], whole[1][3 * local.start:3 * local.stop])
     sim = Simulator(60, seed=2, device="cpu")
     placed = shard.place_state(sim.state, mesh)
     assert len(placed.rows) == 2 and placed.mesh is mesh
@@ -241,7 +241,8 @@ def _worker_state(path):
 def test_gathered_state_mid_decision_equals_the_single_process_mesh(tmp_path):
     """Mid-decision (five lossy rounds, no decision yet), ``gather_state``
     on every process gives the single-process mesh's state, every field bit
-    for bit; then both decide alike."""
+    for bit, the key included, and so does JAX's mesh of the same shape;
+    then all three decide alike."""
     from rapid_tpu_torch.shard.engine import gather_state, make_mesh
     from rapid_tpu_torch.sim import engine
     from rapid_tpu_torch.sim.driver import Simulator
@@ -257,6 +258,17 @@ def test_gathered_state_mid_decision_equals_the_single_process_mesh(tmp_path):
     _worker_steps(sim, _victims())
     want = engine.state_to_numpy(gather_state(sim.state))
     rec = sim.run_until_decision(max_rounds=64, batch=16)
+    from rapid_tpu.shard.engine import make_mesh as jax_mesh
+    from rapid_tpu.sim.driver import Simulator as JaxSimulator
+
+    jsim = JaxSimulator(N, seed=SEED, mesh=jax_mesh(shape=(2, 2)))
+    _worker_steps(jsim, _victims())
+    for name, value in want.items():
+        np.testing.assert_array_equal(np.asarray(getattr(jsim.state, name)), value,
+                                      err_msg=f"JAX's mesh: {name}")
+    jrec = jsim.run_until_decision(max_rounds=64, batch=16)
+    assert [len(jrec.cut), jrec.virtual_time_ms, jrec.configuration_id] == [
+        len(rec.cut), rec.virtual_time_ms, rec.configuration_id]
     for pid in range(2):
         got = _worker_state(tmp_path / f"state-{pid}.npz")
         assert sorted(got) == sorted(["record", *want])

@@ -55,7 +55,7 @@ def _stub(profiled_fns, shrink):
 def _port_sample(shrink, repeats=REPEATS):
     prof = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
     prof._timed_ms, calls = _stub(phases._PROFILE_FNS, shrink)
-    return prof.sample(None, CPU_STATE, None, True, None, repeats=repeats), prof, calls
+    return prof.sample(None, CPU_STATE, None, True, repeats=repeats), prof, calls
 
 
 def test_turns_keep_every_phase_above_zero_where_minima_apart_clamp():
@@ -95,7 +95,7 @@ CLEAN = (0.03, 0.17, 0.33)
 def test_a_turn_whose_times_do_not_rise_is_taken_again_on_the_card():
     prof = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
     prof._timed_ms, calls = _scripted(DISTURBED + CLEAN)
-    got = prof.sample(None, CARD_STATE, None, True, None)
+    got = prof.sample(None, CARD_STATE, None, True)
     assert calls == list(phases._PROFILE_FNS) * 2 and prof.turns == 2
     assert got == pytest.approx({"fd_scan": 0.03, "cut_detector": 0.14,
                                  "consensus_count": 0.16, "step_ms": 0.33})
@@ -108,7 +108,7 @@ def test_a_turn_whose_times_do_not_rise_is_taken_again_on_the_card():
 def test_a_turn_disturbed_at_every_attempt_keeps_the_clamp_as_a_guard():
     prof = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
     prof._timed_ms, calls = _scripted(DISTURBED * phases.TURN_ATTEMPTS)
-    got = prof.sample(None, CARD_STATE, None, True, None)
+    got = prof.sample(None, CARD_STATE, None, True)
     assert len(calls) == 3 * phases.TURN_ATTEMPTS == 3 * prof.turns
     assert got["consensus_count"] == 0.0 and min(got.values()) >= 0.0
 
@@ -116,7 +116,7 @@ def test_a_turn_disturbed_at_every_attempt_keeps_the_clamp_as_a_guard():
 def test_on_the_cpu_a_turn_is_taken_once_as_jax_takes_it():
     prof = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
     prof._timed_ms, calls = _scripted(DISTURBED + CLEAN)
-    got = prof.sample(None, CPU_STATE, None, True, None)
+    got = prof.sample(None, CPU_STATE, None, True)
     assert calls == list(phases._PROFILE_FNS) and prof.turns == 1
     jax = jax_phases.PhaseProfiler(JaxMetrics(), JaxProfilingSettings(enabled=True))
     jax._timed_ms, _ = _scripted(DISTURBED)

@@ -41,39 +41,40 @@ POLICIES = {
 
 def _mid_run(policy, loss, rounds_before):
     """A JAX state ``rounds_before`` rounds into a crash of two members, and
-    the round's fault plane: no random loss, or ingress loss 1.0 on two
-    more (where threefry's and torch's draws cannot differ)."""
+    the round's fault plane: no random loss (``loss`` 0), or ingress loss
+    ``loss`` on two more, drawn from the state's key in both packages."""
     config = jeng.SimConfig(**{**BASE, **POLICIES[policy]})
     sim = JaxSimulator(28, capacity=32, config=config, seed=7, speculate=False)
     sim.crash(np.array([6, 21]))
     drop_prob = np.zeros(32, np.float32)
-    if loss:
-        drop_prob[[2, 13]] = 1.0
+    drop_prob[[2, 13]] = loss
     inputs = jeng.const_inputs(config, sim.alive, drop_prob=drop_prob)
     state = sim.state
     if rounds_before:
-        state = jeng.run_rounds_const(config, state, inputs, rounds_before, loss)
+        state = jeng.run_rounds_const(config, state, inputs, rounds_before, loss > 0)
     return config, state, inputs
 
 
+LOSSES = dict(argvalues=[0.0, 1.0, 0.5], ids=["no_loss", "loss_1.0", "loss_0.5"])
+
+
 @pytest.mark.parametrize("rounds_before", [0, 3, 9])
-@pytest.mark.parametrize("loss", [False, True], ids=["no_loss", "loss_1.0"])
+@pytest.mark.parametrize("loss", **LOSSES)
 @pytest.mark.parametrize("policy", list(POLICIES))
 def test_prefixes_match_jax(policy, loss, rounds_before):
     config, state, inputs = _mid_run(policy, loss, rounds_before)
     port_config = _port_config(config)
     port_state = _port_state(config, state)
     port_inputs = _port_inputs(config, inputs)
-    generator = torch.Generator().manual_seed(1)
+    random_loss = loss > 0
 
-    want_partial, want_down = jeng.step_fd_scan(config, state, inputs, loss)
-    got_partial, got_down = teng.step_fd_scan(port_config, port_state, port_inputs, loss,
-                                              generator)
+    want_partial, want_down = jeng.step_fd_scan(config, state, inputs, random_loss)
+    got_partial, got_down = teng.step_fd_scan(port_config, port_state, port_inputs, random_loss)
     _assert_states_equal(want_partial, got_partial)
     np.testing.assert_array_equal(got_down.numpy(), np.asarray(want_down))
 
-    want = jeng.step_cut_detector(config, state, inputs, loss)
-    got = teng.step_cut_detector(port_config, port_state, port_inputs, loss, generator)
+    want = jeng.step_cut_detector(config, state, inputs, random_loss)
+    got = teng.step_cut_detector(port_config, port_state, port_inputs, random_loss)
     _assert_states_equal(want, got)
     if rounds_before == 9:
         assert bool(want.announced.any()), "the cut detector should have announced"
@@ -81,7 +82,7 @@ def test_prefixes_match_jax(policy, loss, rounds_before):
     _assert_states_equal(state, port_state)
 
 
-@pytest.mark.parametrize("loss", [False, True], ids=["no_loss", "loss_1.0"])
+@pytest.mark.parametrize("loss", **LOSSES)
 def test_run_rounds_matches_jax(loss):
     """``run_rounds`` over stacked per-round inputs: a flip-flop of the
     crashed pair across 12 rounds."""
@@ -92,24 +93,33 @@ def test_run_rounds_matches_jax(loss):
         jax.tree_util.tree_map(lambda x: jnp.stack([x] * 12), inputs), alive=jnp.asarray(alive))
     want = jeng.run_rounds(config, state, stacked)
     got = teng.run_rounds(_port_config(config), _port_state(config, state),
-                          _port_inputs(config, stacked), True, torch.Generator().manual_seed(2))
+                          _port_inputs(config, stacked), True)
     _assert_states_equal(want, got)
     assert bool(want.decided)
 
 
 def test_step_fd_scan_draws_from_the_generator_it_is_given():
+    """The prefix's generator is the state's key: it draws from it, leaves
+    it where it was and returns it split, so two prefixes of one state draw
+    alike, and a state with another key draws otherwise."""
     config = teng.SimConfig(capacity=16, k=4, h=3, l=1, fd_threshold=2)
-    state = teng.initial_state(config, _cluster(config), np.ones(16, bool), device="cpu")
+    state = teng.initial_state(config, _cluster(config), np.ones(16, bool), seed=5,
+                               device="cpu")
     drop = np.zeros(16, np.float32)
     drop[3] = 0.5
     inputs = teng.const_inputs(config, np.ones(16, bool), drop_prob=drop, device="cpu")
-    a, b = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
-    first = teng.step_fd_scan(config, state, inputs, True, a)
-    again = teng.step_fd_scan(config, state, inputs, True, b)
+    key = state.rng_key.clone()
+    first = teng.step_fd_scan(config, state, inputs, True)
+    again = teng.step_fd_scan(config, state, inputs, True)
     assert torch.equal(first[0].fd_fail, again[0].fd_fail)
-    assert torch.equal(a.get_state(), b.get_state())
-    with pytest.raises(ValueError, match="Generator"):
-        teng.step_fd_scan(config, state, inputs, True, None)
+    assert torch.equal(state.rng_key, key)
+    assert torch.equal(first[0].rng_key, again[0].rng_key)
+    assert not torch.equal(first[0].rng_key, key)
+    draws = set()
+    for seed in range(8):
+        other = dataclasses.replace(state, rng_key=teng.threefry.prng_key(seed))
+        draws.add(teng.step_fd_scan(config, other, inputs, True)[0].fd_fail.numpy().tobytes())
+    assert len(draws) > 1, "the draw follows the key"
 
 
 def _cluster(config):
@@ -184,16 +194,17 @@ def _lossy_run(profiled, mesh=None):
     sim.crash(np.array([30]))
     recs.append(sim.run_until_decision(max_rounds=64, batch=4))
     assert all(r is not None for r in recs)
-    return ([(r.cut.tolist(), r.configuration_id, r.virtual_time_ms) for r in recs],
-            sim)
+    return ([(r.cut.tolist(), r.configuration_id, r.virtual_time_ms) for r in recs]
+            + [sim.metrics.get("rounds"), sim.state.rng_key.tolist()], sim)
 
 
 @pytest.mark.parametrize("mesh_shards", [0, 4])
 def test_records_with_profiling_equal_records_without(mesh_shards):
     """Under loss 0.6 every record depends on every draw: the shadow
-    prefixes draw from copies of the generator, so profiling on and off
-    decide alike. On a mesh only the history ring and the host-transfer
-    phase are recorded."""
+    prefixes read the state's key and throw the key they split away, so
+    profiling on and off decide alike, round for round, and end on the same
+    key. On a mesh only the history ring and the host-transfer phase are
+    recorded."""
     mesh = make_mesh(devices=["cpu"] * mesh_shards) if mesh_shards else None
     plain, _ = _lossy_run(False, mesh)
     profiled, sim = _lossy_run(True, mesh)

@@ -4,12 +4,13 @@
 The same scenario functions run on both packages with the same seeds, at
 parity sizes of at most 1k members, the port's simulators on
 ``device="cpu"``. Each record, as the CLI prints it (JSON), equals the JAX
-package's in every field but ``wall_s``, exactly. None of these scenarios
-draws the port's ``torch.Generator`` below probability 1.0: the crashes,
-revivals and joins are set outright, a one-way partition is a fixed
-probe-drop mask, the WAN and nemesis plans compile to such masks and
-delivery delays, and the serving workloads draw from seeded numpy
-generators. So no record is held by cut and configuration id alone.
+package's in every field but ``wall_s``, exactly. No record is held by cut
+and configuration id alone: the crashes, revivals and joins are set
+outright, a one-way partition is a fixed probe-drop mask, the WAN and
+nemesis plans compile to such masks and delivery delays, the serving
+workloads draw from seeded numpy generators, and random ingress loss, where
+a scenario set it, would draw JAX's own threefry bits from the state's key
+(``tests/test_torch_threefry.py``).
 
 Beside them: ``--list`` line for line against ``python scenarios.py
 --list`` and without torch, the registry's functions and parameters, the

@@ -5,9 +5,9 @@ Each scenario builds in-process clusters on virtual time over the port's own
 ``rapid_tpu_torch.harness.ClusterHarness`` (the JAX package's over
 ``tests/harness.py``'s), with the same seeds. Each record, as the CLI
 prints it, equals the JAX package's in every field but ``wall_s``, exactly.
-Their losses are the nemesis's seeded Python draws, not a
-``torch.Generator``'s: ``rolling-upgrade``'s 5% probe loss stays exact, as
-in ``tests/test_torch_cluster.py``'s nemesis twins. ``gray-slow-node``'s
+Their losses are the nemesis's seeded Python draws, not the simulator's:
+``rolling-upgrade``'s 5% probe loss stays exact, as in
+``tests/test_torch_cluster.py``'s nemesis twins. ``gray-slow-node``'s
 device leg runs its simulator on ``device="cpu"``.
 
 ``nemesis-protocol`` reports the process-global ``time_to_stable_view_ms``

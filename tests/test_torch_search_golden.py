@@ -3,9 +3,10 @@ phase (the engine hunt, the flagged bug found, shrunk, pinned and replayed,
 the simulator hunt, a simulator probe at full shape, the forensics
 timeline) run on the port at the file's reduced size, with the simulator
 on ``device="cpu"``, equals its ``reduced`` section exactly, and so does the
-JAX package's run today, so the file cannot go stale unseen. The card runs
-the ``full`` section; its shape and the facts the card is held to are
-checked here."""
+JAX package's run today, so the file cannot go stale unseen. The simulator
+hunt also runs at the ``full`` section's budget, whose probes draw loss
+below 1.0, and equals it exactly. The card runs the ``full`` section; its
+shape and the facts the card is held to are checked here."""
 
 import json
 import os
@@ -41,8 +42,19 @@ def test_port_reduced_run_equals_the_golden_file(port_reduced, run):
 
 def test_port_reduced_run_passes_the_card_s_comparison(port_reduced):
     outcome, walls = port_reduced
-    assert chip_smoke.search_golden_misses(outcome, GOLDEN["reduced"]) == ([], [])
+    assert chip_smoke.search_golden_misses(outcome, GOLDEN["reduced"]) == []
     assert set(walls) == set(RUNS) and all(w["launches"] == {} for w in walls.values())
+
+
+def test_port_full_sim_hunt_equals_the_golden_file_lossy_probes_included():
+    """(c) at the card's full budget, on the CPU: every probe equals the JAX
+    package's exactly, those whose plans draw loss below 1.0 included (the
+    port draws threefry's bits from the same key), and so do the report and
+    the coverage."""
+    got = json.loads(json.dumps(chip_smoke.sim_hunt(chip_smoke.search_modules(), "cpu")))
+    want = GOLDEN["full"]["sim_hunt"]
+    assert any(p["draws_loss"] for p in want["probes"]), "the hunt should draw loss"
+    assert chip_smoke._golden_misses(got, want) == []
 
 
 def test_jax_reduced_run_still_equals_the_golden_file():

@@ -7,12 +7,14 @@ tests/test_sharded_driver.py, and of ``__graft_entry__.dryrun_multichip(8)``.
 The port's meshes put every shard on the CPU: ``make_mesh(devices=["cpu"] *
 8)``, and ``shape=(2, 4)`` for the 2D cases.
 
-Tolerance: exact. Without random loss every ``SimState`` field is compared
-bit for bit, three ways: the port's sharded run with JAX's sharded run, with
-the port's single-device run, and the scan runner with the "until" runner.
-With random loss each shard of the port draws from its own torch.Generator
-and JAX from threefry, so lossy runs are compared by cut and configuration
-id, and by virtual time where the loss probability is 1.0.
+Tolerance: exact. Every ``SimState`` field, the PRNG key included, is
+compared bit for bit: the port's sharded run with JAX's sharded run, with and
+without random loss (each shard draws from the round's probe key folded with
+its index, threefry's bits in both packages), and the scan runner with the
+"until" runner; without random loss also with the port's single-device run.
+Lossy drivers are held to JAX's record for record: cut, configuration id,
+virtual time and round. A sharded lossy run differs from a single-device one
+in both packages (the fold), so those two compare by cut and configuration id.
 """
 
 import dataclasses
@@ -35,10 +37,9 @@ from rapid_tpu_torch.shard.engine import (
     make_sharded_run_until,
     place_inputs,
     place_state,
-    shard_generators,
 )
 from rapid_tpu_torch.sim import engine as teng
-from rapid_tpu_torch.sim import kernels
+from rapid_tpu_torch.sim import kernels, threefry
 from rapid_tpu_torch.sim.driver import Simulator
 
 pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
@@ -109,7 +110,7 @@ def _three_way(jax_mesh, mesh, jconfig, pconfig, jstate, pstate, alive, rounds=1
     jout = jshard.make_sharded_run(jconfig, jax_mesh, rounds=rounds)(
         jshard.place_state(jstate, jax_mesh), jshard.place_inputs(jinputs, jax_mesh))
     out = make_sharded_run(pconfig, mesh, rounds=rounds)(
-        place_state(pstate, mesh), place_inputs(pinputs, mesh), shard_generators(mesh, 1))
+        place_state(pstate, mesh), place_inputs(pinputs, mesh))
     single = teng.run_rounds_const(pconfig, pstate, pinputs, rounds, False)
     _assert_equal(out, jout, "port sharded vs JAX sharded")
     _assert_equal(out, single, "port sharded vs port single-device")
@@ -303,20 +304,23 @@ def test_sharded_driver_staggered_phases(jax_mesh, mesh):
 @pytest.mark.parametrize("random_loss", [False, True])
 def test_sharded_until_bit_identical_to_scan(mesh, random_loss):
     """The "until" runner and the scan runner give the same state, field for
-    field, and leave the shards' generators in the same state."""
+    field, the key included: the masked rounds after the decision keep it."""
     sim = Simulator(256, seed=44, mesh=mesh)
     sim.crash(np.array([7, 31]))
     if random_loss:
         sim.ingress_loss(np.array([5, 9]), 0.3)
     inputs = sim._const_inputs(sim._arm_pending_joins())
     before = _fields(sim.state)
-    gens = [shard_generators(mesh, 7), shard_generators(mesh, 7)]
-    out_scan = sim._sharded_run(12, random_loss)(sim.state, inputs, gens[0])
-    out_until = sim._sharded_run_until(random_loss)(sim.state, inputs, 12, gens[1])
+    out_scan = sim._sharded_run(12, random_loss)(sim.state, inputs)
+    out_until = sim._sharded_run_until(random_loss)(sim.state, inputs, 12)
     _assert_equal(out_until, out_scan, "until vs scan")
     assert bool(out_scan.decided)
-    for a, b in zip(*gens):
-        assert torch.equal(a.get_state(), b.get_state())
+    decided = int(out_scan.decided_round)
+    assert decided < 12, "some rounds of the budget should be masked"
+    key = threefry.prng_key(sim.seed)
+    for _ in range(decided):
+        key, _ = threefry.split(key)
+    assert torch.equal(out_scan.rng_key, key), "the key splits once a round until the decision"
     after = _fields(sim.state)  # the input state is not modified
     assert all(np.array_equal(after[f], v) for f, v in before.items())
 
@@ -420,8 +424,7 @@ def test_dryrun_multichip_twin():
     alive = active.copy()
     alive[-2:] = False
     inputs = teng.const_inputs(config, alive, device="cpu")
-    out = make_sharded_run(config, m, rounds=12)(
-        place_state(state, m), place_inputs(inputs, m), shard_generators(m, 0))
+    out = make_sharded_run(config, m, rounds=12)(place_state(state, m), place_inputs(inputs, m))
     assert bool(out.decided), "sharded dryrun did not reach a decision"
     assert _cut(out) == {capacity - 2, capacity - 1}
 
@@ -499,10 +502,11 @@ def test_exchange_copy_path_matches_in_place_segments(mesh, monkeypatch):
 ])
 def test_one_fd_call_a_device_group_a_round(mesh, monkeypatch, layout, calls_a_round,
                                             copies_a_round):
-    """Each group of ``device_groups`` makes one ``fd_phase_rows`` call a
-    round over its shards; groups off home copy their segments in. Under
-    random loss every shard still draws from its own generator, so the state
-    equals the one-device run's, field for field."""
+    """Each group of ``device_groups`` makes one ``fd_phase_rows`` call and
+    one ``threefry_draw`` call a round over its shards; groups off home copy
+    their segments in. Under random loss every shard still draws from the
+    probe key folded with its own index, so the state equals the one-device
+    run's, field for field."""
     _, pconfig, _, pstate = build(seed=26)
     alive = np.ones(64, dtype=bool)
     alive[[4, 37]] = False
@@ -510,11 +514,13 @@ def test_one_fd_call_a_device_group_a_round(mesh, monkeypatch, layout, calls_a_r
     drop[[9, 50]] = 0.5
     inputs = place_inputs(teng.const_inputs(pconfig, alive, drop_prob=drop, device="cpu"), mesh)
     run = make_sharded_run(pconfig, mesh, 12, random_loss=True)
-    want = run(place_state(pstate, mesh), inputs, shard_generators(mesh, 3))
-    calls, copies = [], []
-    real_rows, real_copy = kernels.fd_phase_rows, shard._copy_in
+    want = run(place_state(pstate, mesh), inputs)
+    calls, draws, copies = [], [], []
+    real_rows, real_draw, real_copy = kernels.fd_phase_rows, kernels.threefry_draw, shard._copy_in
     monkeypatch.setattr(kernels, "fd_phase_rows",
                         lambda *a, **kw: calls.append(len(kw["row0"])) or real_rows(*a, **kw))
+    monkeypatch.setattr(kernels, "threefry_draw",
+                        lambda *a, **kw: draws.append(list(a[3])) or real_draw(*a, **kw))
     monkeypatch.setattr(shard, "_copy_in",
                         lambda segment, source: copies.append(1) or real_copy(segment, source))
     if layout != "one device":
@@ -525,9 +531,11 @@ def test_one_fd_call_a_device_group_a_round(mesh, monkeypatch, layout, calls_a_r
                             lambda m: [(cpu, [0, 2, 4, 6]), (cpu, [1, 3, 5, 7])])
     if layout == "runs of 3":
         monkeypatch.setattr(kernels, "MAX_SHARDS_PER_CALL", 3)
-    got = run(place_state(pstate, mesh), inputs, shard_generators(mesh, 3))
+    got = run(place_state(pstate, mesh), inputs)
     monkeypatch.undo()
     assert calls == calls_a_round * 12
+    assert [len(d) for d in draws] == calls
+    assert sorted(sum(draws[:len(calls_a_round)], [])) == list(range(8))
     assert len(copies) == copies_a_round * 12
     _assert_equal(got, want, layout)
     assert bool(got.decided)
@@ -542,11 +550,22 @@ def test_device_groups_by_device_in_mesh_order(monkeypatch):
     assert shard.device_groups(m) == [(cpu, [0, 2, 4]), (cpu, [5]), (meta, [1, 3])]
 
 
-@pytest.mark.parametrize("probability", [1.0, 0.5])
+def _lossy_record(sim, rec):
+    """A decision's record with the rounds the simulator ran to it."""
+    return _summary(rec) + (sim.metrics.get("rounds"),)
+
+
+@pytest.mark.parametrize("probability", [1.0, 0.5, 0.8])
 def test_lossy_sharded_driver_matches_jax_by_outcome(jax_mesh, mesh, probability):
+    """Ingress loss on a mesh and on one device, in both packages: each
+    port simulator equals its JAX twin record for record (cut, configuration
+    id, virtual time, round) and state for state, the key included; the
+    mesh and the single device agree on the cut and configuration id (their
+    draws differ by the fold, in both packages)."""
     sims = [Simulator(256, seed=46, mesh=mesh),
             JaxSimulator(256, seed=46, mesh=jax_mesh),
-            Simulator(256, seed=46, device="cpu")]
+            Simulator(256, seed=46, device="cpu"),
+            JaxSimulator(256, seed=46)]
     recs = []
     for sim in sims:
         sim.ingress_loss(np.array([11, 140]), probability)
@@ -554,8 +573,36 @@ def test_lossy_sharded_driver_matches_jax_by_outcome(jax_mesh, mesh, probability
     assert all(r is not None for r in recs)
     assert len({(tuple(r.cut.tolist()), r.configuration_id) for r in recs}) == 1
     assert recs[0].cut.tolist() == [11, 140]
+    assert _lossy_record(sims[0], recs[0]) == _lossy_record(sims[1], recs[1])
+    assert _lossy_record(sims[2], recs[2]) == _lossy_record(sims[3], recs[3])
+    _assert_equal(sims[0].state, sims[1].state, "mesh, after the view change")
+    _assert_equal(sims[2].state, sims[3].state, "single device, after the view change")
     if probability == 1.0:
         assert len({r.virtual_time_ms for r in recs}) == 1
+
+
+@pytest.mark.parametrize("shape, policy", [((8,), "cumulative"), ((2, 4), "cumulative"),
+                                           ((8,), "windowed")])
+def test_sharded_random_loss_matches_jax_sharded(shape, policy):
+    """The sharded round under ingress loss 0.5, mid-decision: every field
+    equals JAX's sharded round's, the key and the planes the draw decided
+    included, after each of three dispatches."""
+    jconfig, pconfig, jstate, pstate = build(seed=27, fd_policy=policy)
+    alive = np.ones(64, dtype=bool)
+    alive[[6, 45]] = False
+    drop = np.zeros(64, dtype=np.float32)
+    drop[[3, 17, 30, 52]] = 0.5
+    jinputs = jeng.const_inputs(jconfig, alive, drop_prob=drop)
+    pinputs = teng.const_inputs(pconfig, alive, drop_prob=drop, device="cpu")
+    jmesh = jshard.make_mesh(8) if len(shape) == 1 else jshard.make_mesh(shape=shape)
+    pmesh = make_mesh(devices=CPU8) if len(shape) == 1 else make_mesh(shape=shape, devices=CPU8)
+    jrun = jshard.make_sharded_run(jconfig, jmesh, rounds=4, random_loss=True)
+    prun = make_sharded_run(pconfig, pmesh, 4, random_loss=True)
+    jout, out = jshard.place_state(jstate, jmesh), place_state(pstate, pmesh)
+    for _ in range(3):
+        jout = jrun(jout, jshard.place_inputs(jinputs, jmesh))
+        out = prun(out, place_inputs(pinputs, pmesh))
+        _assert_equal(out, jout, "port sharded vs JAX sharded, lossy")
 
 
 def test_mesh_devices_and_home():
@@ -593,12 +640,21 @@ def test_from_configuration_onto_a_mesh(mesh, tmp_path):
 
 
 def test_shard_seed_rule(mesh):
-    assert [shard.shard_seed(5, s) for s in range(3)] == [5 << 16, (5 << 16) | 1,
-                                                          (5 << 16) | 2]
-    draws = [torch.rand(4, generator=g) for g in shard_generators(mesh, 5)]
-    assert not torch.equal(draws[0], draws[1])
-    again = [torch.rand(4, generator=g) for g in shard_generators(mesh, 5)]
-    assert all(torch.equal(a, b) for a, b in zip(draws, again))
+    """A shard's draw comes from the round's probe key folded with its
+    linear index, JAX's rule: distinct shards draw differently, the same
+    shard the same, and one call over several shards stacks what each
+    shard's own call draws."""
+    key = threefry.prng_key(5)
+    whole = kernels.threefry_draw(key, 3, 4, list(mesh.local_shards))
+    alone = [kernels.threefry_draw(key, 3, 4, [s]) for s in mesh.local_shards]
+    assert all(torch.equal(whole[0], k) for k, _ in alone)
+    assert torch.equal(whole[1], torch.cat([d for _, d in alone]))
+    assert not torch.equal(alone[0][1], alone[1][1])
+    jkey, jprobe = jax.random.split(jax.random.PRNGKey(5))
+    np.testing.assert_array_equal(whole[0].numpy().astype(np.uint32), np.asarray(jkey))
+    for s, (_, d) in enumerate(alone):
+        want = jax.random.uniform(jax.random.fold_in(jprobe, s), (3, 4))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(want))
 
 
 def _stalled(sims, n=1000, n_blind=260):

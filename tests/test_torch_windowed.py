@@ -2,8 +2,10 @@
 window rule (``window_step``, ``windowed_fd_phase``), the scan round's plain
 FD phase (``kernels.fd_phase_fused_plain``), both dispatch branches from
 partly filled windows, and the driver's decisions. Exact equality: the
-policy is integer and boolean only. The port keeps ``fd_hist`` as int32; it
-carries the JAX engine's uint16 bits."""
+policy is integer and boolean only, and a random-loss round reads the draw
+JAX's reads, threefry's bits from the state's key, at any drop probability.
+The port keeps ``fd_hist`` as int32; it carries the JAX engine's uint16
+bits."""
 
 import dataclasses
 
@@ -15,7 +17,7 @@ import torch
 from rapid_tpu.sim import engine as jeng
 from rapid_tpu.sim.driver import Simulator as JaxSimulator
 from rapid_tpu_torch.sim import engine as teng
-from rapid_tpu_torch.sim import kernels
+from rapid_tpu_torch.sim import kernels, threefry
 from rapid_tpu_torch.sim.driver import Simulator
 
 pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
@@ -138,6 +140,14 @@ def _lossy(sim):
     return {"drop_prob": drop}
 
 
+def _half_lossy(sim):
+    sim.crash(np.array([7]))
+    drop = np.zeros(sim.config.capacity, dtype=np.float32)
+    drop[[2, 30, 44]] = 1.0
+    drop[[5, 11, 19, 50]] = (0.2, 0.5, 0.5, 0.9)
+    return {"drop_prob": drop}
+
+
 def _jax_windowed_case(setup, w, threshold, rpi=1, round_=0, seed=3):
     config = jeng.SimConfig(capacity=64, k=10, h=9, l=4, fd_policy="windowed",
                             fd_window=w, fd_window_threshold=threshold,
@@ -160,8 +170,9 @@ def _assert_plain_matches_jax(config, state, inputs, random_loss=False):
     t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
     draw = None
     if random_loss:
-        # drop probabilities are 0 or 1, so any draw decides as threefry's does
-        draw = torch.from_numpy(np.random.default_rng(0).random((64, 10)).astype(np.float32))
+        # the round's draw from the state's key, as JAX's _fd_phase draws it
+        key, draw = threefry.draw_plain(t(state.rng_key).long(), 64, 10)
+        np.testing.assert_array_equal(key.numpy().astype(np.uint32), np.asarray(out[0]))
     w, fire, _ = teng.window_params(_port_config(config))
     got = kernels.fd_phase_fused_plain(
         t(state.active), t(inputs.alive), t(inputs.drop_prob), t(state.subjects),
@@ -202,13 +213,20 @@ def test_fused_plain_windowed_matches_jax_random_loss_at_probability_zero_and_on
     _assert_plain_matches_jax(*_jax_windowed_case(_lossy, 16, 0.4), random_loss=True)
 
 
+@pytest.mark.parametrize("w, threshold, rpi", [(16, 0.4, 1), (10, 0.5, 1), (10, 0.4, 4)])
+def test_fused_plain_windowed_matches_jax_random_loss_below_one(w, threshold, rpi):
+    _assert_plain_matches_jax(*_jax_windowed_case(_half_lossy, w, threshold, rpi=rpi),
+                              random_loss=True)
+
+
 def test_fused_cpu_wrapper_windowed_takes_plain_path_and_counts_no_launch():
     config, state, inputs = _jax_windowed_case(_crash, 10, 0.4)
     port, port_inputs = _port_state(config, state), _port_inputs(inputs)
     before = dict(kernels.LAUNCHES)
-    got = teng._fd_phase(_port_config(config), port, port_inputs, False, None)
+    key, *got = teng._fd_phase(_port_config(config), port, port_inputs, False)
     assert kernels.LAUNCHES == before
     out = jeng._fd_phase(config, state, inputs, False)
+    np.testing.assert_array_equal(key.numpy().astype(np.uint32), np.asarray(out[0]))
     np.testing.assert_array_equal(got[6].numpy(), np.asarray(out[4]).astype(np.int32))
     np.testing.assert_array_equal(got[5].numpy(), np.asarray(out[9]))
     assert got[1] is port.fd_fail  # the windowed policy leaves fd_fail as it came
@@ -313,7 +331,7 @@ def test_windowed_closed_form_matches_scan_in_the_port(case):
     """Twins of tests/test_fast_path.py's windowed cases: in the port the
     closed form equals the scan over the same budget (the closed form masks
     the rounds after its decision, so no equalising tail is needed), and both
-    equal the JAX scan."""
+    equal the JAX scan, but for the key, which only the scan advances."""
     if case.startswith("seed"):
         seed = int(case[-1])
         config = jeng.SimConfig(capacity=48, k=6, h=5, l=2, fd_policy="windowed",
@@ -342,7 +360,9 @@ def test_windowed_closed_form_matches_scan_in_the_port(case):
                            _port_inputs(inputs), rounds)
     want = jeng.run_rounds_const(config, state, inputs, rounds, False)
     _assert_states_equal(want, scan)
-    _assert_states_equal(want, fast)
+    # the closed form draws nothing and leaves the key as it came, as JAX's
+    # does (the scan splits it every round): every other field is the scan's
+    _assert_states_equal(dataclasses.replace(want, rng_key=state.rng_key), fast)
 
 
 # --------------------------------------------------------------------- #
@@ -388,6 +408,26 @@ def test_windowed_driver_cuts_sustained_crash_alike(lossy):
         recs.append(_summary(sim.run_until_decision(max_rounds=20, batch=10)))
     assert recs[0] == recs[1]
     assert recs[1][0] == [7, 19] and recs[1][2] == 11 * 1000 + 100
+
+
+@pytest.mark.parametrize("probability", [0.5, 0.8])
+def test_windowed_driver_lossy_decision_alike(probability):
+    """Ingress loss below 1.0 under the windowed policy: the draws decide
+    when each window fills, and the twins agree on the cut, configuration
+    id, virtual time, rounds and final state, the key included."""
+    sims = (JaxSimulator(64, config=jeng.SimConfig(capacity=64, fd_policy="windowed"),
+                         seed=33),
+            Simulator(64, config=teng.SimConfig(capacity=64, fd_policy="windowed"),
+                      seed=33, device="cpu"))
+    recs = []
+    for sim in sims:
+        sim.ingress_loss(np.array([7, 19, 40]), probability)
+        recs.append(_summary(sim.run_until_decision(max_rounds=64, batch=16))
+                    + (sim.metrics.get("rounds"),))
+    assert recs[0] == recs[1] and recs[1][0] == [7, 19, 40]
+    for name, value in teng.state_to_numpy(sims[1].state).items():
+        np.testing.assert_array_equal(value, np.asarray(getattr(sims[0].state, name)),
+                                      err_msg=name)
 
 
 def test_windowed_policy_stays_under_flip_flop_alike():
