@@ -10,10 +10,13 @@ into build/kernels/. Phases, each of which must pass:
 1. the card, the torch and CUDA versions, and the kernel build time;
 2. each CUDA kernel against its plain version at [100_000, 10] and
    [1_000_000, 10], bit for bit, with CUDA-event timings of both; the fused
-   FD phase (``fd_phase_fused``) with the gray path off and on and with 1 and
-   4 rounds per interval, timed cold (inputs rotated through more than the
+   FD phase (``fd_phase_fused``, which splits the state's key and draws each
+   lossy edge's threefry word itself) with the gray path off and on and with
+   1 and 4 rounds per interval, at fractional drop probabilities, halted
+   (the key kept) and not, timed cold (inputs rotated through more than the
    50 MB L2) and hot, in a round with alerts and in a quiet one, beside the
-   unfused sequence it replaces (plain ops, ``fd_phase_u8``, the gather);
+   unfused sequence it replaces (the draw, plain ops, ``fd_phase_u8``, the
+   gather);
 3. the headline: a 100k-member simulator, 1% of members crashed, one
    ``run_until_decision(16, 16)`` to warm, then the same timed on
    ``TIMED_RUNS`` fresh simulators (the closed-form branch); each cut must
@@ -46,14 +49,16 @@ into build/kernels/. Phases, each of which must pass:
    ``fd_phase_fused_plain`` over the whole array and each kernel against its
    plain version, bit for bit, at [100_000, 10] over 4 and 8 shards and
    [1_000_000, 10] over 8, under the cumulative, gray and windowed policies,
-   random loss on and off, and halted; the split timed cold beside
+   random loss on and off, each shard's draw folded with its index as on a
+   mesh, and halted; the split timed cold beside
    ``fd_phase_fused``: the per-device call, one shard alone and one call a
    shard; then the headline fault through ``Simulator(mesh=...)`` on meshes
    of 4 and 8 shards and a (2, 2) ("dcn", "ici") mesh, each deciding the
    crashed set at 11 100 ms virtual with the single-device configuration
    id, one sync per dispatch and one ``fd_phase_rows`` and one
    ``fd_gather`` launch a round, beside the single-device closed form and
-   scan path of the same fault;
+   scan path of the same fault, and the same members under ingress loss 1.0
+   on 8 shards (the same launches, none of ``threefry_draw``);
 10. telemetry, speculation, profiling: the headline decision and a crash
    under ingress loss 1.0 (the scan) with ``speculate`` on and off in
    alternating pairs (asked for explicitly: the default leaves it off on
@@ -127,7 +132,7 @@ into build/kernels/. Phases, each of which must pass:
    loss 1.0, and in 4 processes of 1 shard the crash, every child
    under a wall timeout; every rank's record (cut, protocol time,
    configuration id) equal to an in-process single-controller mesh of the
-   same shape and seed, 16 ``fd_phase_rows``, 16 ``fd_gather`` and 16
+   same shape and seed, 16 ``fd_phase_rows``, 16 ``fd_gather`` and no
    ``threefry_draw`` launches, 16 all-gathers and 16 ``shard.exchange`` syncs in each rank
    (``multihost_phase``);
 16. the port's own fault plane (``rapid_tpu_torch/faults.py``): the bench's
@@ -256,18 +261,20 @@ into build/kernels/. Phases, each of which must pass:
    point at 100k through the same ``warmed_run`` (``sweep_point_run``);
 25. the random-loss draw (``threefry_phase``, after the kernels of 2 and 5):
    the kernel ``threefry_draw`` (``csrc/threefry.cu``, JAX's threefry key
-   split and uniform block) against its plain version, bit for bit, at
-   [100_000, 10] and [1_000_000, 10] and over the 8 shards of a 100k mesh
-   with the fold, with its halt flag clear and set, and against ``tests/golden/torch_threefry.json``, which
-   the JAX package wrote (every vector and digest); the file's lossy
-   decision (10 000 members, 1% at ingress loss 0.5) run on the card and
-   equal to the JAX package's record; the kernel timed cold (after a write
-   that evicts the L2) and hot beside its plain version, ``torch.rand`` of
-   the same shape and its bound, and the scan decisions' walls of 4 beside
-   the draw's launches in them. Every lossy scan round of the phases above
-   launches ``threefry_draw`` once (one a device call on a mesh, where a
-   round without loss launches it once to split the key), and the expected
-   launch counts say so.
+   split and uniform block, the bits of ``csrc/threefry.cuh``) against its
+   plain version, bit for bit, at [100_000, 10] and [1_000_000, 10] and over
+   the 8 shards of a 100k mesh with the fold, with its halt flag clear and
+   set, and against ``tests/golden/torch_threefry.json``, which the JAX
+   package wrote (every vector and digest); the file's lossy decision
+   (10 000 members, 1% at ingress loss 0.5) run on the card, equal to the
+   JAX package's record, with 48 ``fd_phase_fused`` launches and none of
+   ``threefry_draw``; the kernel timed cold (after a write that evicts the
+   L2) and hot at [100_000, 10] beside its plain version, ``torch.rand`` of the same shape
+   and its bound, and the scan decisions' walls of 4. No round path
+   launches ``threefry_draw``: the FD kernels split the key and make each
+   lossy edge's word where they read it (on a mesh each device's
+   ``fd_phase_rows`` call, with loss or without), and the expected launch
+   counts say so.
 
 Prints a JSON line of kernel results, one line of each phase's seconds, the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -393,6 +400,12 @@ WIRE_FRAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PROTO_FRAMES = os.path.join(os.path.dirname(WIRE_FRAMES), "torch_proto_frames.json")
 
 
+# the FD phase's plain versions draw the round's whole threefry block in
+# PyTorch ops, milliseconds a call at [1M, 10]: their CUDA graphs take fewer
+# calls
+PLAIN_TIMING = dict(reps=4, iters=5)
+
+
 def _time_ms(fn, reps=24, iters=11):
     """Device time of one call of ``fn`` (``fd_bench.graph_ms``): ``reps``
     calls captured in a CUDA graph, the replay timed with CUDA events, median
@@ -448,13 +461,15 @@ def _kernel_phase(kernels, device):
 
 
 def _unfused_sequence(kernels, args, subj, obs, threshold):
-    """The scan-round FD phase that ``fd_phase_fused`` replaces, after the
-    draw: plain ops around ``fd_phase_u8``, then the destination gather
-    (random loss on, gray off, one round per interval). ``subj``/``obs`` are
-    int64 copies of the adjacency, made once per dispatch."""
-    (active, alive, drop_prob, _, _, probe_drop, down_reports, draw, fd_fail,
+    """The scan-round FD phase that ``fd_phase_fused`` replaces: the round's
+    draw (``threefry_draw``), plain ops around ``fd_phase_u8``, then the
+    destination gather (random loss on, gray off, one round per interval).
+    ``subj``/``obs`` are int64 copies of the adjacency, made once per
+    dispatch."""
+    (active, alive, drop_prob, _, _, probe_drop, down_reports, key, fd_fail,
      alerted) = args[:10]
     c, k = subj.shape
+    _, draw = kernels.threefry_draw(key, c, k)
     alive = alive & active
     edge_live = active[:, None] & active[subj]
     probe_ok = alive[subj] & ~probe_drop & ~(draw < drop_prob[subj])
@@ -465,30 +480,49 @@ def _unfused_sequence(kernels, args, subj, obs, threshold):
     return alive, fd, alerted, down
 
 
+def _outputs_equal(got, want):
+    """Every output of two FD phase calls equal (None where both lack it),
+    and the largest absolute difference."""
+    pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+    assert len(got) == len(want) and all(g is not None for g, _ in pairs)
+    return _max_err(*zip(*pairs)), all(torch.equal(g, w) for g, w in pairs)
+
+
+def _draw_ops_ms(edges):
+    """Device ms of threefry's integer operations for ``edges`` words, by the
+    pipes that issue them (``threefry_draw``'s bound, ``THREEFRY_*``)."""
+    return max(THREEFRY_ALU_OPS_PER_ELEMENT * edges / INT32_OPS_PER_S,
+               THREEFRY_OPS_PER_ELEMENT * edges / TWO_PIPE_OPS_PER_S) * 1e3
+
+
 def _fused_phase(kernels, fd_bench, device):
     """``fd_phase_fused`` against its plain version, bit for bit, in each
-    variant, then the headline variant timed cold and hot beside its plain
-    version and the unfused sequence, in a round with alerts and in a quiet
-    one."""
+    variant, halted (the key kept) and not, at ``fused_case``'s fractional
+    drop probabilities; then the headline variant timed cold and hot beside
+    its plain version and the unfused sequence, in a round with alerts and
+    in a quiet one. The bound: the bytes, or threefry's operations on the
+    edges this run's data draws if more."""
     results = {}
     for c in KERNEL_SIZES:
         worst = 0
         for gray, rpi, random in FUSED_VARIANTS:
             args = fd_bench.fused_case(c, c + gray + rpi, device, random)
-            kw = dict(threshold=10, gray_confirm=gray, gray_warmup=3, rounds_per_interval=rpi)
-            # the six planes of the cumulative policy (no window planes)
-            got = kernels.fd_phase_fused(*args, **kw)[:6]
-            want = kernels.fd_phase_fused_plain(*args, **kw)[:6]
-            torch.cuda.synchronize()
-            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                      for g, w in zip(got, want))
-            assert err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)), (
-                f"fd_phase_fused at [{c}, 10], gray {gray}, rpi {rpi}, random {random} "
-                f"disagrees with its plain version")
-            assert (got[2] & ~args[9]).any(), "the case should raise alerts"
-            worst = max(worst, err)
+            for halted in (False, True):
+                kw = dict(threshold=10, gray_confirm=gray, gray_warmup=3, rounds_per_interval=rpi,
+                          halt=torch.tensor(halted, device=device))
+                got = kernels.fd_phase_fused(*args, **kw)
+                want = kernels.fd_phase_fused_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err, equal = _outputs_equal(got, want)
+                assert err == 0 and equal, (
+                    f"fd_phase_fused at [{c}, 10], gray {gray}, rpi {rpi}, random {random}, "
+                    f"halted {halted} disagrees with its plain version")
+                assert (got[2] & ~args[9]).any(), "the case should raise alerts"
+                assert torch.equal(got[8], args[7]) == halted, "the key split or kept wrongly"
+                worst = max(worst, err)
             print(f"kernel fd_phase_fused [{c}, 10] gray {gray} rpi {rpi} random {random}: "
-                  f"bit-identical to plain (tolerance 0)", flush=True)
+                  f"bit-identical to plain (tolerance 0), the key too, halted and not; "
+                  f"{fd_bench.drawn_edges(args, rpi)} edges drawn", flush=True)
 
         gray, rpi, random = FUSED_VARIANTS[0]
         kw = dict(threshold=10, gray_confirm=gray, gray_warmup=3, rounds_per_interval=rpi)
@@ -498,9 +532,9 @@ def _fused_phase(kernels, fd_bench, device):
         quiet = fd_bench.quiet(sets)
         wide = [(a[3].long(), a[4].long()) for a in sets]
         for case in (sets[0], quiet[0]):
-            want = kernels.fd_phase_fused_plain(*case, **kw)[:6]
-            got = kernels.fd_phase_fused(*case, **kw)[:6]
-            assert all(torch.equal(g, w) for g, w in zip(got, want)), "timed case disagrees"
+            want = kernels.fd_phase_fused_plain(*case, **kw)
+            got = kernels.fd_phase_fused(*case, **kw)
+            assert _outputs_equal(got, want)[1], "timed case disagrees"
             got = _unfused_sequence(kernels, case, *wide[0], 10)
             assert all(torch.equal(g, want[i]) for g, i in zip(got, (0, 1, 2, 5))), (
                 "the unfused sequence disagrees with the fused plain version")
@@ -522,27 +556,30 @@ def _fused_phase(kernels, fd_bench, device):
             t[f"{label}unfused_cold_ms"] = _time_ms(
                 [unfused(a, w) for a, w in zip(cases, wide)])
             t[f"{label}unfused_hot_ms"] = _time_ms(unfused(cases[0], wide[0]))
-            t[f"{label}plain_cold_ms"] = _time_ms([plain(a) for a in cases])
-            t[f"{label}plain_hot_ms"] = _time_ms(plain(cases[0]))
+            t[f"{label}plain_cold_ms"] = _time_ms([plain(a) for a in cases], **PLAIN_TIMING)
+            t[f"{label}plain_hot_ms"] = _time_ms(plain(cases[0]), **PLAIN_TIMING)
         nbytes = fd_bench.fused_bytes(c, 10, gray, random)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         quiet_bound_ms = (fd_bench.fused_bytes(c, 10, gray, random, alerts=False)
                           / HBM_BYTES_PER_S * 1e3)
-        ops_ms = OPS_PER_EDGE["fd_phase_fused"] * c * 10 / PEAK_OPS_PER_S * 1e3
+        drawn = fd_bench.drawn_edges(sets[0], rpi)
+        ops_ms = (OPS_PER_EDGE["fd_phase_fused"] * c * 10 / PEAK_OPS_PER_S * 1e3
+                  + _draw_ops_ms(drawn))
         bound_ms = max(bytes_ms, ops_ms)
         results[f"{c}x10"] = dict(
             t, max_abs_err=worst, ms=t["cold_ms"], plain_ms=t["plain_cold_ms"],
             bound_ms=bound_ms, bound_us=bound_ms * 1e3,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes_per_edge=nbytes / (c * 10), input_sets=len(sets),
+            bytes_per_edge=nbytes / (c * 10), input_sets=len(sets), drawn_edges=drawn,
+            draw_ops_ms=_draw_ops_ms(drawn),
             share_of_bound=bound_ms / t["cold_ms"], quiet_bound_ms=quiet_bound_ms,
             quiet_share_of_bound=quiet_bound_ms / t["quiet_cold_ms"],
         )
         print(f"kernel fd_phase_fused [{c}, 10] timed: "
               + ", ".join(f"{key} {ms * 1e3:.2f} us" for key, ms in t.items())
-              + f"; bound {bound_ms * 1e3:.2f} us ({nbytes / (c * 10):.2f} B/edge), "
-              f"quiet bound {quiet_bound_ms * 1e3:.2f} us, {len(sets)} input sets for cold",
-              flush=True)
+              + f"; bound {bound_ms * 1e3:.2f} us ({nbytes / (c * 10):.2f} B/edge; threefry on "
+              f"the {drawn} edges drawn {_draw_ops_ms(drawn) * 1e3:.2f} us), quiet bound "
+              f"{quiet_bound_ms * 1e3:.2f} us, {len(sets)} input sets for cold", flush=True)
         del sets, quiet, wide
         torch.cuda.empty_cache()
     return results
@@ -601,9 +638,11 @@ def _windowed_phase(kernels, fd_bench, engine, device):
 
         t = {}
         for label, pl in (("", planes), ("quiet_", quiet)):
-            for name, fn in (("", kernels.fd_phase_fused), ("plain_", kernels.fd_phase_fused_plain)):
-                t[f"{label}{name}cold_ms"] = _time_ms([call(fn, a, p) for a, p in zip(sets, pl)])
-                t[f"{label}{name}hot_ms"] = _time_ms(call(fn, sets[0], pl[0]))
+            for name, fn, timing in (("", kernels.fd_phase_fused, {}),
+                                     ("plain_", kernels.fd_phase_fused_plain, PLAIN_TIMING)):
+                t[f"{label}{name}cold_ms"] = _time_ms([call(fn, a, p) for a, p in zip(sets, pl)],
+                                                      **timing)
+                t[f"{label}{name}hot_ms"] = _time_ms(call(fn, sets[0], pl[0]), **timing)
         nbytes = fd_bench.fused_bytes(c, 10, False, random, window=True)
         quiet_bytes = fd_bench.fused_bytes(c, 10, False, random, alerts=False, window=True)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -699,8 +738,8 @@ def _windowed_decisions(Simulator, engine, kernels, rng, device):
             # decision), one launch of each kernel a round; the closed form
             # launches nothing
             want = {key: 0 for key in launches}
-            if name == "ingress_loss":
-                want["fd_phase_fused_windowed"] = want["threefry_draw"] = 16
+            if name == "ingress_loss":  # the FD kernel splits the key and draws
+                want["fd_phase_fused_windowed"] = 16
             assert launches == want, (name, launches)
         out[name] = {"walls_ms": walls, "launches": launches}
         print(f"windowed decision ({'closed form, crash' if name == 'crash' else 'scan, ingress loss 1.0'}): "
@@ -866,15 +905,17 @@ def _split_round(kernels, calls, bits, args, rows, halt):
 
 def _assert_halted(kernels, fd_bench, args, kw, shards, halt, where):
     """The per-device call halted: every plane as it came in, every segment
-    zero, and equal to its plain version halted."""
+    zero, the key kept, and equal to its plain version halted."""
     calls, bits = fd_bench.split_case(args, kw, shards)
     merged, merged_kw = fd_bench.device_call(calls)
-    got = kernels.fd_phase_rows(*merged, **merged_kw, halt=halt)
+    got, key = kernels.fd_phase_rows(*merged, **merged_kw, halt=halt)
     plain_calls, plain_bits = fd_bench.split_case(args, kw, shards)
     plain_merged, plain_kw = fd_bench.device_call(plain_calls)
-    plain = kernels.fd_phase_rows_plain(*plain_merged, **plain_kw, halt=halt)
+    plain, plain_key = kernels.fd_phase_rows_plain(*plain_merged, **plain_kw, halt=halt)
     torch.cuda.synchronize()
     assert torch.equal(bits, plain_bits) and not bits.any(), f"halted bitset not zero at {where}"
+    assert torch.equal(key, args[7]) and torch.equal(plain_key, args[7]), (
+        f"a halted call moved the key at {where}")
     for (a, a_kw), g, p in zip(calls, got, plain):
         planes_in = (a[6], a[7], a[8], a[9], a_kw["fd_hist"], a_kw["fd_seen"])
         for i, x, y in zip(planes_in, g, p):
@@ -883,15 +924,17 @@ def _assert_halted(kernels, fd_bench, args, kw, shards, halt, where):
 
 
 def _split_phase(kernels, fd_bench, engine, device):
-    """The per-device ``fd_phase_rows`` over every shard, the exchange into
-    one bitset and ``fd_gather``, against ``fd_phase_fused_plain`` over the
-    whole array and each kernel against its plain version, bit for bit, in
-    every case of SPLIT_CASES x {cumulative, gray, windowed} x {random loss,
-    none}, and halted (every plane as it came in, no bit) with random loss;
-    then at [100_000, 10] over 8 shards, timed cold (input sets rotated past
-    the L2): the per-device call, one shard's call alone, and 8 one-shard
-    calls, each round with ``fd_gather``, beside
-    ``fd_phase_fused`` on the same inputs."""
+    """The per-device ``fd_phase_rows`` over every shard (each shard's draw
+    folded with its index, as on a mesh), the exchange into one bitset and
+    ``fd_gather``, each kernel against its plain version, bit for bit (the
+    new key too), in every case of SPLIT_CASES x {cumulative, gray,
+    windowed} x {random loss, none}; without random loss also against
+    ``fd_phase_fused_plain`` over the whole array, and with it halted
+    (every plane as it came in, no bit, the key kept); then at [100_000,
+    10] over 8 shards timed cold (input sets rotated past the L2): the
+    per-device call, one shard's call alone, and 8 one-shard calls, each
+    round with ``fd_gather``, beside ``fd_phase_fused`` on the same
+    inputs."""
     worst = {"fd_phase_rows": 0, "fd_phase_rows_windowed": 0, "fd_gather": 0}
     running = torch.zeros((), dtype=torch.bool, device=device)
     halted = torch.ones((), dtype=torch.bool, device=device)
@@ -905,15 +948,18 @@ def _split_phase(kernels, fd_bench, engine, device):
                 plain_calls, plain_bits = fd_bench.split_case(args, kw, shards)
                 plain = fd_bench.run_split(plain_calls, plain_bits, args, kernel=False,
                                            halt=running)
-                fused = kernels.fd_phase_fused_plain(*args, **kw)
+                # with random loss each shard draws under the probe key folded
+                # with its index, other bits than the fused phase's
+                fused = None if random else kernels.fd_phase_fused_plain(*args, **kw)
                 torch.cuda.synchronize()
                 where = f"[{c}, 10] over {shards} shards, {policy}, random {random}"
                 for i, name in enumerate(("alive", "fd_fail", "alerted", "fd_streak", "fd_ok",
-                                          "down_arrivals", "fd_hist", "fd_seen")):
-                    if i == 0 or fused[i] is None:
+                                          "down_arrivals", "fd_hist", "fd_seen", "key")):
+                    if i == 0 or plain[i] is None:
                         continue
-                    assert torch.equal(got[i], fused[i]), f"split {name} != fused plain at {where}"
                     assert torch.equal(got[i], plain[i]), f"split {name} != its plain at {where}"
+                    assert fused is None or torch.equal(got[i], fused[i]), (
+                        f"split {name} != fused plain at {where}")
                 assert torch.equal(bits, plain_bits), f"bitset != plain at {where}"
                 assert (got[2] & ~args[9]).any(), "the case should raise alerts"
                 rows_err = max(_max_err(got[1:5] + got[6:], plain[1:5] + plain[6:]),
@@ -921,13 +967,15 @@ def _split_phase(kernels, fd_bench, engine, device):
                 rows_name = "fd_phase_rows_windowed" if policy == "windowed" else "fd_phase_rows"
                 worst[rows_name] = max(worst[rows_name], rows_err)
                 worst["fd_gather"] = max(worst["fd_gather"], _max_err([got[5]], [plain[5]]))
-                print(f"split {where}: one fd_phase_rows call over {shards} shards + exchange "
-                      f"+ fd_gather bit-identical to fd_phase_fused_plain and to their plain "
-                      f"versions (tolerance 0)", flush=True)
+                print(f"split {where}: one fd_phase_rows call over {shards} shards (each "
+                      f"shard's draw folded with its index) + exchange + fd_gather "
+                      f"bit-identical to their plain versions, the key too"
+                      + ("" if random else " and to fd_phase_fused_plain")
+                      + " (tolerance 0)", flush=True)
                 if random:
                     _assert_halted(kernels, fd_bench, args, kw, shards, halted, where)
-                    print(f"split {where}, halted: every plane as it came in, no bit, "
-                          f"bit-identical to the plain version (tolerance 0)", flush=True)
+                    print(f"split {where}, halted: every plane as it came in, no bit, the key "
+                          f"kept, bit-identical to the plain version (tolerance 0)", flush=True)
                 del args, calls, bits, plain_calls, plain_bits, got, plain, fused
         torch.cuda.empty_cache()
 
@@ -966,7 +1014,8 @@ def _split_phase(kernels, fd_bench, engine, device):
         # cold: every set in turn, more than the L2 holds
         t = {"ms": _time_ms([device_call(m) for m in merged]),
              "hot_ms": _time_ms(device_call(merged[0])),
-             "plain_ms": _time_ms([device_call(m, kernels.fd_phase_rows_plain) for m in merged]),
+             "plain_ms": _time_ms([device_call(m, kernels.fd_phase_rows_plain) for m in merged],
+                                  **PLAIN_TIMING),
              "one_shard_ms": _time_ms([shard_call(a, kw) for a, kw in every_shard],
                                       reps=len(every_shard)),
              "per_shard_calls_ms": _time_ms([shard_calls(calls) for calls, _ in cases]),
@@ -1183,10 +1232,10 @@ PROFILE_LOSSES = ((0.5, N_NODES // 1000), (1.0, N_NODES // 100))  # (p, members)
 def _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device, policy):
     """One 100k scan-path decision with every dispatch sampled under the FD
     ``policy``: samples, the four phases, the prefixes' kernel launches
-    (16 and one a replay of the FD kernel and of ``threefry_draw`` alike: 3
-    a turn the profiler counts, more than one turn a sample only where a
-    turn was taken again; a captured prefix counts once a replay, not at
-    capture). On the first decision's pre-dispatch state, a fresh
+    (16 and one a replay of the FD kernel, which splits the key and draws,
+    and none of ``threefry_draw``: 3 a turn the profiler counts, more than
+    one turn a sample only where a turn was taken again; a captured prefix
+    counts once a replay, not at capture). On the first decision's pre-dispatch state, a fresh
     profiler's best-of-``PROFILE_REPEATS`` sample must hold every phase
     > 0, its captured full step must equal the eager ``engine.step`` of the
     same state, bit for bit, the key included, and the state's key must
@@ -1234,8 +1283,7 @@ def _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device,
     replays = len(prefix_ms)
     assert replays == 3 * prof.turns >= 3 * samples and launches[counter] == 16 + replays, (
         replays, prof.turns, launches)
-    assert launches["threefry_draw"] == 16 + replays, (replays, launches)
-    assert launches[other] == 0, launches
+    assert launches["threefry_draw"] == 0 and launches[other] == 0, launches
 
     before = state.rng_key.clone()
     fresh = phases.PhaseProfiler(Metrics(), ProfilingSettings(enabled=True))
@@ -1255,8 +1303,8 @@ def _profiled_policy(Simulator, engine, kernels, ProfilingSettings, rng, device,
     print(f"profiling, {policy} scan path, every dispatch sampled: {samples} sample(s), device "
           f"phase ms a sample {rounded(per_sample)}, host transfer "
           f"{totals['host_transfer']:.3f} ms over {sim.metrics.get('device_dispatches')} "
-          f"dispatch(es); {counter} and threefry_draw launches {launches[counter]} and "
-          f"{launches['threefry_draw']} (16 in the dispatch + one a replay, {replays} replays); "
+          f"dispatch(es); {counter} launches {launches[counter]} (16 in the dispatch + one a "
+          f"replay, {replays} replays), threefry_draw {launches['threefry_draw']}; "
           f"best of {PROFILE_REPEATS} turns on the pre-dispatch state: device (graph replays) "
           f"{rounded(best)}, host walls of the same prefixes {rounded(host)}; the captured step "
           f"== the eager step, every field, the key included; the state's key untouched",
@@ -1272,8 +1320,8 @@ def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
     under both FD policies (``_profiled_policy``); then, cumulative, further
     decisions a round a dispatch, every one sampled once (one shot, the
     in-loop default): at least ``PROFILE_MIN_SAMPLES`` samples, no phase of
-    any at 0, ``fd_phase_fused`` and ``threefry_draw`` each launched once a
-    dispatch (its round) and once a replay; the GPU ops of one step and of
+    any at 0, ``fd_phase_fused`` launched once a dispatch (its round) and
+    once a replay, ``threefry_draw`` never; the GPU ops of one step and of
     each prefix; and the decisions with profiling on equal those with it off
     under ingress loss below 1.0 and at 1.0 (cut, configuration id, virtual
     ms)."""
@@ -1297,7 +1345,7 @@ def _profiling(Simulator, engine, kernels, ProfilingSettings, rng, device):
         assert sim.run_until_decision(max_rounds=16, batch=1) is not None
         sampled, replays = prof.samples - taken, len(prefix_ms) - replays
         assert replays == 3 * (prof.turns - turns) and kernels.LAUNCHES[
-            "fd_phase_fused"] == kernels.LAUNCHES["threefry_draw"] == sampled + replays, (
+            "fd_phase_fused"] == sampled + replays and kernels.LAUNCHES["threefry_draw"] == 0, (
             sampled, replays, kernels.LAUNCHES)
     in_loop = run["in_loop"]
     assert len(prefix_ms) == 3 * prof.turns, (len(prefix_ms), prof.turns)
@@ -1375,8 +1423,9 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
     """The headline fault (100k members, 1% crashed, ``run_until_decision(16,
     16)``) through ``Simulator(mesh=...)`` on each mesh of MESHES, every shard
     on this card, beside the single-device closed form and scan path (ingress
-    loss 1.0) of the same members; and the windowed policy on 4 shards.
-    Counts are reset just before each decision and read just after."""
+    loss 1.0) of the same members; the same members under ingress loss 1.0
+    on 8 shards; and the windowed policy on 4 shards. Counts are reset just
+    before each decision and read just after."""
     victims = rng.choice(N_NODES, N_NODES // 100, replace=False)
     card = torch.device(device.type, torch.cuda.current_device())
 
@@ -1421,9 +1470,9 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
             walls.append(ms)
             assert rec.configuration_id == reference_id, (label, rec.configuration_id)
             want = {name: 0 for name in launches}
-            # one fd_phase_rows call a round covers every shard of the card;
-            # without loss threefry_draw only splits the key, once a round
-            want.update(fd_phase_rows=16, fd_gather=16, threefry_draw=16)
+            # one fd_phase_rows call a round covers every shard of the card
+            # and splits the key, with loss or without
+            want.update(fd_phase_rows=16, fd_gather=16)
             assert launches == want, (label, launches)
         sim = fresh(mesh=mesh)
         sim.crash(victims)
@@ -1462,11 +1511,29 @@ def _sharded_decisions(Simulator, engine, shard, kernels, rng, device):
               f"split device us a round: rows {dispatch['rows_us'] / 16:.2f}, gather "
               f"{dispatch['gather_us'] / 16:.2f}", flush=True)
 
+    # the lossy decision on 8 shards: each device call splits the key and
+    # draws, with no launch of its own for either
+    mesh = shard.make_mesh(devices=[card] * 8)
+    rec, ms, launches = decide(fresh(mesh=mesh), "ingress_loss")
+    assert rec.configuration_id == reference_id, rec.configuration_id
+    want = {name: 0 for name in launches}
+    want.update(fd_phase_rows=16, fd_gather=16)
+    assert launches == want, launches
+    sim = fresh(mesh=mesh)
+    sim.ingress_loss(victims, 1.0)
+    prof = _profile(lambda: sim.run_until_decision(max_rounds=16, batch=16))
+    out["8 shards, ingress loss 1.0"] = {"wall_ms": ms, "launches": launches, **prof}
+    print(f"sharded decision, 8 shards, ingress loss 1.0: cut ok, virtual "
+          f"{rec.virtual_time_ms} ms, configuration id {rec.configuration_id}, wall {ms:.3f} ms, "
+          f"launches {({k: v for k, v in launches.items() if v})}; profiled decision: GPU ops "
+          f"{prof['kernels']} (and {prof['annotations']} named ranges), device busy "
+          f"{prof['device_busy_ms']:.3f} ms", flush=True)
+
     config = engine.SimConfig(capacity=N_NODES, fd_policy="windowed")
     mesh = shard.make_mesh(devices=[card] * 4)
     rec, ms, launches = decide(fresh(mesh=mesh, config=config))
     want = {name: 0 for name in launches}
-    want.update(fd_phase_rows_windowed=16, fd_gather=16, threefry_draw=16)
+    want.update(fd_phase_rows_windowed=16, fd_gather=16)
     assert launches == want, launches
     out["windowed 4 shards"] = {"wall_ms": ms, "launches": launches}
     print(f"sharded decision, windowed, 4 shards: cut ok, virtual {rec.virtual_time_ms} ms, "
@@ -1557,7 +1624,7 @@ def multihost_phase(Simulator, shard, kernels, card):
         for r in ranks:
             assert r["record"] == want, (label, r["process"], r["record"], want)
             assert r["launches"]["fd_phase_rows"] == r["launches"]["fd_gather"] == 16, r
-            assert r["launches"]["threefry_draw"] == 16, r
+            assert r["launches"]["threefry_draw"] == 0, r
             assert r["collectives"] == r["syncs"]["shard.exchange"] == 16, r
             assert r["syncs"]["sim.decision_words"] == 1, r
         out[label] = {"ranks": ranks, "inprocess_walls_ms": walls,
@@ -6395,11 +6462,13 @@ def _cold_ms(fn, flush, iters=11):
 
 def threefry_phase(kernels, threefry, Simulator, card, device, scan_walls, scan_launches):
     """``threefry_draw`` on the card: against its plain version at the main
-    path's shapes, against the JAX package's vectors and digests and its
-    lossy decision (``THREEFRY_GOLDEN``), and timed cold and hot beside its
-    plain version, ``torch.rand`` of the same shape (the nearest single
-    PyTorch call, though not the same function) and its bound. Returns the
-    kernel's entry for the kernels line (without ``launches``)."""
+    path's shapes, against the JAX package's vectors and digests
+    (``THREEFRY_GOLDEN``), and timed cold and hot at [100_000, 10] beside
+    its plain version, ``torch.rand`` of the same shape (the nearest single
+    PyTorch call, though not the same function) and its bound; and the file's lossy
+    decision on the card, whose words the FD kernel makes (``fd_phase_fused``
+    48 times, ``threefry_draw`` never). Returns the kernel's entry for the
+    kernels line (without ``launches``)."""
     with open(THREEFRY_GOLDEN) as f:
         golden = json.load(f)
     t0 = time.perf_counter()
@@ -6431,8 +6500,8 @@ def threefry_phase(kernels, threefry, Simulator, card, device, scan_walls, scan_
     decision_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     misses = _golden_misses(decision, golden["decision"])
     assert not misses, f"the lossy decision differs from {THREEFRY_GOLDEN}: {misses[:5]}"
-    assert decision_launches.get("threefry_draw", 0) == decision_launches.get(
-        "fd_phase_fused", -1) > 0, decision_launches
+    # 3 dispatches of 16 rounds; the FD kernel splits the key and draws
+    assert decision_launches == {"fd_phase_fused": 48}, decision_launches
     print(f"threefry, golden: {len(got)} vectors and digests equal the JAX package's; the "
           f"lossy decision ({THREEFRY_DECISION['n']} members, {THREEFRY_DECISION['members']} "
           f"at ingress loss {THREEFRY_DECISION['probability']}) cut {len(decision['cut'])}, "
@@ -6443,7 +6512,9 @@ def threefry_phase(kernels, threefry, Simulator, card, device, scan_walls, scan_
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     sizes = {}
-    for rows in KERNEL_SIZES:
+    # timed at the main path's shape alone: no round path launches it, and
+    # the golden vectors hold it at [1M, 10]
+    for rows in KERNEL_SIZES[:1]:
         key = threefry.prng_key(SEED).to(device)
         kernel = lambda: kernels.threefry_draw(key, rows, 10)  # noqa: E731
         plain = lambda: threefry.draw_plain(key, rows, 10)  # noqa: E731
@@ -6471,7 +6542,7 @@ def threefry_phase(kernels, threefry, Simulator, card, device, scan_walls, scan_
     torch.cuda.empty_cache()
     print(f"threefry, scan decisions (100k, ingress loss 1.0): walls "
           f"{[round(w, 3) for w in scan_walls]} ms, median {statistics.median(scan_walls):.3f} ms, "
-          f"threefry_draw launches {scan_launches['threefry_draw']} of fd_phase_fused's "
+          f"threefry_draw launches {scan_launches['threefry_draw']}, fd_phase_fused's "
           f"{scan_launches['fd_phase_fused']} ({card})", flush=True)
     main_shape = sizes[f"{KERNEL_SIZES[0]}x10"]
     return {
@@ -6480,8 +6551,10 @@ def threefry_phase(kernels, threefry, Simulator, card, device, scan_walls, scan_
         "source": "rapid_tpu_torch/csrc/threefry.cu",
         # no Pallas kernel: jax.random's threefry in the round's XLA program
         "replaces": "rapid_tpu/sim/engine.py:575",
-        "on_main_path": True,
-        "path": "scan (ingress loss 1.0); the lossy decision of the golden file",
+        # the FD kernels make the words on every round path (threefry.cuh);
+        # this is the block the golden vectors hold
+        "on_main_path": False,
+        "path": "none: the golden vectors (the FD kernels draw on the round paths)",
         "launches_golden_decision": decision_launches.get("threefry_draw", 0),
         "match": True,
         "max_abs_err": 0,
@@ -6831,12 +6904,10 @@ def main() -> int:
             "gather_only_ms": t.get("gather_only_ms"),
             "sizes": {f"{t['shape'][0]}x10": t},
         })
-    line["kernels"].append(dict(
-        threefry_line,
-        # the scan path's decision (ingress loss 1.0), one launch a round
+    # the FD kernels split the key and draw: no round path launches the draw
+    # block, neither lossy nor on a mesh
+    draw_launches = dict(
         launches=scan_launches["threefry_draw"],
-        # the windowed scan's and the sharded decisions' (8 shards, no loss:
-        # the key's split alone, once a round)
         launches_windowed=windowed["ingress_loss"]["launches"]["threefry_draw"],
         launches_sharded=sharded["8 shards"]["launches"]["threefry_draw"],
         launches_bridged=bridged_launches.get("threefry_draw", []),
@@ -6848,7 +6919,11 @@ def main() -> int:
         launches_scenarios=scenario_launches.get("threefry_draw", []),
         launches_multiprocess=[(label, r["process"], r["launches"].get("threefry_draw", 0))
                                for label, run in multihost.items() for r in run["ranks"]],
-    ))
+    )
+    counts = [v for v in draw_launches.values() if isinstance(v, int)] + [
+        row[-1] for v in draw_launches.values() if isinstance(v, list) for row in v]
+    assert not any(counts), f"threefry_draw launched on a round path: {draw_launches}"
+    line["kernels"].append(dict(threefry_line, **draw_launches))
     main_case = topr[TOPR_CASES[0][0]]
     line["kernels"].append({
         "name": "placement_topr",

@@ -125,7 +125,7 @@ RULE_DOCS = {
 PRINT_OK_ROOTS = ("rapid_tpu_torch/cli", "rapid_tpu_torch/experiments",
                   "rapid_tpu_torch/examples", "tests")
 PRINT_OK_FILES = {"rapid_tpu_torch/sim/fd_bench.py", "rapid_tpu_torch/sim/fd_variants.py",
-                  "rapid_tpu_torch/sim/profile_decision.py",
+                  "rapid_tpu_torch/sim/fold_compare.py", "rapid_tpu_torch/sim/profile_decision.py",
                   "rapid_tpu_torch/placement/topr_variants.py", "chip_smoke.py"}
 
 

@@ -11,7 +11,7 @@
 //
 //   alive[n]       = alive_in[n] & active[n]
 //   watching(o,k)  = active[o] & active[s] & alive[o] & turn(o)
-//   probe_ok(o,k)  = alive[s] & ~probe_drop[o,k] & ~(draw[o,k] < drop_prob[s])
+//   probe_ok(o,k)  = alive[s] & ~probe_drop[o,k] & ~(draw(o,k) < drop_prob[s])
 //   fail           = watching & ~probe_ok
 //   fd_fail       += fail                (uint8, stops at 255)
 //   new_down       = watching & fd_fail >= threshold & ~alerted
@@ -30,20 +30,32 @@
 //
 // turn(o) is the staggered FD phase: (uint32(o) * 2654435761) mod rpi ==
 // round mod rpi, with the round read from device memory (no host sync).
-// The draw term is present only when a draw is given (random loss on).
+//
+// Random loss. Every call also advances the state's random key as the JAX
+// engine's round does (jax.random.split: the new key, kept as it came when
+// the halt flag is set, and the probe key), and with random loss on
+// (drop_prob given) draw(o,k) is JAX's uniform draw of edge e = o*K + k under
+// the probe key: the bits of threefry.cuh, the words threefry.cu's
+// threefry_draw writes as a block. Threefry is counter-based, so the edge
+// pass makes an edge's word in registers, and only where it can change the
+// outcome: the observer probes, the subject is alive and lossy (drop_prob >
+// 0; draws lie in [0, 1)), the probe is not dropped, and drop_prob is below
+// 1 (at 1 or more the probe is lost without a draw).
 //
 // What bounds it. The compulsory traffic is bytes: at K=10 with random loss
-// on and the gray path off, an edge reads subjects, observers and the draw
-// (4 B each) and probe_drop, fd_fail, alerted and down_reports (1 B each),
-// and writes fd_fail, alerted and down_arrivals (1 B each): 19 B, plus 7 B
-// per node (active, alive, drop_prob in; alive out), 0.7 B per edge. The
-// gray path adds 4 B per edge; the window swaps the counter's 2 B for the
-// int32 history and the uint8 probe count, in and out (10 B); a round with
-// no new alert needs no observers.
-// The arithmetic is a few integer operations per edge. What holds the kernel
-// above that bound on an H100 is the two random reads per edge that the
-// function implies, each waiting on a streamed load before it can issue: the
-// subject's state (indexed by subjects[o, k]) and the observer edge's
+// on and the gray path off, an edge reads subjects and observers (4 B each)
+// and probe_drop, fd_fail, alerted and down_reports (1 B each), and writes
+// fd_fail, alerted and down_arrivals (1 B each): 15 B, plus 7 B per node
+// (active, alive, drop_prob in; alive out), 0.7 B per edge. The gray path
+// adds 4 B per edge; the window swaps the counter's 2 B for the int32
+// history and the uint8 probe count, in and out (10 B); a round with no new
+// alert needs no observers. The draws add threefry's integer operations on
+// the edges that draw, which bound the call only when most subjects are
+// lossy (threefry.cu's header counts them).
+// The other arithmetic is a few integer operations per edge. What holds the
+// kernel above that bound on an H100 is the two random reads per edge that
+// the function implies, each waiting on a streamed load before it can issue:
+// the subject's state (indexed by subjects[o, k]) and the observer edge's
 // new_down (indexed by observers[d, k]). PERF.md has the measurements.
 //
 // What the design does about it:
@@ -67,7 +79,15 @@
 //   destination edge, vectorised over destinations; when no bit is set, as
 //   in most rounds of a scan, it reads neither the observers nor the bits.
 // - The policy is a compile-time choice (kGray, kWindow), so each
-//   instantiation reads and writes only its own per-edge planes.
+//   instantiation reads and writes only its own per-edge planes, and random
+//   loss another (kRandom).
+// - The key's split takes no pass of its own: in block 0 of the node pass,
+//   one thread writes the new key (out of place, so the call can sit in a
+//   CUDA graph) and one thread a probe key writes it into the node table's
+//   scratch, which every block of the observer pass reads once, after the
+//   node pass has ended. A thread draws the edges of its slot that need a
+//   word in a loop over their bits, so a warp takes as many steps as its
+//   busiest lane needs (with 1% of subjects lossy, about one a slot).
 // - PERF.md lists the designs tried and measured on the card that this one
 //   beat, among them recomputing new_down in the destination thread.
 //
@@ -87,16 +107,20 @@
 //   at local edge 0 (16-byte accesses when every stream is aligned there,
 //   scalar ones otherwise), and the last data word is written whole, so the
 //   segment holds no stale bit. A halt flag, read on the device as the round
-//   is, stops every observer's probe: the planes come out as they went in
-//   and the segments hold no bit (the mesh masks the rounds after its
-//   decision this way).
+//   is, stops every observer's probe: the planes come out as they went in,
+//   the segments hold no bit and the key as it came is the new key (the
+//   mesh masks the rounds after its decision this way). Each shard draws as
+//   the JAX engine's sharded round does: edge e of its [rows, K] block
+//   (local row times K plus k) under the probe key folded with the shard's
+//   global index (threefry.cuh), a fold the node pass makes once a call for
+//   every shard.
 // - fd_gather: the gather pass over all [C, K] destinations, from the
 //   segments of every shard laid end to end; observer o's bit is bit
 //   (o - s * rows) * K + k of segment s = o / rows, the division a multiply
 //   by a reciprocal the host computes. It reads neither the observers nor
 //   the bits when no segment's flag is set.
-// Their bound is bytes too: fd_phase_rows moves its rows' streams (13 B an
-// edge with random loss) plus 6 B of every one of the C nodes, once a call;
+// Their bound is bytes too: fd_phase_rows moves its rows' streams (9 B an
+// edge) plus 6 B of every one of the C nodes, once a call;
 // fd_gather 6 B an edge plus the segments. What holds them above it on an
 // H100 is the observer pass's dependent reads, as in the fused call; and a
 // shard of few rows gives few slots. So both take blocks of kSplitThreads
@@ -112,6 +136,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kVec = 16;  // edges per slot: one 16-byte access per byte stream
@@ -122,6 +148,7 @@ constexpr int kSplitThreads = 64;  // block size of fd_phase_rows' observer pass
 constexpr int kMaxShards = 16;     // shards of one fd_phase_rows call
 constexpr int kMaxDevices = 64;
 constexpr uint32_t kNoTurn = 0xffffffffu;  // the turn of a halted round: nobody's
+constexpr int kKeyThread = 32;  // the node pass's thread that writes the new key
 // fd_phase_rows' observer pass is a programmatic dependent launch of its
 // node pass (rows_pass)
 constexpr bool kDependentLaunch = true;
@@ -135,12 +162,12 @@ struct Params {
   const int32_t* round;
   const uint8_t* halt;   // null, or a flag that, when set, stops every probe
   int rpi;
-  const float* drop_prob;
+  const float* drop_prob;  // null: random loss off
+  const uint2* probe;      // the round's probe key (fd_phase_rows: its shard's, folded)
   const int32_t* subjects;
   const int32_t* observers;
   const uint8_t* probe_drop;
   const uint8_t* down_reports;
-  const float* draw;  // null: random loss off
   const uint8_t* fd_fail;
   const uint8_t* alerted;
   const uint8_t* streak;
@@ -183,10 +210,6 @@ union Ints16 {
   int4 v[kVec / 4];
   int32_t i[kVec];
 };
-union Floats16 {
-  float4 v[kVec / 4];
-  float f[kVec];
-};
 
 __device__ __forceinline__ uint32_t node_state(const Params& p, int64_t node) {
   const uint2 planes = __ldg(p.node + (node >> 5));
@@ -216,20 +239,41 @@ struct Flags {
   int n;
 };
 
+// The round's keys: the state's key in, the new key out (out of place), the
+// halt flag that keeps the key (null: never halted), and the probe keys the
+// edge passes read: fd_phase_fused's one, or one a shard of an
+// fd_phase_rows call, folded with the shard's global index.
+struct Keys {
+  const int64_t* in;
+  int64_t* out;
+  const uint8_t* halt;
+  uint2* probe;
+  int n;
+  uint32_t shard[kMaxShards];
+};
+
 // Pass 1: the alive output (none when alive_out is null) and the node state
 // planes, a node a thread (a warp's ballots make the two plane words of its
 // 32 nodes); clears the flags: fd_phase_fused's one word, or with kShards
 // each shard's, and then it lets the observer pass launched after it as a
-// dependent (kDependentLaunch) start at once.
+// dependent (kDependentLaunch) start at once. In block 0, thread s < n
+// writes probe key s (with kShards folded with shard s's index) and thread
+// kKeyThread, in another warp, the new key: two threefry calls on the
+// longest thread, beside the nodes' work.
 template <bool kShards>
-__global__ void node_pass(const uint8_t* __restrict__ active,
-                          const uint8_t* __restrict__ alive_in,
-                          const float* __restrict__ drop_prob, int64_t c,
-                          uint8_t* __restrict__ alive_out, uint2* __restrict__ node,
-                          const Flags flags) {
+__global__ void __launch_bounds__(kThreads) node_pass(const uint8_t* __restrict__ active,
+                                                      const uint8_t* __restrict__ alive_in,
+                                                      const float* __restrict__ drop_prob,
+                                                      int64_t c, uint8_t* __restrict__ alive_out,
+                                                      uint2* __restrict__ node, const Flags flags,
+                                                      const __grid_constant__ Keys keys) {
   if (kShards && kDependentLaunch) asm volatile("griddepcontrol.launch_dependents;");
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (kShards ? tid < flags.n : tid == 0) *flags.word[kShards ? tid : 0] = 0;
+  if (tid < keys.n)
+    keys.probe[tid] = jax_threefry::probe_key(keys.in, kShards, keys.shard[tid]);
+  else if (tid == kKeyThread)
+    jax_threefry::write_new_key(keys.in, keys.out, keys.halt);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t padded = (c + 31) / 32 * 32;  // whole warps take every step
   for (int64_t i = tid; i < padded; i += stride) {
@@ -253,18 +297,26 @@ struct Edge {
   uint32_t hist;
 };
 
-// One edge's FD step from whether its observer probes, its subject's state
-// and its own per-edge values. drop_prob[subject] is read only for a lossy
-// live subject.
-template <bool kRandom, bool kGray, bool kWindow>
+// Whether the probe of edge e is lost to random loss, for an edge whose
+// observer probes a live lossy subject past probe_drop: at a drop
+// probability of 1 or more without a draw (draws lie in [0, 1)), else when
+// the edge's word under the round's probe key, at counter e (the edge's
+// index in the call's [C, K] streams, or in its shard's [rows, K] block),
+// lies below it.
+__device__ __forceinline__ bool lost_probe(const Params& p, uint2 key, int64_t e) {
+  const float prob = __ldg(p.drop_prob + __ldg(p.subjects + e));
+  return prob >= 1.0f || jax_threefry::uniform(key, e) < prob;
+}
+
+// One edge's FD step from whether its observer probes, its subject's state,
+// whether random loss took the probe, and its own per-edge values.
+template <bool kGray, bool kWindow>
 __device__ __forceinline__ Edge edge_step(const Params& p, bool obs_probing,
-                                          uint32_t subj_state, int32_t subject,
-                                          uint8_t drop, float draw, uint8_t fd,
-                                          uint8_t alerted, uint8_t streak,
+                                          uint32_t subj_state, uint8_t drop, bool lost,
+                                          uint8_t fd, uint8_t alerted, uint8_t streak,
                                           uint8_t ok_count, uint32_t hist, uint8_t seen) {
   const bool watching = obs_probing && subj_state != 0;
-  bool ok = subj_state >= 2 && !drop;
-  if (kRandom && ok && subj_state == 3) ok = !(draw < __ldg(p.drop_prob + subject));
+  const bool ok = subj_state >= 2 && !drop && !lost;
   const bool fail = watching && !ok;
   Edge e;
   e.hist = hist;
@@ -309,22 +361,21 @@ __device__ __forceinline__ bool slot_vector(const Params& p, int64_t first) {
   return p.vec_ok && first >= 0 && first + kVec <= p.n;
 }
 
-// Observer-indexed outputs of slot j and its 16 new_down bits. A slot inside
-// the aligned range moves each stream as 16-byte accesses; the first and
-// last slots take scalar accesses.
+// Observer-indexed outputs of slot j and its 16 new_down bits, under the
+// round's probe key `key`. A slot inside the aligned range moves each stream
+// as 16-byte accesses; the first and last slots take scalar accesses.
 template <bool kRandom, bool kGray, bool kWindow>
-__device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, int64_t j) {
+__device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, uint2 key,
+                                              int64_t j) {
   const int64_t first = slot_first(p, j);
   const bool vec = slot_vector(p, first);
   Ints16 subj, hist;
-  Floats16 draw;
   Bytes16 drop, fd, al, st, okc, seen;
   bool up[kVec];
   if (vec) {
 #pragma unroll
     for (int q = 0; q < kVec / 4; ++q) {
       subj.v[q] = __ldcs(reinterpret_cast<const int4*>(p.subjects + first) + q);
-      if (kRandom) draw.v[q] = __ldcs(reinterpret_cast<const float4*>(p.draw + first) + q);
       if (kWindow) hist.v[q] = __ldcs(reinterpret_cast<const int4*>(p.hist + first) + q);
     }
     drop.v = __ldcs(reinterpret_cast<const uint4*>(p.probe_drop + first));
@@ -353,7 +404,6 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
       const int64_t e = first + i;
       const bool in = e >= 0 && e < p.n;  // lanes outside [0, n) watch nothing
       subj.i[i] = in ? __ldg(p.subjects + e) : 0;
-      draw.f[i] = kRandom && in ? __ldg(p.draw + e) : 0.0f;
       drop.b[i] = in ? __ldg(p.probe_drop + e) : 0;
       fd.b[i] = !kWindow && in ? __ldg(p.fd_fail + e) : 0;
       al.b[i] = in ? __ldg(p.alerted + e) : 0;
@@ -367,15 +417,30 @@ __device__ __forceinline__ void observer_slot(const Params& p, uint32_t turn, in
   uint32_t ss[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) ss[i] = node_state(p, subj.i[i]);
+  // Random loss, only on the edges where it can change the outcome: those
+  // whose observer probes a live lossy subject past probe_drop. A lane loops
+  // over its own such edges, so a warp makes as many draws as its busiest
+  // lane needs.
+  uint32_t lost = 0;
+  if (kRandom) {
+    uint32_t need = 0;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      need |= static_cast<uint32_t>(up[i] && ss[i] == 3u && !drop.b[i]) << i;
+    for (; need != 0; need &= need - 1) {
+      const int i = __ffs(need) - 1;
+      lost |= static_cast<uint32_t>(lost_probe(p, key, first + i)) << i;
+    }
+  }
 
   Bytes16 fd_o, al_o, st_o, ok_o, seen_o;
   Ints16 hist_o;
   uint32_t down_bits = 0;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    const Edge r = edge_step<kRandom, kGray, kWindow>(
-        p, up[i], ss[i], subj.i[i], drop.b[i], draw.f[i], fd.b[i], al.b[i], st.b[i],
-        okc.b[i], static_cast<uint32_t>(hist.i[i]), seen.b[i]);
+    const Edge r = edge_step<kGray, kWindow>(
+        p, up[i], ss[i], drop.b[i], (lost >> i) & 1u, fd.b[i], al.b[i], st.b[i], okc.b[i],
+        static_cast<uint32_t>(hist.i[i]), seen.b[i]);
     fd_o.b[i] = r.fd;
     al_o.b[i] = r.alerted;
     st_o.b[i] = r.streak;
@@ -501,10 +566,11 @@ __device__ __forceinline__ void destination_slot(const Params& p, bool gather, i
 template <bool kRandom, bool kGray, bool kWindow>
 __global__ void __launch_bounds__(kThreads) observer_pass(Params p) {
   const uint32_t turn = this_turn(p);
+  const uint2 key = kRandom ? *p.probe : make_uint2(0u, 0u);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < p.slots; j += stride)
-    observer_slot<kRandom, kGray, kWindow>(p, turn, j);
+    observer_slot<kRandom, kGray, kWindow>(p, turn, key, j);
 }
 
 // What differs between the shards of a per-device fd_phase_rows call: the
@@ -513,7 +579,6 @@ __global__ void __launch_bounds__(kThreads) observer_pass(Params p) {
 struct Shard {
   const int32_t* subjects;
   const uint8_t* probe_drop;
-  const float* draw;
   const uint8_t* fd_fail;
   const uint8_t* alerted;
   const uint8_t* streak;
@@ -544,11 +609,11 @@ struct ShardTable {
 static_assert(sizeof(ShardTable) <= 4096, "the shard table must fit 4 KB of kernel parameters");
 
 Shard shard_of(const Params& p) {
-  return Shard{p.subjects,    p.probe_drop,  p.draw,       p.fd_fail,   p.alerted,
-               p.streak,      p.fd_ok,       p.hist,       p.seen,      p.fd_fail_out,
-               p.alerted_out, p.streak_out,  p.fd_ok_out,  p.hist_out,  p.seen_out,
-               const_cast<uint32_t*>(p.bits), p.any_down,  p.n,         p.row0,
-               p.slots,       p.vec_ok};
+  return Shard{p.subjects,   p.probe_drop,  p.fd_fail,   p.alerted,     p.streak,
+               p.fd_ok,      p.hist,        p.seen,      p.fd_fail_out, p.alerted_out,
+               p.streak_out, p.fd_ok_out,   p.hist_out,  p.seen_out,
+               const_cast<uint32_t*>(p.bits), p.any_down, p.n,       p.row0,
+               p.slots,      p.vec_ok};
 }
 
 __device__ __forceinline__ Params shard_params(const ShardTable& t, int s) {
@@ -556,7 +621,6 @@ __device__ __forceinline__ Params shard_params(const ShardTable& t, int s) {
   Params p = t.p;
   p.subjects = h.subjects;
   p.probe_drop = h.probe_drop;
-  p.draw = h.draw;
   p.fd_fail = h.fd_fail;
   p.alerted = h.alerted;
   p.streak = h.streak;
@@ -575,6 +639,7 @@ __device__ __forceinline__ Params shard_params(const ShardTable& t, int s) {
   p.n = h.n;
   p.row0 = h.row0;
   p.slots = h.slots;
+  p.probe += s;
   p.shift = 0;
   p.vec_ok = h.vec_ok;
   return p;
@@ -595,7 +660,6 @@ __device__ __forceinline__ void prefetch_slot(const Params& p, int64_t first) {
   pull(p.subjects, 4);
   pull(p.probe_drop, 1);
   pull(p.alerted, 1);
-  if (kRandom) pull(p.draw, 4);
   if (!kWindow) pull(p.fd_fail, 1);
   if (kGray) {
     pull(p.streak, 1);
@@ -613,8 +677,9 @@ __device__ __forceinline__ void prefetch_slot(const Params& p, int64_t first) {
 // into L2 and reads the round and the halt flag (all written before the node
 // pass), then waits for the node pass to end (griddepcontrol.wait, which
 // returns at once for a pass launched the usual way) before it reads the
-// node table or writes. A halted round is nobody's turn: with rpi at least 2
-// no observer's phase equals kNoTurn, so no observer probes.
+// node table and its shard's probe key, or writes. A halted round is
+// nobody's turn: with rpi at least 2 no observer's phase equals kNoTurn, so
+// no observer probes.
 template <bool kRandom, bool kGray, bool kWindow>
 __global__ void __launch_bounds__(kSplitThreads) rows_pass(const __grid_constant__ ShardTable t) {
   Params p = shard_params(t, blockIdx.y);
@@ -626,8 +691,9 @@ __global__ void __launch_bounds__(kSplitThreads) rows_pass(const __grid_constant
   const uint32_t turn = halted ? kNoTurn : due;
   p.rpi = halted && p.rpi < 2 ? 2 : p.rpi;
   asm volatile("griddepcontrol.wait;" ::: "memory");
+  const uint2 key = kRandom ? *p.probe : make_uint2(0u, 0u);
   for (int64_t j = j0; j < p.slots; j += stride)
-    observer_slot<kRandom, kGray, kWindow>(p, turn, j);
+    observer_slot<kRandom, kGray, kWindow>(p, turn, key, j);
 }
 
 // Pass 3: the destination gather from the new_down bits, skipped when no
@@ -670,12 +736,12 @@ int64_t first_boundary(const void* bytes) {
 // slot takes the scalar path.
 void set_slots(Params& p, int64_t h) {
   const void* streams[] = {
-      at(p.subjects, h),     at(p.observers, h),  at(p.probe_drop, h),
-      at(p.down_reports, h), at(p.draw, h),       at(p.fd_fail, h),
-      at(p.alerted, h),      at(p.streak, h),     at(p.fd_ok, h),
-      at(p.hist, h),         at(p.seen, h),       at(p.fd_fail_out, h),
-      at(p.alerted_out, h),  at(p.streak_out, h), at(p.fd_ok_out, h),
-      at(p.hist_out, h),     at(p.seen_out, h),   at(p.down_arrivals, h),
+      at(p.subjects, h),    at(p.observers, h),   at(p.probe_drop, h),
+      at(p.down_reports, h), at(p.fd_fail, h),     at(p.alerted, h),
+      at(p.streak, h),      at(p.fd_ok, h),       at(p.hist, h),
+      at(p.seen, h),        at(p.fd_fail_out, h), at(p.alerted_out, h),
+      at(p.streak_out, h),  at(p.fd_ok_out, h),   at(p.hist_out, h),
+      at(p.seen_out, h),    at(p.down_arrivals, h),
   };
   p.vec_ok = h < p.n;
   for (const void* s : streams) p.vec_ok = p.vec_ok && aligned16(s);
@@ -717,14 +783,36 @@ unsigned split_blocks(int64_t slots, int cap) {
 
 bool bad_policy(int window, bool gray) { return window < 0 || window > 16 || (window > 0 && gray); }
 
+// The probe keys in a node table of `c` nodes: after its two plane words a
+// 32 nodes.
+uint2* probe_keys(void* node_table, long long c) {
+  return static_cast<uint2*>(node_table) + (c + 31) / 32;
+}
+
+// The key half of the node pass's parameters: `n` probe keys into the node
+// table, an fd_phase_rows call's folded with its shards' global indices
+// (`shards`, null for fd_phase_fused).
+Keys round_keys(const void* key_in, void* key_out, const void* halt, void* node_table,
+                long long c, int n, const long long* shards) {
+  Keys keys{};
+  keys.in = static_cast<const int64_t*>(key_in);
+  keys.out = static_cast<int64_t*>(key_out);
+  keys.halt = static_cast<const uint8_t*>(halt);
+  keys.probe = probe_keys(node_table, c);
+  keys.n = n;
+  for (int s = 0; shards != nullptr && s < n; ++s) keys.shard[s] = static_cast<uint32_t>(shards[s]);
+  return keys;
+}
+
 // Pass 1 of either call, on `stream`.
 template <bool kShards>
 int launch_nodes(const void* active, const void* alive, const void* drop_prob, long long c,
-                 void* alive_out, void* node_table, const Flags& flags, cudaStream_t stream) {
+                 void* alive_out, void* node_table, const Flags& flags, const Keys& keys,
+                 cudaStream_t stream) {
   node_pass<kShards><<<blocks_for(c), kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(active), static_cast<const uint8_t*>(alive),
       static_cast<const float*>(drop_prob), c, static_cast<uint8_t*>(alive_out),
-      static_cast<uint2*>(node_table), flags);
+      static_cast<uint2*>(node_table), flags, keys);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -732,7 +820,7 @@ int launch_nodes(const void* active, const void* alive, const void* drop_prob, l
 // which per-edge planes it reads and writes. The caller adds the gather's
 // streams and the slot layout.
 Params edge_params(const void* node_table, const void* drop_prob, const void* subjects,
-                   const void* probe_drop, const void* draw, const void* fd_fail,
+                   const void* probe_drop, const void* fd_fail,
                    const void* alerted, const void* fd_streak, const void* fd_ok,
                    const void* fd_hist, const void* fd_seen, const void* round,
                    void* fd_fail_out, void* alerted_out, void* fd_streak_out,
@@ -750,7 +838,6 @@ Params edge_params(const void* node_table, const void* drop_prob, const void* su
   p.drop_prob = static_cast<const float*>(drop_prob);
   p.subjects = static_cast<const int32_t*>(subjects);
   p.probe_drop = static_cast<const uint8_t*>(probe_drop);
-  p.draw = static_cast<const float*>(draw);
   p.fd_fail = windowed ? nullptr : static_cast<const uint8_t*>(fd_fail);
   p.alerted = static_cast<const uint8_t*>(alerted);
   p.streak = gray ? static_cast<const uint8_t*>(fd_streak) : nullptr;
@@ -777,10 +864,10 @@ Params edge_params(const void* node_table, const void* drop_prob, const void* su
 
 
 // Launch<kRandom, kGray, kWindow>::run(args...) in the instantiation of the
-// loss model and policy of `p`.
+// loss model (random loss on when drop_prob is given) and policy of `p`.
 template <template <bool, bool, bool> class Launch, class... Args>
 int by_policy(const Params& p, const Args&... args) {
-  const bool random = p.draw != nullptr;
+  const bool random = p.drop_prob != nullptr;
   if (p.window > 0) {
     return random ? Launch<true, false, true>::run(args...)
                   : Launch<false, false, true>::run(args...);
@@ -837,52 +924,57 @@ bool is_reciprocal(long long d, unsigned magic, int shift) {
 
 // A row of the host table that fd_phase_rows takes, one a shard: the
 // pointers of the shard's [rows, K] blocks and of their outputs (0 for a
-// stream the call does not use), of its bitset segment, then row0 and rows.
+// stream the call does not use), of its bitset segment, then row0, rows and
+// the shard's global index (what the fold takes).
 enum ShardField {
-  kSubjects, kProbeDrop, kDraw, kFdFail, kAlerted, kStreak, kFdOk, kHist, kSeen,
+  kSubjects, kProbeDrop, kFdFail, kAlerted, kStreak, kFdOk, kHist, kSeen,
   kFdFailOut, kAlertedOut, kStreakOut, kFdOkOut, kHistOut, kSeenOut, kBits, kRow0, kRows,
-  kShardFields
+  kShard, kShardFields
 };
 
 }  // namespace
 
-// Plain C interface for ctypes. Device pointers; drop_prob and draw are null
-// when random loss is off, the streak/fd_ok pointers when gray_confirm is 0,
+// Plain C interface for ctypes. Device pointers; drop_prob is null when
+// random loss is off, the streak/fd_ok pointers when gray_confirm is 0,
 // the fd_hist/fd_seen pointers under the cumulative policy (window 0), and
 // the fd_fail pointers under the windowed one (window in [1, 16], with
 // window_fire the failures in a full window that fire; no gray path).
+// key is the state's int64 [2] key and key_out a fresh one, which takes the
+// split's new key, or key as it came when the bool halt (null: never
+// halted) is set; the halt flag changes nothing else.
 // The wrapper allocates the kernel's scratch:
-// node_table of 2 * ceil(C / 32) + 1 words (the node state planes, then the
-// any_down flag) and new_down of ceil((C*K + 32) / 32) words. Returns the
-// first non-zero cudaGetLastError() after a launch (0 = all launched), or
-// cudaErrorInvalidValue for a window out of range or beside the gray path.
+// node_table of 2 * ceil(C / 32) + 3 words (the node state planes, the
+// probe key, then the any_down flag) and new_down of ceil((C*K + 32) / 32)
+// words. Returns the first non-zero cudaGetLastError() after a launch (0 =
+// all launched), or cudaErrorInvalidValue for a window out of range or
+// beside the gray path. A call with no edge launches the node pass alone.
 extern "C" int fd_phase_fused(
     const void* active, const void* alive, const void* drop_prob,
     const void* subjects, const void* observers, const void* probe_drop,
-    const void* down_reports, const void* draw, const void* fd_fail,
+    const void* down_reports, const void* key, const void* halt, const void* fd_fail,
     const void* alerted, const void* fd_streak, const void* fd_ok,
     const void* fd_hist, const void* fd_seen, const void* round,
-    void* alive_out, void* fd_fail_out, void* alerted_out, void* fd_streak_out,
+    void* key_out, void* alive_out, void* fd_fail_out, void* alerted_out, void* fd_streak_out,
     void* fd_ok_out, void* fd_hist_out, void* fd_seen_out, void* down_arrivals,
     void* node_table, void* new_down, long long c, int k, int threshold,
     int gray_confirm, int gray_warmup, int rounds_per_interval, int window,
     int window_fire, void* stream) {
-  if (c <= 0 || k <= 0) return 0;
-  if (bad_policy(window, gray_confirm > 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool random = draw != nullptr;
+  if (c < 0 || k < 0 || bad_policy(window, gray_confirm > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Flags flags{};
-  flags.word[0] = static_cast<uint32_t*>(node_table) + 2 * ((c + 31) / 32);
+  flags.word[0] = reinterpret_cast<uint32_t*>(probe_keys(node_table, c) + 1);
   flags.n = 1;
-  int err = launch_nodes<false>(active, alive, random ? drop_prob : nullptr, c, alive_out,
-                                node_table, flags, st);
-  if (err != 0) return err;
+  int err = launch_nodes<false>(active, alive, drop_prob, c, alive_out, node_table, flags,
+                                round_keys(key, key_out, halt, node_table, c, 1, nullptr), st);
+  if (err != 0 || c * k == 0) return err;
 
-  Params p = edge_params(node_table, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
+  Params p = edge_params(node_table, drop_prob, subjects, probe_drop, fd_fail, alerted,
                          fd_streak, fd_ok, fd_hist, fd_seen, round, fd_fail_out, alerted_out,
                          fd_streak_out, fd_ok_out, fd_hist_out, fd_seen_out, new_down,
                          flags.word[0], static_cast<int64_t>(c) * k, k, threshold, gray_confirm,
                          gray_warmup, rounds_per_interval, window, window_fire);
+  p.probe = probe_keys(node_table, c);
   p.observers = static_cast<const int32_t*>(observers);
   p.down_reports = static_cast<const uint8_t*>(down_reports);
   p.active = static_cast<const uint8_t*>(active);
@@ -900,38 +992,42 @@ extern "C" int fd_phase_fused(
 // n_shards rows of kShardFields values (ShardField), at most kMaxShards,
 // each of at least one row; the [rows, K] pointers are the shard's own
 // blocks, its segment ceil(rows * K / 32) + 1 words (see the note at the
-// top), written whole. active, alive and drop_prob are [C]; round is the
-// int32 round and halt a bool flag (null: never halted), both read on the
-// device. node_table holds 2 * ceil(C / 32) words of scratch. Returns as
-// fd_phase_fused does, and cudaErrorInvalidValue for a table it cannot take.
+// top), written whole. active, alive and drop_prob are [C] (drop_prob null:
+// random loss off); round is the int32 round and halt a bool flag (null:
+// never halted), both read on the device. key and key_out as in
+// fd_phase_fused; each shard draws under the probe key folded with its
+// global index, over its local edges. node_table holds 2 * ceil(C / 32) + 2 * kMaxShards
+// words of scratch. Returns as fd_phase_fused does, and
+// cudaErrorInvalidValue for a table it cannot take.
 extern "C" int fd_phase_rows(
     const void* active, const void* alive, const void* drop_prob, const void* round,
-    const void* halt, const long long* shards, int n_shards, void* node_table, long long c,
-    int k, int threshold, int gray_confirm, int gray_warmup, int rounds_per_interval,
-    int window, int window_fire, void* stream) {
-  if (c <= 0 || k <= 0) return 0;
-  if (bad_policy(window, gray_confirm > 0) || n_shards < 1 || n_shards > kMaxShards)
+    const void* halt, const void* key, void* key_out, const long long* shards, int n_shards,
+    void* node_table, long long c, int k, int threshold, int gray_confirm, int gray_warmup,
+    int rounds_per_interval, int window, int window_fire, void* stream) {
+  if (c < 0 || k < 0 || bad_policy(window, gray_confirm > 0) || n_shards < 1 ||
+      n_shards > kMaxShards)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool random = shards[kDraw] != 0;
   ShardTable t{};
   Flags flags{};
+  long long index[kMaxShards] = {};
   int64_t slots = 0;
   for (int s = 0; s < n_shards; ++s) {
     const long long* f = shards + static_cast<int64_t>(s) * kShardFields;
-    if (f[kRow0] < 0 || f[kRows] < 1 || f[kRow0] + f[kRows] > c || (f[kDraw] != 0) != random)
+    if (f[kRow0] < 0 || f[kRows] < 1 || f[kRow0] + f[kRows] > c || f[kShard] < 0 ||
+        f[kShard] > 0xffffffffLL)
       return static_cast<int>(cudaErrorInvalidValue);
     const auto at = [f](int i) { return reinterpret_cast<void*>(f[i]); };
     const int64_t n = f[kRows] * k;
     const int64_t data_words = (n + 31) / 32;
     uint32_t* bits = static_cast<uint32_t*>(at(kBits));
-    Params p = edge_params(node_table, drop_prob, at(kSubjects), at(kProbeDrop), at(kDraw),
-                           at(kFdFail), at(kAlerted), at(kStreak), at(kFdOk), at(kHist),
-                           at(kSeen), round, at(kFdFailOut), at(kAlertedOut), at(kStreakOut),
-                           at(kFdOkOut), at(kHistOut), at(kSeenOut), bits, bits + data_words, n,
-                           k, threshold, gray_confirm, gray_warmup, rounds_per_interval, window,
-                           window_fire);
+    Params p = edge_params(node_table, drop_prob, at(kSubjects), at(kProbeDrop), at(kFdFail),
+                           at(kAlerted), at(kStreak), at(kFdOk), at(kHist), at(kSeen), round,
+                           at(kFdFailOut), at(kAlertedOut), at(kStreakOut), at(kFdOkOut),
+                           at(kHistOut), at(kSeenOut), bits, bits + data_words, n, k, threshold,
+                           gray_confirm, gray_warmup, rounds_per_interval, window, window_fire);
     p.row0 = f[kRow0];
     p.halt = static_cast<const uint8_t*>(halt);
+    p.probe = probe_keys(node_table, c);
     // slots from local edge 0, so local edge e is bit e of the segment; two
     // slots a word, the last word's lanes past n writing zeros
     set_slots(p, 0);
@@ -939,12 +1035,14 @@ extern "C" int fd_phase_rows(
     if (s == 0) t.p = p;
     t.shard[s] = shard_of(p);
     flags.word[s] = p.any_down;
+    index[s] = f[kShard];
     slots = std::max(slots, p.slots);
   }
   flags.n = n_shards;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_nodes<true>(active, alive, random ? drop_prob : nullptr, c, nullptr,
-                                     node_table, flags, st);
+  const int err = launch_nodes<true>(
+      active, alive, drop_prob, c, nullptr, node_table, flags,
+      round_keys(key, key_out, halt, node_table, c, n_shards, index), st);
   if (err != 0) return err;
   return by_policy<RowsLaunch>(t.p, t, n_shards, slots, st);
 }

@@ -6,18 +6,10 @@
 // rapid_tpu/sim/engine.py::_fd_phase (split, then uniform over [C, K]) and
 // rapid_tpu/shard/engine.py::_sharded_round (split, fold_in of the shard's
 // linear index, uniform over the shard's [C / n, K] rows). This kernel gives
-// the same bits, so a lossy run of the port matches the JAX package round for
-// round. With JAX's jax_threefry_partitionable (its default) and 32-bit
-// integers:
-//
-//   threefry(k, (x0, x1)) = Random123's threefry2x32_20 of the counter pair
-//   (new key, probe key)  = (threefry(key, (0, 0)), threefry(key, (0, 1)))
-//   probe key on a mesh   = threefry(probe key, (0, shard))
-//   draw[i]               = bitcast<float>((b >> 9) | 0x3F800000) - 1,
-//                           b = y0 ^ y1, (y0, y1) = threefry(probe key,
-//                           (i >> 32, i & 0xFFFFFFFF)), i the flat index
-//
-// rapid_tpu_torch/sim/threefry.py is the plain version of the same words.
+// the same bits (threefry.cuh defines them, for this kernel and for the FD
+// kernels of fd_phase_fused.cu, which draw each lossy edge's word where they
+// read it). No round path launches it: it is the draw as a block, which the
+// tests and chip_smoke.py hold to JAX's golden vectors.
 //
 // What bounds it: integer operations, counted by the pipe that can issue
 // them, as the loop's SASS issues them (cuobjdump -sass, sm_90a). Each
@@ -42,101 +34,39 @@
 // so no block races the read of the key and the kernel can sit in a CUDA
 // graph. The draw does not depend on the halt flag. Shards of one device's
 // call are the grid's y dimension (up to kMaxShards), each with its block of
-// rows. The rotations are compile-time funnel shifts. A call with no rows
-// still launches one block, to split the key.
+// rows. A call with no rows still launches one block, to split the key.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "threefry.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxShards = 16;  // kernels.MAX_SHARDS_PER_CALL
-constexpr uint32_t kParity = 0x1BD11BDAu;
 
 struct ShardTable {
   uint32_t index[kMaxShards];  // global shard index folded into each y block
 };
 
-template <int R>
-__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1) {
-  x0 += x1;
-  x1 = __funnelshift_l(x1, x1, R);
-  x1 ^= x0;
-}
-
-template <int A, int B, int C, int D>
-__device__ __forceinline__ void four_rounds(uint32_t& x0, uint32_t& x1) {
-  mix<A>(x0, x1);
-  mix<B>(x0, x1);
-  mix<C>(x0, x1);
-  mix<D>(x0, x1);
-}
-
-// threefry2x32 with 20 rounds of the counter (x0, x1) under the key (k0, k1),
-// in place.
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1, uint32_t& x0,
-                                         uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ kParity;
-  x0 += k0;
-  x1 += k1;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 1u;
-  four_rounds<17, 29, 16, 24>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 2u;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k0;
-  x1 += k1 + 3u;
-  four_rounds<17, 29, 16, 24>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 4u;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 5u;
-}
-
 __global__ void __launch_bounds__(kThreads)
     threefry_draw_kernel(const int64_t* __restrict__ key_in, int64_t* __restrict__ key_out,
-                         const bool* __restrict__ halt, float* __restrict__ draw,
+                         const uint8_t* __restrict__ halt, float* __restrict__ draw,
                          int64_t per_shard, bool fold, ShardTable shards) {
-  __shared__ uint32_t probe[2];
+  __shared__ uint2 probe;
   if (threadIdx.x == 0) {
-    const uint32_t k0 = static_cast<uint32_t>(key_in[0]);
-    const uint32_t k1 = static_cast<uint32_t>(key_in[1]);
-    uint32_t p0 = 0u, p1 = 1u;
-    threefry(k0, k1, p0, p1);
-    if (blockIdx.x == 0 && blockIdx.y == 0) {
-      // a halted round keeps its key, as the masked round of the JAX engine
-      uint32_t n0 = k0, n1 = k1;
-      if (halt == nullptr || !*halt) {
-        n0 = 0u;
-        n1 = 0u;
-        threefry(k0, k1, n0, n1);
-      }
-      key_out[0] = n0;
-      key_out[1] = n1;
-    }
-    if (fold) {
-      uint32_t f0 = 0u, f1 = shards.index[blockIdx.y];
-      threefry(p0, p1, f0, f1);
-      p0 = f0;
-      p1 = f1;
-    }
-    probe[0] = p0;
-    probe[1] = p1;
+    if (blockIdx.x == 0 && blockIdx.y == 0)
+      jax_threefry::write_new_key(key_in, key_out, halt);
+    probe = jax_threefry::probe_key(key_in, fold, shards.index[blockIdx.y]);
   }
   __syncthreads();
-  const uint32_t k0 = probe[0], k1 = probe[1];
+  const uint2 key = probe;
   float* out = draw + static_cast<int64_t>(blockIdx.y) * per_shard;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < per_shard;
-       i += stride) {
-    uint32_t x0 = static_cast<uint32_t>(i >> 32), x1 = static_cast<uint32_t>(i);
-    threefry(k0, k1, x0, x1);
-    out[i] = __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
-  }
+       i += stride)
+    out[i] = jax_threefry::uniform(key, i);
 }
 
 }  // namespace
@@ -167,6 +97,7 @@ extern "C" int threefry_draw(const void* key_in, void* key_out, const void* halt
   const unsigned x = static_cast<unsigned>(needed < 1 ? 1 : (needed < cap ? needed : cap));
   threefry_draw_kernel<<<dim3(x, y), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(key_in), static_cast<int64_t*>(key_out),
-      static_cast<const bool*>(halt), static_cast<float*>(draw), static_cast<int64_t>(per_shard), n_shards > 0, table);
+      static_cast<const uint8_t*>(halt), static_cast<float*>(draw),
+      static_cast<int64_t>(per_shard), n_shards > 0, table);
   return static_cast<int>(cudaGetLastError());
 }

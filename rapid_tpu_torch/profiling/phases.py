@@ -26,7 +26,7 @@ the current state and inputs into those buffers, replays each graph and
 reads its events: device time from the graph's first node to its last,
 with no host enqueue inside it (events recorded around the replay on the
 host's side would count the host's delay in launching it). A
-captured kernel (``threefry_draw``, ``fd_phase_fused``) counts in
+captured kernel (``fd_phase_fused``, which also splits the key) counts in
 ``kernels.LAUNCHES`` once a replay. A
 prefix that cannot be captured raises. On the CPU a prefix's time is the
 host wall up to ``jitwatch.drain``, JAX's own source.

@@ -39,16 +39,15 @@ Eager PyTorch cannot leave a loop on device data without a host sync, so the
 "until" runner evaluates its whole budget, with the rounds after the
 decision (and, under ``stop_when_announced``, after the first announcement)
 as masked no-ops, as the single-device loops do; halted state stays
-bit-equal. The FD and draw kernels read the halt flag on the device and
-leave a halted round's planes and key as they were, so neither is masked
-after them.
+bit-equal. The FD kernel reads the halt flag on the device and leaves a
+halted round's planes and key as they were, so neither is masked after it.
 
 Random ingress loss draws from the replicated key as JAX's sharded round
 does: each round splits it, and each shard draws its ``[C / n, K]`` block from
 the probe half folded with its linear shard index (row-major over the mesh
-axes), in one ``kernels.threefry_draw`` launch a device call, beside its
-``fd_phase_rows`` call; home's launch gives the new key. A round without loss
-still splits the key, in a launch that draws nothing. The bits are JAX's, so
+axes). The device's ``fd_phase_rows`` call splits the key, folds each of its
+shards' probe keys and makes each lossy edge's word where it reads it; home's
+call gives the new key, with loss or without. The bits are JAX's, so
 a lossy sharded run matches ``rapid_tpu.shard.engine`` round for round (it
 differs from a single-device run in both packages, by the fold).
 
@@ -483,8 +482,8 @@ def _run(
 ) -> ShardedState:
     """``rounds`` sharded rounds, each masked once the state has decided
     (or, with ``stop_when_announced``, once a group has announced): the FD
-    and draw kernels read the halt flag and leave the planes and the key as
-    they were, and the rest of the replicated state takes ``_select``. On a
+    kernel reads the halt flag and leaves the planes and the key as they
+    were, and the rest of the replicated state takes ``_select``. On a
     multi-process mesh each round makes one all-gather of this process's run
     of segments."""
     local = mesh.local_shards
@@ -501,7 +500,7 @@ def _run(
                                                   device=dev)
         calls.append(_DeviceCall(
             dev, shards, (_to(state.active, dev), _to(inputs.alive, dev),
-                          _to(inputs.drop_prob, dev)),
+                          _to(inputs.drop_prob, dev) if random_loss else None),
             kernels.new_node_table(config.capacity, dev),
             [bits[s * words:(s + 1) * words] if on_home else buffer[i * words:(i + 1) * words]
              for i, s in enumerate(shards)],
@@ -523,38 +522,30 @@ def _run(
 
             def column(name):
                 return [block[name] for block in mine]
-            halt_dev = _to(halt, dev)
-            draws = None
-            if random_loss:
-                key, draw = kernels.threefry_draw(_to(home.rng_key, dev), rows, k, call.shards,
-                                                  halt=halt_dev)
-                if call is calls[0]:
-                    # home's call (device_groups starts at the process's
-                    # first shard): its split is the replicated key
-                    rng_key = key
-                draws = [draw[i * rows:(i + 1) * rows] for i in range(len(call.shards))]
-            outs = kernels.fd_phase_rows(
+            outs, key = kernels.fd_phase_rows(
                 *call.nodes, column("subjects"),
                 [inputs.probe_drop_rows[s - local.start] for s in call.shards],
-                draws, column("fd_fail"), column("alerted"), column("fd_streak"),
-                column("fd_ok"), _to(home.round, dev), call.segments,
-                row0=[s * rows for s in call.shards], fd_hist=column("fd_hist"),
-                fd_seen=column("fd_seen"), halt=halt_dev, node_table=call.node_table,
-                **policy,
+                _to(home.rng_key, dev), column("fd_fail"), column("alerted"),
+                column("fd_streak"), column("fd_ok"), _to(home.round, dev), call.segments,
+                row0=[s * rows for s in call.shards], fold=call.shards,
+                fd_hist=column("fd_hist"), fd_seen=column("fd_seen"), halt=_to(halt, dev),
+                node_table=call.node_table, **policy,
             )
+            if call is calls[0]:
+                # home's call (device_groups starts at the process's first
+                # shard): its split is the replicated key
+                rng_key = key
             if call.buffer is not None:
                 _exchange(bits, call.buffer, call.shards, words)
             for s, block, out in zip(call.shards, mine, outs):
                 blocks[s - local.start] = {**block, **dict(zip(_FD_OUTPUTS, out))}
-        if not random_loss:  # the round splits the key all the same
-            rng_key, _ = kernels.threefry_draw(home.rng_key, 0, k, halt=halt)
         if mesh.process_count > 1:
             _gather_ranks(mesh, bits, mine_bits, "shard.exchange")
         down_arrivals = kernels.fd_gather(home.active, home.observers, inputs.down_reports,
                                           bits, rows)
         tallied = route_and_tally(config, home, down_arrivals, inputs, home.active, alive,
                                   observers_idx=obs)
-        # the draw kernel has already kept a halted round's key
+        # the FD kernel has already kept a halted round's key
         home = _select(halt, dataclasses.replace(home, rng_key=rng_key), dataclasses.replace(
             tallied, alive=inputs.alive, round=home.round + 1, rng_key=rng_key))
     return ShardedState(**{f: getattr(home, f) for f in _FIELDS}, rows=tuple(blocks),

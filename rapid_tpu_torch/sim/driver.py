@@ -1548,11 +1548,10 @@ class Simulator:  # guarded-by: sim-loop
         Under a deterministic fault plane each batch is one closed-form
         dispatch (engine.run_until_decided_const); under random ingress loss
         it is a scan of ``step`` (engine.run_rounds_const), whose FD phase is
-        the CUDA kernels ``threefry_draw`` (the round's key split and draw)
-        and ``fd_phase_fused``. On a mesh each batch is one dispatch of the
-        sharded runner (``shard.engine.make_sharded_run_until``), whose FD
-        phase is the CUDA kernels ``threefry_draw`` and ``fd_phase_rows`` on
-        every device and ``fd_gather`` on home. Either way the host syncs once per batch, fetching the packed
+        the CUDA kernel ``fd_phase_fused`` (with the round's key split and
+        draw). On a mesh each batch is one dispatch of the sharded runner
+        (``shard.engine.make_sharded_run_until``), whose FD phase is the CUDA
+        kernels ``fd_phase_rows`` on every device and ``fd_gather`` on home. Either way the host syncs once per batch, fetching the packed
         decision words (``jitwatch.fetch("sim.decision_words")``); while it
         waits, a worker builds the view change the fault plane predicts
         (``_speculate_view_change``). Each batch bills the ``rounds`` it

@@ -31,9 +31,10 @@ dispatch, on the packed decision words.
 
 Random ingress loss draws from the state's key as JAX's engine does:
 threefry-2x32, split every round that is not masked, then a uniform
-``[C, K]`` block from the probe half, in the hand-written CUDA kernel
-``kernels.threefry_draw`` (``sim/threefry.py`` is its plain version). The
-bits are JAX's, so lossy runs match the JAX engine round for round.
+``[C, K]`` block from the probe half. The FD kernel ``fd_phase_fused`` splits
+the key and makes each lossy edge's word of that block where it reads it
+(``sim/threefry.py`` is the plain version of the bits). The bits are JAX's,
+so lossy runs match the JAX engine round for round.
 """
 
 from __future__ import annotations
@@ -532,23 +533,22 @@ def _fd_phase(
     random_loss: bool,
     halt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Probe evaluation + alert routing, the leading phase of ``step``: the
-    round's key split and, with ``random_loss``, its uniform ``[C, K]`` draw
-    (the CUDA kernel ``threefry_draw``; as in JAX the key advances with or
-    without a draw, and where ``halt`` holds it is kept), then the CUDA kernel
-    ``fd_phase_fused`` (plain versions for CPU tensors), which reads the
-    state's int32 adjacency and its round counter directly, under the
-    config's FD policy. Returns ``(rng_key, alive, fd_fail, alerted,
-    fd_streak, fd_ok, down_arrivals, fd_hist, fd_seen)``."""
-    rows = config.capacity if random_loss else 0
-    rng_key, draw = kernels.threefry_draw(state.rng_key, rows, config.k, halt=halt)
-    return (rng_key,) + kernels.fd_phase_fused(
-        state.active, inputs.alive, inputs.drop_prob, state.subjects,
-        state.observers, inputs.probe_drop, inputs.down_reports,
-        draw if random_loss else None,
-        state.fd_fail, state.alerted, state.fd_streak, state.fd_ok, state.round,
-        fd_hist=state.fd_hist, fd_seen=state.fd_seen, **fd_kernel_policy(config),
+    """Probe evaluation + alert routing, the leading phase of ``step``: one
+    call of the CUDA kernel ``fd_phase_fused`` (its plain version for CPU
+    tensors), which reads the state's int32 adjacency, its round counter and
+    its random key directly, under the config's FD policy. It splits the key
+    as JAX's round does, with loss or without (where ``halt`` holds the key
+    is kept), and with ``random_loss`` draws the round's loss from the probe
+    key where it can change an outcome. Returns ``(rng_key, alive, fd_fail,
+    alerted, fd_streak, fd_ok, down_arrivals, fd_hist, fd_seen)``."""
+    *planes, rng_key = kernels.fd_phase_fused(
+        state.active, inputs.alive, inputs.drop_prob if random_loss else None,
+        state.subjects, state.observers, inputs.probe_drop, inputs.down_reports,
+        state.rng_key, state.fd_fail, state.alerted, state.fd_streak, state.fd_ok,
+        state.round, fd_hist=state.fd_hist, fd_seen=state.fd_seen, halt=halt,
+        **fd_kernel_policy(config),
     )
+    return (rng_key, *planes)
 
 
 def _step(
@@ -575,8 +575,8 @@ def _step(
         rng_key=rng_key,
     )
     # after a decision the configuration is frozen until the host applies the
-    # view change: all updates become no-ops (the draw kernel has already
-    # kept the key, so it passes through)
+    # view change: all updates become no-ops (the FD kernel has already kept
+    # the key, so it passes through)
     return _select(halt, dataclasses.replace(state, rng_key=rng_key), new_state)
 
 
@@ -604,8 +604,8 @@ def step_fd_scan(
     config: SimConfig, state: SimState, inputs: RoundInputs, random_loss: bool = True,
 ) -> Tuple[SimState, torch.Tensor]:
     """FD-scan prefix: probe evaluation and alert routing only, through the
-    same ``_fd_phase`` as ``step`` (on a CUDA state, the kernels
-    ``threefry_draw`` and ``fd_phase_fused``). Returns the partially updated
+    same ``_fd_phase`` as ``step`` (on a CUDA state, the kernel
+    ``fd_phase_fused``). Returns the partially updated
     state (the round not advanced, the key split) and the ``down_arrivals``
     gather."""
     (rng_key, _alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,

@@ -36,22 +36,28 @@ from . import engine, kernels, threefry
 L2_BYTES = 50e6  # H100 L2 cache
 
 
+# the state's random key (two int64 words) in and the new key out, and the
+# halt flag
+KEY_BYTES = 16 + 16 + 1
+
+
 def fused_bytes(c: int, k: int, gray: bool, random: bool, alerts: bool = True,
                 window: bool = False) -> int:
     """Bytes the fused phase must move: each input read once and each output
     written once. Per edge: subjects, observers (4 B each), probe_drop,
     alerted, down_reports in and alerted, down_arrivals out (1 B each), the
     policy's planes -- fd_fail in and out (2 B), or with the ``window`` the
-    int32 fd_hist and the uint8 fd_seen in and out (10 B) -- the draw (4 B)
-    with random loss, fd_streak and fd_ok in and out (4 B) with the gray
-    path. Per node: active, alive in and alive out, and drop_prob (4 B) with
-    random loss. A round in which no edge raises an alert (``alerts`` false)
-    need not read the observers. The kernel's own node table and new_down
-    bits do not count."""
+    int32 fd_hist and the uint8 fd_seen in and out (10 B) -- and fd_streak
+    and fd_ok in and out (4 B) with the gray path. Per node: active, alive
+    in and alive out, and drop_prob (4 B) with random loss. The key in and
+    out and the halt flag. A round in which no edge raises an alert
+    (``alerts`` false) need not read the observers. The draw moves no byte:
+    the kernel makes each word it needs. The kernel's own node table and
+    new_down bits do not count."""
     edge = (4 + 1 + 1 + 1 + 2 + (10 if window else 2) + (4 if alerts else 0)
-            + (4 if random else 0) + (4 if gray else 0))
+            + (4 if gray else 0))
     node = 3 + (4 if random else 0)
-    return c * k * edge + c * node + 4  # + the round counter
+    return c * k * edge + c * node + 4 + KEY_BYTES  # + the round counter
 
 
 def rows_bytes(c: int, rows: int, k: int, gray: bool, random: bool,
@@ -59,12 +65,13 @@ def rows_bytes(c: int, rows: int, k: int, gray: bool, random: bool,
     """Bytes one ``fd_phase_rows`` call must move over ``shards`` shards of
     ``rows`` rows: per edge, subjects (4 B), probe_drop and alerted in and
     alerted out (1 B each), the policy's planes in and out (2 B, or 10 B for
-    the window), the draw (4 B) with random loss and the gray planes (4 B)
-    with the gray path; each shard's bitset segment out; per node of all C,
-    once a call, active and alive, and drop_prob (4 B) with random loss."""
-    edge = 4 + 3 + (10 if window else 2) + (4 if random else 0) + (4 if gray else 0)
+    the window) and the gray planes (4 B) with the gray path; each shard's
+    bitset segment out; per node of all C, once a call, active and alive,
+    and drop_prob (4 B) with random loss; the key in and out and the halt
+    flag."""
+    edge = 4 + 3 + (10 if window else 2) + (4 if gray else 0)
     return (shards * (rows * k * edge + 4 * kernels.segment_words(rows, k))
-            + c * (2 + (4 if random else 0)) + 4 + 1)  # + the round and the halt flag
+            + c * (2 + (4 if random else 0)) + 4 + KEY_BYTES)  # + the round
 
 
 def gather_bytes(c: int, shards: int, k: int, alerts: bool = True) -> int:
@@ -76,13 +83,35 @@ def gather_bytes(c: int, shards: int, k: int, alerts: bool = True) -> int:
     return c * k * (2 + (4 if alerts else 0)) + c + 4 * shards * (words if alerts else 1)
 
 
+def drawn_edges(args, rounds_per_interval: int = 1) -> int:
+    """Edges of a fused case (``fused_case``'s positional inputs) whose loss
+    draw the FD kernels make: the observer probes this round, the subject is
+    alive, its drop probability lies in (0, 1), and probe_drop is clear. What
+    the kernels' threefry work scales with."""
+    active, alive, drop_prob, subjects, _, probe_drop = args[:6]
+    if drop_prob is None:
+        return 0
+    round_ = args[12]
+    subj = subjects.long()
+    up = alive & active
+    observer = up
+    if rounds_per_interval > 1:
+        phases = kernels.probe_phases(active.shape[0], rounds_per_interval, active.device)
+        observer = observer & (phases == round_ % rounds_per_interval)
+    prob = drop_prob[subj]
+    need = observer[:, None] & up[subj] & ~probe_drop & (prob > 0) & (prob < 1)
+    return int(need.sum())
+
+
 def split_case(args, kw: dict, shards: int):
     """One fused case (``fused_case``'s positional inputs, ``kw`` its
     keywords) cut into ``shards`` row blocks, each a fresh tensor as a shard
-    holds it. Returns ``(calls, bits)``: for each shard the positional
-    arguments and keywords of ``fd_phase_rows``, writing into its segment of
-    ``bits``, a bitset filled with -1 so that a word left unwritten shows."""
-    (active, alive, drop_prob, subjects, _, probe_drop, _, draw, fd_fail, alerted,
+    holds it, shard s at global index s (its draw folded with it, as on a
+    mesh). Returns
+    ``(calls, bits)``: for each shard the positional arguments and keywords
+    of ``fd_phase_rows``, writing into its segment of ``bits``, a bitset
+    filled with -1 so that a word left unwritten shows."""
+    (active, alive, drop_prob, subjects, _, probe_drop, _, key, fd_fail, alerted,
      fd_streak, fd_ok, round_) = args
     c, k = subjects.shape
     rows = c // shards
@@ -93,11 +122,11 @@ def split_case(args, kw: dict, shards: int):
         def block(t):
             return None if t is None else t[s * rows:(s + 1) * rows].clone()
         calls.append((
-            (active, alive, drop_prob, block(subjects), block(probe_drop), block(draw),
+            (active, alive, drop_prob, block(subjects), block(probe_drop), key,
              block(fd_fail), block(alerted), block(fd_streak), block(fd_ok), round_,
              bits[s * words:(s + 1) * words]),
-            dict(kw, row0=s * rows, fd_hist=block(kw.get("fd_hist")),
-                 fd_seen=block(kw.get("fd_seen"))),
+            dict(kw, row0=s * rows, fold=s,
+                 fd_hist=block(kw.get("fd_hist")), fd_seen=block(kw.get("fd_seen"))),
         ))
     return calls, bits
 
@@ -108,11 +137,12 @@ def device_call(calls):
     a list, one value a shard (None where no shard has it). Returns its
     positional arguments and keywords."""
     columns = list(zip(*(a for a, _ in calls)))
-    args = tuple(column[0] if i in (0, 1, 2, 10) or column[0] is None else list(column)
-                 for i, column in enumerate(columns))  # active, alive, drop_prob, round_ shared
+    # active, alive, drop_prob, the key and round_ shared
+    args = tuple(column[0] if i in (0, 1, 2, 5, 10) or column[0] is None else list(column)
+                 for i, column in enumerate(columns))
     kws = [kw for _, kw in calls]
     kw = dict(kws[0], **{name: None if kws[0][name] is None else [w[name] for w in kws]
-                         for name in ("row0", "fd_hist", "fd_seen")})
+                         for name in ("row0", "fold", "fd_hist", "fd_seen")})
     return args, kw
 
 
@@ -121,27 +151,31 @@ def run_split(calls, bits, args, kernel: bool = True, per_device: bool = True, *
     of them (``device_call``) or, without ``per_device``, one a shard, then
     ``fd_gather`` from the bitset (the kernels, or with ``kernel`` false
     their plain versions); ``extra`` goes to every ``fd_phase_rows`` call
-    (``halt``). Returns ``fd_phase_fused``'s eight outputs, ``alive`` as
-    None."""
+    (``halt``). Returns ``fd_phase_fused``'s nine outputs, ``alive`` as
+    None; the new key is the first call's (every call splits the same
+    key)."""
     rows_fn = kernels.fd_phase_rows if kernel else kernels.fd_phase_rows_plain
     if per_device:
         merged, kw = device_call(calls)
-        outs = rows_fn(*merged, **kw, **extra)
+        outs, key = rows_fn(*merged, **kw, **extra)
     else:
-        outs = [rows_fn(*a, **kw, **extra) for a, kw in calls]
+        each = [rows_fn(*a, **kw, **extra) for a, kw in calls]
+        outs, key = [planes for planes, _ in each], each[0][1]
     gather_fn = kernels.fd_gather if kernel else kernels.fd_gather_plain
     rows = args[3].shape[0] // len(calls)
     down = gather_fn(args[0], args[4], args[6], bits, rows)
     planes = [None if outs[0][i] is None else torch.cat([o[i] for o in outs])
               for i in range(6)]  # fd_fail, alerted, streak, ok, hist, seen
-    return (None, planes[0], planes[1], planes[2], planes[3], down, planes[4], planes[5])
+    return (None, planes[0], planes[1], planes[2], planes[3], down, planes[4], planes[5], key)
 
 
 def fused_case(c: int, seed: int, device, random: bool, k: int = 10):
     """One scan round's inputs to ``fd_phase_fused`` at [c, k] on ``device``:
     the adjacency from ``engine.device_initial_state`` over random ring
-    orders, 1% of rows inactive, counters around the threshold of 10, 5% of
-    nodes lossy."""
+    orders, 1% of rows inactive, counters around the threshold of 10, with
+    ``random`` 5% of nodes lossy at probabilities drawn in (0, 1) (else
+    ``drop_prob`` None: random loss off), and the state's key from
+    ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def rand(*shape):
@@ -159,10 +193,11 @@ def fused_case(c: int, seed: int, device, random: bool, k: int = 10):
         torch.zeros(c, dtype=torch.int32, device=device),
         torch.ones(c, dtype=torch.bool, device=device), threefry.prng_key(seed, device),
     )
+    alive, drop_prob = rand(c) < 0.99, rand(c) * (rand(c) < 0.05)
     return (
-        active, rand(c) < 0.99, rand(c) * (rand(c) < 0.05), state.subjects,
+        active, alive, drop_prob if random else None, state.subjects,
         state.observers, rand(c, k) < 0.01, rand(c, k) < 0.001,
-        rand(c, k) if random else None, counters(12), rand(c, k) < 0.05,
+        state.rng_key, counters(12), rand(c, k) < 0.05,
         counters(8), counters(8),
         torch.full((), seed % 9, dtype=torch.int32, device=device),
     )
@@ -230,7 +265,8 @@ def split_us(sets, shards: int) -> dict:
     """Device µs of the mesh's FD kernels on ``sets`` (``cold_sets``) cut
     into ``shards`` shards, cold (``graph_ms`` over the sets in turn): one
     ``fd_phase_rows`` call over every shard (``device_call``), one shard's
-    call alone, and ``fd_gather``."""
+    call alone, and ``fd_gather``; each shard's draw folded with its index,
+    as on a mesh."""
     halt = torch.zeros((), dtype=torch.bool, device=sets[0][0].device)
     cases = [split_case(a, dict(threshold=10), shards) for a in sets]
     merged = [device_call(calls) for calls, _ in cases]

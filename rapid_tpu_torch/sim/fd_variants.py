@@ -30,27 +30,44 @@ import torch
 from . import fd_bench, kernels
 
 _OBSERVER_LOOKUP = "  for (int i = 0; i < kVec; ++i) ss[i] = node_state(p, subj.i[i]);"
-_DROP_LOOKUP = ("if (kRandom && ok && subj_state == 3) "
-                "ok = !(draw < __ldg(p.drop_prob + subject));")
-_EDGE_STEP_CALL = "p, up[i], ss[i], subj.i[i], drop.b[i], draw.f[i],"
+_DROP_LOOKUP = "const float prob = __ldg(p.drop_prob + __ldg(p.subjects + e));"
+_WORD = "jax_threefry::uniform(key, e)"
+_DRAW_STEP = """    for (; need != 0; need &= need - 1) {
+      const int i = __ffs(need) - 1;
+      lost |= static_cast<uint32_t>(lost_probe(p, key, first + i)) << i;
+    }"""
+_LOST_PROBE = "__device__ __forceinline__ bool lost_probe(const Params& p, uint2 key, int64_t e) {"
 _OBSERVER_BOUNDS = "__global__ void __launch_bounds__(kThreads) observer_pass(Params p)"
 
 VARIANTS = {
     "kernel": [],
     # every subject alive and not lossy: no node-state or drop_prob read
     "no_subject_reads": [(_OBSERVER_LOOKUP, "  for (int i = 0; i < kVec; ++i) ss[i] = 2u;")],
-    # lossy subjects never read drop_prob
-    "no_drop_read": [(_DROP_LOOKUP, "")],
+    # an edge that draws reads neither its subject again nor the subject's
+    # drop_prob (every lossy subject's probability taken as 0.5)
+    "no_drop_read": [(_DROP_LOOKUP, "const float prob = 0.5f;")],
     # the gather pass always takes its no-alert path
     "no_gather_reads": [("gather = *p.any_down != 0;", "gather = false;")],
-    # drop_prob read for every lane beside the node state, not after it
+    # no threefry: every word taken as 0.5 (what the draws cost)
+    "no_draw": [(_WORD, "0.5f")],
+    # two edges a step of the draw loop, their loads and threefry chains
+    # side by side (a lane with one edge left takes it twice)
+    "two_draws_a_step": [(_DRAW_STEP, """    while (need != 0) {
+      const int a = __ffs(need) - 1;
+      need &= need - 1;
+      const int b = need != 0 ? __ffs(need) - 1 : a;
+      need &= need - 1;
+      lost |= static_cast<uint32_t>(lost_probe(p, key, first + a)) << a |
+              static_cast<uint32_t>(lost_probe(p, key, first + b)) << b;
+    }""")],
+    # drop_prob read for every lane beside the node state, not in the draw
     "drop_read_early": [
-        (_DROP_LOOKUP, "if (kRandom && ok && subj_state == 3) "
-                       "ok = !(draw < __int_as_float(subject));"),
+        (_DROP_LOOKUP, "const float prob = early;"),
+        (_LOST_PROBE, _LOST_PROBE.replace("int64_t e)", "int64_t e, float early)")),
         (_OBSERVER_LOOKUP, _OBSERVER_LOOKUP + "\n  int32_t dp[kVec];\n#pragma unroll\n"
          "  for (int i = 0; i < kVec; ++i)\n"
          "    dp[i] = kRandom ? __float_as_int(__ldg(p.drop_prob + subj.i[i])) : 0;"),
-        (_EDGE_STEP_CALL, _EDGE_STEP_CALL.replace("subj.i[i], drop.b[i],", "dp[i], drop.b[i],")),
+        ("lost_probe(p, key, first + i)", "lost_probe(p, key, first + i, __int_as_float(dp[i]))"),
     ],
     "two_blocks_per_sm": [(_OBSERVER_BOUNDS, _OBSERVER_BOUNDS.replace(
         "(kThreads)", "(kThreads, 2)"))],
@@ -85,7 +102,8 @@ def build_variants(names=tuple(VARIANTS)) -> dict:
         src.write_text(text)
         libs[name] = out_dir / f"{name}.so"
         procs.append((name, subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(libs[name]), str(src)],
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, *kernels.include_flags(), "-o",
+             str(libs[name]), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, proc in procs:

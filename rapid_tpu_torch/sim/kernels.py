@@ -6,9 +6,12 @@ their build and their launch counters.
   ``rapid_tpu/sim/pallas_kernels.py::_fd_phase_kernel``: ``fd_phase_i32`` is
   the Pallas contract, ``fd_phase_u8`` the engine's saturating counter.
 - ``fd_phase_fused`` (``csrc/fd_phase_fused.cu``) is the whole FD phase of one
-  scan round, from the state tensors to the destination-indexed alert
-  arrivals, under either FD policy (the cumulative counter, or the paper's
-  window of the last W probes); the scan path launches it every round.
+  scan round, from the state tensors and the state's random key to the
+  destination-indexed alert arrivals and the next key, under either FD
+  policy (the cumulative counter, or the paper's window of the last W
+  probes); the scan path launches it every round. It splits the key as
+  JAX's round does and, under random loss, makes each lossy edge's threefry
+  word where it reads it (``csrc/threefry.cuh``).
 - ``fd_phase_rows`` and ``fd_gather`` (the same source, the same device
   functions) split that phase around the alert exchange of the multi-device
   round (``rapid_tpu_torch/shard/engine.py``): each device makes one
@@ -16,10 +19,13 @@ their build and their launch counters.
   (up to ``MAX_SHARDS_PER_CALL``), writing each shard's new_down bits into
   its segment of a per-shard bitset (``segment_words``), and the home
   device runs ``fd_gather`` over every destination from all the segments.
+  Each call splits the key too, and draws each shard's lossy edges under
+  the probe key folded with the shard's index, as the sharded JAX round.
 - ``threefry_draw`` (``csrc/threefry.cu``) is a round's random ingress-loss
-  draw: JAX's threefry key split and uniform block, bit for bit (the plain
-  version is ``sim/threefry.py``), on one device or for the shards of one
-  device's call.
+  draw as a block: JAX's threefry key split and uniform ``[rows, K]``, bit
+  for bit (the plain version is ``sim/threefry.py``), on one device or for
+  the shards of one device's call. No round path launches it; it is the
+  form of the bits that the golden vectors hold.
 - ``placement_topr`` (``csrc/placement_topr.cu``) is the placement plane's
   rendezvous top-R; its wrapper and plain version live beside the plane,
   in ``rapid_tpu_torch/placement/device.py``, and build and count here.
@@ -78,8 +84,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fd_phase_i32": [_P] * 8 + [_LL, _I, _P],
     "fd_phase_u8": [_P] * 8 + [_LL, _I, _P],
-    "fd_phase_fused": [_P] * 25 + [_LL] + [_I] * 7 + [_P],
-    "fd_phase_rows": [_P] * 5 + [ctypes.POINTER(_LL), _I, _P, _LL] + [_I] * 7 + [_P],
+    "fd_phase_fused": [_P] * 27 + [_LL] + [_I] * 7 + [_P],
+    "fd_phase_rows": [_P] * 7 + [ctypes.POINTER(_LL), _I, _P, _LL] + [_I] * 7 + [_P],
     "fd_gather": [_P] * 5 + [_LL, _I, _LL, _LL, ctypes.c_uint, _I, _P],
     "threefry_draw": [_P, _P, _P, _P, _LL, ctypes.POINTER(_I), _I, _P],
     "placement_topr": [_P, _LL, _P, _LL, _I, _P, _P, _P, _LL, _P, _P] + [_I] * 5 + [_P],
@@ -87,6 +93,9 @@ _ARGTYPES = {
 # shards of one fd_phase_rows call: its C entry point takes them as a table
 # in the kernel's parameters, which holds 16
 MAX_SHARDS_PER_CALL = 16
+# the words of fd_phase_rows' node table after its node planes: a probe key
+# (two words) for each of the most shards a call takes
+_PROBE_WORDS = 2 * 16
 
 _functions: Optional[Dict[str, ctypes._CFuncPtr]] = None
 
@@ -143,6 +152,12 @@ def _nvcc() -> str:
     return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
 
 
+def include_flags() -> Tuple[str, ...]:
+    """nvcc's include path for the headers under ``csrc/`` (a source copied
+    elsewhere, as a variant build's, still finds them)."""
+    return ("-I", str(_CSRC))
+
+
 def _sources():
     return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
@@ -168,7 +183,7 @@ def build() -> Dict[str, Path]:
         for name, out in todo.items():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / name)]
+            cmd = [_nvcc(), *NVCC_FLAGS, *include_flags(), "-o", tmp, str(_CSRC / name)]
             # once a source digest: build() returns early once the libraries
             # exist  # devlint: jit-cached
             procs.append((name, out, tmp, subprocess.Popen(
@@ -366,8 +381,8 @@ def window_update(
 
 
 def _observer_rows(
-    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
-    subjects: torch.Tensor, probe_drop: torch.Tensor, draw: Optional[torch.Tensor],
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: Optional[torch.Tensor],
+    subjects: torch.Tensor, probe_drop: torch.Tensor, probe: Optional[torch.Tensor],
     fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
     fd_ok: torch.Tensor, round_: torch.Tensor, row0: int, *, threshold: int,
     gray_confirm: int, gray_warmup: int, rounds_per_interval: int,
@@ -377,8 +392,10 @@ def _observer_rows(
     """The observer-indexed part of the FD phase over the observer rows
     ``[row0, row0 + rows)``, in plain PyTorch ops: ``subjects`` and the
     per-edge planes are those rows' ``[rows, K]`` blocks, the node arrays
-    ``[C]``. Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok, new_down,
-    fd_hist, fd_seen)``, ``alive`` over all C nodes."""
+    ``[C]``. With ``drop_prob`` (random loss on) a probe is lost where the
+    uniform ``[rows, K]`` block under the probe key ``probe`` lies below its
+    subject's probability. Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok,
+    new_down, fd_hist, fd_seen)``, ``alive`` over all C nodes."""
     rows = subjects.shape[0]
     mine = slice(row0, row0 + rows)
     subj = subjects.long()
@@ -386,8 +403,8 @@ def _observer_rows(
     edge_live = active[mine, None] & active[subj]  # edge exists in this config
     observer_up = alive[mine, None]
     probe_ok = alive[subj] & ~probe_drop
-    if draw is not None:
-        probe_ok = probe_ok & ~(draw < drop_prob[subj])
+    if drop_prob is not None:
+        probe_ok = probe_ok & ~(threefry.uniform(probe, tuple(subj.shape)) < drop_prob[subj])
     if rounds_per_interval > 1:
         # staggered FD phases: a node probes only in its own sub-interval
         # round (0-based round t probes nodes with phase == t mod rpi)
@@ -426,30 +443,36 @@ def _observer_rows(
 
 
 def fd_phase_fused_plain(
-    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: Optional[torch.Tensor],
     subjects: torch.Tensor, observers: torch.Tensor, probe_drop: torch.Tensor,
-    down_reports: torch.Tensor, draw: Optional[torch.Tensor],
+    down_reports: torch.Tensor, key: torch.Tensor,
     fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
     fd_ok: torch.Tensor, round_: torch.Tensor, *, threshold: int,
     gray_confirm: int = 0, gray_warmup: int = 3, rounds_per_interval: int = 1,
     fd_hist: Optional[torch.Tensor] = None, fd_seen: Optional[torch.Tensor] = None,
-    window: int = 0, window_fire: int = 0,
+    window: int = 0, window_fire: int = 0, halt: Optional[torch.Tensor] = None,
 ) -> FusedOutputs:
-    """The FD phase of one round in plain PyTorch ops: probe evaluation, the
-    policy's per-edge state, the alert latch and the dst-indexed alert
-    routing. The policy is the cumulative counter with its gray streak path
-    (when ``gray_confirm > 0``), or, with ``window > 0``, the window of the
-    last ``window`` probes on ``fd_hist``/``fd_seen``, firing at
-    ``window_fire`` failures (``window_update``), which leaves ``fd_fail``
-    as it came in.
-    ``draw`` is the round's uniform draw in [0, 1) (``None`` without random
-    loss): the kernel relies on it being non-negative, so it skips the
-    compare for subjects whose ``drop_prob`` is not positive.
+    """The FD phase of one round in plain PyTorch ops: the key's split,
+    probe evaluation, the policy's per-edge state, the alert latch and the
+    dst-indexed alert routing. The policy is the cumulative counter with its
+    gray streak path (when ``gray_confirm > 0``), or, with ``window > 0``,
+    the window of the last ``window`` probes on ``fd_hist``/``fd_seen``,
+    firing at ``window_fire`` failures (``window_update``), which leaves
+    ``fd_fail`` as it came in.
+    ``key`` is the state's int64 ``[2]`` random key, split as JAX's round
+    splits it (``threefry.round_keys``: where the 0-d bool ``halt`` holds
+    True the new key is ``key`` as it came; ``halt`` changes nothing else).
+    With ``drop_prob`` (``None`` without random loss) a probe is lost where
+    the round's uniform ``[C, K]`` draw under the probe key lies below its
+    subject's probability. The kernel draws only the edges where that can
+    change the outcome; the draws lie in [0, 1), so the two agree.
     Returns ``(alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals,
-    fd_hist, fd_seen)``; a plane the policy does not update is its input."""
+    fd_hist, fd_seen, key)``; a plane the policy does not update is its
+    input."""
+    new_key, probe = threefry.round_keys(key, halt)
     alive, fd_fail, alerted_out, fd_streak, fd_ok, new_down, fd_hist, fd_seen = (
         _observer_rows(
-            active, alive, drop_prob, subjects, probe_drop, draw, fd_fail, alerted,
+            active, alive, drop_prob, subjects, probe_drop, probe, fd_fail, alerted,
             fd_streak, fd_ok, round_, 0, threshold=threshold, gray_confirm=gray_confirm,
             gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
             fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire,
@@ -462,7 +485,8 @@ def fd_phase_fused_plain(
     down_arrivals = (
         new_down.gather(0, observers.long()) | down_reports
     ) & active[:, None]
-    return alive, fd_fail, alerted_out, fd_streak, fd_ok, down_arrivals, fd_hist, fd_seen
+    return (alive, fd_fail, alerted_out, fd_streak, fd_ok, down_arrivals, fd_hist, fd_seen,
+            new_key)
 
 
 def segment_words(rows: int, k: int) -> int:
@@ -503,25 +527,26 @@ def row_reciprocal(rows: int) -> Tuple[int, int]:
 
 def new_node_table(c: int, device) -> torch.Tensor:
     """Scratch for ``fd_phase_rows``' node pass over ``c`` nodes (2 bits a
-    node), which a caller may allocate once and pass to every call."""
-    return torch.empty(2 * ((c + 31) // 32), dtype=torch.int32, device=device)
+    node, then a probe key a shard), which a caller may allocate once and
+    pass to every call."""
+    return torch.empty(2 * ((c + 31) // 32) + _PROBE_WORDS, dtype=torch.int32, device=device)
 
 
 # the arguments of fd_phase_rows that differ between the shards of a call,
-# besides row0
-_SHARD_ARGS = ("subjects", "probe_drop", "draw", "fd_fail", "alerted", "fd_streak", "fd_ok",
-               "bits", "fd_hist", "fd_seen")
+# besides row0 and fold
+_SHARD_ARGS = ("subjects", "probe_drop", "fd_fail", "alerted", "fd_streak", "fd_ok", "bits",
+               "fd_hist", "fd_seen")
 
 
-def _shards(name: str, row0, *values) -> list:
+def _shards(name: str, row0, fold, *values) -> list:
     """The per-shard arguments of an ``fd_phase_rows`` call, ``values`` in
     the order of ``_SHARD_ARGS``, as one dict a shard. One shard's call
-    gives each as a value and ``row0`` as an int; a call over several shards
-    gives each as a sequence of one value a shard (None where no shard has
-    it) and ``row0`` as a sequence."""
+    gives each as a value and ``row0`` and ``fold`` as ints; a call over
+    several shards gives each as a sequence of one value a shard (None where
+    no shard has it) and ``row0`` and ``fold`` as sequences."""
     if isinstance(row0, int):
-        return [dict(zip(_SHARD_ARGS, values), row0=row0)]
-    columns = dict(zip(_SHARD_ARGS, values), row0=list(row0))
+        return [dict(zip(_SHARD_ARGS, values), row0=row0, fold=fold)]
+    columns = dict(zip(_SHARD_ARGS, values), row0=list(row0), fold=list(fold))
     n = len(columns["row0"])
     if not n:
         raise ValueError(f"{name}: a call needs a shard")
@@ -531,13 +556,15 @@ def _shards(name: str, row0, *values) -> list:
     return [{arg: None if v is None else v[s] for arg, v in columns.items()} for s in range(n)]
 
 
-def _rows_plain(active, alive, drop_prob, shard: dict, round_, halt, **policy) -> FusedOutputs:
+def _rows_plain(active, alive, drop_prob, shard: dict, probe, round_, halt,
+                **policy) -> FusedOutputs:
     """One shard of ``fd_phase_rows_plain``: its planes, its segment written
     into ``shard["bits"]``."""
     planes_in = tuple(shard[name] for name in ("fd_fail", "alerted", "fd_streak", "fd_ok",
                                                "fd_hist", "fd_seen"))
     _, fd_fail, alerted_out, fd_streak, fd_ok, new_down, fd_hist, fd_seen = _observer_rows(
-        active, alive, drop_prob, shard["subjects"], shard["probe_drop"], shard["draw"],
+        active, alive, drop_prob, shard["subjects"], shard["probe_drop"],
+        threefry.fold_in(probe, shard["fold"]),
         shard["fd_fail"], shard["alerted"], shard["fd_streak"], shard["fd_ok"], round_,
         shard["row0"], fd_hist=shard["fd_hist"], fd_seen=shard["fd_seen"], **policy,
     )
@@ -551,9 +578,9 @@ def _rows_plain(active, alive, drop_prob, shard: dict, round_, halt, **policy) -
 
 
 def fd_phase_rows_plain(
-    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
-    subjects, probe_drop, draw, fd_fail, alerted, fd_streak, fd_ok,
-    round_: torch.Tensor, bits, *, row0, threshold: int, gray_confirm: int = 0,
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: Optional[torch.Tensor],
+    subjects, probe_drop, key: torch.Tensor, fd_fail, alerted, fd_streak, fd_ok,
+    round_: torch.Tensor, bits, *, row0, fold, threshold: int, gray_confirm: int = 0,
     gray_warmup: int = 3, rounds_per_interval: int = 1, fd_hist=None, fd_seen=None,
     window: int = 0, window_fire: int = 0, halt: Optional[torch.Tensor] = None,
 ):
@@ -561,27 +588,34 @@ def fd_phase_rows_plain(
     shard, or of several shards of one device, in plain PyTorch ops.
 
     One shard's call: its rows are ``[row0, row0 + rows)``; ``subjects``
-    (global ids), ``probe_drop``, ``draw`` and the per-edge planes are the
-    shard's ``[rows, K]`` blocks; ``active``, ``alive`` and ``drop_prob`` are
-    ``[C]``. Writes the rows' new_down bits and flag into ``bits`` (the
-    shard's segment, see ``segment_words``) and returns ``(fd_fail, alerted,
-    fd_streak, fd_ok, fd_hist, fd_seen)`` of the rows; a plane the policy
-    does not update is its input. A call over several shards gives each
-    per-shard argument (``_SHARD_ARGS`` and ``row0``) as a sequence, one
-    value a shard, or None where no shard has it, and returns a list of each
-    shard's planes.
+    (global ids), ``probe_drop`` and the per-edge planes are the shard's
+    ``[rows, K]`` blocks; ``active``, ``alive`` and ``drop_prob`` (``None``
+    without random loss) are ``[C]``. Writes the rows' new_down bits and
+    flag into ``bits`` (the shard's segment, see ``segment_words``). A call
+    over several shards gives each per-shard argument (``_SHARD_ARGS``,
+    ``row0`` and ``fold``) as a sequence, one value a shard, or None where
+    no shard has it.
+
+    ``key`` is the state's int64 ``[2]`` random key, split as in
+    ``fd_phase_fused_plain``. ``fold`` is the shard's global index: the
+    shard draws as the sharded JAX round does, its ``[rows, K]`` block under
+    the probe key folded with that index (``threefry.fold_in``).
 
     ``halt``, a 0-d bool tensor: when it holds True the round is halted, and
     every plane comes out as it went in, every segment with no bit and its
-    flag 0."""
-    shards = _shards("fd_phase_rows_plain", row0, subjects, probe_drop, draw, fd_fail,
+    flag 0, and the new key is ``key``. Returns ``(planes, new key)``:
+    ``planes`` the rows' ``(fd_fail, alerted, fd_streak, fd_ok, fd_hist,
+    fd_seen)`` (a plane the policy does not update is its input), or for a
+    call over several shards a list of each shard's."""
+    shards = _shards("fd_phase_rows_plain", row0, fold, subjects, probe_drop, fd_fail,
                      alerted, fd_streak, fd_ok, bits, fd_hist, fd_seen)
-    outs = [_rows_plain(active, alive, drop_prob, shard, round_, halt, threshold=threshold,
-                        gray_confirm=gray_confirm, gray_warmup=gray_warmup,
-                        rounds_per_interval=rounds_per_interval, window=window,
-                        window_fire=window_fire)
+    new_key, probe = threefry.round_keys(key, halt)
+    outs = [_rows_plain(active, alive, drop_prob, shard, probe, round_, halt,
+                        threshold=threshold, gray_confirm=gray_confirm,
+                        gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
+                        window=window, window_fire=window_fire)
             for shard in shards]
-    return outs[0] if isinstance(row0, int) else outs
+    return (outs[0] if isinstance(row0, int) else outs), new_key
 
 
 def fd_gather_plain(
@@ -640,29 +674,38 @@ def _ptr(t: Optional[torch.Tensor], used: bool = True):
     return t.data_ptr() if used and t is not None else None
 
 
+def _key_args(key: torch.Tensor, halt: Optional[torch.Tensor]) -> list:
+    """The key and the halt flag as ``_check`` entries."""
+    want = [("key", key, torch.int64, (2,))]
+    if halt is not None:
+        want.append(("halt", halt, torch.bool, ()))
+    return want
+
+
 def fd_phase_fused(
-    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: Optional[torch.Tensor],
     subjects: torch.Tensor, observers: torch.Tensor, probe_drop: torch.Tensor,
-    down_reports: torch.Tensor, draw: Optional[torch.Tensor],
+    down_reports: torch.Tensor, key: torch.Tensor,
     fd_fail: torch.Tensor, alerted: torch.Tensor, fd_streak: torch.Tensor,
     fd_ok: torch.Tensor, round_: torch.Tensor, *, threshold: int,
     gray_confirm: int = 0, gray_warmup: int = 3, rounds_per_interval: int = 1,
     fd_hist: Optional[torch.Tensor] = None, fd_seen: Optional[torch.Tensor] = None,
-    window: int = 0, window_fire: int = 0,
+    window: int = 0, window_fire: int = 0, halt: Optional[torch.Tensor] = None,
 ) -> FusedOutputs:
     """The whole FD phase of one scan round in the CUDA kernel
     ``fd_phase_fused`` (its plain version for CPU tensors). Arguments and
     results as ``fd_phase_fused_plain``; ``subjects`` and ``observers`` are
-    int32, ``round_`` the state's 0-d int32 round counter, read on the
-    device. With ``window > 0`` the kernel's windowed instantiation runs: it
-    reads and writes ``fd_hist`` (int32) and ``fd_seen`` (uint8), and neither
-    reads nor writes ``fd_fail``, which is returned as it came in."""
+    int32, ``round_`` the state's 0-d int32 round counter and ``halt`` a 0-d
+    bool, both read on the device; the new key is a fresh tensor. With
+    ``window > 0`` the kernel's windowed instantiation runs: it reads and
+    writes ``fd_hist`` (int32) and ``fd_seen`` (uint8), and neither reads
+    nor writes ``fd_fail``, which is returned as it came in. One launch
+    counted a call."""
     name = "fd_phase_fused"
     c, k = subjects.shape
     windowed = window > 0
     want = [
         ("active", active, torch.bool, (c,)), ("alive", alive, torch.bool, (c,)),
-        ("drop_prob", drop_prob, torch.float32, (c,)),
         ("subjects", subjects, torch.int32, (c, k)),
         ("observers", observers, torch.int32, (c, k)),
         ("probe_drop", probe_drop, torch.bool, (c, k)),
@@ -672,44 +715,44 @@ def fd_phase_fused(
         ("fd_streak", fd_streak, torch.uint8, (c, k)),
         ("fd_ok", fd_ok, torch.uint8, (c, k)),
         ("round_", round_, torch.int32, ()),
-    ]
-    if draw is not None:
-        want.append(("draw", draw, torch.float32, (c, k)))
+    ] + _key_args(key, halt)
+    if drop_prob is not None:
+        want.append(("drop_prob", drop_prob, torch.float32, (c,)))
     want += _policy_planes(name, c, k, fd_hist, fd_seen, window)
     _check(name, want, active.device)
     _check_policy(name, threshold, gray_confirm, gray_warmup, rounds_per_interval,
                   window, window_fire)
     args = dict(threshold=threshold, gray_confirm=gray_confirm,
                 gray_warmup=gray_warmup, rounds_per_interval=rounds_per_interval,
-                fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire)
+                fd_hist=fd_hist, fd_seen=fd_seen, window=window, window_fire=window_fire,
+                halt=halt)
     inputs = (active, alive, drop_prob, subjects, observers, probe_drop,
-              down_reports, draw, fd_fail, alerted, fd_streak, fd_ok, round_)
+              down_reports, key, fd_fail, alerted, fd_streak, fd_ok, round_)
     if active.device.type == "cpu":
         return fd_phase_fused_plain(*inputs, **args)
     if active.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {active.device}")
-    read = inputs + ((fd_hist, fd_seen) if windowed else ())
-    if not all(t.is_contiguous() for t in read if t is not None):
+    if not all(t.is_contiguous() for _, t, _, _ in want):
         raise ValueError(f"{name}: inputs must be contiguous")
     counter = "fd_phase_fused_windowed" if windowed else name
     with _traced(counter):
         outputs = _launch_fused(
             inputs, torch.cuda.current_stream(active.device).cuda_stream, **args)
-    if c * k:
-        LAUNCHES[counter] += 1
+    LAUNCHES[counter] += 1
     return outputs
 
 
 def _launch_fused(inputs, stream: int, *, threshold: int, gray_confirm: int,
                   gray_warmup: int, rounds_per_interval: int,
                   fd_hist: Optional[torch.Tensor], fd_seen: Optional[torch.Tensor],
-                  window: int, window_fire: int) -> FusedOutputs:
+                  window: int, window_fire: int, halt: Optional[torch.Tensor]) -> FusedOutputs:
     """Allocate the outputs and scratch of ``fd_phase_fused`` and call its C
     entry point on ``stream``, for inputs the wrapper has checked."""
-    (active, _, _, subjects, _, _, _, _, fd_fail, alerted, fd_streak, fd_ok,
+    (active, _, _, subjects, _, _, _, key, fd_fail, alerted, fd_streak, fd_ok,
      round_) = inputs
     c, k = subjects.shape
     gray, windowed = gray_confirm > 0, window > 0
+    key_out = torch.empty_like(key)
     alive_out = torch.empty_like(active)
     fd_out = fd_fail if windowed else torch.empty_like(fd_fail)
     alerted_out = torch.empty_like(alerted)
@@ -718,16 +761,16 @@ def _launch_fused(inputs, stream: int, *, threshold: int, gray_confirm: int,
     hist_out = torch.empty_like(fd_hist) if windowed else fd_hist
     seen_out = torch.empty_like(fd_seen) if windowed else fd_seen
     down_arrivals = torch.empty_like(alerted)
-    # the kernel's scratch: the node state planes (2 bits a node) and a flag,
-    # and one new_down bit an edge
-    node_table = torch.empty(2 * ((c + 31) // 32) + 1, dtype=torch.int32,
+    # the kernel's scratch: the node state planes (2 bits a node), the probe
+    # key and a flag, and one new_down bit an edge
+    node_table = torch.empty(2 * ((c + 31) // 32) + 3, dtype=torch.int32,
                              device=active.device)
     new_down = torch.empty((c * k + 32 + 31) // 32, dtype=torch.int32, device=active.device)
     err = _function("fd_phase_fused")(
-        *(_ptr(t) for t in inputs[:8]), _ptr(fd_fail, not windowed), _ptr(alerted),
-        _ptr(fd_streak, gray), _ptr(fd_ok, gray), _ptr(fd_hist, windowed),
+        *(_ptr(t) for t in inputs[:8]), _ptr(halt), _ptr(fd_fail, not windowed),
+        _ptr(alerted), _ptr(fd_streak, gray), _ptr(fd_ok, gray), _ptr(fd_hist, windowed),
         _ptr(fd_seen, windowed), _ptr(round_),
-        _ptr(alive_out), _ptr(fd_out, not windowed), _ptr(alerted_out),
+        _ptr(key_out), _ptr(alive_out), _ptr(fd_out, not windowed), _ptr(alerted_out),
         _ptr(streak_out, gray), _ptr(ok_out, gray), _ptr(hist_out, windowed),
         _ptr(seen_out, windowed), _ptr(down_arrivals), _ptr(node_table), _ptr(new_down),
         c, k, threshold, gray_confirm, gray_warmup, rounds_per_interval,
@@ -736,13 +779,13 @@ def _launch_fused(inputs, stream: int, *, threshold: int, gray_confirm: int,
     if err != 0:
         raise RuntimeError(f"fd_phase_fused: kernel launch failed with CUDA error {err}")
     return (alive_out, fd_out, alerted_out, streak_out, ok_out, down_arrivals,
-            hist_out, seen_out)
+            hist_out, seen_out, key_out)
 
 
 def fd_phase_rows(
-    active: torch.Tensor, alive: torch.Tensor, drop_prob: torch.Tensor,
-    subjects, probe_drop, draw, fd_fail, alerted, fd_streak, fd_ok,
-    round_: torch.Tensor, bits, *, row0, threshold: int, gray_confirm: int = 0,
+    active: torch.Tensor, alive: torch.Tensor, drop_prob: Optional[torch.Tensor],
+    subjects, probe_drop, key: torch.Tensor, fd_fail, alerted, fd_streak, fd_ok,
+    round_: torch.Tensor, bits, *, row0, fold, threshold: int, gray_confirm: int = 0,
     gray_warmup: int = 3, rounds_per_interval: int = 1, fd_hist=None, fd_seen=None,
     window: int = 0, window_fire: int = 0, halt: Optional[torch.Tensor] = None,
     node_table: Optional[torch.Tensor] = None,
@@ -750,17 +793,18 @@ def fd_phase_rows(
     """The observer side of the FD phase for the rows of one shard, or of
     every shard one device holds (at most ``MAX_SHARDS_PER_CALL``), in the
     CUDA kernel ``fd_phase_rows`` (its plain version for CPU tensors): the
-    node pass over all C nodes once, then one observer pass over every
-    shard's rows. Arguments and results as ``fd_phase_rows_plain``; each
-    shard's ``bits`` is an int32 tensor of ``segment_words(rows, K)`` words,
-    which may be a slice of a bitset on the same device, and each shard has
-    at least one row. ``halt`` (0-d bool) and ``round_`` are read on the
-    device. ``node_table`` is the node pass's scratch (``new_node_table``),
-    allocated here when not given. Launched with the shards' device current,
-    on its stream; one launch counted a call."""
+    node pass over all C nodes once, with the key's split and each shard's
+    probe key, then one observer pass over every shard's rows. Arguments and
+    results as ``fd_phase_rows_plain``; each shard's ``bits`` is an int32
+    tensor of ``segment_words(rows, K)`` words, which may be a slice of a
+    bitset on the same device, and each shard has at least one row.
+    ``halt`` (0-d bool) and ``round_`` are read on the device; the new key
+    is a fresh tensor. ``node_table`` is the node pass's scratch
+    (``new_node_table``), allocated here when not given. Launched with the
+    shards' device current, on its stream; one launch counted a call."""
     name = "fd_phase_rows"
     c = active.shape[0]
-    shards = _shards(name, row0, subjects, probe_drop, draw, fd_fail, alerted, fd_streak,
+    shards = _shards(name, row0, fold, subjects, probe_drop, fd_fail, alerted, fd_streak,
                      fd_ok, bits, fd_hist, fd_seen)
     if len(shards) > MAX_SHARDS_PER_CALL:
         raise ValueError(f"{name}: {len(shards)} shards, at most {MAX_SHARDS_PER_CALL} a call")
@@ -768,13 +812,13 @@ def fd_phase_rows(
     windowed, gray = window > 0, gray_confirm > 0
     want = [
         ("active", active, torch.bool, (c,)), ("alive", alive, torch.bool, (c,)),
-        ("drop_prob", drop_prob, torch.float32, (c,)),
         ("round_", round_, torch.int32, ()),
-    ]
-    if halt is not None:
-        want.append(("halt", halt, torch.bool, ()))
+    ] + _key_args(key, halt)
+    if drop_prob is not None:
+        want.append(("drop_prob", drop_prob, torch.float32, (c,)))
     if node_table is not None:
-        want.append(("node_table", node_table, torch.int32, (2 * ((c + 31) // 32),)))
+        want.append(("node_table", node_table, torch.int32,
+                     (2 * ((c + 31) // 32) + _PROBE_WORDS,)))
     for shard in shards:
         rows = shard["subjects"].shape[0]
         want += [
@@ -786,14 +830,12 @@ def fd_phase_rows(
             ("fd_ok", shard["fd_ok"], torch.uint8, (rows, k)),
             ("bits", shard["bits"], torch.int32, (segment_words(rows, k),)),
         ]
-        if (shard["draw"] is None) != (shards[0]["draw"] is None):
-            raise ValueError(f"{name}: every shard draws, or none")
-        if shard["draw"] is not None:
-            want.append(("draw", shard["draw"], torch.float32, (rows, k)))
         want += _policy_planes(name, rows, k, shard["fd_hist"], shard["fd_seen"], window)
         if not (rows >= 1 and 0 <= shard["row0"] <= c - rows):
             raise ValueError(f"{name}: rows [{shard['row0']}, {shard['row0'] + rows}) "
                              f"outside [0, {c}) or empty")
+        if not (isinstance(shard["fold"], int) and 0 <= shard["fold"] < 1 << 32):
+            raise ValueError(f"{name}: shard index {shard['fold']} outside [0, 2**32)")
     _check(name, want, active.device)
     _check_policy(name, threshold, gray_confirm, gray_warmup, rounds_per_interval,
                   window, window_fire)
@@ -801,15 +843,17 @@ def fd_phase_rows(
                   rounds_per_interval=rounds_per_interval, window=window,
                   window_fire=window_fire)
     if active.device.type == "cpu":
-        return fd_phase_rows_plain(active, alive, drop_prob, subjects, probe_drop, draw,
+        return fd_phase_rows_plain(active, alive, drop_prob, subjects, probe_drop, key,
                                    fd_fail, alerted, fd_streak, fd_ok, round_, bits, row0=row0,
-                                   fd_hist=fd_hist, fd_seen=fd_seen, halt=halt, **policy)
+                                   fold=fold, fd_hist=fd_hist, fd_seen=fd_seen, halt=halt,
+                                   **policy)
     if active.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {active.device}")
     if not all(t.is_contiguous() for _, t, _, _ in want):
         raise ValueError(f"{name}: inputs must be contiguous")
     if node_table is None:
         node_table = new_node_table(c, active.device)
+    key_out = torch.empty_like(key)
     outs, table = [], []
     for shard in shards:
         out = (shard["fd_fail"] if windowed else torch.empty_like(shard["fd_fail"]),
@@ -821,27 +865,27 @@ def fd_phase_rows(
         outs.append(out)
         # a row of the C entry point's table (ShardField in the source)
         table += [
-            _ptr(shard["subjects"]), _ptr(shard["probe_drop"]), _ptr(shard["draw"]),
+            _ptr(shard["subjects"]), _ptr(shard["probe_drop"]),
             _ptr(shard["fd_fail"], not windowed), _ptr(shard["alerted"]),
             _ptr(shard["fd_streak"], gray), _ptr(shard["fd_ok"], gray),
             _ptr(shard["fd_hist"], windowed), _ptr(shard["fd_seen"], windowed),
             _ptr(out[0], not windowed), _ptr(out[1]), _ptr(out[2], gray), _ptr(out[3], gray),
             _ptr(out[4], windowed), _ptr(out[5], windowed), _ptr(shard["bits"]),
-            shard["row0"], shard["subjects"].shape[0],
+            shard["row0"], shard["subjects"].shape[0], shard["fold"],
         ]
     counter = "fd_phase_rows_windowed" if windowed else name
     with torch.cuda.device(active.device), _traced(counter):
         err = _function(name)(
-            _ptr(active), _ptr(alive), _ptr(drop_prob), _ptr(round_), _ptr(halt),
-            (_LL * len(table))(*(v or 0 for v in table)), len(shards), _ptr(node_table), c, k,
-            threshold, gray_confirm, gray_warmup, rounds_per_interval, window, window_fire,
+            _ptr(active), _ptr(alive), _ptr(drop_prob), _ptr(round_), _ptr(halt), _ptr(key),
+            _ptr(key_out), (_LL * len(table))(*(v or 0 for v in table)), len(shards),
+            _ptr(node_table), c, k, threshold, gray_confirm, gray_warmup, rounds_per_interval,
+            window, window_fire,
             torch.cuda.current_stream(active.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    if c * k:
-        LAUNCHES[counter] += 1
-    return outs[0] if isinstance(row0, int) else outs
+    LAUNCHES[counter] += 1
+    return (outs[0] if isinstance(row0, int) else outs), key_out
 
 
 def fd_gather(

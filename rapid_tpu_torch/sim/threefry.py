@@ -6,8 +6,10 @@ split every round, the probe half is folded with the shard index on a mesh,
 and ``uniform`` turns it into a float32 block. This module is the plain
 version of that arithmetic, for JAX's default ``jax_threefry_partitionable``
 mode and 32-bit integers (``jax_enable_x64`` off), which is how the JAX
-package runs. The CUDA kernel ``kernels.threefry_draw`` (``csrc/threefry.cu``)
-computes the same words on the card; the CPU path and the tests use this one.
+package runs. On the card ``csrc/threefry.cuh`` computes the same words: the
+FD kernels make each lossy edge's word where they read it, and the kernel
+``kernels.threefry_draw`` writes a whole block; the CPU path and the tests
+use this module.
 
 A key is an int64 tensor ``[2]`` holding JAX's two uint32 words. Every value
 here lies in ``[0, 2**32)`` and is held in int64, because PyTorch lacks the
@@ -64,6 +66,18 @@ def split(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack([b1[0], b2[0]]), torch.stack([b1[1], b2[1]])
 
 
+def round_keys(
+    key: torch.Tensor, halt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round's ``(new key, probe key)``: ``split``, with the new key
+    ``key`` as it came where the 0-d bool ``halt`` holds True (the JAX
+    engine's masked round keeps its key)."""
+    new_key, probe = split(key)
+    if halt is not None:
+        new_key = torch.where(halt, key, new_key)
+    return new_key, probe
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: threefry of the counter ``(0,
     data)``; ``data`` an int or a 0-d int64 tensor in ``[0, 2**32)``."""
@@ -98,16 +112,14 @@ def draw_plain(
     halt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of ``kernels.threefry_draw``: one round's key split
-    and uniform draw. Returns ``(new key, draw)``. Without ``shards`` the
+    and uniform draw as a block. Returns ``(new key, draw)``. Without ``shards`` the
     draw is ``uniform(probe key, (rows, k))``, the single-device round's;
     with it, each shard ``s`` (a global shard index) draws its ``[rows, k]``
     block from ``fold_in(probe key, s)``, the blocks stacked in the order
     given, as the sharded round draws them. ``rows`` 0 splits the key and
     draws nothing. Where the 0-d bool ``halt`` holds True the new key is
     ``key`` as it came; the draw is the same either way."""
-    new_key, probe = split(key)
-    if halt is not None:
-        new_key = torch.where(halt, key, new_key)
+    new_key, probe = round_keys(key, halt)
     if shards is None:
         return new_key, uniform(probe, (rows, k))
     return new_key, torch.cat([uniform(fold_in(probe, s), (rows, k)) for s in shards])

@@ -1,8 +1,9 @@
 """The PyTorch port on an NVIDIA GPU against the same port on the CPU (which
 the other test_torch_* files hold against the JAX package), every state
 field. Exact equality: the engine is integer and boolean only, and its
-random draw is threefry's bits on both (the kernel ``threefry_draw`` against
-its plain version, held here too).
+random draw is threefry's bits on both (the FD kernels make each lossy
+edge's word; the block kernel ``threefry_draw`` is held against its plain
+version here too).
 
 Every test here needs the card and skips without one. This file imports
 neither JAX nor rapid_tpu, so it also runs where JAX is not installed; there,
@@ -157,8 +158,9 @@ def test_speculation_and_timed_window_on_card(cuda_device, monkeypatch, branch):
 @pytest.mark.parametrize("policy", ["cumulative", "windowed"])
 def test_profiler_times_graph_replays_on_card(cuda_device, policy):
     """At 1000 members, every dispatch sampled on the scan path: every phase
-    of every one-shot sample above 0, the FD kernel and ``threefry_draw``
-    counted once a replay (3 a turn, and ``turns`` counts every turn taken),
+    of every one-shot sample above 0, the FD kernel (which splits the key
+    and draws) counted once a replay and ``threefry_draw`` never (3 a turn,
+    and ``turns`` counts every turn taken),
     the captured full step equal to the eager one, the key included, and the
     state's key untouched by a sample."""
     from rapid_tpu_torch.profiling import phases
@@ -187,7 +189,7 @@ def test_profiler_times_graph_replays_on_card(cuda_device, policy):
     for _ in range(4):
         samples.append(prof.sample(sim.config, state, inputs, True))
     assert len(replays) == 3 * prof.turns >= 12 and kernels.LAUNCHES[counter] == len(replays)
-    assert kernels.LAUNCHES["threefry_draw"] == len(replays)
+    assert kernels.LAUNCHES["threefry_draw"] == 0
     assert all(s[p] > 0 for s in samples for p in phases.DEVICE_PHASES), samples
     assert torch.equal(state.rng_key, key)
     captured = prof._captured[phases._class_key(sim.config, state, inputs, True)]
@@ -200,7 +202,7 @@ def test_profiler_times_graph_replays_on_card(cuda_device, policy):
 
 def test_profiling_prefixes_on_card_match_cpu(cuda_device):
     """``step_fd_scan`` and ``step_cut_detector`` on the card (through
-    ``threefry_draw`` and ``fd_phase_fused``) against the CPU, every field,
+    ``fd_phase_fused``, which splits the key and draws) against the CPU, every field,
     mid-decision, under ingress loss 1.0 and 0.5."""
     outs = []
     for device in ("cpu", cuda_device):

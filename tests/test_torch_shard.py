@@ -502,11 +502,12 @@ def test_exchange_copy_path_matches_in_place_segments(mesh, monkeypatch):
 ])
 def test_one_fd_call_a_device_group_a_round(mesh, monkeypatch, layout, calls_a_round,
                                             copies_a_round):
-    """Each group of ``device_groups`` makes one ``fd_phase_rows`` call and
-    one ``threefry_draw`` call a round over its shards; groups off home copy
-    their segments in. Under random loss every shard still draws from the
-    probe key folded with its own index, so the state equals the one-device
-    run's, field for field."""
+    """Each group of ``device_groups`` makes one ``fd_phase_rows`` call a
+    round over its shards, folding each shard's own index into the probe
+    key, and no ``threefry_draw`` call; groups off home copy their segments
+    in. Under random loss every shard still draws from the probe key folded
+    with its own index, so the state equals the one-device run's, field for
+    field."""
     _, pconfig, _, pstate = build(seed=26)
     alive = np.ones(64, dtype=bool)
     alive[[4, 37]] = False
@@ -516,11 +517,15 @@ def test_one_fd_call_a_device_group_a_round(mesh, monkeypatch, layout, calls_a_r
     run = make_sharded_run(pconfig, mesh, 12, random_loss=True)
     want = run(place_state(pstate, mesh), inputs)
     calls, draws, copies = [], [], []
-    real_rows, real_draw, real_copy = kernels.fd_phase_rows, kernels.threefry_draw, shard._copy_in
-    monkeypatch.setattr(kernels, "fd_phase_rows",
-                        lambda *a, **kw: calls.append(len(kw["row0"])) or real_rows(*a, **kw))
-    monkeypatch.setattr(kernels, "threefry_draw",
-                        lambda *a, **kw: draws.append(list(a[3])) or real_draw(*a, **kw))
+    real_rows, real_copy = kernels.fd_phase_rows, shard._copy_in
+
+    def rows(*a, **kw):
+        calls.append(len(kw["row0"]))
+        draws.append(list(kw["fold"]))
+        return real_rows(*a, **kw)
+
+    monkeypatch.setattr(kernels, "fd_phase_rows", rows)
+    monkeypatch.setattr(kernels, "threefry_draw", None)  # any call would raise
     monkeypatch.setattr(shard, "_copy_in",
                         lambda segment, source: copies.append(1) or real_copy(segment, source))
     if layout != "one device":

@@ -1,6 +1,7 @@
 """The port's random-loss draw (``rapid_tpu_torch/sim/threefry.py``, the plain
-version of the CUDA kernel ``kernels.threefry_draw``) against ``jax.random``
-on the CPU: ``PRNGKey``, ``split``, ``fold_in`` and ``uniform``, bit for bit,
+version of the bits the FD kernels make edge by edge and the CUDA kernel
+``kernels.threefry_draw`` makes as a block) against ``jax.random`` on the
+CPU: ``PRNGKey``, ``split``, ``fold_in`` and ``uniform``, bit for bit,
 at seeds 0, 3, 7, 42 and 2**31 - 1 and shapes (1, 1), (37, 10) and
 (1000, 10); the counter's high word against JAX's threefry primitive; the
 wrapper's CPU path; ``tests/golden/torch_threefry.json`` (which
@@ -102,6 +103,35 @@ def test_high_counter_word_matches_jax_threefry(offset):
     floats = ((want >> 9) | 0x3F800000).view(np.float32) - np.float32(1.0)
     np.testing.assert_array_equal(_words(threefry.uniform(key, (2, 3), offset)),
                                   _words(floats.reshape(2, 3)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_at_scattered_counters_is_the_block_s(seed):
+    """One word at a flat counter (``uniform`` of one element at that
+    offset, what the FD kernels compute for one edge) at scattered counters
+    equals those elements of ``uniform``'s block and of JAX's ``uniform``,
+    bit for bit."""
+    _, probe = threefry.split(threefry.prng_key(seed))
+    _, jprobe = jax.random.split(jax.random.PRNGKey(seed))
+    counters = np.random.default_rng(seed).choice(1000 * 10, 300, replace=False)
+    got = torch.cat([threefry.uniform(probe, (1,), int(e)) for e in counters])
+    block = threefry.uniform(probe, (1000, 10)).reshape(-1)
+    want = np.asarray(jax.random.uniform(jprobe, (1000, 10))).reshape(-1)
+    np.testing.assert_array_equal(_words(got), _words(block[counters]))
+    np.testing.assert_array_equal(_words(got), _words(want[counters]))
+
+
+@pytest.mark.parametrize("halted", [None, False, True])
+def test_round_keys_split_or_keep_as_jax_s_round(halted):
+    """A round's keys: JAX's split, the new key kept as it came where the
+    halt flag holds (the JAX engine's masked round), the probe key the
+    split's either way."""
+    key = threefry.prng_key(17)
+    halt = None if halted is None else torch.tensor(halted)
+    new, probe = threefry.round_keys(key, halt)
+    jnew, jprobe = jax.random.split(jax.random.PRNGKey(17))
+    np.testing.assert_array_equal(_words(new), np.asarray(key if halted else jnew))
+    np.testing.assert_array_equal(_words(probe), np.asarray(jprobe))
 
 
 @pytest.mark.parametrize("rows, k, shards", [(37, 10, None), (0, 10, None), (12, 10, [3]),

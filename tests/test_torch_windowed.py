@@ -17,7 +17,7 @@ import torch
 from rapid_tpu.sim import engine as jeng
 from rapid_tpu.sim.driver import Simulator as JaxSimulator
 from rapid_tpu_torch.sim import engine as teng
-from rapid_tpu_torch.sim import kernels, threefry
+from rapid_tpu_torch.sim import kernels
 from rapid_tpu_torch.sim.driver import Simulator
 
 pytest_plugins = ["torch_gate"]  # the port's test gate, tests/torch_gate.py
@@ -168,16 +168,12 @@ def _assert_plain_matches_jax(config, state, inputs, random_loss=False):
     out = jeng._fd_phase(config, state, inputs, random_loss)
     want = dict(zip(OUTPUTS, (out[2], out[3], out[8], out[6], out[7], out[9], out[4], out[5])))
     t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
-    draw = None
-    if random_loss:
-        # the round's draw from the state's key, as JAX's _fd_phase draws it
-        key, draw = threefry.draw_plain(t(state.rng_key).long(), 64, 10)
-        np.testing.assert_array_equal(key.numpy().astype(np.uint32), np.asarray(out[0]))
     w, fire, _ = teng.window_params(_port_config(config))
     got = kernels.fd_phase_fused_plain(
-        t(state.active), t(inputs.alive), t(inputs.drop_prob), t(state.subjects),
-        t(state.observers), t(inputs.probe_drop), t(inputs.down_reports), draw,
-        t(state.fd_fail), t(state.alerted), t(state.fd_streak), t(state.fd_ok),
+        t(state.active), t(inputs.alive), t(inputs.drop_prob) if random_loss else None,
+        t(state.subjects), t(state.observers), t(inputs.probe_drop), t(inputs.down_reports),
+        t(state.rng_key).long(), t(state.fd_fail), t(state.alerted), t(state.fd_streak),
+        t(state.fd_ok),
         t(state.round), threshold=config.fd_threshold,
         rounds_per_interval=config.rounds_per_interval,
         fd_hist=t(np.asarray(state.fd_hist).astype(np.int32)), fd_seen=t(state.fd_seen),
@@ -190,6 +186,8 @@ def _assert_plain_matches_jax(config, state, inputs, random_loss=False):
         assert g.numpy().dtype == x.dtype, name
         np.testing.assert_array_equal(g.numpy(), x, err_msg=name)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(state.fd_fail))
+    # the split key JAX's round returns, with loss or without
+    np.testing.assert_array_equal(got[8].numpy().astype(np.uint32), np.asarray(out[0]))
     return want
 
 
@@ -237,8 +235,8 @@ def test_fused_wrapper_rejects_bad_window_arguments():
     port = _port_state(config, state)
     i = _port_inputs(inputs)
     args = (port.active, i.alive, i.drop_prob, port.subjects, port.observers, i.probe_drop,
-            i.down_reports, None, port.fd_fail, port.alerted, port.fd_streak, port.fd_ok,
-            port.round)
+            i.down_reports, port.rng_key, port.fd_fail, port.alerted, port.fd_streak,
+            port.fd_ok, port.round)
     with pytest.raises(ValueError, match="fd_hist"):
         kernels.fd_phase_fused(*args, threshold=10, window=10, window_fire=4)
     with pytest.raises(TypeError):
