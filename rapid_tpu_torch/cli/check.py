@@ -146,11 +146,12 @@ def _load_catalogs() -> "tuple[frozenset, tuple, frozenset, frozenset]":
 METRIC_CATALOG, METRIC_PREFIXES, SPAN_CATALOG, EVENT_CATALOG = _load_catalogs()
 
 # tracer/journal call sites whose literal first argument must come from the
-# matching catalog: .span/.begin/.remote_span mint spans (SPAN_CATALOG),
+# matching catalog: .span/.begin/.remote_span (and the simulator's
+# ._child_span, a parented begin) mint spans (SPAN_CATALOG),
 # .event mints instants and .record journals flight-recorder entries
 # (EVENT_CATALOG). A typo'd name would silently fork a trace/journal series
 # exactly like a typo'd metric name.
-SPAN_METHODS = ("span", "begin", "remote_span")
+SPAN_METHODS = ("span", "begin", "remote_span", "_child_span")
 EVENT_METHODS = ("event", "record")
 
 

@@ -45,6 +45,7 @@ import itertools
 import json
 import os
 import re
+import sys
 import tempfile
 import threading
 import time
@@ -189,8 +190,21 @@ METRIC_CATALOG = frozenset({
 # starts with one of these prefixes (e.g. ``f"messages.{type_name}"``).
 METRIC_PREFIXES = ("messages.",)
 
+# The port's own spans, which the JAX package does not record: the host
+# work of the simulator's join path, dispatch and view change (sim/driver.py).
+PORT_SPANS = frozenset({
+    "join_arm",          # arming a configuration's pending joins
+    "ring_order",        # the joiners' ring re-sort, inside join_arm
+    "dispatch_inputs",   # a dispatch's fault-plane inputs and their uploads
+    "dispatch_enqueue",  # a dispatch's rounds and pack_decision, in device_rounds
+    "decision_fetch",    # the decision words' fetch, in device_rounds
+    "config_id",         # the configuration id's fold, in view_change
+    "fresh_state",       # the new configuration's state, in view_change
+})
+
 # Span names: every Tracer.span/begin/event call site must use one of
-# these (the same discipline as METRIC_CATALOG).
+# these (the same discipline as METRIC_CATALOG): the JAX package's catalog
+# and the port's own.
 SPAN_CATALOG = frozenset({
     "alert_batch",       # service.py: handling one BatchedAlertMessage
     "view_change",       # service.py + sim/driver.py: installing a view
@@ -198,7 +212,7 @@ SPAN_CATALOG = frozenset({
     "placement_rebalance",  # placement map rebuilt after a view change
     "handoff_session",   # one partition's state transfer (handoff/engine.py)
     "serving_request",   # one client Get/Put through the serving engine
-})
+}) | PORT_SPANS
 
 # Instant-event and flight-recorder kinds: every Tracer.event and
 # FlightRecorder.record call site must use one of these.
@@ -761,6 +775,10 @@ class MetricsHistory:
 # --------------------------------------------------------------------------- #
 
 _SPAN_IDS = itertools.count(1)
+# PORT_SPANS take their ids from a range of their own, so every span both
+# packages record keeps the JAX package's numbering: a churn episode's trace
+# id (its root span's id) names the episode in either package's records
+_PORT_SPAN_IDS = itertools.count(1 << 48)
 _SPAN_ID_LOCK = threading.Lock()
 
 # One process-wide current-span so nesting works across tracer instances
@@ -771,9 +789,36 @@ _CURRENT_SPAN: "contextvars.ContextVar[Optional[Span]]" = contextvars.ContextVar
 )
 
 
-def _next_span_id() -> int:
+def _next_span_id(name: str = "") -> int:
     with _SPAN_ID_LOCK:
-        return next(_SPAN_IDS)
+        return next(_PORT_SPAN_IDS if name in PORT_SPANS else _SPAN_IDS)
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler`` range named ``name`` while the profiler records,
+    else a context that does nothing. The range lands on the trace's own
+    clock, and on the device's timeline over the kernels launched inside it.
+    Without torch loaded nothing can be recording, so this module stays
+    importable without it."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def _open_range(name: str):
+    """``profiler_range(name)`` entered, or None while nothing records."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rng = torch.profiler.record_function(name)
+    rng.__enter__()
+    return rng
+
+
+def _close_range(rng) -> None:
+    if rng is not None:
+        rng.__exit__(None, None, None)
 
 
 @dataclass(frozen=True)
@@ -868,7 +913,10 @@ class Tracer:
     evictions). ``parent`` attaches this tracer (weakly) to another one so
     ``collect_spans()`` on the parent -- and therefore the Chrome-trace
     exporter -- sees every attached plane on one timeline. ``plane``/``track``
-    stamp each span for the exporter's process/thread grouping."""
+    stamp each span for the exporter's process/thread grouping. While
+    ``torch.profiler`` records, every span (``span``, ``begin``/``end``,
+    ``remote_span``) also opens a ``profiler_range`` of its name around its
+    wall extent, so a device trace holds the spans on its own clock."""
 
     def __init__(self, max_spans: int = DEFAULT_MAX_SPANS,
                  parent: Optional["Tracer"] = None,
@@ -884,6 +932,9 @@ class Tracer:
         # lock-free on purpose: cyclic GC can fire inside this tracer's own
         # locked sections, so a lock-taking finalizer would self-deadlock.
         self._pending_absorbs: List[tuple] = []  # guarded-by: gil-atomic-append
+        # span id -> the profiler range a ``begin`` opened, closed by ``end``
+        # (kept off the Span, whose fields the exporters compare)
+        self._ranges: Dict[int, object] = {}
         if parent is not None:
             parent.attach(self)
 
@@ -924,7 +975,7 @@ class Tracer:
     def _new_span(self, name: str, virtual_ms: Optional[int],
                   attrs: Dict[str, object]) -> Span:
         parent = _CURRENT_SPAN.get()
-        span_id = _next_span_id()
+        span_id = _next_span_id(name)
         return Span(
             name=name,
             wall_start_s=time.perf_counter(),
@@ -953,6 +1004,7 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, virtual_ms: Optional[int] = None,
              **attrs: object) -> Iterator[Span]:
+        rng = _open_range(name)
         s = self._new_span(name, virtual_ms, dict(attrs))
         token = _CURRENT_SPAN.set(s)
         try:
@@ -960,6 +1012,7 @@ class Tracer:
         finally:
             _CURRENT_SPAN.reset(token)
             s.wall_end_s = time.perf_counter()
+            _close_range(rng)
             self._append(s)
 
     def begin(self, name: str, virtual_ms: Optional[int] = None,
@@ -967,12 +1020,18 @@ class Tracer:
         """Non-contextmanager start (paired with ``end``), for spans whose
         close site is far from their open site (e.g. view-change application
         that returns mid-function)."""
-        return self._new_span(name, virtual_ms, dict(attrs))
+        rng = _open_range(name)
+        s = self._new_span(name, virtual_ms, dict(attrs))
+        if rng is not None:
+            self._ranges[s.span_id] = rng
+        return s
 
     def end(self, s: Span, virtual_ms: Optional[int] = None) -> None:
         s.wall_end_s = time.perf_counter()
         if virtual_ms is not None:
             s.virtual_end_ms = virtual_ms
+        if self._ranges:
+            _close_range(self._ranges.pop(s.span_id, None))
         self._append(s)
 
     def event(self, name: str, virtual_ms: Optional[int] = None,
@@ -1010,6 +1069,7 @@ class Tracer:
         corrupt parenting or accumulate state."""
         if ctx is not None and ctx.origin:
             attrs.setdefault("origin", ctx.origin)
+        rng = _open_range(name)
         s = self._new_span(name, virtual_ms, dict(attrs))
         if ctx is not None:
             s.parent_id = ctx.parent_span_id
@@ -1020,6 +1080,7 @@ class Tracer:
         finally:
             _CURRENT_SPAN.reset(token)
             s.wall_end_s = time.perf_counter()
+            _close_range(rng)
             self._append(s)
 
     # -- reading ------------------------------------------------------------

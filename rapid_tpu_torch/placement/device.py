@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..hashing import endpoint_hash_batch, to_signed, xxh64, xxh64_batch_auto
+from ..observability import profiler_range
 from ..runtime import jitwatch
 from ..sim import kernels
 from ..sim.engine import resolve_device
@@ -385,7 +386,7 @@ def _placement_topr(
     if plan is None:
         plan = topr_plan(n_rows, n_cols, replicas, inst32.shape[0], prior is not None)
     stream = torch.cuda.current_stream(part32.device).cuda_stream
-    with kernels._traced(name):
+    with profiler_range(name):
         err = kernels._function(name)(
             part32.data_ptr(), n_rows, inst32.data_ptr(), n_slots, inst32.shape[0],
             weights.data_ptr(), kernels._ptr(active, cols is None),

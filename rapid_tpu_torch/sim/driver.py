@@ -682,13 +682,11 @@ class Simulator:  # guarded-by: sim-loop
             return cached
 
         for plan in plans:
-            span = self.tracer.begin(
-                "handoff_session", virtual_ms=self.virtual_ms,
+            span = self._child_span(
+                "handoff_session", parent_span,
                 partition=plan.partition, session=plan.session_id,
                 sources=len(plan.sources),
             )
-            span.parent_id = parent_span.span_id
-            span.trace_id = parent_span.trace_id
             self.metrics.incr("handoff.sessions_started")
             completed = False
             not_found = 0
@@ -1496,14 +1494,15 @@ class Simulator:  # guarded-by: sim-loop
             return None
         self._join_reports_armed = True
         k = self.config.k
-        join_reports = np.zeros((self.config.capacity, k), dtype=bool)
-        # once per join wave, not per dispatch
-        observers = jitwatch.fetch("sim.observers", self.state.observers).copy()
-        for node in sorted(self._pending_joiners):
-            obs_ids, obs_alive = self._expected_observers(node)
-            join_reports[node, :] = obs_alive
-            observers[node, :] = obs_ids
-        self.state = dataclasses.replace(self.state, observers=self._tensor(observers))
+        with self.tracer.span("join_arm", joiners=len(self._pending_joiners)):
+            join_reports = np.zeros((self.config.capacity, k), dtype=bool)
+            # once per join wave, not per dispatch
+            observers = jitwatch.fetch("sim.observers", self.state.observers).copy()
+            for node in sorted(self._pending_joiners):
+                obs_ids, obs_alive = self._expected_observers(node)
+                join_reports[node, :] = obs_alive
+                observers[node, :] = obs_ids
+            self.state = dataclasses.replace(self.state, observers=self._tensor(observers))
         return join_reports
 
     def expected_observers(self, node: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -1519,11 +1518,12 @@ class Simulator:  # guarded-by: sim-loop
         alive = np.zeros(k, dtype=bool)
         signed = self.cluster.ring_hashes.view(np.int64)
         if self._ring_nodes is None:
-            full_order = self.cluster.full_ring_order()
-            self._ring_nodes = []
-            for ring in range(k):
-                nodes = full_order[ring][self.active[full_order[ring]]]
-                self._ring_nodes.append((nodes, signed[ring, nodes]))
+            with self.tracer.span("ring_order"):
+                full_order = self.cluster.full_ring_order()
+                self._ring_nodes = []
+                for ring in range(k):
+                    nodes = full_order[ring][self.active[full_order[ring]]]
+                    self._ring_nodes.append((nodes, signed[ring, nodes]))
         for ring in range(k):
             ring_nodes, ring_hashes = self._ring_nodes[ring]
             me = signed[ring, node]
@@ -1571,7 +1571,8 @@ class Simulator:  # guarded-by: sim-loop
         rounds_done = 0
         while rounds_done < max_rounds:
             join_reports = self._arm_pending_joins()
-            inputs = self._const_inputs(join_reports)
+            with self.tracer.span("dispatch_inputs"):
+                inputs = self._const_inputs(join_reports)
             n = min(batch, max_rounds - rounds_done)
             random_loss = bool((self._drop_prob > 0).any())
             prof = self._profiler
@@ -1590,32 +1591,34 @@ class Simulator:  # guarded-by: sim-loop
             try:
                 with self.tracer.span("device_rounds", virtual_ms=self.virtual_ms,
                                       rounds=n) as dispatch_span:
-                    if self.mesh is not None:
-                        # rounds after the decision (and, for
-                        # stop_when_announced, the announcement) run as masked
-                        # no-ops; the budget is an argument, so every batch
-                        # size shares one cached runner
-                        self.state = self._sharded_run_until(random_loss, stop_when_announced)(
-                            self.state, inputs, n)
-                    elif random_loss:
-                        for chunk in _pow2_chunks(n, batch):
-                            self.state = run_rounds_const(
-                                self.config, self.state, inputs, chunk, True)
-                    else:
-                        self.state = run_until_decided_const(
-                            self.config, self.state, inputs, n,
-                            bool(self._deliver.all()), stop_when_announced,
-                        )
-                    # ONE device->host copy syncs the batch and fetches
-                    # everything a decision needs; the speculation worker
-                    # runs while the host waits for it (started after the
-                    # enqueue: its host work would slow the enqueue down)
-                    packed = pack_decision(self.config, self.state)
+                    with self.tracer.span("dispatch_enqueue"):
+                        if self.mesh is not None:
+                            # rounds after the decision (and, for
+                            # stop_when_announced, the announcement) run as
+                            # masked no-ops; the budget is an argument, so
+                            # every batch size shares one cached runner
+                            self.state = self._sharded_run_until(
+                                random_loss, stop_when_announced)(self.state, inputs, n)
+                        elif random_loss:
+                            for chunk in _pow2_chunks(n, batch):
+                                self.state = run_rounds_const(
+                                    self.config, self.state, inputs, chunk, True)
+                        else:
+                            self.state = run_until_decided_const(
+                                self.config, self.state, inputs, n,
+                                bool(self._deliver.all()), stop_when_announced,
+                            )
+                        # ONE device->host copy syncs the batch and fetches
+                        # everything a decision needs
+                        packed = pack_decision(self.config, self.state)
+                    # the speculation worker runs while the host waits for
+                    # the fetch (started after the enqueue: its host work
+                    # would slow the enqueue down)
                     spec_worker = self._speculate_view_change()
-                    t_fetch = time.perf_counter()
-                    words = jitwatch.fetch("sim.decision_words", packed)
+                    with self.tracer.span("decision_fetch") as fetch_span:
+                        words = jitwatch.fetch("sim.decision_words", packed)
                     if prof is not None:
-                        prof.record_host_transfer((time.perf_counter() - t_fetch) * 1000.0)
+                        prof.record_host_transfer(fetch_span.wall_ms)
             finally:
                 if spec_worker is not None:
                     spec_worker.join()
@@ -1880,11 +1883,14 @@ class Simulator:  # guarded-by: sim-loop
         self._billed_rounds = 0
         self._rounds_executed = 0  # fresh configuration: state.round resets
         self._stable_view.decision(self.virtual_ms)
+        id_span = self._child_span("config_id", vc_span)
+        configuration_id = self.configuration_id()
+        self.tracer.end(id_span, virtual_ms=self.virtual_ms)
         record = ViewChangeRecord(
             cut=np.flatnonzero(cut),
             added=added,
             removed=removed,
-            configuration_id=self.configuration_id(),
+            configuration_id=configuration_id,
             virtual_time_ms=self.virtual_ms,
             wall_time_s=time.perf_counter() - t0,
             membership_size=int(self.active.sum()),
@@ -1892,7 +1898,9 @@ class Simulator:  # guarded-by: sim-loop
         self.view_changes.append(record)
         # new configuration: rebuild adjacency, reset per-config state;
         # crashes persist across configurations
+        state_span = self._child_span("fresh_state", vc_span)
         self.state = self._fresh_state(self.seed + len(self.view_changes))
+        self.tracer.end(state_span, virtual_ms=self.virtual_ms)
         # a speculation serves exactly one view change: the identifier
         # history can grow afterwards, which changes the fold even for an
         # identical active mask
@@ -1928,18 +1936,22 @@ class Simulator:  # guarded-by: sim-loop
             self._slo.tick(self.virtual_ms)
         return record
 
+    def _child_span(self, name: str, parent, **attrs: object):
+        """``tracer.begin`` parented under ``parent`` (a span ``begin``
+        opened, so not the current span), at the virtual clock's now."""
+        span = self.tracer.begin(name, virtual_ms=self.virtual_ms, **attrs)
+        span.parent_id = parent.span_id
+        span.trace_id = parent.trace_id
+        return span
+
     def _placement_view_change(self, record: ViewChangeRecord, vc_span) -> None:
         """The planes' part of a view change, in the JAX driver's order:
         the placement map's incremental update (a ``placement_topr`` call
         for the affected rows and one for the added columns, one fetch;
         derived state, so no protocol time), then with handoff the serving
         reconcile, the transfers and the serving cache reset."""
-        p_span = self.tracer.begin(
-            "placement_rebalance", virtual_ms=self.virtual_ms,
-            size=record.membership_size,
-        )
-        p_span.parent_id = vc_span.span_id
-        p_span.trace_id = vc_span.trace_id
+        p_span = self._child_span("placement_rebalance", vc_span,
+                                  size=record.membership_size)
         old_assign = (
             self._placement.assign.copy() if self._handoff_stores is not None else None
         )

@@ -46,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability import profiler_range
 from . import kernels, threefry
 from .topology import VirtualCluster, build_adjacency
 
@@ -558,26 +559,27 @@ def _step(
     halt = state.decided
     (rng_key, alive, fd_fail, alerted, fd_streak, fd_ok, down_arrivals, fd_hist,
      fd_seen) = _fd_phase(config, state, inputs, random_loss, halt)
-    tallied = route_and_tally(
-        config, state, down_arrivals, inputs, state.active, alive,
-        observers_idx=obs,
-    )
-    new_state = dataclasses.replace(
-        tallied,
-        alive=inputs.alive,
-        fd_fail=fd_fail,
-        fd_hist=fd_hist,
-        fd_seen=fd_seen,
-        fd_streak=fd_streak,
-        fd_ok=fd_ok,
-        alerted=alerted,
-        round=state.round + 1,
-        rng_key=rng_key,
-    )
-    # after a decision the configuration is frozen until the host applies the
-    # view change: all updates become no-ops (the FD kernel has already kept
-    # the key, so it passes through)
-    return _select(halt, dataclasses.replace(state, rng_key=rng_key), new_state)
+    with profiler_range("route_and_tally"):
+        tallied = route_and_tally(
+            config, state, down_arrivals, inputs, state.active, alive,
+            observers_idx=obs,
+        )
+        new_state = dataclasses.replace(
+            tallied,
+            alive=inputs.alive,
+            fd_fail=fd_fail,
+            fd_hist=fd_hist,
+            fd_seen=fd_seen,
+            fd_streak=fd_streak,
+            fd_ok=fd_ok,
+            alerted=alerted,
+            round=state.round + 1,
+            rng_key=rng_key,
+        )
+        # after a decision the configuration is frozen until the host applies
+        # the view change: all updates become no-ops (the FD kernel has
+        # already kept the key, so it passes through)
+        return _select(halt, dataclasses.replace(state, rng_key=rng_key), new_state)
 
 
 def step(
@@ -778,12 +780,13 @@ def run_until_decided_const(
             # pause at the round a group proposal is announced (extern rows
             # excluded) so the caller can act before votes tally
             run = run & ~final.announced[: config.groups].any()
-        st = route_and_tally(
-            config, final, fire_dst == r, inputs, active, alive,
-            uniform_delivery=uniform_delivery, observers_idx=obs,
-        )
-        st = dataclasses.replace(st, round=final.round + 1)
-        final = _select(run, st, final)
+        with profiler_range("route_and_tally"):
+            st = route_and_tally(
+                config, final, fire_dst == r, inputs, active, alive,
+                uniform_delivery=uniform_delivery, observers_idx=obs,
+            )
+            st = dataclasses.replace(st, round=final.round + 1)
+            final = _select(run, st, final)
         r_exec = torch.where(run, r, r_exec)
 
     # reconstruct the per-edge FD state the executed rounds produced (number

@@ -64,6 +64,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..observability import profiler_range
 from ..runtime import jitwatch
 from . import threefry
 
@@ -208,14 +209,6 @@ def build() -> Dict[str, Path]:
     return libs
 
 
-def _traced(name: str):
-    """A host range named ``name`` while ``torch.profiler`` records (so a
-    trace names the kernel around its passes), else nothing."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
 def _function(name: str):
     """The C entry point ``name`` of the built libraries, typed for ctypes."""
     global _functions
@@ -303,7 +296,7 @@ def _launch(
     alerted_out = torch.empty_like(alerted)
     new_down = torch.empty_like(alerted)
     stream = torch.cuda.current_stream(fd_fail.device).cuda_stream
-    with _traced(name):
+    with profiler_range(name):
         err = _function(name)(
             *(t.data_ptr() for t in args),
             fd_out.data_ptr(), alerted_out.data_ptr(), new_down.data_ptr(),
@@ -735,7 +728,7 @@ def fd_phase_fused(
     if not all(t.is_contiguous() for _, t, _, _ in want):
         raise ValueError(f"{name}: inputs must be contiguous")
     counter = "fd_phase_fused_windowed" if windowed else name
-    with _traced(counter):
+    with profiler_range(counter):
         outputs = _launch_fused(
             inputs, torch.cuda.current_stream(active.device).cuda_stream, **args)
     LAUNCHES[counter] += 1
@@ -874,7 +867,7 @@ def fd_phase_rows(
             shard["row0"], shard["subjects"].shape[0], shard["fold"],
         ]
     counter = "fd_phase_rows_windowed" if windowed else name
-    with torch.cuda.device(active.device), _traced(counter):
+    with torch.cuda.device(active.device), profiler_range(counter):
         err = _function(name)(
             _ptr(active), _ptr(alive), _ptr(drop_prob), _ptr(round_), _ptr(halt), _ptr(key),
             _ptr(key_out), (_LL * len(table))(*(v or 0 for v in table)), len(shards),
@@ -919,7 +912,7 @@ def fd_gather(
         raise ValueError(f"{name}: C * K = {c * k} exceeds the kernel's 2**31 edges")
     magic, shift = row_reciprocal(shard_rows)
     down_arrivals = torch.empty_like(down_reports)
-    with torch.cuda.device(active.device), _traced(name):
+    with torch.cuda.device(active.device), profiler_range(name):
         err = _function(name)(
             _ptr(active), _ptr(observers), _ptr(down_reports), _ptr(bits),
             _ptr(down_arrivals), c, k, shard_rows, words, magic, shift,
@@ -969,7 +962,7 @@ def threefry_draw(
     n_shards = 0 if shards is None else len(shards)
     key_out = torch.empty_like(key)
     draw = torch.empty((max(n_shards, 1) * rows, k), dtype=torch.float32, device=key.device)
-    with torch.cuda.device(key.device), _traced(name):
+    with torch.cuda.device(key.device), profiler_range(name):
         err = _function(name)(
             _ptr(key), _ptr(key_out), _ptr(halt), _ptr(draw) if draw.numel() else None,
             rows * k,

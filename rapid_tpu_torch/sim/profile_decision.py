@@ -109,10 +109,11 @@ def profile_gpu(fn, passes=()) -> dict:
     host-clock ``profiled_wall_ms``, ``idle_share``, the operators with the
     most GPU time, the ``copies`` and their ``copy_us``, and the device µs
     of each name in ``passes`` (summed over the kernels whose name holds
-    it). The ranges that ``kernels._traced`` names around a hand-written
-    kernel's launch show on the GPU's timeline too; they are neither a
-    kernel nor a copy and overlap the kernel they name, so they are counted
-    apart, as ``annotations``, and not in the busy time."""
+    it). The ranges that ``observability.profiler_range`` names around a
+    hand-written kernel's launch (and the tracer's spans) show on the GPU's
+    timeline too; they are neither a kernel nor a copy and overlap the
+    kernels they name, so they are counted apart, as ``annotations``, and
+    not in the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

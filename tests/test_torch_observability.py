@@ -5,7 +5,9 @@ The unit calls of tests/test_observability.py run on both packages' classes
 package's golden files byte for byte, and the two simulators, driven
 through a crash, a leave and a join alike, record the same counters,
 gauges, stable-view histograms (buckets and sums), span names with their
-virtual extents, and flight-recorder kinds with their configuration ids.
+virtual extents (every span of JAX's catalogs; the port's own,
+``PORT_SPANS``, are tested in tests/test_torch_spans.py), and
+flight-recorder kinds with their configuration ids.
 """
 
 import gc
@@ -263,10 +265,13 @@ def test_json_snapshot_and_writers_match_jax(tmp_path):
 
 
 def test_catalogs_and_buckets_match_jax():
-    for name in ("METRIC_CATALOG", "SPAN_CATALOG", "EVENT_CATALOG", "METRIC_PREFIXES",
+    for name in ("METRIC_CATALOG", "EVENT_CATALOG", "METRIC_PREFIXES",
                  "DEFAULT_LATENCY_BUCKETS_MS", "STABLE_VIEW_BUCKETS_MS",
                  "PROFILE_PHASE_BUCKETS_MS", "PARTITIONS_MOVED_BUCKETS"):
         assert getattr(port_obs, name) == getattr(jax_obs, name), name
+    # the span catalog is JAX's and the port's own spans, which JAX lacks
+    assert port_obs.SPAN_CATALOG - port_obs.PORT_SPANS == jax_obs.SPAN_CATALOG
+    assert not port_obs.PORT_SPANS & jax_obs.SPAN_CATALOG
 
 
 def test_port_registry_is_its_own():
@@ -304,9 +309,11 @@ def _churn(sim):
 
 
 def _telemetry(sim):
+    # every span and event JAX's catalogs name (the port's own spans apart)
     spans = [(s.name, s.virtual_start_ms, s.virtual_end_ms,
               {k: v for k, v in s.attrs.items() if k != "origin"})
-             for s in sim.tracer.spans]
+             for s in sim.tracer.spans
+             if s.name in jax_obs.SPAN_CATALOG | jax_obs.EVENT_CATALOG]
     journal = [(e["kind"], e["virtual_ms"],
                 {k: v for k, v in e["detail"].items() if k != "trace_id"})
                for e in sim.recorder.tail()]
