@@ -194,7 +194,7 @@ METRIC_PREFIXES = ("messages.",)
 # work of the simulator's join path, dispatch and view change (sim/driver.py).
 PORT_SPANS = frozenset({
     "join_arm",          # arming a configuration's pending joins
-    "ring_order",        # the joiners' ring re-sort, inside join_arm
+    "ring_order",        # the joiners' ring order, inside join_arm
     "dispatch_inputs",   # a dispatch's fault-plane inputs and their uploads
     "dispatch_enqueue",  # a dispatch's rounds and pack_decision, in device_rounds
     "decision_fetch",    # the decision words' fetch, in device_rounds

@@ -495,12 +495,12 @@ class Simulator:  # guarded-by: sim-loop
         assert (id_high, id_low) not in self._seen_identifier_set(), (
             "identifier reuse"
         )
-        self.cluster.assign_identity(slot, hostname, port, id_high, id_low)
-        # the device rank table is consumed at the next configuration rebuild
-        # (_fresh_state), so a burst of seatings uploads it once
-        self._ring_rank_dirty = True
-        self._ring_nodes = None
-        self._spec = None  # endpoint hashes / rank table changed
+        if self.cluster.assign_identity(slot, hostname, port, id_high, id_low):
+            # the device rank table is consumed at the next configuration
+            # rebuild (_fresh_state), so a burst of seatings uploads it once
+            self._ring_rank_dirty = True
+            self._ring_nodes = None
+        self._spec = None  # the element hashes (and maybe the ranks) changed
 
     def _seen_identifier_set(self) -> Set[Tuple[int, int]]:
         """Membership test over the identifier history, built on first use."""

@@ -54,7 +54,8 @@ class VirtualCluster:
     id_low: np.ndarray  # [C] int64
     # per-ring endpoint hashes, computed once: [K, C] uint64
     ring_hashes: np.ndarray
-    # lazy caches (identities are immutable, so these never invalidate)
+    # lazy caches; assign_identity drops the two order caches only when the
+    # slot's ring hashes change
     _full_order: Optional[np.ndarray] = None  # [K, C] stable argsort per ring
     _ring_rank: Optional[np.ndarray] = None  # [K, C] inverse of _full_order
     _node_hashes: Optional[Tuple[np.ndarray, ...]] = None  # config-id inputs
@@ -113,12 +114,15 @@ class VirtualCluster:
 
     def assign_identity(
         self, slot: int, hostname: bytes, port: int, id_high: int, id_low: int
-    ) -> None:
+    ) -> bool:
         """Replace a slot's identity (endpoint + NodeId), so a real process
         seated in a spare slot takes part in ring construction and
         configuration identity exactly like a synthesized node. Only the
-        slot's column of the ring hashes and element hashes is recomputed;
-        order caches rebuild lazily."""
+        slot's column of the ring hashes and element hashes is recomputed.
+        The ring hashes read the endpoint alone, so a slot re-seated on the
+        endpoint it had keeps its place on every ring and the order caches
+        stay; otherwise they rebuild lazily. Returns whether the ring hashes
+        changed."""
         if len(hostname) > self.hostnames.shape[1]:
             grown = np.zeros(
                 (self.capacity, len(hostname)), dtype=np.uint8
@@ -131,10 +135,13 @@ class VirtualCluster:
         self.ports[slot] = port
         self.id_high[slot] = id_high
         self.id_low[slot] = id_low
-        for ring in range(self.ring_hashes.shape[0]):
-            self.ring_hashes[ring, slot] = np.uint64(
-                endpoint_hash(hostname, port, ring)
-            )
+        column = np.array(
+            [endpoint_hash(hostname, port, ring)
+             for ring in range(self.ring_hashes.shape[0])],
+            dtype=np.uint64,
+        )
+        moved = not np.array_equal(self.ring_hashes[:, slot], column)
+        self.ring_hashes[:, slot] = column
         if self._node_hashes is not None:
             high_h, low_h, host_h, port_h = self._node_hashes
             high_h[slot] = np.uint64(xxh64(_int64_le_bytes(
@@ -144,8 +151,10 @@ class VirtualCluster:
             host_h[slot] = np.uint64(xxh64(hostname))
             port_h[slot] = np.uint64(xxh64(_port_le_bytes(
                 np.array([port], dtype=np.int64))[0].tobytes()))
-        self._full_order = None
-        self._ring_rank = None
+        if moved:
+            self._full_order = None
+            self._ring_rank = None
+        return moved
 
     @staticmethod
     def synthesize(capacity: int, k: int, seed: int = 0) -> "VirtualCluster":

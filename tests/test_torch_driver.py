@@ -214,6 +214,45 @@ def test_delivery_groups_and_delays():
     _drive(pair, lambda s: s.crash(np.array([11])), max_rounds=40)
 
 
+@pytest.mark.parametrize("endpoint", ["kept", "fresh"])
+def test_restart_wave_keeps_the_ring_order_of_unmoved_endpoints(endpoint):
+    """A cycle of the benchmark's mix at 1000 members: 1% crash and are
+    decided out, their slots are re-seated with fresh ids (on the endpoint
+    they had, or on a new one) and join as one wave. Each joiner's armed
+    observers, both view changes and the states equal the JAX Simulator's.
+    Re-seats on the endpoints they had keep the ring order and the device's
+    rank table; new endpoints sort and upload them anew."""
+    pair = _pair(1000, seed=9)
+    burst = np.arange(5, 1000, 100)
+    _drive(pair, lambda s: s.crash(burst), max_rounds=40)
+    ids = np.random.default_rng(9).integers(-(2**63), 2**63, size=(10, 2), dtype=np.int64)
+    armed = []
+    order, rank_dev = pair[1].cluster.full_ring_order(), pair[1]._ring_rank_dev
+    for sim in pair:
+        asked = {}
+        ask = sim._expected_observers
+
+        def tap(node, ask=ask, asked=asked):
+            observers, alive = ask(node)
+            asked[int(node)] = (observers.tolist(), alive.tolist())
+            return observers, alive
+
+        sim._expected_observers = tap
+        armed.append(asked)
+        for slot, (high, low) in zip(burst.tolist(), ids):
+            host, port = (sim.endpoint_of(slot) if endpoint == "kept"
+                          else (b"restarted-%d.example" % slot, 9000 + slot))
+            sim.assign_identity(slot, host, port, int(high), int(low))
+        sim.request_joins(burst)
+    rec = _drive(pair, lambda s: None, max_rounds=40)
+    assert rec.added.tolist() == burst.tolist()
+    assert armed[1] == armed[0] and sorted(armed[1]) == burst.tolist()
+    assert len([s for s in pair[1].tracer.spans if s.name == "ring_order"]) == 1
+    kept = endpoint == "kept"
+    assert (pair[1].cluster.full_ring_order() is order) == kept
+    assert (pair[1]._ring_rank_dev is rank_dev) == kept
+
+
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -96,3 +96,80 @@ def test_assign_identity_matches_reference():
     np.testing.assert_array_equal(got.ring_rank(), ref.ring_rank())
     for a, b in zip(got.node_hashes(), ref.node_hashes()):
         np.testing.assert_array_equal(a, b)
+
+
+# each case: waves of re-seats (slot, endpoint: None for a fresh one, "own"
+# for the one the slot has, "of_500" for slot 500's), the order read after
+# each wave; ``cached``: whether the order is read before the first wave
+ORDER_CACHE_CASES = {
+    "burst_of_1pct": ([[(s, None) for s in range(3, 1000, 100)]], True),
+    "burst_of_1pct_own_endpoints": ([[(s, "own") for s in range(3, 1000, 100)]], True),
+    "own_and_fresh_endpoints": ([[(3, "own"), (103, None), (203, "own")]], True),
+    "every_slot": ([[(s, None) for s in range(1000)]], True),
+    "one_slot": ([[(517, None)]], True),
+    "same_slot_twice": ([[(42, None), (42, (b"again.example", 7100))]], True),
+    "two_waves": ([[(s, None) for s in range(0, 1000, 97)],
+                   [(s, "own") for s in range(5, 1000, 89)]], True),
+    "reseated_pair_tie": ([[(10, (b"shared.example", 7000)),
+                            (20, (b"shared.example", 7000))]], True),
+    # half the slots on three endpoints: runs of ties long enough that an
+    # unstable sort would show
+    "reseated_groups_tie": ([[(s, (b"shared-%d.example" % (s % 3), 7000))
+                              for s in range(998, 0, -2)]], True),
+    "tie_with_kept_slot": ([[(100, "of_500"), (900, "of_500")]], True),
+    "not_cached": ([[(s, None) for s in range(3, 1000, 100)]], False),
+}
+
+
+def _endpoint(cluster, slot):
+    return (bytes(cluster.hostnames[slot, : cluster.host_lengths[slot]]),
+            int(cluster.ports[slot]))
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CACHE_CASES))
+def test_reseats_keep_the_order_cache_exact(case):
+    """After re-seats the ring order, the ranks, the adjacency and each
+    ring's active order equal the JAX package's (which always sorts anew) and
+    a fresh stable argsort, ties by slot id included. A wave whose slots all
+    keep their endpoints keeps the cached order and ranks as they were."""
+    waves, cached = ORDER_CACHE_CASES[case]
+    ref, got = _clusters(1000, 10, seed=7)
+    rng = np.random.default_rng(7)
+    for wave in waves:
+        order, rank = (got.full_ring_order(), got.ring_rank()) if cached else (None, None)
+        moved = []
+        for slot, endpoint in wave:
+            if endpoint is None:
+                endpoint = (b"restarted-%d.example" % slot, 9000 + slot)
+            elif endpoint == "own":
+                endpoint = _endpoint(got, slot)
+            elif endpoint == "of_500":
+                endpoint = _endpoint(got, 500)
+            ids = [int(x) for x in rng.integers(-(2**63), 2**63, size=2, dtype=np.int64)]
+            ref.assign_identity(slot, *endpoint, *ids)
+            moved.append(got.assign_identity(slot, *endpoint, *ids))
+        assert moved == [endpoint != "own" for _, endpoint in wave]
+        if cached:
+            kept = got._full_order is order and got._ring_rank is rank
+            assert kept == (not any(moved))
+        np.testing.assert_array_equal(got.full_ring_order(), ref.full_ring_order())
+        np.testing.assert_array_equal(
+            got.full_ring_order(),
+            np.argsort(got.ring_hashes.view(np.int64), axis=1, kind="stable"))
+        np.testing.assert_array_equal(got.ring_rank(), ref.ring_rank())
+        np.testing.assert_array_equal(got.ring_hashes, ref.ring_hashes)
+        for a, b in zip(got.node_hashes(), ref.node_hashes()):
+            np.testing.assert_array_equal(a, b)
+        cached = True
+    if case == "tie_with_kept_slot":
+        hashes = got.ring_hashes.view(np.int64)[0]
+        order = list(got.full_ring_order()[0])
+        assert hashes[100] == hashes[500] == hashes[900]
+        assert order.index(100) + 1 == order.index(500) == order.index(900) - 1
+    active = rng.random(1000) < 0.6
+    for a, b in zip(topology.build_adjacency(got, active),
+                    jax_topology.build_adjacency(ref, active)):
+        np.testing.assert_array_equal(a, b)
+    for ring in range(10):
+        np.testing.assert_array_equal(topology.ring_order(got, active, ring),
+                                      jax_topology.ring_order(ref, active, ring))
